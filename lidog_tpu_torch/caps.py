@@ -1,0 +1,28 @@
+"""Per-level plan capacities for the zseg engine.
+
+Own copy of lidog_tpu/cli/common.py:20-57 (`_rup`, `make_zcaps` and the
+ZSEG_* tables), so the port imports nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+# per-level shrink of the voxel count, ghost-row factor and y-dilated
+# column slots per real voxel (measured ring-scan ratios + headroom; see
+# the JAX module for their derivation)
+ZSEG_SHRINK = (1.0, 0.72, 0.30, 0.13, 0.055)
+ZSEG_AUG = (1.55, 1.45, 1.25, 1.25, 1.3)
+ZSEG_COL_DIL = (2.7, 1.85, 2.8, 3.0, 3.0)
+
+
+def _rup(x, m=2048):
+    return int(-(-x // m) * m)
+
+
+def make_zcaps(per_scan: int = 131072):
+    """(caps_real, caps_aug, caps_col_dil) per-scan capacities."""
+    caps_r = tuple(_rup(per_scan * f) for f in ZSEG_SHRINK)
+    caps_a = tuple(_rup(per_scan * f * a)
+                   for f, a in zip(ZSEG_SHRINK, ZSEG_AUG))
+    caps_d = tuple(min(_rup(per_scan * f * d), 5 * r)
+                   for f, d, r in zip(ZSEG_SHRINK, ZSEG_COL_DIL, caps_r))
+    return caps_r, caps_a, caps_d

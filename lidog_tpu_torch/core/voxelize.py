@@ -1,0 +1,67 @@
+"""Batched device voxelization (`ME.utils.sparse_quantize` equivalent).
+
+Port of lidog_tpu/core/voxelize.py:71-118 (`voxelize_device`): floor-divide
+metric points by the voxel size, keep one representative point per voxel
+(the smallest original index), and emit the voxels in canonical
+(batch, x, y, z) order into fixed-capacity padded arrays.  Outputs are
+bitwise equal to the JAX version.
+
+The JAX version lexsorts (index, lo, hi); here one stable sort of the
+combined 62-bit key (hi << 31 | lo) gives the same permutation: ties keep
+input order, i.e. the smallest index first.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from lidog_tpu_torch.core import keys
+
+
+class VoxelizedDevice(NamedTuple):
+    coords: torch.Tensor  # int32 [cap, 4] (batch, x, y, z), canonical order
+    mask: torch.Tensor  # bool [cap]
+    rep_idx: torch.Tensor  # int32 [cap] representative point index (or 0)
+    inverse: torch.Tensor  # int32 [P] point -> voxel slot (-1 invalid/overflow)
+    num_voxels: torch.Tensor  # int32 scalar
+    overflow: torch.Tensor  # int32 scalar, voxels dropped to capacity
+
+
+def voxelize_device(points, valid, batch_idx, voxel_size: float,
+                    capacity: int) -> VoxelizedDevice:
+    """points float32 [P, 3], valid bool [P], batch_idx int32 [P]."""
+    dev = points.device
+    p = points.shape[0]
+    disc = torch.floor(points[:, :3] / voxel_size).to(torch.int32)
+    coords4 = torch.cat([batch_idx[:, None].to(torch.int32), disc], dim=1)
+    hi, lo = keys.pack(coords4, valid)
+    key = (hi.to(torch.int64) << 31) | lo.to(torch.int64)
+    order = torch.sort(key, stable=True).indices
+    hi_s, lo_s = hi[order], lo[order]
+    valid_s = hi_s != keys.INVALID_KEY
+    prev_ne = torch.ones(p, dtype=torch.bool, device=dev)
+    prev_ne[1:] = (hi_s[1:] != hi_s[:-1]) | (lo_s[1:] != lo_s[:-1])
+    first = valid_s & prev_ne
+    uniq_pos = torch.cumsum(first.to(torch.int32), 0, dtype=torch.int32) - 1
+    num_voxels = first.sum(dtype=torch.int32)
+    in_cap = uniq_pos < capacity
+
+    slot = torch.where(first & in_cap, uniq_pos,
+                       torch.full_like(uniq_pos, capacity)).long()
+    coords_out = torch.zeros(capacity + 1, 4, dtype=torch.int32, device=dev)
+    coords_out[slot] = coords4[order]
+    rep_out = torch.zeros(capacity + 1, dtype=torch.int32, device=dev)
+    rep_out[slot] = order.to(torch.int32)
+    mask = (torch.arange(capacity, dtype=torch.int32, device=dev)
+            < torch.clamp(num_voxels, max=capacity))
+    coords_out = torch.where(mask[:, None], coords_out[:capacity], 0)
+
+    inv_sorted = torch.where(valid_s & in_cap, uniq_pos,
+                             torch.full_like(uniq_pos, -1))
+    inverse = torch.full((p,), -1, dtype=torch.int32, device=dev)
+    inverse[order] = inv_sorted
+    overflow = torch.clamp(num_voxels - capacity, min=0)
+    return VoxelizedDevice(coords_out, mask, rep_out[:capacity], inverse,
+                           num_voxels, overflow)

@@ -1,0 +1,548 @@
+"""Segmented z-fused plan: per-scan segments + ghost-augmented levels.
+
+Port of lidog_tpu/core/zseg.py (ZLevel, ZPlan, the column-table sweeps and
+ZSegPlanBuilder for unique input with the occupancy stem).  Every ZPlan
+field is bitwise equal to the JAX builder's.
+
+Per level the plan holds the augmented coordinate set (real voxels plus
+ghost rows at z-gaps that are nonzero gather targets of the column-fused
+conv, ops/zconv.py) in segmented canonical order: scan b owns rows
+[b*capA, (b+1)*capA).  Kernel maps: conv9 (k=3, 9 xy taps), down8 +
+parent/off (k=2 s=2 pair), and the fused 5x5x5 stem occupancy.
+
+What the JAX version shaped around the TPU is not carried over, only its
+results: the 512 B wide-row grid lookup (GRID_ROW_W), the per-scan
+lax.map segmenting and LIDOG_TPU_SEG_LOOKUP.  Here a grid lookup is one
+int32 gather, and the sweeps run over all segments at once; a row's
+segment is its index // segment capacity, so no map reaches another scan.
+
+Bit words are int64 holding uint32 values (core/bitgrid.py).  Internal
+index arithmetic is int64; outputs are cast to the JAX dtypes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+from lidog_tpu_torch.core.bitgrid import (
+    U32, ZC, ZWORDS, _cell_of, _compress_even_bits, _rank_from_row,
+    _word_at, popcount32,
+)
+from lidog_tpu_torch.core.sparse import SparseTensor
+
+NUM_LEVELS = 5
+ZMAX = ZWORDS * 32
+
+
+@dataclasses.dataclass(frozen=True)
+class ZLevel:
+    coords: torch.Tensor  # int32 [B*capA, 4] augmented, segmented order
+    real: torch.Tensor  # bool [B*capA] real voxels (the op/loss mask)
+    valid: torch.Tensor  # bool [B*capA] real | ghost rows
+    zup: torch.Tensor  # bool [B*capA] row j+1 is (same column, z+s)
+    zdn: torch.Tensor  # bool [B*capA]
+    stride: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ZPlan:
+    levels: Tuple[ZLevel, ...]
+    # conv9_l{i} [9, B*capA_i]; down8_l{i} [8, B*capA_{i+1}];
+    # parent_l{i}, off_l{i} [B*capA_i]; stem_occ [B*capA_0, 125] bf16
+    kmaps: Dict[str, torch.Tensor]
+    pos: torch.Tensor  # int32 [N_in] input row -> level-0 row (-1 drop)
+    overflow: torch.Tensor  # int32 [1 + NUM_LEVELS]
+    num_batches: int = 1
+
+    def level(self, i: int) -> ZLevel:
+        return self.levels[i]
+
+    def scatter_rows(self, values):
+        """Scatter per-input-row values into the level-0 augmented layout
+        (zero elsewhere)."""
+        return _scatter_rows(self.pos, values, self.levels[0].coords.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# Column tables (lidog_tpu/core/zseg.py:106-423)
+# ---------------------------------------------------------------------------
+
+
+def _cumsum_excl_axis1(x2d):
+    """Exclusive int64 cumsum along axis 1."""
+    x = x2d.long()
+    return torch.cumsum(x, dim=1) - x
+
+
+def _grid_lookup(grid_flat, b, gx, gy, ok, g: int):
+    """Dense-grid column id of cell (b, gx, gy), -1 where not ok."""
+    flat = torch.where(ok, (b.long() * g + gx) * g + gy, 0)
+    return torch.where(ok, grid_flat[flat], -1)
+
+
+def _zdil_words(u):
+    """z+-1 dilation of z-bit word rows on the last axis (LSB first)."""
+    z = torch.zeros_like(u[..., :1])
+    up = ((u << 1) & U32) | torch.cat([z, u[..., :-1] >> 31], dim=-1)
+    dn = (u >> 1) | torch.cat([(u[..., 1:] << 31) & U32, z], dim=-1)
+    return up | dn
+
+
+_HALF = ZWORDS // 2
+_I1 = [2 * k - _HALF for k in range(ZWORDS)]
+
+
+def _zpair_words(u):
+    """Coarsen z-bit word rows one level: pairwise bit OR + ZC recentering."""
+    comp = _compress_even_bits(u | (u >> 1))
+    cols = []
+    for i1 in _I1:
+        lo = comp[..., i1] if 0 <= i1 < ZWORDS else torch.zeros_like(comp[..., 0])
+        hi = (comp[..., i1 + 1] if 0 <= i1 + 1 < ZWORDS
+              else torch.zeros_like(comp[..., 0]))
+        cols.append(lo | (hi << 16))
+    return torch.stack(cols, dim=-1)
+
+
+def _rows_or_miss(table, idx):
+    """table [cap, R]; idx [n] (-1 / out of range = miss -> zero row)."""
+    cap = table.shape[0]
+    hit = (idx >= 0) & (idx < cap)
+    return table[idx.clamp(0, cap - 1)] * hit[:, None].to(table.dtype)
+
+
+def _pack_bxy(b, gx, gy):
+    return (b.long() << 24) | (gx.long() << 12) | gy.long()
+
+
+def _unpack_bxy(p):
+    return p >> 24, (p >> 12) & 4095, p & 4095
+
+
+def _grid_from_has(has2, num_batches: int, ccap: int):
+    """has2 [B, g*g] 0/1 -> (cid_grid [B*g*g] int64 of GLOBAL segmented
+    column ids or -1, column overflow scalar)."""
+    cloc = _cumsum_excl_axis1(has2)
+    ncols = cloc[:, -1] + has2[:, -1].long()
+    base = (torch.arange(num_batches, device=has2.device) * ccap)[:, None]
+    cid_grid = torch.where((has2 > 0) & (cloc < ccap), cloc + base, -1)
+    col_over = torch.clamp(ncols - ccap, min=0).sum()
+    return cid_grid.reshape(-1), col_over
+
+
+def _dilate_y(has2, g: int, r: int):
+    """OR the has-grid over gy-r..gy+r (gy is the minor axis)."""
+    h = has2.reshape(has2.shape[0], g, g)
+    out = h.clone()
+    for d in range(1, r + 1):
+        out[:, :, :-d] |= h[:, :, d:]
+        out[:, :, d:] |= h[:, :, :-d]
+    return out.reshape(has2.shape[0], g * g)
+
+
+def _y_adjacency(col_bxy, col_valid):
+    """adj[s]: slot s+1 is (same b, gx, gy+1)."""
+    nxt = (col_bxy[1:] == col_bxy[:-1] + 1) & col_valid[1:] & col_valid[:-1]
+    return torch.cat([nxt, nxt.new_zeros(1)])
+
+
+def _shift_up(x, adj):
+    """Row of slot s+1 (the gy+1 cell), masked by adjacency."""
+    nx = torch.cat([x[1:], torch.zeros_like(x[:1])], dim=0)
+    return nx * adj[:, None].to(x.dtype)
+
+
+def _shift_dn(x, adj):
+    adn = torch.cat([adj.new_zeros(1), adj[:-1]])
+    pv = torch.cat([torch.zeros_like(x[:1]), x[:-1]], dim=0)
+    return pv * adn[:, None].to(x.dtype)
+
+
+def _assemble_aug(real_w, col_bxy, col_valid, grid_d, num_batches: int,
+                  g: int, ccap: int, cap_a: int):
+    """Ghost/aug words per dilated slot: 2 x-neighbour fetches + y shifts.
+
+    ghost = zdil(own) & ~own & OR(3x3 neighbourhood real words).  Returns
+    (aug16 [B*ccap, ZWORDS+2] = words + GLOBAL start + count, aug rows per
+    scan [B])."""
+    b, gx, gy = _unpack_bxy(col_bxy)
+    own = real_w
+    adj = _y_adjacency(col_bxy, col_valid)
+    yor3 = own | _shift_up(own, adj) | _shift_dn(own, adj)
+    nb_or = yor3
+    for dx in (-1, 1):
+        gxn = gx + dx
+        okn = col_valid & (gxn >= 0) & (gxn < g)
+        cidn = _grid_lookup(grid_d, b, gxn.clamp(0, g - 1), gy, okn, g)
+        nb_or = nb_or | _rows_or_miss(yor3, cidn)
+    aug = own | (_zdil_words(own) & ~own & nb_or)
+    aug = aug * col_valid[:, None].long()
+    popc = popcount32(aug).sum(-1)
+    popc2 = popc.reshape(num_batches, ccap)
+    counts_b = popc2.sum(1)
+    seg = torch.arange(num_batches, device=aug.device)[:, None] * cap_a
+    start = (_cumsum_excl_axis1(popc2) + seg).reshape(-1)
+    aug16 = torch.cat([aug, start[:, None], popc[:, None]], dim=1)
+    return aug16, counts_b
+
+
+def _build_packed(real_w, aug16, col_bxy, col_valid, num_batches: int,
+                  ccap: int, cap_a: int, r: int):
+    """Per-slot y-neighbourhood row, built by validated slot shifts:
+    [real words of gy-r..gy+r | (aug words + LOCAL start) of gy-1..gy+1].
+    r < 0 leaves out the real slabs (the conv9 sweep of levels > 0)."""
+    b = torch.arange(num_batches * ccap, device=real_w.device) // ccap
+    m_aug = aug16[:, :ZWORDS + 1].clone()
+    m_aug[:, ZWORDS] += torch.where(col_valid, -b * cap_a, 0)
+    adj = _y_adjacency(col_bxy, col_valid)
+
+    def at_dy(x, dy):
+        out = x
+        for _ in range(abs(dy)):
+            out = _shift_up(out, adj) if dy > 0 else _shift_dn(out, adj)
+        return out
+
+    slabs = [at_dy(real_w, dy) for dy in range(-r, r + 1)]
+    slabs += [at_dy(m_aug, dy) for dy in (-1, 0, 1)]
+    return torch.cat(slabs, dim=1)
+
+
+def _bit_at(words, bz):
+    """Bit bz of [..., ZWORDS] words (0/1 int64)."""
+    return (_word_at(words, bz >> 5) >> (bz & 31).long()) & 1
+
+
+def _rank_in_slab(words, startv, bz, ok):
+    """Aug-slab rank: position = start + rank of bit bz, -1 on miss."""
+    okz = ok & (bz >= 0) & (bz < ZMAX)
+    rank, exists = _rank_from_row(words, bz.clamp(0, ZMAX - 1))
+    return torch.where(okz & exists, startv + rank, -1)
+
+
+def _sweep_rows(cid_grid, packed, coords, valid, g, ccap, nb, grid_half,
+                level, dxs):
+    """Per query row (segment-aligned, [B*cap_q]) and each dx, the fetched
+    packed row of column (gx+dx, gy) and whether it exists."""
+    n = coords.shape[0]
+    bq = torch.arange(n, device=coords.device) // (n // nb)
+    gx0 = (coords[:, 1] >> level) + (grid_half >> level)
+    gy0 = (coords[:, 2] >> level) + (grid_half >> level)
+    bz0 = ((coords[:, 3] >> level) + ZC).long()
+    for dx in dxs:
+        gxn = gx0 + dx
+        okc = valid & (gxn >= 0) & (gxn < g)
+        cid = _grid_lookup(cid_grid, bq, gxn, gy0, okc, g)
+        cid = torch.where(cid >= 0, cid - bq * ccap, -1)
+        hit = okc & (cid >= 0) & (cid < ccap)
+        row = packed[bq * ccap + cid.clamp(0, ccap - 1)]
+        yield dx, bz0, hit, row
+
+
+def _aug_ranks(row, aug_off, bz0, hit, cap_a):
+    """The three dy ranks (dy = -1, 0, 1) of one fetched packed row."""
+    out = []
+    for dyi in range(3):
+        off = aug_off + (ZWORDS + 1) * dyi
+        idx = _rank_in_slab(row[:, off:off + ZWORDS], row[:, off + ZWORDS],
+                            bz0, hit)
+        out.append(torch.where((idx >= 0) & (idx < cap_a), idx, -1))
+    return out
+
+
+def _globalize(c9, nb, cap_a):
+    """Local segment ranks [9, B*cap] -> global rows (-1 stays)."""
+    seg = torch.arange(c9.shape[1], device=c9.device) // (c9.shape[1] // nb)
+    return torch.where(c9 >= 0, c9 + seg * cap_a, -1).to(torch.int32)
+
+
+def stem_conv9_packed(cid_grid, packed, coords, valid, g: int, ccap: int,
+                      cap_a: int, r: int, nb: int, grid_half: int = 0,
+                      level: int = 0):
+    """Fused stem occupancy + conv9 sweep (lidog_tpu/core/zseg.py:446).
+
+    Returns (occ [N, (2r+1)^3] bf16 in (dx, dy, dz) order, dz fastest;
+    conv9 [9, N] global rows)."""
+    aug_off = (2 * r + 1) * ZWORDS
+    occ_all, ranks = [], []
+    for dx, bz0, hit, row in _sweep_rows(
+            cid_grid, packed, coords, valid, g, ccap, nb, grid_half, level,
+            range(-r, r + 1)):
+        # the 2r+1 dz bits span at most two adjacent words: shift the
+        # window into the low bits once per slab, then mask per dz
+        lo_i = bz0 - r
+        wlo = lo_i >> 5
+        shl = lo_i & 31
+        for dyi in range(2 * r + 1):
+            slab = row[:, ZWORDS * dyi:ZWORDS * (dyi + 1)]
+            w0 = _word_at(slab, wlo)
+            w1 = _word_at(slab, wlo + 1)
+            win = (w0 >> shl) | torch.where(shl == 0, 0,
+                                            (w1 << (32 - shl)) & U32)
+            for k in range(2 * r + 1):
+                bz = lo_i + k
+                okz = hit & (bz >= 0) & (bz < ZMAX)
+                occ_all.append(torch.where(okz, (win >> k) & 1, 0))
+        if abs(dx) <= 1:
+            ranks += _aug_ranks(row, aug_off, bz0, hit, cap_a)
+    occ = torch.stack(occ_all, dim=1).to(torch.bfloat16)
+    return occ, _globalize(torch.stack(ranks, dim=0), nb, cap_a)
+
+
+def conv9_packed(cid_grid, packed, coords, valid, g: int, ccap: int,
+                 cap_a: int, nb: int, grid_half: int = 0, level: int = 0):
+    """conv9 kernel map from the aug-only packed table: 3 fetches per row
+    (lidog_tpu/core/zseg.py:631)."""
+    ranks = []
+    for _, bz0, hit, row in _sweep_rows(
+            cid_grid, packed, coords, valid, g, ccap, nb, grid_half, level,
+            (-1, 0, 1)):
+        ranks += _aug_ranks(row, 0, bz0, hit, cap_a)
+    return _globalize(torch.stack(ranks, dim=0), nb, cap_a)
+
+
+def pos3_lookup(aug16, coords, valid, g: int, cap_a: int, grid_half: int,
+                level: int, cid):
+    """Own-column (z-s, z, z+s) aug positions per query row, given each
+    row's column id.  Returns [3, n] int64 (-1 miss)."""
+    gh = grid_half
+    bq = coords[:, 0].long()
+    gx0 = (coords[:, 1] >> level) + (gh >> level)
+    gy0 = (coords[:, 2] >> level) + (gh >> level)
+    bz0 = ((coords[:, 3] >> level) + ZC).long()
+    ok = valid & (gx0 >= 0) & (gx0 < g) & (gy0 >= 0) & (gy0 < g)
+    cid = torch.where(ok, cid, -1)
+    hit = cid >= 0
+    row = _rows_or_miss(aug16, cid)
+    words = row[:, :ZWORDS]
+    startv = row[:, ZWORDS]
+    seg_base = bq * cap_a
+    rank0, ex0 = _rank_from_row(words, bz0.clamp(0, ZMAX - 1))
+    bit_m1 = _bit_at(words, (bz0 - 1).clamp(0, ZMAX - 1))
+    bit_p1 = _bit_at(words, (bz0 + 1).clamp(0, ZMAX - 1))
+    outs = []
+    for dz, rank, ex in ((-1, rank0 - bit_m1, bit_m1 == 1),
+                         (0, rank0, ex0),
+                         (1, rank0 + ex0.long(), bit_p1 == 1)):
+        bzd = bz0 + dz
+        okz = hit & (bzd >= 0) & (bzd < ZMAX) & ex
+        idx = startv + rank
+        okr = okz & (idx >= 0) & ((idx - seg_base) < cap_a)
+        outs.append(torch.where(okr, idx, -1))
+    return torch.stack(outs, dim=0)
+
+
+def _seg_valid_mask(counts, num_batches: int, seg_cap: int):
+    """valid[b*cap + r] = r < min(counts[b], cap)."""
+    r = torch.arange(seg_cap, device=counts.device)[None, :]
+    return (r < counts.clamp(max=seg_cap)[:, None]).reshape(-1)
+
+
+def _scatter_rows(pos, values, cap: int):
+    slot = torch.where((pos >= 0) & (pos < cap), pos, cap)
+    out = values.new_zeros((cap + 1,) + tuple(values.shape[1:]))
+    out[slot] = values
+    return out[:cap]
+
+
+def _scatter_flag(pos, flag, cap: int):
+    slot = torch.where((pos >= 0) & (pos < cap) & flag, pos, cap)
+    out = torch.zeros(cap + 1, dtype=torch.bool, device=pos.device)
+    out[slot] = True
+    return out[:cap]
+
+
+def _z_adjacency(coords, valid, stride: int):
+    """zup[j]: row j+1 is (same batch, x, y, z+stride) and both valid."""
+    same_col = (coords[1:, :3] == coords[:-1, :3]).all(dim=1)
+    zplus = coords[1:, 3] == coords[:-1, 3] + stride
+    adj = same_col & zplus & valid[1:] & valid[:-1]
+    f = adj.new_zeros(1)
+    return torch.cat([adj, f]), torch.cat([f, adj])
+
+
+STEM_R = 2  # the k=5 stem's radius (125 occupancy columns)
+
+
+class ZSegPlanBuilder:
+    """Build a ZPlan from batched stride-1 voxel coords (unique voxels, any
+    row order; lidog_tpu/core/zseg.py:773 with assume_unique=True, the
+    occupancy stem and the default k=5 stem, column caps = caps_real).
+
+    caps_real / caps_aug: per-scan row capacities per level.
+    caps_col_dil: per-scan y-dilated column capacities (default: the safe
+    (2r+1) x caps_real bound).
+    """
+
+    def __init__(self, caps_real, caps_aug, num_batches: int,
+                 grid_half: int = 1024, caps_col_dil=None):
+        assert len(caps_real) == NUM_LEVELS and len(caps_aug) == NUM_LEVELS
+        self.caps_real = tuple(int(c) for c in caps_real)
+        self.caps_aug = tuple(int(c) for c in caps_aug)
+        self.num_batches = num_batches
+        self.grid_half = grid_half
+        if caps_col_dil is None:
+            caps_col_dil = tuple((2 * (STEM_R if i == 0 else 1) + 1) * c
+                                 for i, c in enumerate(self.caps_real))
+        self.caps_col_dil = tuple(int(c) for c in caps_col_dil)
+
+    def __call__(self, coords, mask) -> ZPlan:
+        B, gh = self.num_batches, self.grid_half
+        dev = coords.device
+        kmaps: Dict[str, torch.Tensor] = {}
+        overflow = []
+        levels = []
+        prev = None  # (coords_a, real_a) of the previous level
+        fine_grid = None  # (grid_d, real words, g) of the previous level
+        pos_in = None
+        for i in range(NUM_LEVELS):
+            capA = self.caps_aug[i]
+            ccap_d = self.caps_col_dil[i]
+            rpack = STEM_R if i == 0 else 1
+            s = 1 << i
+            g = (2 * gh) >> i
+            if i == 0:
+                src_coords, src_valid = coords, mask
+            else:
+                pc, pr = prev
+                src_coords = torch.cat([pc[:, :1], (pc[:, 1:4] >> i) << i],
+                                       dim=1)
+                src_valid = pr
+
+            # the y-dilated column set of this level's real plane
+            b_, gx, gy, bz, inb = _cell_of(src_coords, gh, i)
+            b_, gx, gy, bz = b_.long(), gx.long(), gy.long(), bz.long()
+            ok = src_valid & inb
+            gxc = gx.clamp(0, g - 1)
+            gyc = gy.clamp(0, g - 1)
+            bsafe = torch.where(ok, b_, 0)
+            if i == 0:
+                # overflow[0]: level-0 real voxels beyond caps_real[0]
+                nreal_b = torch.zeros(B + 1, dtype=torch.long, device=dev)
+                nreal_b.index_add_(0, torch.where(ok, b_, B),
+                                   torch.ones_like(b_))
+                overflow.append(
+                    torch.clamp(nreal_b[:B] - self.caps_real[0], min=0).sum())
+            cells = B * g * g
+            has = torch.zeros(cells + 1, dtype=torch.int8, device=dev)
+            has[torch.where(ok, (bsafe * g + gxc) * g + gyc, cells)] = 1
+            has_d = _dilate_y(has[:cells].reshape(B, g * g), g, rpack)
+            grid_d, col_over_d = _grid_from_has(has_d, B, ccap_d)
+            # one lookup per voxel: an occupied column's whole +-r y-window
+            # is dilated and contiguous, so slot of (gx, gy+dy) is cid + dy
+            vox_cid = _grid_lookup(grid_d, bsafe, gxc, gyc, ok, g)
+            sink = B * ccap_d
+            col_bxy = torch.full((sink + 1,), -1, dtype=torch.long,
+                                 device=dev)
+            pack0 = _pack_bxy(bsafe, gxc, gyc)
+            seg0 = bsafe * ccap_d
+            for dy in range(-rpack, rpack + 1):
+                gyn = gyc + dy
+                okn = (ok & (gyn >= 0) & (gyn < g) & (vox_cid >= 0)
+                       & (vox_cid + dy >= seg0)
+                       & (vox_cid + dy < seg0 + ccap_d))
+                col_bxy[torch.where(okn, vox_cid + dy, sink)] = pack0 + dy
+            col_bxy = col_bxy[:sink]
+            col_valid = col_bxy >= 0
+            col_bxy = col_bxy.clamp(min=0)
+
+            if i == 0:
+                # scatter-add voxel bits: unique (b, x, y, z) => add == OR
+                word = (bz >> 5).clamp(0, ZWORDS - 1)
+                bit = torch.where(ok, 1 << (bz & 31), 0)
+                cslot = torch.where(vox_cid >= 0, vox_cid, sink)
+                real_w = torch.zeros(sink + 1, ZWORDS, dtype=torch.long,
+                                     device=dev)
+                real_w.index_put_((cslot, word), bit, accumulate=True)
+                real_w = real_w[:sink] & U32
+            else:
+                # coarse real words from the fine table: 4 child column
+                # fetches + pairwise z OR
+                f_grid, f_real, f_g = fine_grid
+                bC, gxC, gyC = _unpack_bxy(col_bxy)
+                acc = torch.zeros(sink, ZWORDS, dtype=torch.long, device=dev)
+                for cx in (0, 1):
+                    for cy in (0, 1):
+                        gxf = 2 * gxC + cx
+                        gyf = 2 * gyC + cy
+                        okf = col_valid & (gxf < f_g) & (gyf < f_g)
+                        cidf = _grid_lookup(
+                            f_grid, bC, gxf.clamp(0, f_g - 1),
+                            gyf.clamp(0, f_g - 1), okf, f_g)
+                        acc = acc | _rows_or_miss(f_real, cidf)
+                real_w = _zpair_words(acc)
+
+            aug16, counts_b = _assemble_aug(real_w, col_bxy, col_valid,
+                                            grid_d, B, g, ccap_d, capA)
+            vox_drop = (ok & (vox_cid < 0)).sum()
+            overflow.append(torch.clamp(counts_b - capA, min=0).sum()
+                            + vox_drop + col_over_d)
+
+            pos3 = pos3_lookup(aug16, src_coords, src_valid, g, capA, gh, i,
+                               cid=vox_cid)
+            # one packed int per candidate: gxgy << 9 | bz (uint32 wrap
+            # kept, as in the JAX version)
+            packed0 = ((gxc * g + gyc) << 9) | bz.clamp(0, ZMAX - 1)
+            cand_p = torch.cat([packed0 - 1, packed0, packed0 + 1]) & U32
+            packed_a = _scatter_rows(pos3.reshape(-1), cand_p, B * capA)
+            gxgy = packed_a >> 9
+            ax = (torch.div(gxgy, g, rounding_mode="floor") - (gh >> i)) << i
+            ay = ((gxgy % g) - (gh >> i)) << i
+            az = ((packed_a & 511) - ZC) << i
+            ab = torch.arange(B * capA, device=dev) // capA
+            coords_a = torch.stack([ab, ax, ay, az], dim=1).to(torch.int32)
+            real_a = _scatter_flag(pos3[1], src_valid, B * capA)
+            valid_a = _seg_valid_mask(counts_b, B, capA)
+            coords_a = torch.where(valid_a[:, None], coords_a, 0)
+            real_a = real_a & valid_a
+            zup, zdn = _z_adjacency(coords_a, valid_a, s)
+            levels.append(ZLevel(coords=coords_a, real=real_a, valid=valid_a,
+                                 zup=zup, zdn=zdn, stride=s))
+
+            if i == 0:
+                packed_l = _build_packed(real_w, aug16, col_bxy, col_valid,
+                                         B, ccap_d, capA, STEM_R)
+                kmaps["stem_occ"], kmaps["conv9_l0"] = stem_conv9_packed(
+                    grid_d, packed_l, coords_a, valid_a, g, ccap_d, capA,
+                    STEM_R, B, grid_half=gh, level=0)
+                pos_in = torch.where(mask, pos3[1], -1).to(torch.int32)
+            else:
+                packed_l = _build_packed(real_w, aug16, col_bxy, col_valid,
+                                         B, ccap_d, capA, -1)
+                kmaps[f"conv9_l{i}"] = conv9_packed(
+                    grid_d, packed_l, coords_a, valid_a, g, ccap_d, capA, B,
+                    grid_half=gh, level=i)
+                # strided pair maps between level i-1 (fine) and i (coarse):
+                # parent per fine row is pos3's dz=0 lookup; down8 is its
+                # transpose (each real fine row is the unique child of its
+                # parent at its offset)
+                fine = levels[i - 1]
+                pxyz = (fine.coords[:, 1:4] >> i) << i
+                parent = pos3[1]
+                d = (fine.coords[:, 1:4] - pxyz) >> (i - 1)
+                offv = d[:, 0] * 4 + d[:, 1] * 2 + d[:, 2]
+                kmaps[f"parent_l{i-1}"] = parent.to(torch.int32)
+                kmaps[f"off_l{i-1}"] = offv.to(torch.int32)
+                down8 = torch.full((8, B * capA + 1), -1, dtype=torch.int32,
+                                   device=dev)
+                pslot = torch.where(parent >= 0, parent, B * capA)
+                down8[offv.clamp(0, 7).long(), pslot] = torch.arange(
+                    parent.shape[0], dtype=torch.int32, device=dev)
+                kmaps[f"down8_l{i-1}"] = down8[:, :B * capA].contiguous()
+            fine_grid = (grid_d, real_w, g)
+            prev = (coords_a, real_a)
+
+        return ZPlan(levels=tuple(levels), kmaps=kmaps, pos=pos_in,
+                     overflow=torch.stack(overflow).to(torch.int32),
+                     num_batches=B)
+
+
+def input_tensor_z(plan: ZPlan, feats) -> SparseTensor:
+    """Caller-order features [N_in, C] -> the level-0 augmented layout
+    (ghost/pad rows zero)."""
+    l0 = plan.level(0)
+    f = plan.scatter_rows(feats)
+    f = f * l0.real[:, None].to(f.dtype)
+    return SparseTensor(coords=l0.coords, feats=f, mask=l0.real, stride=1)

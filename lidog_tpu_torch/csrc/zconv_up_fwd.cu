@@ -1,0 +1,32 @@
+// KC: forward of the transposed k=2 s=2 sparse conv (zconv_up).
+//
+// Replaces lidog_tpu/ops/zconv.py:548-553 (_zup_core forward, the
+// one-hot per-row weight select of _onehot_matmuls:437).
+//
+//   out[j] = m[j] * x[parent[j]] @ w8[off[j]]     (0 where parent < 0)
+//
+// Per-row weight select through the shared gather-GEMM (gather_gemm.cuh):
+// offset o's operand holds row j's parent row where off[j] == o and a zero
+// row elsewhere, so each output row gets exactly one nonzero product, and
+// an offset no row of a 64-row tile uses is skipped by the block vote.
+// Each row's product is summed in f32 and rounded once, which equals the
+// JAX version's rounding of the selected product.  The first version pays
+// the MMAs of the zero rows of the other offsets in a tile.
+#include "gather_gemm.cuh"
+
+namespace {
+struct UpMap {
+  static constexpr int NOFF = 8;
+  static constexpr int NTAPS = 1;
+  const int* parent;  // [n_out]
+  const int* off;     // [n_out]
+  __device__ int src(int o, int, int row) const { return off[row] == o ? parent[row] : -1; }
+};
+}  // namespace
+
+extern "C" int zconv_up_fwd(const void* x, const void* parent, const void* off, const void* w8,
+                            const void* mask, void* out, int n_in, int n_out, int cin, int cout,
+                            int dtype, void* stream) {
+  UpMap map{static_cast<const int*>(parent), static_cast<const int*>(off)};
+  return lidog::launch_gather_gemm(x, w8, mask, out, map, n_in, n_out, cin, cout, dtype, stream);
+}

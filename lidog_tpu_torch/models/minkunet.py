@@ -1,0 +1,224 @@
+"""MinkUNet34 (sparse 3D U-Net), forward on the zseg engine.
+
+Port of lidog_tpu/models/minkunet.py:46-389 for serving: the occupancy
+stem, the z-fused convs (ops/zconv.py), 1x1 convs, and BatchNorm in eval
+mode fused with ReLU and the residual add (ops/norm.py).
+
+  * stem conv k=5 -> BN -> ReLU at stride 1
+  * 4 encoder stages: [down conv k=2 s=2 -> BN -> ReLU -> BasicBlock x L]
+  * 4 decoder stages: [transposed conv k=2 s=2 -> BN -> ReLU -> concat skip
+    -> BasicBlock x L]
+  * 1x1 `final` head with bias -> out_channels logits per voxel
+
+Module and parameter names follow the flax modules, so the flax path
+`backbone/block2_0/conv1/kernel` is the key `backbone.block2_0.conv1.kernel`
+(utils/from_jax.py).  Conv kernels are [K, Cin, Cout] with offsets in
+lexicographic (dx, dy, dz) order, dz fastest.  `compute_dtype` runs the
+convs in that dtype with f32 accumulation; parameters stay f32 and norms
+compute in f32.
+
+Weight init: Kaiming normal fan-out drawn from an explicit torch.Generator
+(lidog_tpu/models/minkunet.py:37-43); BN scale 1, bias 0, running mean 0,
+var 1.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from lidog_tpu_torch.core.sparse import SparseTensor, cat
+from lidog_tpu_torch.core.zseg import ZPlan
+from lidog_tpu_torch.ops.norm import MaskedBatchNorm
+from lidog_tpu_torch.ops.sparse_conv import sparse_conv_1x1
+from lidog_tpu_torch.ops.zconv import zconv3, zconv_down, zconv_up
+
+
+def _kernel(shape, generator):
+    """Kaiming normal, fan_out = K * Cout, gain sqrt(2) (ReLU)."""
+    k, _, cout = shape
+    std = (2.0 / (k * cout)) ** 0.5
+    return nn.Parameter(torch.randn(shape, generator=generator) * std)
+
+
+class SparseConv(nn.Module):
+    """A sparse conv bound to a kernel map of the plan: the occupancy stem
+    ('stem'), k=3 ('conv3_l{i}'), down ('down_l{i}') or up ('up_l{i}')."""
+
+    def __init__(self, in_channels: int, out_channels: int, kmap: str,
+                 in_level: int, out_level: int, generator):
+        super().__init__()
+        self.kmap, self.in_level, self.out_level = kmap, in_level, out_level
+        k = {"stem": 125, "conv3": 27}.get(kmap.split("_")[0], 8)
+        self.kernel = _kernel((k, in_channels, out_channels), generator)
+
+    def forward(self, x: SparseTensor, plan: ZPlan) -> SparseTensor:
+        out_l = plan.level(self.out_level)
+        w = self.kernel.to(x.feats.dtype)
+        m = out_l.real
+        if self.kmap == "stem":
+            # constant-1 input features: out = occupancy [N, 125] @ W[:, 0]
+            occ = plan.kmaps["stem_occ"].to(x.feats.dtype)
+            feats = (occ.float() @ w[:, 0, :].float()).to(x.feats.dtype)
+            feats = feats * m[:, None].to(feats.dtype)
+        elif self.kmap.startswith("conv3_"):
+            i = self.in_level
+            L = plan.level(i)
+            feats = zconv3(x.feats, plan.kmaps[f"conv9_l{i}"], L.zup, L.zdn,
+                           w, out_mask=m)
+        elif self.kmap.startswith("down_"):
+            feats = zconv_down(x.feats, plan.kmaps[f"down8_l{self.in_level}"],
+                               w, out_mask=m)
+        elif self.kmap.startswith("up_"):
+            i = self.out_level
+            feats = zconv_up(x.feats, plan.kmaps[f"parent_l{i}"],
+                             plan.kmaps[f"off_l{i}"], w, out_mask=m)
+        else:
+            raise ValueError(f"unknown kmap {self.kmap!r}")
+        return SparseTensor(coords=out_l.coords, feats=feats, mask=m,
+                            stride=out_l.stride)
+
+
+class SparseConv1x1(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, generator,
+                 use_bias: bool = False):
+        super().__init__()
+        self.kernel = _kernel((1, in_channels, out_channels), generator)
+        self.bias = (nn.Parameter(torch.zeros(out_channels)) if use_bias
+                     else None)
+
+    def forward(self, x: SparseTensor) -> SparseTensor:
+        dt = x.feats.dtype
+        feats = sparse_conv_1x1(
+            x.feats, self.kernel[0].to(dt),
+            None if self.bias is None else self.bias.to(dt), out_mask=x.mask)
+        return x.with_feats(feats)
+
+
+class NormReLU(nn.Module):
+    """BN (eval) with optional residual add and ReLU, one fused pass."""
+
+    def __init__(self, channels: int, relu: bool = True):
+        super().__init__()
+        self.relu = relu
+        self.bn = MaskedBatchNorm(channels)
+
+    def forward(self, x: SparseTensor, res: Optional[SparseTensor] = None
+                ) -> SparseTensor:
+        return x.with_feats(self.bn(
+            x.feats, x.mask, None if res is None else res.feats, self.relu))
+
+
+class BasicBlock(nn.Module):
+    """conv3-BN-ReLU-conv3-BN + (1x1-conv-BN shortcut) -> ReLU; norm2, the
+    residual add and the final ReLU are one fused pass."""
+
+    def __init__(self, in_channels: int, planes: int, level: int, generator):
+        super().__init__()
+        kmap = f"conv3_l{level}"
+        self.conv1 = SparseConv(in_channels, planes, kmap, level, level,
+                                generator)
+        self.norm1 = NormReLU(planes)
+        self.conv2 = SparseConv(planes, planes, kmap, level, level, generator)
+        self.norm2 = NormReLU(planes, relu=True)
+        if in_channels != planes:
+            self.shortcut_conv = SparseConv1x1(in_channels, planes, generator)
+            self.shortcut_norm = NormReLU(planes, relu=False)
+        else:
+            self.shortcut_conv = None
+
+    def forward(self, x: SparseTensor, plan: ZPlan) -> SparseTensor:
+        y = self.norm1(self.conv1(x, plan))
+        y = self.conv2(y, plan)
+        r = x
+        if self.shortcut_conv is not None:
+            r = self.shortcut_norm(self.shortcut_conv(x))
+        return self.norm2(y, res=r)
+
+
+class MinkUNetBackbone(nn.Module):
+    """Shared encoder-decoder, configured by its fields (planes and layers
+    may be narrowed, e.g. for tests).  Returns logits [N0, out_channels]
+    in the compute dtype."""
+
+    def __init__(self, out_channels: int = 7, compute_dtype=torch.float32,
+                 init_dim: int = 32,
+                 planes: Sequence[int] = (32, 64, 128, 256, 256, 128, 96, 96),
+                 layers: Sequence[int] = (2, 3, 4, 6, 2, 2, 2, 2),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator if generator is not None else torch.Generator().manual_seed(0)
+        self.compute_dtype = compute_dtype
+        # the occupancy stem: one constant input channel
+        self.conv0 = SparseConv(1, init_dim, "stem", 0, 0, g)
+        self.norm0 = NormReLU(init_dim)
+        ch = init_dim
+        skip_ch = [init_dim]
+        for s in range(4):
+            setattr(self, f"conv{s + 1}",
+                    SparseConv(ch, ch, f"down_l{s}", s, s + 1, g))
+            setattr(self, f"norm{s + 1}", NormReLU(ch))
+            for b in range(layers[s]):
+                setattr(self, f"block{s + 1}_{b}",
+                        BasicBlock(ch, planes[s], s + 1, g))
+                ch = planes[s]
+            skip_ch.append(ch)
+        for d in range(4):
+            lvl = 3 - d
+            setattr(self, f"convtr{4 + d}",
+                    SparseConv(ch, planes[4 + d], f"up_l{lvl}", lvl + 1, lvl,
+                               g))
+            setattr(self, f"normtr{4 + d}", NormReLU(planes[4 + d]))
+            ch = planes[4 + d] + skip_ch[lvl]
+            for b in range(layers[4 + d]):
+                setattr(self, f"block{5 + d}_{b}",
+                        BasicBlock(ch, planes[4 + d], lvl, g))
+                ch = planes[4 + d]
+        self.final = SparseConv1x1(ch, out_channels, g, use_bias=True)
+        self.layers = tuple(layers)
+
+    def _stage(self, x, name, n, plan):
+        for b in range(n):
+            x = getattr(self, f"{name}_{b}")(x, plan)
+        return x
+
+    def forward(self, x: SparseTensor, plan: ZPlan) -> torch.Tensor:
+        x = x.with_feats(x.feats.to(self.compute_dtype))
+        out = self.norm0(self.conv0(x, plan))
+        skips = [out]
+        enc = out
+        for s in range(4):
+            down = getattr(self, f"norm{s + 1}")(
+                getattr(self, f"conv{s + 1}")(enc, plan))
+            enc = self._stage(down, f"block{s + 1}", self.layers[s], plan)
+            skips.append(enc)
+        dec = enc
+        for d in range(4):
+            lvl = 3 - d
+            up = getattr(self, f"normtr{4 + d}")(
+                getattr(self, f"convtr{4 + d}")(dec, plan))
+            dec = self._stage(cat(up, skips[lvl]), f"block{5 + d}",
+                              self.layers[4 + d], plan)
+        return self.final(dec).feats
+
+
+class MinkUNet34(nn.Module):
+    """Reference `MinkUNet34`: full width by default (about 37.85M
+    parameters); planes/layers/init_dim narrow it.  Only the occupancy
+    stem (in_channels=1) is ported."""
+
+    def __init__(self, out_channels: int = 7, compute_dtype=torch.float32,
+                 init_dim: int = 32,
+                 planes: Sequence[int] = (32, 64, 128, 256, 256, 128, 96, 96),
+                 layers: Sequence[int] = (2, 3, 4, 6, 2, 2, 2, 2),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.backbone = MinkUNetBackbone(
+            out_channels=out_channels, compute_dtype=compute_dtype,
+            init_dim=init_dim, planes=planes, layers=layers,
+            generator=generator)
+
+    def forward(self, x: SparseTensor, plan: ZPlan) -> torch.Tensor:
+        return self.backbone(x, plan)

@@ -1,0 +1,108 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+Each source is compiled by `nvcc` for sm_90a into its own shared library
+with a plain C interface under build/lidog_tpu_torch/ of the checkout, at
+first use, and loaded with ctypes.  `build()` starts one nvcc per source,
+all at once.  A library is rebuilt when its source or the shared header is
+newer.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lidog_tpu_torch"
+SOURCES = ("zconv3_fwd", "zconv_down_fwd", "zconv_up_fwd")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# C signatures: every pointer and the stream are void*, sizes are int.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "zconv3_fwd": [_P] * 7 + [_I] * 4 + [_P],
+    "zconv_down_fwd": [_P] * 5 + [_I] * 5 + [_P],
+    "zconv_up_fwd": [_P] * 6 + [_I] * 5 + [_P],
+}
+
+_libs = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (PATH or /usr/local/cuda/bin)")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    if not lib.exists():
+        return True
+    newest = max((CSRC / f"{name}.cu").stat().st_mtime,
+                 (CSRC / "gather_gemm.cuh").stat().st_mtime)
+    return lib.stat().st_mtime < newest
+
+
+def build(names=SOURCES) -> float:
+    """Compile the stale libraries in parallel; returns the seconds taken.
+    Each compiler log (with -Xptxas -v register and spill counts) is kept
+    beside its library."""
+    todo = [n for n in names if _stale(n)]
+    t0 = time.perf_counter()
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        log = open(BUILD_DIR / f"{n}.log", "w")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(_lib_path(n)) + ".tmp",
+               str(CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
+                    log)
+    failed = []
+    for n, (p, log) in procs.items():
+        rc = p.wait()
+        log.close()
+        if rc != 0:
+            failed.append(n)
+        else:
+            os.replace(str(_lib_path(n)) + ".tmp", _lib_path(n))
+    if failed:
+        logs = "\n".join((BUILD_DIR / f"{n}.log").read_text() for n in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel (built first if needed)."""
+    lib = _libs.get(name)
+    if lib is None:
+        build((name,))
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        fn = getattr(lib, name)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return lib
+
+
+def call(name: str, *args) -> None:
+    """Launch kernel `name` on the current stream; raise on a CUDA error."""
+    import torch
+
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(library(name), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

@@ -1,0 +1,119 @@
+"""Where the device time of one full-width serving request goes.
+
+    python -m lidog_tpu_torch.profile_serve [--requests 3]
+
+Runs Predictor(MinkUNet34, bf16) on one synthetic 100,000-point scan at
+the serving caps (make_zcaps(98_304), voxel 0.05, grid_half 1024; seeded
+random weights), then traces `--requests` requests with torch.profiler and
+prints, per request: wall ms, device busy ms and idle share, device ms of
+this package's hand-written kernels (the three sparse conv forwards and the
+fused norm) and of everything else; then the top device kernels of the
+plan build alone.  Needs a CUDA card; prints the card's name and power
+limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, attr, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def _kernel_events(prof):
+    """(name, self device us, count) of the device-side events."""
+    out = []
+    for e in prof.key_averages():
+        us = _device_us(e)
+        if us > 0 and getattr(e, "device_type", None) is not None \
+                and "CUDA" in str(e.device_type):
+            out.append((e.key, us, e.count))
+    return sorted(out, key=lambda t: -t[1])
+
+
+def _group(name: str) -> str:
+    if "Conv3Map" in name:
+        return "zconv3_fwd"
+    if "DownMap" in name:
+        return "zconv_down_fwd"
+    if "UpMap" in name:
+        return "zconv_up_fwd"
+    if "bn_act_kernel" in name:
+        return "bn_act"
+    return "other (plain torch)"
+
+
+def main(argv=None):
+    import torch
+
+    from lidog_tpu_torch.data.synthetic import SyntheticLidarDataset
+    from lidog_tpu_torch.models.minkunet import MinkUNet34
+    from lidog_tpu_torch.serve import Predictor
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--requests", type=int, default=3)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serve: needs a CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0])
+    model = MinkUNet34(out_channels=7, compute_dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(0))
+    pts = SyntheticLidarDataset(num_scans=1, points_per_scan=100_000,
+                                radius=50.0, seed=0)[0]["points"][None]
+    pred = Predictor(model, batch_size=1, voxel_size=0.05,
+                     caps_per_scan=98_304, grid_half=1024)
+    pts_dev = torch.from_numpy(pts).cuda()
+    for _ in range(2):
+        pred(pts_dev)
+    torch.cuda.synchronize()
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.requests):
+            pred(pts_dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / args.requests
+    kernels = _kernel_events(prof)
+    busy_ms = sum(us for _, us, _ in kernels) / 1e3 / args.requests
+    print(f"[profile] per request: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+    groups = {}
+    for name, us, n in kernels:
+        g = groups.setdefault(_group(name), [0.0, 0])
+        g[0] += us / 1e3 / args.requests
+        g[1] += n // args.requests
+    for g, (ms, n) in sorted(groups.items(), key=lambda t: -t[1][0]):
+        print(f"[profile] {g}: {ms:.3f} ms device, {n} launches per request")
+
+    with torch.no_grad():
+        flat = pts_dev.reshape(-1, 3)
+        ones = torch.ones(flat.shape[0], dtype=torch.bool, device=flat.device)
+        zeros = torch.zeros(flat.shape[0], dtype=torch.int32,
+                            device=flat.device)
+        from lidog_tpu_torch.core.voxelize import voxelize_device
+
+        vox = voxelize_device(flat, ones, zeros, pred.voxel_size, pred.cap_in)
+        with torch.profiler.profile(activities=acts) as prof_plan:
+            pred.builder(vox.coords, vox.mask)
+            torch.cuda.synchronize()
+    plan_k = _kernel_events(prof_plan)
+    total = sum(us for _, us, _ in plan_k) / 1e3
+    print(f"[profile] plan build: {total:.3f} ms device in "
+          f"{sum(n for _, _, n in plan_k)} kernel launches; top kernels:")
+    for name, us, n in plan_k[:12]:
+        print(f"[profile]   {us / 1e3:8.3f} ms  x{n:4d}  {name[:110]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,98 @@
+"""Serving-path predictor: raw points -> per-point semantic labels.
+
+Port of lidog_tpu/serve.py:27-108,155-170 (sorted path): device voxelize
+-> zseg plan -> MinkUNet34 forward -> argmax -> the two inverse-map
+gathers back onto the input points.
+
+Usage:
+    pred = Predictor(MinkUNet34(compute_dtype=torch.bfloat16))
+    labels = pred(points)            # [B, P] int32, -1 = dropped/invalid
+
+Runs on the card unless the caller passes device="cpu" (the CPU path runs
+every op's plain PyTorch version).  Without a card and without a device,
+the constructor raises.  The `overflow` property reports capacity drops of
+the most recent call.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from lidog_tpu_torch.caps import make_zcaps
+from lidog_tpu_torch.core.engine import input_tensor
+from lidog_tpu_torch.core.voxelize import voxelize_device
+from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+
+
+class Predictor:
+    """Warm end-to-end inference on one device.
+
+    model: a MinkUNet34 (lidog_tpu_torch.models.minkunet) holding its
+    weights (e.g. loaded from a flax tree via utils.from_jax).
+    """
+
+    def __init__(self, model, batch_size: int = 1, voxel_size: float = 0.05,
+                 caps_per_scan: int = 98_304, grid_half: int = 1024,
+                 caps: Optional[Tuple[Tuple[int, ...], ...]] = None,
+                 device=None):
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("no CUDA device: pass device='cpu' to run "
+                                   "the plain PyTorch path on the CPU")
+            device = "cuda"
+        self.device = torch.device(device)
+        self.voxel_size = voxel_size
+        self.cap_in = caps_per_scan * batch_size
+        caps_r, caps_a, caps_d = caps or make_zcaps(caps_per_scan)
+        self.builder = ZSegPlanBuilder(caps_r, caps_a, num_batches=batch_size,
+                                       grid_half=grid_half,
+                                       caps_col_dil=caps_d)
+        self.model = model.to(self.device).eval()
+        self._overflow = None
+
+    @torch.no_grad()
+    def forward_voxels(self, points, valid=None):
+        """points [B, P, 3] -> (voxelization, plan, logits [N0, C])."""
+        pts = torch.as_tensor(np.asarray(points, np.float32)
+                              if not torch.is_tensor(points) else points,
+                              dtype=torch.float32, device=self.device)
+        b, p, _ = pts.shape
+        if valid is None:
+            vflat = torch.ones(b * p, dtype=torch.bool, device=self.device)
+        else:
+            vflat = torch.as_tensor(valid, device=self.device).reshape(b * p)
+        bidx = torch.arange(b, dtype=torch.int32,
+                            device=self.device).repeat_interleave(p)
+        vox = voxelize_device(pts.reshape(b * p, 3), vflat, bidx,
+                              self.voxel_size, self.cap_in)
+        plan = self.builder(vox.coords, vox.mask)
+        feats = vox.mask[:, None].to(torch.float32)
+        logits = self.model(input_tensor(plan, feats), plan)
+        return vox, plan, logits
+
+    @torch.no_grad()
+    def __call__(self, points, valid=None):
+        """points [B, P, 3] float32 (numpy or torch); returns [B, P] int32
+        per-point class ids (-1 where the point was dropped/invalid)."""
+        b, p = points.shape[:2]
+        vox, plan, logits = self.forward_voxels(points, valid)
+        vox_pred = torch.argmax(logits, dim=-1).to(torch.int32)
+        vox_pred = torch.where(plan.level(0).real, vox_pred, -1)
+        # voxel row -> level-0 aug row -> prediction, then back to points
+        # through the voxelizer's inverse map
+        row_of_vox = plan.pos
+        pred_of_vox = torch.where(row_of_vox >= 0,
+                                  vox_pred[row_of_vox.clamp(min=0).long()], -1)
+        inv = vox.inverse
+        pt_pred = torch.where(inv >= 0, pred_of_vox[inv.clamp(min=0).long()],
+                              -1)
+        self._overflow = plan.overflow
+        return pt_pred.reshape(b, p)
+
+    @property
+    def overflow(self):
+        """Capacity-drop counters from the most recent call (numpy)."""
+        return None if self._overflow is None else self._overflow.cpu().numpy()

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive lidog_tpu_torch's serving path on one CUDA card and check it.
+"""Drive lidog_tpu_torch's serving path and training step on one CUDA
+card and check them.
 
     python3 chip_smoke.py
 
@@ -7,21 +8,34 @@ Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
 
   1. the card: name and power limit (nvidia-smi);
-  2. build every kernel of the path from the sources in this checkout
+  2. build every kernel of both paths from the sources in this checkout
      (one nvcc per CUDA source, in parallel; Triton compiles at first
      launch);
   3. per kernel: the kernel against its plain PyTorch version on the same
-     inputs, at shapes from a full-width plan of one synthetic scan: max
-     error relative to max|plain| against a stated bound, kernel / plain
-     times (CUDA events), and the kernel's least possible time on an H100
-     (bytes over 3.35 TB/s or operations over the peak rate of their type);
+     inputs: the forward kernels (KA-KD) at shapes from a full-width
+     serving plan of one synthetic scan, the backward kernels (KE-KH, and
+     KB/KC on their transposed-weight backward uses) at shapes from the
+     training plan of 4 scans; max error relative to max|plain| against a
+     stated bound, kernel / plain times (CUDA events), and the kernel's
+     least possible time on an H100 (bytes over 3.35 TB/s or operations
+     over the peak rate of their type);
   4. full-width serving: Predictor(MinkUNet34, bf16) on a 100,000-point
      scan, 1 warm-up and 5 timed requests; zero overflow, >= 95% of points
      labelled, labels in [0, 7), and every kernel counter equal to its
      launches per forward x requests;
   5. cross-check: the same weights through the Predictor on the CPU (plain
      versions) on a 20,000-point scan: the plan's integer fields bitwise
-     equal to the card's plan, and label agreement >= 99%.
+     equal to the card's plan, and label agreement >= 99%;
+  6. full-width training (bench.py's shapes): MinkUNet34 bf16, 4 scans x
+     100,000 points, SoftDICE + Adam (lr 1e-3), 1 warm-up and 5 timed
+     steps on the same batch; zero overflow, finite losses with the last
+     below the first, confusion totals equal to the supervised voxels, and
+     every kernel counter equal to its launches per step x steps; then the
+     stage split of one more step;
+  7. train cross-check: one f32 step of full-width MinkUNet34 on a
+     20,000-point scan on the card and on the CPU from the same weights:
+     loss, every grad, the params after Adam and the batch_stats within
+     stated bounds.
 
 The line before the last is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.  Exits non-zero without a card, and
@@ -30,6 +44,7 @@ in a directory that does not hold the lidog_tpu_torch package.
 
 import copy
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -52,6 +67,21 @@ NUM_CLASSES = 7
 # each of the 7 shortcuts
 PER_FORWARD = {"zconv3_fwd": 46, "zconv_down_fwd": 4, "zconv_up_fwd": 4,
                "bn_act": 62}
+# training (bench.py:36-44): 4 scans x 100k points, per-scan plan caps
+TRAIN_BATCH = 4
+TRAIN_STEPS = 5
+TRAIN_CAP_IN = 393_216
+ZCAPS_R = (92_160, 61_440, 22_528, 9_216, 3_584)
+ZCAPS_A = (122_880, 77_824, 25_600, 10_752, 4_352)
+ZCAPS_D = (196_608, 93_184, 54_272, 23_552, 9_728)
+# launches per train step: the forward's (norms in train mode: KG, which
+# ends in KD), and the backward's: KE and KF per k=3 conv, KF and the
+# partner forward kernel with transposed weights per down/up conv (so KB
+# and KC run 4 + 4 times), KH per norm
+PER_STEP = {"zconv3_fwd": 46, "zconv_down_fwd": 8, "zconv_up_fwd": 8,
+            "bn_act": 62, "zconv3_bwd_dx": 46, "zconv3_wgrad": 46,
+            "zconv_down_wgrad": 4, "zconv_up_wgrad": 4, "bn_train_fwd": 62,
+            "bn_train_bwd": 62}
 
 
 def card_line():
@@ -78,6 +108,20 @@ def cuda_ms(fn, iters=10):
     return start.elapsed_time(end) / iters
 
 
+def counters():
+    from lidog_tpu_torch.ops import norm, zconv
+
+    return {**zconv.LAUNCHES, **norm.LAUNCHES}
+
+
+def zero_counters():
+    from lidog_tpu_torch.ops import norm, zconv
+
+    for d in (zconv.LAUNCHES, norm.LAUNCHES):
+        for k in d:
+            d[k] = 0
+
+
 def scan(points, seed):
     from lidog_tpu_torch.data.synthetic import SyntheticLidarDataset
 
@@ -90,8 +134,91 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def rel_err(a, b):
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp(min=1e-30))
+
+
+class Checker:
+    """Holds kernels against their plain versions; collects one row per
+    (kernel, shape)."""
+
+    # kernel vs plain, relative to max |plain|: bf16 kernels sum in f32 in
+    # another order (KA and KE also skip JAX's intermediate bf16 roundings,
+    # u9 and dxc); f32 differs by summation order only
+    TOL = {"bfloat16": {"zconv3_fwd": 2e-2, "zconv3_bwd_dx": 2e-2},
+           "float32": {}}
+    TOL_DEFAULT = {"bfloat16": 1e-2, "float32": 1e-4}
+
+    def __init__(self, gen, dev):
+        self.gen, self.dev, self.rows = gen, dev, []
+
+    def feats(self, n_rows, c, real, dt):
+        import torch
+
+        x = torch.randn(n_rows, c, generator=self.gen).to(self.dev, dt)
+        return (x * real[:, None].to(dt)).contiguous()
+
+    def weights(self, dt, *shape):
+        import torch
+
+        return (torch.randn(*shape, generator=self.gen) * 0.05).to(self.dev,
+                                                                    dt)
+
+    @staticmethod
+    def bound(nbyte, ops, kind):
+        tb = nbyte / HBM_BYTES_PER_S * 1e3
+        to = ops / PEAK_OPS[kind] * 1e3
+        return max(tb, to), "bytes" if tb >= to else "operations"
+
+    def record(self, name, source, replaces, kfn, pfn, dt, nbyte, ops, shape,
+               mma=True):
+        """kfn/pfn return the output to compare (a tensor, or a tuple whose
+        first entry is compared with the stated bound and whose others
+        with the same bound each).  mma: the work is a matrix product (its
+        operations count against the tensor cores' rate in bf16)."""
+        import torch
+
+        out_k, out_p = kfn(), pfn()
+        torch.cuda.synchronize()
+        if not isinstance(out_k, tuple):
+            out_k, out_p = (out_k,), (out_p,)
+        dname = str(dt).split(".")[-1]
+        t = self.TOL[dname].get(name, self.TOL_DEFAULT[dname])
+        errs = [rel_err(a, b) for a, b in zip(out_k, out_p)]
+        err = max(errs)
+        kind = "bf16" if dt == torch.bfloat16 and mma else "f32"
+        b_ms, b_by = self.bound(nbyte, ops, kind)
+        shape = f"{shape} {dname}"
+        row = {"name": name, "route": "triton" if source.endswith(".py")
+               else "cuda", "source": source, "replaces": replaces,
+               "shape": shape, "max_abs_err": max(
+                   float((a.float() - b.float()).abs().max())
+                   for a, b in zip(out_k, out_p)),
+               "max_rel_err": err, "tol_rel": t, "ms": cuda_ms(kfn),
+               "plain_ms": cuda_ms(pfn), "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None}
+        print(f"[kernel] {name} {shape}: rel err {err:.3e} (bound {t}) "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+        if not err <= t:
+            raise AssertionError(f"{name} {shape}: rel err {errs} > {t}")
+        self.rows.append(row)
+
+
+def conv3_pairs(plan, lvl):
+    """(offset, z tap) sources that the k=3 sum needs on real rows: the
+    forward's multiply-adds per output width, and the backward's."""
+    L = plan.level(lvl)
+    nbr9 = plan.kmaps[f"conv9_l{lvl}"]
+    src = nbr9.clamp(min=0).long()
+    taps = (nbr9 >= 0).long() * (1 + L.zdn.long()[src] + L.zup.long()[src])
+    taps[4] = L.valid.long() * (1 + L.zdn.long() + L.zup.long())
+    return int((taps * L.real.long()).sum())
+
+
 def kernel_checks(plan, gen):
-    """Phase 3: each kernel against its plain version at main-path shapes."""
+    """Phase 3, forward kernels at the serving plan's shapes."""
     import torch
 
     from lidog_tpu_torch.ops import norm, zconv
@@ -100,51 +227,8 @@ def kernel_checks(plan, gen):
     dev = plan.levels[0].coords.device
     l0, l1 = plan.level(0), plan.level(1)
     na = l0.coords.shape[0]
-    # kernel vs plain, relative to max |plain|: bf16 kernels sum in f32 in
-    # another order (KA also skips JAX's per-offset rounding); f32 differs
-    # by summation order only
-    tol = {bf: {"zconv3_fwd": 2e-2}, f32: {}}
-    tol_default = {bf: 1e-2, f32: 1e-4}
-
-    def feats(n_rows, c, real, dt):
-        x = torch.randn(n_rows, c, generator=gen).to(dev, dt)
-        return (x * real[:, None].to(dt)).contiguous()
-
-    def weights(dt, *shape):
-        return (torch.randn(*shape, generator=gen) * 0.05).to(dev, dt)
-
-    def rel_err(a, b):
-        return float((a.float() - b.float()).abs().max()
-                     / b.float().abs().max().clamp(min=1e-30))
-
-    def bound(nbyte, ops, kind):
-        tb = nbyte / HBM_BYTES_PER_S * 1e3
-        to = ops / PEAK_OPS[kind] * 1e3
-        return max(tb, to), "bytes" if tb >= to else "operations"
-
-    rows = []
-
-    def record(name, source, replaces, kfn, pfn, dt, nbyte, ops, shape):
-        out_k, out_p = kfn(), pfn()
-        torch.cuda.synchronize()
-        err = rel_err(out_k, out_p)
-        t = tol[dt].get(name, tol_default[dt])
-        kind = "bf16" if dt == bf and name != "bn_act" else "f32"
-        b_ms, b_by = bound(nbyte, ops, kind)
-        shape = f"{shape} {str(dt).split('.')[-1]}"
-        row = {"name": name, "route": "triton" if source.endswith(".py")
-               else "cuda", "source": source, "replaces": replaces,
-               "shape": shape, "max_abs_err": float(
-                   (out_k.float() - out_p.float()).abs().max()),
-               "max_rel_err": err, "tol_rel": t, "ms": cuda_ms(kfn),
-               "plain_ms": cuda_ms(pfn), "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": None}
-        print(f"[kernel] {name} {shape}: rel err {err:.3e} (bound {t}) "
-              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-        if not err <= t:
-            raise AssertionError(f"{name} {shape}: rel err {err} > {t}")
-        rows.append(row)
+    ck = Checker(gen, dev)
+    feats, weights, record = ck.feats, ck.weights, ck.record
 
     # KA: zconv3 at the main path's shapes: L0 128 -> 96 (block8_0.conv1:
     # up 96 + skip 32), L0 96 -> 96 (block8 conv2), L1 32 -> 32 (block1);
@@ -154,11 +238,7 @@ def kernel_checks(plan, gen):
         L = plan.level(lvl)
         nbr9 = plan.kmaps[f"conv9_l{lvl}"]
         n = nbr9.shape[1]
-        # (offset, z tap) sources that the k=3 sum needs on real rows
-        src = nbr9.clamp(min=0).long()
-        taps = (nbr9 >= 0).long() * (1 + L.zdn.long()[src] + L.zup.long()[src])
-        taps[4] = L.valid.long() * (1 + L.zdn.long() + L.zup.long())
-        nnz9 = int((taps * L.real.long()).sum())
+        nnz9 = conv3_pairs(plan, lvl)
         x = feats(n, cin, L.real, dt)
         wf = weights(dt, 9, 3 * cin, cout)
         record("zconv3_fwd", "lidog_tpu_torch/csrc/zconv3_fwd.cu",
@@ -213,15 +293,170 @@ def kernel_checks(plan, gen):
                                          True),
                dt, nbytes(x, res, l0.real, mean, inv, bias)
                + na * 96 * x.element_size(), 5 * na * 96,
-               f"L0 {na} rows 96 +res +relu")
-    return rows
+               f"L0 {na} rows 96 +res +relu", mma=False)
+    return ck.rows
+
+
+def backward_kernel_checks(plan, gen):
+    """Phase 3, backward kernels (KE-KH, KB/KC transposed) at the training
+    plan's shapes."""
+    import torch
+
+    from lidog_tpu_torch.ops import norm, zconv
+
+    bf, f32 = torch.bfloat16, torch.float32
+    dev = plan.levels[0].coords.device
+    l0, l1 = plan.level(0), plan.level(1)
+    na0, na1 = l0.coords.shape[0], l1.coords.shape[0]
+    ck = Checker(gen, dev)
+    feats, weights, record = ck.feats, ck.weights, ck.record
+    # cotangents are not masked: each kernel reads them through the
+    # forward's output mask
+    ones0 = torch.ones(na0, dtype=torch.bool, device=dev)
+    ones1 = torch.ones(na1, dtype=torch.bool, device=dev)
+    wgrad_src = "lidog_tpu_torch/csrc/zconv_wgrad.cu"
+
+    # KE / KF(zconv3): block8_0.conv1 (L0 128 -> 96), block8 conv2 (L0 96 ->
+    # 96) and block1 (L1 32 -> 32)
+    for lvl, cin, cout, dt in ((0, 128, 96, bf), (0, 96, 96, bf),
+                               (0, 96, 96, f32), (1, 32, 32, bf),
+                               (1, 32, 32, f32)):
+        L = plan.level(lvl)
+        nbr9 = plan.kmaps[f"conv9_l{lvl}"]
+        n = nbr9.shape[1]
+        nnz9 = conv3_pairs(plan, lvl)
+        ones = ones0 if lvl == 0 else ones1
+        x = feats(n, cin, L.real, dt)
+        dout = feats(n, cout, ones, dt)
+        wf = weights(dt, 9, 3 * cin, cout)
+        esz = x.element_size()
+        shape = f"L{lvl} {n} rows {cin}->{cout}"
+        record("zconv3_bwd_dx", "lidog_tpu_torch/csrc/zconv3_bwd_dx.cu",
+               "lidog_tpu/ops/zconv.py:231 (_zconv3_bwd dx, _zcat_t:116)",
+               lambda: zconv.zconv3_bwd_dx(dout, nbr9, L.zup, L.zdn, wf,
+                                           L.real),
+               lambda: zconv.zconv3_bwd_dx_plain(dout, nbr9, L.zup, L.zdn,
+                                                 wf, L.real),
+               dt, nbytes(dout, nbr9, L.zup, L.zdn, wf, L.real)
+               + n * cin * esz, 2 * cin * cout * nnz9, shape)
+        record("zconv3_wgrad", wgrad_src,
+               "lidog_tpu/ops/zconv.py:268 (_zconv3_bwd dW)",
+               lambda: zconv.zconv3_wgrad(x, dout, nbr9, L.zup, L.zdn,
+                                          L.real),
+               lambda: zconv.zconv3_wgrad_plain(x, dout, nbr9, L.zup, L.zdn,
+                                                L.real),
+               dt, nbytes(x, dout, nbr9, L.zup, L.zdn, L.real)
+               + 27 * cin * cout * esz, 2 * cin * cout * nnz9, shape)
+
+    # the strided pair L0 <-> L1: conv1 (down 32 -> 32) and convtr7 (up
+    # 96 -> 96); dx through the partner forward kernel, dW through KF
+    nbr8 = plan.kmaps["down8_l0"]
+    parent, off = plan.kmaps["parent_l0"], plan.kmaps["off_l0"]
+    src = parent.clamp(min=0).long()
+    down_pairs = int(((parent >= 0) & l1.real[src]).sum())  # dout read via L1
+    up_pairs = int(((parent >= 0) & l0.real).sum())  # dout read via L0
+    down_taps = int(((nbr8 >= 0) & l0.real[nbr8.clamp(min=0).long()]).sum())
+    for dt in (bf, f32):
+        esz = torch.finfo(dt).bits // 8
+        # zconv_down (32 -> 32): dW, and dx = KC(dout, W^T)
+        x = feats(na0, 32, l0.real, dt)
+        dout = feats(na1, 32, ones1, dt)
+        w8t = weights(dt, 8, 32, 32).transpose(1, 2).contiguous()
+        record("zconv_up_fwd", "lidog_tpu_torch/csrc/zconv_up_fwd.cu",
+               "lidog_tpu/ops/zconv.py:505 (_zdown_bwd dx, "
+               "_onehot_matmuls:437 transpose=True)",
+               lambda: zconv.zconv_up_fwd(dout, parent, off, w8t, None,
+                                          src_mask=l1.real),
+               lambda: zconv.zconv_up_plain(dout, parent, off, w8t, None,
+                                            src_mask=l1.real),
+               dt, nbytes(dout, parent, off, w8t, l1.real) + na0 * 32 * esz,
+               2 * 32 * 32 * down_pairs, f"bwd dx L1->L0 {na0} rows 32->32")
+        record("zconv_down_wgrad", wgrad_src,
+               "lidog_tpu/ops/zconv.py:505 (_zdown_bwd dW, _onehot_dw:455)",
+               lambda: zconv.zconv_down_wgrad(x, dout, parent, off, l1.real),
+               lambda: zconv.zconv_down_wgrad_plain(x, dout, parent, off,
+                                                    l1.real),
+               dt, nbytes(x, dout, parent, off, l1.real) + 8 * 32 * 32 * esz,
+               2 * 32 * 32 * down_pairs, f"L0->L1 {na0} rows 32->32")
+        # zconv_up (96 -> 96): dW, and dx = KB(dout, W^T)
+        xc = feats(na1, 96, l1.real, dt)
+        doutf = feats(na0, 96, ones0, dt)
+        u8t = weights(dt, 8, 96, 96).transpose(1, 2).contiguous()
+        record("zconv_down_fwd", "lidog_tpu_torch/csrc/zconv_down_fwd.cu",
+               "lidog_tpu/ops/zconv.py:561 (_zup_bwd dx, _down_loop:466 "
+               "with W^T)",
+               lambda: zconv.zconv_down_fwd(doutf, nbr8, u8t, None,
+                                            src_mask=l0.real),
+               lambda: zconv.zconv_down_plain(doutf, nbr8, u8t, None,
+                                              src_mask=l0.real),
+               dt, nbytes(doutf, nbr8, u8t, l0.real) + na1 * 96 * esz,
+               2 * 96 * 96 * down_taps, f"bwd dx L0->L1 {na1} rows 96->96")
+        record("zconv_up_wgrad", wgrad_src,
+               "lidog_tpu/ops/zconv.py:561 (_zup_bwd dW, _onehot_dw:455)",
+               lambda: zconv.zconv_up_wgrad(xc, doutf, parent, off, l0.real),
+               lambda: zconv.zconv_up_wgrad_plain(xc, doutf, parent, off,
+                                                  l0.real),
+               dt, nbytes(xc, doutf, parent, off, l0.real)
+               + 8 * 96 * 96 * esz, 2 * 96 * 96 * up_pairs,
+               f"L1->L0 {na0} rows 96->96")
+
+    # KG / KH: train-mode BN at L0, width 96, with residual and ReLU (a
+    # block8 norm2)
+    c = 96
+    scale = (torch.rand(c, generator=gen) + 0.5).to(dev)
+    bias = (torch.randn(c, generator=gen) * 0.1).to(dev)
+    stats0 = [(torch.randn(c, generator=gen) * 0.1).to(dev),
+              (torch.rand(c, generator=gen) + 0.5).to(dev)]
+    for dt in (bf, f32):
+        x = feats(na0, c, l0.real, dt)
+        res = feats(na0, c, l0.real, dt)
+        esz = x.element_size()
+        run_k = [t.clone() for t in stats0]
+        run_p = [t.clone() for t in stats0]
+
+        def kg(run):
+            y, mean, var_raw, inv, _ = norm.bn_train_fwd(
+                x, l0.real, scale, bias, *run, 0.1, 1e-5, res, True)
+            return y, mean, var_raw, inv
+
+        def kg_plain(run):
+            y, mean, var_raw, inv, _ = norm.bn_train_fwd_plain(
+                x, l0.real, scale, bias, *run, 0.1, 1e-5, res, True)
+            return y, mean, var_raw, inv
+
+        record("bn_train_fwd", "lidog_tpu_torch/ops/bn_act_triton.py",
+               "lidog_tpu/ops/norm.py:24 (_masked_moments) + :61-76 (train "
+               "update, normalise)",
+               lambda: kg(run_k), lambda: kg_plain(run_p), dt,
+               nbytes(x, res, l0.real, scale, bias, *stats0)
+               + na0 * c * esz, 10 * na0 * c, f"L0 {na0} rows {c} +res +relu",
+               mma=False)
+        # the running stats took the same number of updates on each side
+        for a, b in zip(run_k, run_p):
+            if not rel_err(a, b) <= 1e-4:
+                raise AssertionError(f"bn_train_fwd running stats {dt}: "
+                                     f"rel err {rel_err(a, b)}")
+        y, mean, var_raw, inv, count = norm.bn_train_fwd_plain(
+            x, l0.real, scale, bias, *[t.clone() for t in stats0], 0.1,
+            1e-5, res, True)
+        dy = feats(na0, c, ones0, dt)
+        args = (dy, y, x, l0.real, scale, mean, var_raw, inv, count, 1e-5,
+                True, True)
+        record("bn_train_bwd", "lidog_tpu_torch/ops/bn_act_triton.py",
+               "autodiff of lidog_tpu/ops/norm.py:24-76 with the residual "
+               "and ReLU of lidog_tpu/models/minkunet.py:252",
+               lambda: norm.bn_train_bwd(*args),
+               lambda: norm.bn_train_bwd_plain(*args), dt,
+               nbytes(dy, y, x, l0.real, scale, mean, var_raw, inv)
+               + 2 * na0 * c * esz, 14 * na0 * c,
+               f"L0 {na0} rows {c} +res +relu", mma=False)
+    return ck.rows
 
 
 def serve(model, pts, dev):
     """Phase 4: timed requests through the Predictor; returns stats."""
     import torch
 
-    from lidog_tpu_torch.ops import norm, zconv
     from lidog_tpu_torch.serve import Predictor
 
     pred = Predictor(model, batch_size=1, voxel_size=VOXEL,
@@ -229,9 +464,7 @@ def serve(model, pts, dev):
     pts_dev = torch.from_numpy(pts).to(dev)
     labels = pred(pts_dev)  # warm-up (Triton specializations, caches)
     torch.cuda.synchronize()
-    for k in zconv.LAUNCHES:
-        zconv.LAUNCHES[k] = 0
-    norm.LAUNCHES["bn_act"] = 0
+    zero_counters()
     ms = []
     for _ in range(REQUESTS):
         torch.cuda.synchronize()
@@ -239,7 +472,7 @@ def serve(model, pts, dev):
         labels = pred(pts_dev)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {**zconv.LAUNCHES, **norm.LAUNCHES}
+    launches = counters()
     lab = labels.cpu().numpy()
     ov = pred.overflow
     print(f"[serve] overflow {ov.tolist()} labelled "
@@ -339,6 +572,244 @@ def cross_check(model, dev):
     return agree
 
 
+def train_batch(points, labels, dev):
+    import torch
+
+    from lidog_tpu_torch.train.device_pipeline import device_batch_from_points
+
+    b, p = points.shape[:2]
+    return device_batch_from_points(
+        torch.from_numpy(points).to(dev),
+        torch.ones(b, p, dtype=torch.bool, device=dev),
+        torch.from_numpy(labels).to(dev), VOXEL, TRAIN_CAP_IN)
+
+
+def train_plan_builder():
+    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+
+    return ZSegPlanBuilder(ZCAPS_R, ZCAPS_A, num_batches=TRAIN_BATCH,
+                           grid_half=GRID_HALF, caps_col_dil=ZCAPS_D)
+
+
+def train_data():
+    import numpy as np
+
+    from lidog_tpu_torch.data.synthetic import SyntheticLidarDataset
+
+    ds = SyntheticLidarDataset(num_scans=TRAIN_BATCH, points_per_scan=POINTS,
+                               radius=50.0, seed=SEED)
+    scans = [ds[i] for i in range(TRAIN_BATCH)]
+    return (np.stack([d["points"] for d in scans]),
+            np.stack([d["sem_labels"] for d in scans]).astype(np.int32))
+
+
+def train(dev):
+    """Phase 6: full-width bf16 training steps; returns stats."""
+    import torch
+
+    from lidog_tpu_torch.losses.losses import SoftDICELoss
+    from lidog_tpu_torch.models.minkunet import MinkUNet34
+    from lidog_tpu_torch.train.optim import make_optimizer
+    from lidog_tpu_torch.train.train_step import TrainState, make_train_step
+
+    pts, labels = train_data()
+    model = MinkUNet34(out_channels=NUM_CLASSES, compute_dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(SEED))
+    state = TrainState.create(model, make_optimizer("Adam", lr=1e-3),
+                              device=dev)
+    builder = train_plan_builder()
+    step = make_train_step(SoftDICELoss(ignore_label=-1),
+                           num_classes=NUM_CLASSES)
+
+    def full_step():
+        batch = train_batch(pts, labels, dev)
+        plan = builder(batch["coords"], batch["mask"])
+        _, metrics = step(state, batch, plan)
+        torch.cuda.synchronize()
+        return batch, plan, metrics
+
+    batch, plan, metrics = full_step()  # warm-up (Triton specializations)
+    overflow = plan.overflow.cpu().tolist()
+    if sum(overflow) != 0:
+        raise AssertionError(f"training plan overflow {overflow}")
+    supervised = int(((batch["labels"] >= 0) & batch["mask"]).sum())
+    losses = [float(metrics["loss"])]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    ms = []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, metrics = full_step()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        total = int(metrics["confusion"].sum())
+        if total != supervised:
+            raise AssertionError(f"confusion total {total} != {supervised} "
+                                 "supervised voxels")
+    launches = counters()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[train] overflow {overflow} supervised voxels {supervised} "
+          f"losses {losses} step ms {ms}", flush=True)
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses {losses}: not finite or not falling")
+    for k, per in PER_STEP.items():
+        if launches[k] != per * TRAIN_STEPS:
+            raise AssertionError(f"{k}: {launches[k]} launches in training, "
+                                 f"expected {per} x {TRAIN_STEPS}")
+    stages = train_stage_split(state, pts, labels, builder, dev)
+    p50 = statistics.median(ms)
+    return {"p50_ms": p50, "scans_per_s": TRAIN_BATCH / p50 * 1e3,
+            "step_ms": ms, "losses": losses, "launches": launches,
+            "stages_ms": stages, "supervised_voxels": supervised,
+            "real_rows_per_level": [int(l.real.sum()) for l in plan.levels],
+            "peak_mem_gb": peak,
+            "params": sum(p.numel() for p in model.parameters())}
+
+
+def train_stage_split(state, pts, labels, builder, dev):
+    """Device ms of voxelize / plan / forward+loss / backward / optimizer
+    for one step (CUDA events between the stages; median of 3)."""
+    import torch
+
+    from lidog_tpu_torch.losses.losses import SoftDICELoss
+    from lidog_tpu_torch.train.train_step import _forward_loss
+
+    crit = SoftDICELoss(ignore_label=-1)
+    runs = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        batch = train_batch(pts, labels, dev)
+        ev[1].record()
+        plan = builder(batch["coords"], batch["mask"])
+        ev[2].record()
+        state.optimizer.zero_grad()
+        loss, _ = _forward_loss(state.model.train(), batch, crit, NUM_CLASSES,
+                                plan)
+        ev[3].record()
+        loss.backward()
+        ev[4].record()
+        state.optimizer.step()
+        ev[5].record()
+        torch.cuda.synchronize()
+        runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(5)])
+    names = ("voxelize", "plan", "forward", "backward", "optimizer")
+    return {n: statistics.median(r[i] for r in runs)
+            for i, n in enumerate(names)}
+
+
+def train_cross_check(dev):
+    """Phase 7: one f32 step of full-width MinkUNet34 on a 20,000-point scan
+    on the card and on the CPU from the same weights, and a third step on
+    the CPU from the weights scaled by (1 + 1e-7 N(0, 1)): the floor.
+
+    The forward is well-conditioned: loss and batch_stats within 1e-4 of
+    the CPU's (relative, per tensor).  The backward is not: a ReLU input
+    within rounding of 0 flips its gate, so a 1e-7 change of the weights
+    moves single grad entries by percents.  So the grads are held, in
+    relative L2 norm (whole model, and the worst tensor), to 10x the
+    floor's; the params after Adam's first step (lr * g / (|g| + eps),
+    about lr * sign(g)) to 2 lr everywhere, and the share of entries whose
+    update changed sign to 10x the floor's share + 1e-4."""
+    import numpy as np
+    import torch
+
+    from lidog_tpu_torch.caps import make_zcaps
+    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+    from lidog_tpu_torch.data.synthetic import SyntheticLidarDataset
+    from lidog_tpu_torch.losses.losses import SoftDICELoss
+    from lidog_tpu_torch.models.minkunet import MinkUNet34
+    from lidog_tpu_torch.train.device_pipeline import device_batch_from_points
+    from lidog_tpu_torch.train.optim import make_optimizer
+    from lidog_tpu_torch.train.train_step import TrainState, make_train_step
+
+    lr = 1e-3
+    scan0 = SyntheticLidarDataset(num_scans=1, points_per_scan=CHECK_POINTS,
+                                  radius=50.0, seed=SEED + 2)[0]
+    pts = scan0["points"][None]
+    labels = scan0["sem_labels"][None].astype(np.int32)
+    caps_r, caps_a, caps_d = make_zcaps(PER_SCAN)
+    cpu_model = MinkUNet34(out_channels=NUM_CLASSES,
+                           generator=torch.Generator().manual_seed(SEED + 3))
+    pert_model = copy.deepcopy(cpu_model)
+    noise = torch.Generator().manual_seed(SEED + 4)
+    with torch.no_grad():
+        for p in pert_model.parameters():
+            p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=noise))
+    runs = {"cuda": (dev, copy.deepcopy(cpu_model)),
+            "cpu": (torch.device("cpu"), cpu_model),
+            "floor": (torch.device("cpu"), pert_model)}
+    out = {}
+    for where, (d, model) in runs.items():
+        before = {n: p.detach().cpu().clone()
+                  for n, p in model.named_parameters()}
+        state = TrainState.create(model, make_optimizer("Adam", lr=lr),
+                                  device=d)
+        batch = device_batch_from_points(
+            torch.from_numpy(pts).to(d),
+            torch.ones(1, CHECK_POINTS, dtype=torch.bool, device=d),
+            torch.from_numpy(labels).to(d), VOXEL, caps_r[0])
+        plan = ZSegPlanBuilder(caps_r, caps_a, num_batches=1,
+                               grid_half=GRID_HALF, caps_col_dil=caps_d)(
+            batch["coords"], batch["mask"])
+        if int(plan.overflow.sum()) != 0:
+            raise AssertionError(f"check plan overflow {plan.overflow}")
+        t0 = time.perf_counter()
+        _, metrics = make_train_step(SoftDICELoss(ignore_label=-1),
+                                     num_classes=NUM_CLASSES)(state, batch,
+                                                              plan)
+        out[where] = {
+            "loss": float(metrics["loss"]),
+            "confusion": metrics["confusion"].cpu(),
+            "grads": {n: p.grad.detach().cpu()
+                      for n, p in model.named_parameters()},
+            "params": {n: p.detach().cpu()
+                       for n, p in model.named_parameters()},
+            "update": {n: p.detach().cpu() - before[n]
+                       for n, p in model.named_parameters()},
+            "stats": {n: b.detach().cpu() for n, b in model.named_buffers()},
+            "s": time.perf_counter() - t0}
+
+    def compare(a, b):
+        """a against the CPU run b."""
+        num = sum(float(((a["grads"][n] - g) ** 2).sum())
+                  for n, g in b["grads"].items())
+        den = sum(float((g ** 2).sum()) for g in b["grads"].values())
+        per = {n: float((a["grads"][n] - g).norm() / g.norm().clamp(
+            min=1e-30)) for n, g in b["grads"].items()}
+        flips = sum(int(((a["update"][n] > 0) != (u > 0)).sum())
+                    for n, u in b["update"].items())
+        total = sum(u.numel() for u in b["update"].values())
+        return {"loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+                "stats": max(rel_err(a["stats"][n], v)
+                             for n, v in b["stats"].items()),
+                "grad_l2": (num / den) ** 0.5, "grad_l2_worst": max(
+                    per.values()),
+                "grad_l2_worst_tensor": max(per, key=per.get),
+                "update_sign_flips": flips / total,
+                "param_lr": max(float((a["params"][n] - p).abs().max())
+                                for n, p in b["params"].items()) / lr,
+                "confusion_abs_diff": int(
+                    (a["confusion"] - b["confusion"]).abs().sum())}
+
+    got, floor = compare(out["cuda"], out["cpu"]), compare(out["floor"],
+                                                           out["cpu"])
+    print(f"[train-check] card vs CPU, f32 full width, {CHECK_POINTS} points: "
+          f"{got}; floor (CPU, weights x (1 + 1e-7 N)): {floor}; step s "
+          f"card {out['cuda']['s']:.2f} CPU {out['cpu']['s']:.2f}",
+          flush=True)
+    bounds = {"loss": 1e-4, "stats": 1e-4,
+              "grad_l2": 10 * floor["grad_l2"] + 1e-6,
+              "grad_l2_worst": 10 * floor["grad_l2_worst"] + 1e-6,
+              "update_sign_flips": 10 * floor["update_sign_flips"] + 1e-4,
+              "param_lr": 2.0}
+    for k, b in bounds.items():
+        if not got[k] <= b:
+            raise AssertionError(f"train cross-check {k}: {got[k]} > {b}")
+    return {"card_vs_cpu": got, "floor": floor}
+
+
 def main():
     import torch
 
@@ -365,7 +836,7 @@ def main():
     dev = torch.device("cuda")
 
     build_s = _cuda.build()
-    import triton  # noqa: F401  (the bn_act kernel's compiler)
+    import triton  # noqa: F401  (the norm kernels' compiler)
 
     print(f"[build] nvcc x{len(_cuda.SOURCES)} in parallel: {build_s:.1f} s",
           flush=True)
@@ -391,20 +862,50 @@ def main():
                           VOXEL, probe.cap_in)
     plan = probe.builder(vox.coords, vox.mask)
     rows = kernel_checks(plan, torch.Generator().manual_seed(SEED + 7))
+    del probe, vox, plan
+    # phase 3, backward kernels: the training plan of 4 scans
+    tpts, tlabels = train_data()
+    tbatch = train_batch(tpts, tlabels, dev)
+    tplan = train_plan_builder()(tbatch["coords"], tbatch["mask"])
+    rows += backward_kernel_checks(tplan,
+                                   torch.Generator().manual_seed(SEED + 8))
+    del tbatch, tplan
+    torch.cuda.empty_cache()
 
+    zero_counters()
     stats = serve(model, pts, dev)
-    for r in rows:
-        r["launches"] = stats["launches"][r["name"]]
     print(f"[serve] p50 {stats['p50_ms']:.3f} ms per 100k-point request on "
           f"{card}; stages {stats['stages_ms']}", flush=True)
     agree = cross_check(model, dev)
+    del model
+    torch.cuda.empty_cache()
+
+    zero_counters()
+    tstats = train(dev)
+    print(f"[train] p50 {tstats['p50_ms']:.3f} ms per step of "
+          f"{TRAIN_BATCH} x {POINTS} points ({tstats['scans_per_s']:.3f} "
+          f"scans/s), peak {tstats['peak_mem_gb']:.2f} GB on {card}; stages "
+          f"{tstats['stages_ms']}", flush=True)
+    tcheck = train_cross_check(dev)
+
+    by_path = {"serve": stats["launches"], "train": tstats["launches"]}
+    for path, names in (("serve", PER_FORWARD), ("train", PER_STEP)):
+        for k in names:  # every kernel of the path ran in the path's run
+            if by_path[path][k] <= 0:
+                raise AssertionError(f"{k} never launched on the {path} path")
+    for r in rows:
+        r["launches"] = sum(by_path[p].get(r["name"], 0) for p in by_path)
+        r["launches_by_path"] = {p: by_path[p].get(r["name"], 0)
+                                 for p in by_path}
 
     summary = {"card": card, "build_s": build_s,
                "total_s": time.perf_counter() - t_start,
-               "serve": stats, "label_agreement_vs_cpu": agree}
+               "serve": stats, "label_agreement_vs_cpu": agree,
+               "train": tstats, "train_check_vs_cpu": tcheck}
     print("[summary] " + json.dumps(summary), flush=True)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     extra = ("shape", "max_rel_err", "tol_rel")
     entries = {}
     for r in rows:  # one entry per kernel; further shapes nest under it

@@ -60,10 +60,11 @@ class ZPlan:
     def level(self, i: int) -> ZLevel:
         return self.levels[i]
 
-    def scatter_rows(self, values):
+    def scatter_rows(self, values, fill=0):
         """Scatter per-input-row values into the level-0 augmented layout
-        (zero elsewhere)."""
-        return _scatter_rows(self.pos, values, self.levels[0].coords.shape[0])
+        (`fill` elsewhere; lidog_tpu/core/zseg.py:93)."""
+        return _scatter_rows(self.pos, values, self.levels[0].coords.shape[0],
+                             fill)
 
 
 # ---------------------------------------------------------------------------
@@ -340,9 +341,9 @@ def _seg_valid_mask(counts, num_batches: int, seg_cap: int):
     return (r < counts.clamp(max=seg_cap)[:, None]).reshape(-1)
 
 
-def _scatter_rows(pos, values, cap: int):
+def _scatter_rows(pos, values, cap: int, fill=0):
     slot = torch.where((pos >= 0) & (pos < cap), pos, cap)
-    out = values.new_zeros((cap + 1,) + tuple(values.shape[1:]))
+    out = values.new_full((cap + 1,) + tuple(values.shape[1:]), fill)
     out[slot] = values
     return out[:cap]
 

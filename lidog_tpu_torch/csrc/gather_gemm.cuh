@@ -1,12 +1,16 @@
 // Gather-GEMM template shared by the three sparse conv forwards
-// (zconv3_fwd.cu, zconv_down_fwd.cu, zconv_up_fwd.cu).
+// (zconv3_fwd.cu, zconv_down_fwd.cu, zconv_up_fwd.cu) and the zconv3
+// backward dx (zconv3_bwd_dx.cu).
 //
 //   out[i, :] = mask[i] * sum_{o < NOFF} sum_{t < NTAPS} x[src(o, t, i), :] @ w[o, t]
 //
 // where src(o, t, i) is a row of x or -1 (a zero row), given by a Map
 // policy.  w is [NOFF * NTAPS * cin, cout] row-major (the JAX layout
 // [K, Cin, Cout] with K = NOFF * NTAPS).  Accumulation is f32; the output
-// is rounded once to the input type.
+// is rounded once to the input type.  A null `mask` keeps every row; a
+// non-null `src_mask` turns a source row s with src_mask[s] == 0 into a
+// zero row (the backward passes reuse a forward kernel on a cotangent
+// that the forward's output mask zeroes).
 //
 // Design (first version: right and simple, no pipelining).  One block of
 // 128 threads owns a BM = 64 row x BN (64 or 32) column output tile.  For
@@ -137,7 +141,8 @@ struct MmaTile<float, BN> {
 template <typename T, int BN, class Map>
 __global__ void __launch_bounds__(NT)
 gather_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   const uint8_t* __restrict__ mask, T* __restrict__ out, Map map,
+                   const uint8_t* __restrict__ mask, const uint8_t* __restrict__ src_mask,
+                   T* __restrict__ out, Map map,
                    int n_in, int n_out, int cin, int cout) {
   constexpr int EPV = 16 / sizeof(T);  // elements per 16-byte vector
   constexpr int AP = BK + EPV;         // padded row pitches (16-byte multiples)
@@ -161,7 +166,7 @@ gather_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
       int s = -1;
       if (tid < BM && m0 + tid < n_out) {
         s = map.src(o, t, m0 + tid);
-        if (s >= n_in) s = -1;
+        if (s >= n_in || (s >= 0 && src_mask != nullptr && !src_mask[s])) s = -1;
       }
       __syncthreads();  // the previous pair's loads have read src
       if (tid < BM) src[tid] = s;
@@ -192,23 +197,26 @@ gather_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const int r = v / BN, c = v % BN;
     const int row = m0 + r;
     if (row < n_out)
-      out[(size_t)row * cout + n0 + c] = from_f32<T>(mask[row] ? Cs[r * CP + c] : 0.0f);
+      out[(size_t)row * cout + n0 + c] =
+          from_f32<T>(mask == nullptr || mask[row] ? Cs[r * CP + c] : 0.0f);
   }
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
 template <class Map>
-int launch_gather_gemm(const void* x, const void* w, const void* mask, void* out, Map map,
-                       int n_in, int n_out, int cin, int cout, int dtype, void* stream) {
+int launch_gather_gemm(const void* x, const void* w, const void* mask, const void* src_mask,
+                       void* out, Map map, int n_in, int n_out, int cin, int cout, int dtype,
+                       void* stream) {
   if (n_out <= 0 || cin <= 0 || cin % BK != 0 || cout % 32 != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const bool bn64 = cout % 64 == 0;
   const dim3 grid((n_out + BM - 1) / BM, cout / (bn64 ? 64 : 32));
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
+  const uint8_t* sm = static_cast<const uint8_t*>(src_mask);
 #define LIDOG_LAUNCH(T, BN)                                                                 \
   gather_gemm_kernel<T, BN, Map><<<grid, NT, 0, st>>>(                                     \
-      static_cast<const T*>(x), static_cast<const T*>(w), m, static_cast<T*>(out), map, \
+      static_cast<const T*>(x), static_cast<const T*>(w), m, sm, static_cast<T*>(out), map, \
       n_in, n_out, cin, cout)
   if (dtype == 1) {
     if (bn64) LIDOG_LAUNCH(__nv_bfloat16, 64); else LIDOG_LAUNCH(__nv_bfloat16, 32);

@@ -38,5 +38,6 @@ extern "C" int zconv3_fwd(const void* x, const void* nbr9, const void* zup, cons
                           int cout, int dtype, void* stream) {
   Conv3Map map{static_cast<const int*>(nbr9), static_cast<const uint8_t*>(zup),
                static_cast<const uint8_t*>(zdn), na};
-  return lidog::launch_gather_gemm(x, wf, mask, out, map, na, na, cin, cout, dtype, stream);
+  return lidog::launch_gather_gemm(x, wf, mask, nullptr, out, map, na, na, cin, cout, dtype,
+                                   stream);
 }

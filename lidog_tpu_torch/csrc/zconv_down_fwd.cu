@@ -8,6 +8,11 @@
 // x is the fine level [n_in, cin], out the coarse level [n_out, cout]; a -1
 // map entry is a zero row.  The shared gather-GEMM (gather_gemm.cuh) with
 // eight offsets and one tap; f32 accumulation, one rounding, as in JAX.
+//
+// The backward of zconv_up launches this kernel too (lidog_tpu/ops/
+// zconv.py:561-568, `_down_loop(dout, nbr8, W^T)`): x is then the fine
+// cotangent, w8 the transposed weights, src_mask the fine output mask and
+// mask null (dx is not masked).
 #include "gather_gemm.cuh"
 
 namespace {
@@ -21,8 +26,9 @@ struct DownMap {
 }  // namespace
 
 extern "C" int zconv_down_fwd(const void* x, const void* nbr8, const void* w8, const void* mask,
-                              void* out, int n_in, int n_out, int cin, int cout, int dtype,
-                              void* stream) {
+                              const void* src_mask, void* out, int n_in, int n_out, int cin,
+                              int cout, int dtype, void* stream) {
   DownMap map{static_cast<const int*>(nbr8), n_out};
-  return lidog::launch_gather_gemm(x, w8, mask, out, map, n_in, n_out, cin, cout, dtype, stream);
+  return lidog::launch_gather_gemm(x, w8, mask, src_mask, out, map, n_in, n_out, cin, cout, dtype,
+                                   stream);
 }

@@ -12,6 +12,11 @@
 // Each row's product is summed in f32 and rounded once, which equals the
 // JAX version's rounding of the selected product.  The first version pays
 // the MMAs of the zero rows of the other offsets in a tile.
+//
+// The backward of zconv_down launches this kernel too (lidog_tpu/ops/
+// zconv.py:505-516, `_onehot_matmuls(dout[parent], off, W, transpose=True)`):
+// x is then the coarse cotangent, w8 the transposed weights, src_mask the
+// coarse output mask and mask null (dx is not masked).
 #include "gather_gemm.cuh"
 
 namespace {
@@ -25,8 +30,9 @@ struct UpMap {
 }  // namespace
 
 extern "C" int zconv_up_fwd(const void* x, const void* parent, const void* off, const void* w8,
-                            const void* mask, void* out, int n_in, int n_out, int cin, int cout,
-                            int dtype, void* stream) {
+                            const void* mask, const void* src_mask, void* out, int n_in,
+                            int n_out, int cin, int cout, int dtype, void* stream) {
   UpMap map{static_cast<const int*>(parent), static_cast<const int*>(off)};
-  return lidog::launch_gather_gemm(x, w8, mask, out, map, n_in, n_out, cin, cout, dtype, stream);
+  return lidog::launch_gather_gemm(x, w8, mask, src_mask, out, map, n_in, n_out, cin, cout, dtype,
+                                   stream);
 }

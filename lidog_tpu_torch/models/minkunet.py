@@ -1,8 +1,10 @@
-"""MinkUNet34 (sparse 3D U-Net), forward on the zseg engine.
+"""MinkUNet34 (sparse 3D U-Net) on the zseg engine, eval and train mode.
 
-Port of lidog_tpu/models/minkunet.py:46-389 for serving: the occupancy
-stem, the z-fused convs (ops/zconv.py), 1x1 convs, and BatchNorm in eval
-mode fused with ReLU and the residual add (ops/norm.py).
+Port of lidog_tpu/models/minkunet.py:46-389: the occupancy stem, the
+z-fused convs (ops/zconv.py, autograd ops with the JAX custom backward),
+1x1 convs, and masked BatchNorm fused with ReLU and the residual add
+(ops/norm.py).  `module.train()` normalises with the batch moments and
+updates the running stats; `module.eval()` takes the running stats.
 
   * stem conv k=5 -> BN -> ReLU at stride 1
   * 4 encoder stages: [down conv k=2 s=2 -> BN -> ReLU -> BasicBlock x L]
@@ -14,8 +16,15 @@ Module and parameter names follow the flax modules, so the flax path
 `backbone/block2_0/conv1/kernel` is the key `backbone.block2_0.conv1.kernel`
 (utils/from_jax.py).  Conv kernels are [K, Cin, Cout] with offsets in
 lexicographic (dx, dy, dz) order, dz fastest.  `compute_dtype` runs the
-convs in that dtype with f32 accumulation; parameters stay f32 and norms
-compute in f32.
+convs in that dtype with f32 accumulation; parameters stay f32 (their
+gradients arrive through the `.to(compute_dtype)` casts) and norms
+compute in f32.  The stem occupancy GEMM and the 1x1 convs are
+torch.matmul under autograd, as the JAX package leaves them to XLA.
+
+Every norm updates its running stats with momentum 0.1: the JAX model
+takes a `bn_momentum` but never passes it on to its norms
+(lidog_tpu/models/minkunet.py:236-248,314,326,350), and the port keeps
+that behaviour (ops/norm.py MaskedBatchNorm.MOMENTUM, ROADMAP section 3).
 
 Weight init: Kaiming normal fan-out drawn from an explicit torch.Generator
 (lidog_tpu/models/minkunet.py:37-43); BN scale 1, bias 0, running mean 0,
@@ -69,12 +78,15 @@ class SparseConv(nn.Module):
             feats = zconv3(x.feats, plan.kmaps[f"conv9_l{i}"], L.zup, L.zdn,
                            w, out_mask=m)
         elif self.kmap.startswith("down_"):
-            feats = zconv_down(x.feats, plan.kmaps[f"down8_l{self.in_level}"],
-                               w, out_mask=m)
+            i = self.in_level
+            feats = zconv_down(x.feats, plan.kmaps[f"down8_l{i}"],
+                               plan.kmaps[f"parent_l{i}"],
+                               plan.kmaps[f"off_l{i}"], w, out_mask=m)
         elif self.kmap.startswith("up_"):
             i = self.out_level
             feats = zconv_up(x.feats, plan.kmaps[f"parent_l{i}"],
-                             plan.kmaps[f"off_l{i}"], w, out_mask=m)
+                             plan.kmaps[f"off_l{i}"],
+                             plan.kmaps[f"down8_l{i}"], w, out_mask=m)
         else:
             raise ValueError(f"unknown kmap {self.kmap!r}")
         return SparseTensor(coords=out_l.coords, feats=feats, mask=m,
@@ -98,7 +110,7 @@ class SparseConv1x1(nn.Module):
 
 
 class NormReLU(nn.Module):
-    """BN (eval) with optional residual add and ReLU, one fused pass."""
+    """BN with optional residual add and ReLU, one fused pass."""
 
     def __init__(self, channels: int, relu: bool = True):
         super().__init__()

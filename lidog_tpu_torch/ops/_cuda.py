@@ -18,7 +18,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lidog_tpu_torch"
-SOURCES = ("zconv3_fwd", "zconv_down_fwd", "zconv_up_fwd")
+SOURCES = ("zconv3_fwd", "zconv_down_fwd", "zconv_up_fwd", "zconv3_bwd_dx",
+           "zconv_wgrad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -26,9 +27,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "zconv3_fwd": [_P] * 7 + [_I] * 4 + [_P],
-    "zconv_down_fwd": [_P] * 5 + [_I] * 5 + [_P],
-    "zconv_up_fwd": [_P] * 6 + [_I] * 5 + [_P],
+    "zconv_down_fwd": [_P] * 6 + [_I] * 5 + [_P],
+    "zconv_up_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    "zconv3_bwd_dx": [_P] * 7 + [_I] * 4 + [_P],
+    "zconv3_wgrad": [_P] * 8 + [_I] * 6 + [_P],
+    "zconv_down_wgrad": [_P] * 7 + [_I] * 7 + [_P],
+    "zconv_up_wgrad": [_P] * 7 + [_I] * 7 + [_P],
 }
+# the source (library) of each C function that is not named after its own
+_SOURCE_OF = {"zconv3_wgrad": "zconv_wgrad", "zconv_down_wgrad": "zconv_wgrad",
+              "zconv_up_wgrad": "zconv_wgrad"}
 
 _libs = {}
 
@@ -85,24 +93,29 @@ def build(names=SOURCES) -> float:
     return time.perf_counter() - t0
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel (built first if needed)."""
-    lib = _libs.get(name)
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of one source (built first if needed), with the
+    C signature of each of its functions set."""
+    lib = _libs.get(source)
     if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
+        build((source,))
+        lib = ctypes.CDLL(str(_lib_path(source)))
+        for fn_name, argtypes in _ARGTYPES.items():
+            if _SOURCE_OF.get(fn_name, fn_name) == source:
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        _libs[source] = lib
     return lib
 
 
 def call(name: str, *args) -> None:
-    """Launch kernel `name` on the current stream; raise on a CUDA error."""
+    """Launch C function `name` on the current stream; raise on a CUDA
+    error."""
     import torch
 
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(name), name)(*args, stream)
+    lib = library(_SOURCE_OF.get(name, name))
+    err = getattr(lib, name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")

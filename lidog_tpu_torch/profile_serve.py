@@ -38,16 +38,39 @@ def _kernel_events(prof):
     return sorted(out, key=lambda t: -t[1])
 
 
+# device kernel name fragment -> the wrapper (launch counter) it belongs to
+_GROUPS = (("Conv3Map", "zconv3_fwd"), ("DownMap", "zconv_down_fwd"),
+           ("UpMap", "zconv_up_fwd"), ("bn_act_kernel", "bn_act"),
+           ("Conv3DxMap", "zconv3_bwd_dx"), ("Conv3WMap", "zconv3_wgrad"),
+           ("DownWMap", "zconv_down_wgrad"), ("UpWMap", "zconv_up_wgrad"),
+           ("wgrad_sum_kernel", "zconv wgrad sum pass (KF)"),
+           ("bn_stats_kernel", "bn_train_fwd"),
+           ("bn_train_finalize_kernel", "bn_train_fwd"),
+           ("bn_bwd_", "bn_train_bwd"))
+
+
 def _group(name: str) -> str:
-    if "Conv3Map" in name:
-        return "zconv3_fwd"
-    if "DownMap" in name:
-        return "zconv_down_fwd"
-    if "UpMap" in name:
-        return "zconv_up_fwd"
-    if "bn_act_kernel" in name:
-        return "bn_act"
+    for frag, group in _GROUPS:
+        if frag in name:
+            return group
     return "other (plain torch)"
+
+
+def print_groups(kernels, per: int, unit: str) -> None:
+    """Device ms and launches per `unit` of each kernel group."""
+    groups = {}
+    for name, us, n in kernels:
+        g = groups.setdefault(_group(name), [0.0, 0])
+        g[0] += us / 1e3 / per
+        g[1] += n // per
+    for g, (ms, n) in sorted(groups.items(), key=lambda t: -t[1][0]):
+        print(f"[profile] {g}: {ms:.3f} ms device, {n} launches per {unit}")
+
+
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def main(argv=None):
@@ -62,9 +85,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: needs a CUDA device")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0])
+    print(card_line())
     model = MinkUNet34(out_channels=7, compute_dtype=torch.bfloat16,
                        generator=torch.Generator().manual_seed(0))
     pts = SyntheticLidarDataset(num_scans=1, points_per_scan=100_000,
@@ -88,13 +109,7 @@ def main(argv=None):
     busy_ms = sum(us for _, us, _ in kernels) / 1e3 / args.requests
     print(f"[profile] per request: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
-    groups = {}
-    for name, us, n in kernels:
-        g = groups.setdefault(_group(name), [0.0, 0])
-        g[0] += us / 1e3 / args.requests
-        g[1] += n // args.requests
-    for g, (ms, n) in sorted(groups.items(), key=lambda t: -t[1][0]):
-        print(f"[profile] {g}: {ms:.3f} ms device, {n} launches per request")
+    print_groups(kernels, args.requests, "request")
 
     with torch.no_grad():
         flat = pts_dev.reshape(-1, 3)

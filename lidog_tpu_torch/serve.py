@@ -25,6 +25,7 @@ from lidog_tpu_torch.caps import make_zcaps
 from lidog_tpu_torch.core.engine import input_tensor
 from lidog_tpu_torch.core.voxelize import voxelize_device
 from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+from lidog_tpu_torch.utils.device import resolve_device
 
 
 class Predictor:
@@ -38,12 +39,7 @@ class Predictor:
                  caps_per_scan: int = 98_304, grid_half: int = 1024,
                  caps: Optional[Tuple[Tuple[int, ...], ...]] = None,
                  device=None):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError("no CUDA device: pass device='cpu' to run "
-                                   "the plain PyTorch path on the CPU")
-            device = "cuda"
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.voxel_size = voxel_size
         self.cap_in = caps_per_scan * batch_size
         caps_r, caps_a, caps_d = caps or make_zcaps(caps_per_scan)

@@ -1,4 +1,5 @@
-"""lidog_tpu_torch's model and Predictor vs lidog_tpu's, on the CPU.
+"""lidog_tpu_torch's model, Predictor and train step vs lidog_tpu's, on
+the CPU.
 
 Weights come from the JAX model's init (flax tree -> state_dict through
 lidog_tpu_torch.utils.from_jax), with BatchNorm running statistics
@@ -12,6 +13,17 @@ Tolerances (relative to max |JAX logits|):
   * full MinkUNet34 Predictor, f32: logits 1e-3 (23 blocks of f32 sums in
     another order), and per-point labels equal wherever the JAX top-2
     logit margin exceeds 1e-3 of max |logits|.
+  * train step (narrow backbone, SoftDICE, Adam), each of two steps from
+    a carried-over lidog_tpu TrainState: see TRAIN_TOL.  In f32 the loss,
+    every grad and the batch_stats agree to summation order, and the
+    confusion matrix is exact.  Adam's update is about lr * sign(g) where
+    |g| is small against its moments, so the params after the step are
+    compared elementwise only where |g| >= 1e-5 max|g| of the tensor, and
+    elsewhere within 2 lr per step taken (each side steps from its own
+    params, which by then differ there by up to about lr).  bf16 rounds at the same points with other
+    summation orders: one bf16 step moves a logit by 4e-3 relative, so
+    argmax may differ on near-ties, and the confusion matrix then agrees
+    in its total and in all but a few rows.
 """
 
 import numpy as np
@@ -154,7 +166,7 @@ def test_narrow_backbone_logits(dtype, request):
     want = np.asarray(want.astype(jnp.float32))
 
     model = MinkUNet34(out_channels=5, compute_dtype=getattr(torch, dtype),
-                       **NARROW)
+                       **NARROW).eval()  # the running stats, as train=False
     model.load_state_dict(state_dict_from_flax(
         {c: {"backbone": variables[c]} for c in variables}), strict=True)
     tvox, tplan = _torch_plan(pts)
@@ -238,3 +250,212 @@ def test_predictor_needs_a_device(monkeypatch):
     assert labels.shape == (B, P) and labels.dtype == np.int32
     assert pred.overflow.sum() == 0
     assert (labels >= 0).mean() > 0.95 and labels.max() < 5
+
+
+# (loss, grads and batch_stats relative to max |JAX| per tensor, params
+# where |g| is large: |delta| / lr)
+TRAIN_TOL = {"float32": (1e-5, 5e-5, 1e-2), "bfloat16": (1e-3, 1e-2, 0.5)}
+# the data of the train-step test: at this seed lidog_tpu's own jit of its
+# step and jit of its grad agree to 1e-4 at every step (at seed 3 with two
+# sources they part by 8% after one Adam step: a BatchNorm over a few
+# level-4 rows whose variance cancels), and the two bf16 forwards round
+# alike (at seeds 5 and 6 one bf16 sum rounds one step apart early, and
+# BatchNorm's backward, a difference of two bf16-rounded terms, amplifies
+# it to 10-50% of the grads on both sides alike)
+TRAIN_SEED = 4
+
+
+def _batches(seed, nsrc):
+    """Per source: points [B, P, 3] and labels [B, P] in [-1, 5)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(nsrc):
+        pts = (rng.rand(B, P, 3).astype(np.float32) - 0.5) * 10.0
+        out.append((pts, rng.randint(-1, 5, (B, P)).astype(np.int32)))
+    return out
+
+
+@pytest.mark.parametrize("case", ["float32", "bfloat16", "float32-2src"])
+def test_train_step_matches_jax(case, request):
+    """From a lidog_tpu TrainState (after one JAX step, so Adam's moments
+    and count are not trivial) carried into the port, two steps on each
+    side: loss, confusion, every grad, the params after Adam and the
+    batch_stats."""
+    from tests.conftest import run_isolated
+
+    if run_isolated(request):
+        return
+    import types
+    from typing import Any
+
+    import flax.linen as fnn
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from lidog_tpu.core.zseg import ZSegPlanBuilder as JaxBuilder
+    from lidog_tpu.losses import SoftDICELoss as JaxDice
+    from lidog_tpu.models.minkunet import MinkUNetBackbone
+    from lidog_tpu.train import TrainState as JaxState
+    from lidog_tpu.train import make_optimizer as jax_optimizer
+    from lidog_tpu.train import make_train_step as jax_train_step
+    from lidog_tpu.train.device_pipeline import device_batch_from_points as jdb
+    from lidog_tpu.train.train_step import _forward_loss
+    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+    from lidog_tpu_torch.losses.losses import SoftDICELoss
+    from lidog_tpu_torch.models.minkunet import MinkUNet34
+    from lidog_tpu_torch.train.device_pipeline import device_batch_from_points
+    from lidog_tpu_torch.train.optim import make_optimizer
+    from lidog_tpu_torch.train.train_step import TrainState, make_train_step
+    from lidog_tpu_torch.utils.from_jax import (load_train_state,
+                                                state_dict_from_flax)
+
+    dtype = case.split("-")[0]
+    nsrc = 2 if case.endswith("2src") else 1
+    tol_loss, tol_grad, tol_param = TRAIN_TOL[dtype]
+    lr, C = 1e-3, 5
+    sfx = [""] if nsrc == 1 else [str(s) for s in range(nsrc)]
+    weights = (0.5, 0.5)
+
+    class JaxNarrow(fnn.Module):
+        compute_dtype: Any
+
+        @fnn.compact
+        def __call__(self, x, plan, train=True):
+            return MinkUNetBackbone(out_channels=C,
+                                    compute_dtype=self.compute_dtype,
+                                    name="backbone", **NARROW)(
+                x, plan, train)[0]
+
+    jm = JaxNarrow(jnp.dtype(dtype))
+    jbuilder = jax.jit(JaxBuilder(CAPS_R, CAPS_A, num_batches=B,
+                                  grid_half=GRID_HALF))
+    tbuilder = ZSegPlanBuilder(CAPS_R, CAPS_A, num_batches=B,
+                               grid_half=GRID_HALF)
+    jbatch, jplans, tbatch, tplans = {}, {}, {}, {}
+    for s, (pts, lab) in zip(sfx, _batches(TRAIN_SEED, nsrc)):
+        jb = jdb(jnp.asarray(pts), jnp.ones((B, P), bool), jnp.asarray(lab),
+                 VOXEL, B * CAPS_R[0])
+        tb = device_batch_from_points(torch.from_numpy(pts),
+                                      torch.ones(B, P, dtype=torch.bool),
+                                      torch.from_numpy(lab), VOXEL,
+                                      B * CAPS_R[0])
+        for k in jb:
+            np.testing.assert_array_equal(np.asarray(jb[k]), tb[k].numpy())
+            jbatch[k + s], tbatch[k + s] = jb[k], tb[k]
+        jplans[s] = jbuilder(jb["coords"], jb["mask"])
+        tplans[s] = tbuilder(tb["coords"], tb["mask"])
+        assert int(np.asarray(jplans[s].overflow).sum()) == 0
+    jplan_arg = jplans if nsrc > 1 else jplans[""]
+    tplan_arg = tplans if nsrc > 1 else tplans[""]
+
+    variables, _ = _jax_variables(
+        jm, types.SimpleNamespace(mask=jbatch["mask" + sfx[0]]),
+        jplans[sfx[0]])
+    tx = jax_optimizer("Adam", lr=lr)
+    crit = JaxDice(ignore_label=-1)
+    jstep = jax.jit(jax_train_step(jm, tx, crit, CAPS_R, num_classes=C,
+                                   source_weights=weights,
+                                   num_sources=nsrc))
+
+    def loss_fn(params, stats):
+        total = 0.0
+        for i, s in enumerate(sfx):
+            loss, stats, _ = _forward_loss(jm, params, stats, jbatch, CAPS_R,
+                                           crit, C, True, suffix=s,
+                                           plan=jplans[s])
+            total = total + (weights[i] * loss if nsrc > 1 else loss)
+        return total
+
+    jgrad = jax.jit(jax.grad(loss_fn))
+    jstate = JaxState.create(variables, tx)
+    jstate, _ = jstep(jstate, jbatch, jplan_arg)  # Adam's moments, count 1
+
+    model = MinkUNet34(out_channels=C, compute_dtype=getattr(torch, dtype),
+                       **NARROW)
+    tstate = TrainState.create(model, make_optimizer("Adam", lr=lr),
+                               device="cpu")
+    load_train_state(tstate, jax.device_get(jstate))
+    tstep = make_train_step(SoftDICELoss(ignore_label=-1), num_classes=C,
+                            source_weights=weights, num_sources=nsrc)
+
+    def leaf(tree, key):
+        for part in key.split("."):
+            tree = tree[part]
+        return np.asarray(tree, np.float32)
+
+    for step in range(2):
+        if step:
+            # the second step starts from JAX's params (the optimizer state
+            # and batch_stats stay the port's own): where Adam's moment is
+            # near 0 the first update is sign-sensitive and the two runs'
+            # params part by up to ~lr, which would blur this step
+            model.load_state_dict(state_dict_from_flax(
+                {"params": jax.device_get(jstate.params)}), strict=False)
+        grads = jax.device_get(jgrad(jstate.params, jstate.batch_stats))
+        jstate, jm_out = jstep(jstate, jbatch, jplan_arg)
+        tstate, tm_out = tstep(tstate, tbatch, tplan_arg)
+        lj, lt = float(jm_out["loss"]), float(tm_out["loss"])
+        assert np.isfinite(lt) and abs(lj - lt) <= tol_loss * abs(lj), \
+            (step, lj, lt)
+        cm_t = tm_out["confusion"].numpy()
+        np.testing.assert_array_equal(np.asarray(jm_out["confusion"]), cm_t)
+        assert cm_t.sum() > 0
+        jvars = jax.device_get({"params": jstate.params,
+                                "batch_stats": jstate.batch_stats})
+        mu = [p for p in jax.device_get(jstate.opt_state)
+              if hasattr(p, "mu")][0].mu
+        for name, p in model.named_parameters():
+            assert _rel(leaf(grads, name), p.grad.numpy()) <= tol_grad, \
+                (step, name)
+            # Adam's update is well-conditioned where its new first moment
+            # is not near 0 (from a fresh state mu = 0.1 g: the |g| rule)
+            m = np.abs(leaf(mu, name))
+            sure = m >= 1e-3 * m.max()
+            d = np.abs(leaf(jvars["params"], name) - p.detach().numpy())
+            assert (d[sure] <= tol_param * lr).all(), (step, name, d.max())
+            assert (d <= 2 * lr).all(), (step, name, d.max())
+        for name, buf in model.named_buffers():
+            assert _rel(leaf(jvars["batch_stats"], name),
+                        buf.numpy()) <= tol_grad, (step, name)
+    assert tstate.step == int(jstate.step) == 3
+
+
+def test_train_step_needs_a_device(monkeypatch):
+    """Without a card and without device="cpu" TrainState.create raises;
+    with device="cpu" a step runs on the plain path and trains."""
+    import torch
+
+    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+    from lidog_tpu_torch.losses.losses import SoftDICELoss
+    from lidog_tpu_torch.models.minkunet import MinkUNet34
+    from lidog_tpu_torch.train.device_pipeline import device_batch_from_points
+    from lidog_tpu_torch.train.optim import make_optimizer
+    from lidog_tpu_torch.train.train_step import (TrainState, make_eval_step,
+                                                  make_train_step)
+
+    model = MinkUNet34(out_channels=5, **NARROW)
+    tx = make_optimizer("Adam", lr=1e-2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrainState.create(model, tx)
+    state = TrainState.create(model, tx, device="cpu")
+    (pts, lab), = _batches(4, 1)
+    batch = device_batch_from_points(torch.from_numpy(pts),
+                                     torch.ones(B, P, dtype=torch.bool),
+                                     torch.from_numpy(lab), VOXEL,
+                                     B * CAPS_R[0])
+    plan = ZSegPlanBuilder(CAPS_R, CAPS_A, num_batches=B,
+                           grid_half=GRID_HALF)(batch["coords"],
+                                                batch["mask"])
+    crit = SoftDICELoss(ignore_label=-1)
+    step = make_train_step(crit, num_classes=5)
+    losses = []
+    for _ in range(3):
+        state, metrics = step(state, batch, plan)
+        losses.append(float(metrics["loss"]))
+    supervised = int(((batch["labels"] >= 0) & batch["mask"]).sum())
+    assert int(metrics["confusion"].sum()) == supervised
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    ev = make_eval_step(crit, num_classes=5)(state, batch, plan)
+    assert np.isfinite(float(ev["loss"])) and state.step == 3

@@ -35,7 +35,23 @@ no result line):
   7. train cross-check: one f32 step of full-width MinkUNet34 on a
      20,000-point scan on the card and on the CPU from the same weights:
      loss, every grad, the params after Adam and the batch_stats within
-     stated bounds.
+     stated bounds;
+  8. the BEV kernels KI and KJ against their plain versions at the
+     training plan's level 0 (491,520 rows x 96, ReLU-like features), bf16
+     and f32: KI equal, KJ within 1 ulp of the dtype per element; KI also
+     beside one scatter_reduce_ call (library_ms);
+  9. full-width LiDOG training (bench_lidog.py's shapes): MinkUNet34BEV
+     bf16, 4 scans x 100,000 points through the host BEV preprocessing
+     (head 167, level block8), SoftDICE + DICE, Adam (lr 1e-3), warm-up
+     0; 1 warm-up and 5 timed steps; zero overflow, finite total, sem and
+     bev losses with the last total below the first, proj_iou in [0, 1],
+     and every counter equal to its launches per step x steps (KI = KJ =
+     1 per step); then the stage split of one more step;
+ 10. BEV head cross-check: bev_scatter_pooled -> Encoder2D -> DICE, forward
+     and backward, f32 on one full-grid scan, on the card and on the CPU
+     from the same features and weights: the loss within 1e-5, each grad
+     in relative L2 within 10x the larger of a 1e-7 weight-perturbation
+     floor and the spread of two CPU convolution libraries.
 
 The line before the last is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.  Exits non-zero without a card, and
@@ -82,6 +98,14 @@ PER_STEP = {"zconv3_fwd": 46, "zconv_down_fwd": 8, "zconv_up_fwd": 8,
             "bn_act": 62, "zconv3_bwd_dx": 46, "zconv3_wgrad": 46,
             "zconv_down_wgrad": 4, "zconv_up_wgrad": 4, "bn_train_fwd": 62,
             "bn_train_bwd": 62}
+# LiDOG (bench_lidog.py:26-34, 66-121): bound 50 m, BEV labels 167^2, one
+# decoder level (block8); per step the backbone's launches and KI, KJ once
+# per level
+BOUND_2D = 50.0
+BEV_HEAD = 167
+LEVELS = ("block8",)
+PER_LIDOG_STEP = {**PER_STEP, "bev_scatter_max": len(LEVELS),
+                  "bev_scatter_max_bwd": len(LEVELS)}
 
 
 def card_line():
@@ -109,15 +133,15 @@ def cuda_ms(fn, iters=10):
 
 
 def counters():
-    from lidog_tpu_torch.ops import norm, zconv
+    from lidog_tpu_torch.ops import bev, norm, zconv
 
-    return {**zconv.LAUNCHES, **norm.LAUNCHES}
+    return {**zconv.LAUNCHES, **norm.LAUNCHES, **bev.LAUNCHES}
 
 
 def zero_counters():
-    from lidog_tpu_torch.ops import norm, zconv
+    from lidog_tpu_torch.ops import bev, norm, zconv
 
-    for d in (zconv.LAUNCHES, norm.LAUNCHES):
+    for d in (zconv.LAUNCHES, norm.LAUNCHES, bev.LAUNCHES):
         for k in d:
             d[k] = 0
 
@@ -137,6 +161,17 @@ def nbytes(*ts):
 def rel_err(a, b):
     return float((a.float() - b.float()).abs().max()
                  / b.float().abs().max().clamp(min=1e-30))
+
+
+def ulp_err(a, b):
+    """max |a - b| in units in the last place of b's dtype at |b|."""
+    import torch
+
+    mant = {torch.float32: 23, torch.bfloat16: 7}[b.dtype]
+    bf = b.float()
+    ulp = torch.ldexp(torch.ones_like(bf),
+                      torch.frexp(bf.abs()).exponent - 1 - mant)
+    return float(((a.float() - bf).abs() / ulp).max())
 
 
 class Checker:
@@ -172,11 +207,15 @@ class Checker:
         return max(tb, to), "bytes" if tb >= to else "operations"
 
     def record(self, name, source, replaces, kfn, pfn, dt, nbyte, ops, shape,
-               mma=True):
+               mma=True, ulps=None, lfn=None):
         """kfn/pfn return the output to compare (a tensor, or a tuple whose
         first entry is compared with the stated bound and whose others
         with the same bound each).  mma: the work is a matrix product (its
-        operations count against the tensor cores' rate in bf16)."""
+        operations count against the tensor cores' rate in bf16).  ulps:
+        hold every element within that many units in the last place of
+        the dtype at |plain| instead (0: equal).  lfn: one PyTorch call
+        that computes the same function (timed as library_ms, and held
+        equal to the plain version)."""
         import torch
 
         out_k, out_p = kfn(), pfn()
@@ -184,9 +223,16 @@ class Checker:
         if not isinstance(out_k, tuple):
             out_k, out_p = (out_k,), (out_p,)
         dname = str(dt).split(".")[-1]
-        t = self.TOL[dname].get(name, self.TOL_DEFAULT[dname])
-        errs = [rel_err(a, b) for a, b in zip(out_k, out_p)]
-        err = max(errs)
+        if ulps is None:
+            t = self.TOL[dname].get(name, self.TOL_DEFAULT[dname])
+            errs = [rel_err(a, b) for a, b in zip(out_k, out_p)]
+            err = max(errs)
+            ok = err <= t
+        else:
+            t = f"{ulps} ulp"
+            errs = [ulp_err(a, b) for a, b in zip(out_k, out_p)]
+            err = max(errs)
+            ok = err <= ulps
         kind = "bf16" if dt == torch.bfloat16 and mma else "f32"
         b_ms, b_by = self.bound(nbyte, ops, kind)
         shape = f"{shape} {dname}"
@@ -195,14 +241,21 @@ class Checker:
                "shape": shape, "max_abs_err": max(
                    float((a.float() - b.float()).abs().max())
                    for a, b in zip(out_k, out_p)),
-               "max_rel_err": err, "tol_rel": t, "ms": cuda_ms(kfn),
+               "max_rel_err": max(rel_err(a, b) for a, b in zip(out_k, out_p)),
+               "tol_rel": t, "ms": cuda_ms(kfn),
                "plain_ms": cuda_ms(pfn), "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": None}
-        print(f"[kernel] {name} {shape}: rel err {err:.3e} (bound {t}) "
+        if lfn is not None:
+            if not torch.equal(lfn(), out_p[0]):
+                raise AssertionError(f"{name} {shape}: the library call "
+                                     "differs from the plain version")
+            row["library_ms"] = cuda_ms(lfn)
+        print(f"[kernel] {name} {shape}: err {err:.3e} (bound {t}) "
               f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-        if not err <= t:
-            raise AssertionError(f"{name} {shape}: rel err {errs} > {t}")
+              f"library {row['library_ms']} ms, bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"{name} {shape}: err {errs} > {t}")
         self.rows.append(row)
 
 
@@ -810,6 +863,313 @@ def train_cross_check(dev):
     return {"card_vs_cpu": got, "floor": floor}
 
 
+def bev_kernel_checks(plan, gen):
+    """Phase 8: KI and KJ at the training plan's level 0 (the block8 tap's
+    rows), with ReLU-like features (half of them 0: ties at 0)."""
+    import torch
+
+    from lidog_tpu_torch.ops import bev
+
+    dev = plan.levels[0].coords.device
+    l0 = plan.level(0)
+    n, c = l0.coords.shape[0], 96
+    grid = int(round(2 * BOUND_2D / VOXEL))
+    hw = bev.pooled_size(grid, 5, 3, 1)
+    geom = (TRAIN_BATCH, grid, hw, 5, 3, 1)
+    ck = Checker(gen, dev)
+    cells, live = bev.candidates(l0.coords, l0.real, *geom)
+    k = cells.shape[0]
+    flat_idx = torch.where(live, cells, TRAIN_BATCH * hw * hw).reshape(-1)
+    touched = int(torch.unique(cells[live]).numel())
+    n_live = int(live.sum())
+    src = "lidog_tpu_torch/csrc/bev_scatter_max.cu"
+    for dt in (torch.bfloat16, torch.float32):
+        esz = torch.finfo(dt).bits // 8
+        feats = torch.relu(ck.feats(n, c, l0.real, dt)).contiguous()
+        grid_bytes = TRAIN_BATCH * hw * hw * c * esz
+        # one scatter_reduce_ over the K candidates of every row, dead
+        # candidates into a spare row (indices and sources made outside
+        # the timing)
+        lib_src = feats.float().clamp(min=0).to(dt).repeat(k, 1)
+        lib_idx = flat_idx[:, None].expand(-1, c)
+
+        def library():
+            out = torch.zeros(TRAIN_BATCH * hw * hw + 1, c, dtype=dt,
+                              device=dev)
+            out.scatter_reduce_(0, lib_idx, lib_src, "amax",
+                                include_self=True)
+            return out[:-1].view(TRAIN_BATCH, hw, hw, c)
+
+        ck.record("bev_scatter_max", src,
+                  "lidog_tpu/ops/bev.py:93 (_pooled_scatter_max; "
+                  "bev_scatter_pooled:31)",
+                  lambda: bev.bev_scatter_max(feats, l0.coords, l0.real,
+                                              *geom),
+                  lambda: bev.bev_scatter_max_plain(feats, l0.coords,
+                                                    l0.real, *geom),
+                  dt, nbytes(feats, l0.coords, l0.real) + grid_bytes,
+                  n_live * c, f"L0 {n} rows {c} -> {TRAIN_BATCH}x{hw}^2",
+                  mma=False, ulps=0, lfn=library)
+        out = bev.bev_scatter_max_plain(feats, l0.coords, l0.real, *geom)
+        dout = torch.randn(out.shape, generator=gen).to(dev, dt)
+        ck.record("bev_scatter_max_bwd", src,
+                  "lidog_tpu/ops/bev.py:115 (_psm_bwd)",
+                  lambda: bev.bev_scatter_max_bwd(feats, l0.coords, l0.real,
+                                                  out, dout, *geom),
+                  lambda: bev.bev_scatter_max_bwd_plain(
+                      feats, l0.coords, l0.real, out, dout, *geom),
+                  dt, 2 * nbytes(feats) + nbytes(l0.coords, l0.real)
+                  + 2 * touched * c * esz, 2 * n_live * c,
+                  f"L0 {n} rows {c} <- {TRAIN_BATCH}x{hw}^2 ({touched} "
+                  "cells touched)", mma=False, ulps=1)
+        del out, dout, lib_src
+    return ck.rows
+
+
+def lidog_batch(dev):
+    """bench_lidog.py's batch: 4 synthetic scans through the host BEV
+    preprocessing and collation; returns (tensors on dev, voxels
+    dropped to capacity)."""
+    import torch
+
+    from lidog_tpu_torch.data.bev import collate_bev, preprocess_scan_bev
+    from lidog_tpu_torch.data.synthetic import SyntheticLidarDataset
+
+    ds = SyntheticLidarDataset(num_scans=TRAIN_BATCH, points_per_scan=POINTS,
+                               radius=BOUND_2D, seed=SEED)
+    samples = [preprocess_scan_bev(
+        ds[i]["points"], ds[i]["sem_labels"], decoder_2d_levels=LEVELS,
+        voxel_size=VOXEL, bound_2d=BOUND_2D, sub_p=1.0, augmentations=None,
+        train=False, bev_img_sizes={lvl: BEV_HEAD for lvl in LEVELS})
+        for i in range(TRAIN_BATCH)]
+    arrays = collate_bev(samples, TRAIN_CAP_IN, decoder_2d_levels=LEVELS)
+    dropped = int(arrays.pop("dropped"))
+    return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}, dropped
+
+
+def lidog(dev):
+    """Phase 9: full-width bf16 LiDOG steps; returns stats."""
+    import torch
+
+    from lidog_tpu_torch.losses.losses import DICELoss, SoftDICELoss
+    from lidog_tpu_torch.models.minkunet_bev import MinkUNet34BEV
+    from lidog_tpu_torch.train.lidog_step import make_lidog_train_step
+    from lidog_tpu_torch.train.optim import make_optimizer
+    from lidog_tpu_torch.train.train_step import TrainState
+
+    t0 = time.perf_counter()
+    batch, dropped = lidog_batch(dev)
+    prep_s = time.perf_counter() - t0
+    model = MinkUNet34BEV(out_channels=NUM_CLASSES, decoder_2d_levels=LEVELS,
+                          num_batches=TRAIN_BATCH, voxel_size=VOXEL,
+                          bound_2d=BOUND_2D, compute_dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(SEED))
+    state = TrainState.create(model, make_optimizer("Adam", lr=1e-3),
+                              device=dev)
+    builder = train_plan_builder()
+    step = make_lidog_train_step(
+        SoftDICELoss(ignore_label=-1), DICELoss(ignore_label=-1),
+        decoder_levels=LEVELS, num_classes=NUM_CLASSES, warmup_epochs=0,
+        steps_per_epoch=1)
+
+    def full_step():
+        plan = builder(batch["coords"], batch["mask"])
+        _, metrics = step(state, batch, plan)
+        torch.cuda.synchronize()
+        return plan, metrics
+
+    def losses_of(m):
+        return [float(m[k]) for k in ("loss", "sem_loss", "bev_loss")]
+
+    plan, metrics = full_step()  # warm-up (Triton, cuDNN)
+    overflow = plan.overflow.cpu().tolist()
+    if sum(overflow) != 0:
+        raise AssertionError(f"LiDOG plan overflow {overflow}")
+    supervised = int(((batch["labels"] >= 0) & batch["mask"]).sum())
+    losses = [losses_of(metrics)]
+    proj = [float(metrics[f"proj_iou_{lvl}"]) for lvl in LEVELS]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    ms = []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = full_step()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(losses_of(metrics))
+        proj += [float(metrics[f"proj_iou_{lvl}"]) for lvl in LEVELS]
+        total = int(metrics["confusion"].sum())
+        if total != supervised:
+            raise AssertionError(f"confusion total {total} != {supervised} "
+                                 "supervised voxels")
+    launches = counters()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[lidog] overflow {overflow} dropped {dropped} supervised "
+          f"{supervised} losses (total, sem, bev) {losses} proj_iou {proj} "
+          f"step ms {ms}", flush=True)
+    if not all(math.isfinite(v) for row in losses for v in row) \
+            or not losses[-1][0] < losses[0][0]:
+        raise AssertionError(f"LiDOG losses {losses}: not finite or not "
+                             "falling")
+    if not all(0.0 <= v <= 1.0 for v in proj):
+        raise AssertionError(f"proj_iou {proj} outside [0, 1]")
+    for k, per in PER_LIDOG_STEP.items():
+        if launches[k] != per * TRAIN_STEPS:
+            raise AssertionError(f"{k}: {launches[k]} launches in LiDOG "
+                                 f"training, expected {per} x {TRAIN_STEPS}")
+    stages = lidog_stage_split(state, batch, builder)
+    p50 = statistics.median(ms)
+    return {"p50_ms": p50, "scans_per_s": TRAIN_BATCH / p50 * 1e3,
+            "step_ms": ms, "losses_total_sem_bev": losses, "proj_iou": proj,
+            "launches": launches, "stages_ms": stages,
+            "supervised_voxels": supervised, "dropped_voxels": dropped,
+            "host_preprocess_s": prep_s,
+            "real_rows_per_level": [int(l.real.sum()) for l in plan.levels],
+            "peak_mem_gb": peak,
+            "params": sum(p.numel() for p in model.parameters())}
+
+
+def lidog_stage_split(state, batch, builder):
+    """Device ms of plan / forward+losses / backward / optimizer for one
+    LiDOG step (CUDA events between the stages; median of 3)."""
+    import torch
+
+    from lidog_tpu_torch.losses.losses import DICELoss, SoftDICELoss
+    from lidog_tpu_torch.train.lidog_step import _lidog_forward
+
+    crits = (SoftDICELoss(ignore_label=-1), DICELoss(ignore_label=-1))
+    runs = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        plan = builder(batch["coords"], batch["mask"])
+        ev[1].record()
+        state.optimizer.zero_grad()
+        sem, bev, _, _ = _lidog_forward(state.model.train(), batch, *crits,
+                                        LEVELS, NUM_CLASSES, plan)
+        total = 0.5 * sem + 0.5 * bev
+        ev[2].record()
+        total.backward()
+        ev[3].record()
+        state.optimizer.step()
+        ev[4].record()
+        torch.cuda.synchronize()
+        runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+    names = ("plan", "forward+losses", "backward", "optimizer")
+    return {n: statistics.median(r[i] for r in runs)
+            for i, n in enumerate(names)}
+
+
+def bev_cross_check(dev):
+    """Phase 10: the BEV head (bev_scatter_pooled -> Encoder2D -> DICE,
+    forward and backward) in f32 on one full-grid scan, on the card and on
+    the CPU from the same block8-shaped features (ReLU-like, at the scan's
+    level-0 rows) and weights.  The CPU reference takes PyTorch's native
+    convolution (im2col and a matrix product).  Two floors, on the CPU:
+    the same head from the weights scaled by (1 + 1e-7 N(0, 1)), and the
+    same head through oneDNN's convolution.  The second is there because a
+    convolution library's own summation order moves one grad far more than
+    a 1e-7 perturbation does: against a float64 evaluation, the native f32
+    weight gradient of the second conv sits at 1.7e-6 (relative L2), and
+    oneDNN's at 1.1e-4, as cuDNN's on an H100 does.  The loss within 1e-5
+    (relative); each grad (Encoder2D's and the features') and all of them
+    together in relative L2 within 10x the larger floor (+ 1e-6)."""
+    import torch
+
+    from lidog_tpu_torch.caps import make_zcaps
+    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+    from lidog_tpu_torch.data.bev import collate_bev, preprocess_scan_bev
+    from lidog_tpu_torch.data.synthetic import SyntheticLidarDataset
+    from lidog_tpu_torch.losses.losses import DICELoss
+    from lidog_tpu_torch.models.conv2d import Encoder2D
+    from lidog_tpu_torch.ops.bev import bev_scatter_pooled
+
+    scan0 = SyntheticLidarDataset(num_scans=1, points_per_scan=POINTS,
+                                  radius=BOUND_2D, seed=SEED + 5)[0]
+    sample = preprocess_scan_bev(scan0["points"], scan0["sem_labels"],
+                                 voxel_size=VOXEL, bound_2d=BOUND_2D,
+                                 sub_p=1.0, train=False,
+                                 bev_img_sizes={"block8": BEV_HEAD})
+    caps_r, caps_a, caps_d = make_zcaps(PER_SCAN)
+    arrays = collate_bev([sample], caps_r[0])
+    coords = torch.from_numpy(arrays["coords"])
+    mask = torch.from_numpy(arrays["mask"])
+    plan = ZSegPlanBuilder(caps_r, caps_a, num_batches=1, grid_half=GRID_HALF,
+                           caps_col_dil=caps_d)(coords, mask)
+    if int(plan.overflow.sum()) != 0:
+        raise AssertionError(f"BEV check plan overflow {plan.overflow}")
+    l0 = plan.level(0)
+    gen = torch.Generator().manual_seed(SEED + 6)
+    feats = torch.relu(torch.randn(l0.coords.shape[0], 96, generator=gen)) \
+        * l0.real[:, None].float()
+    labels = torch.from_numpy(arrays["bev_labels_block8"])
+    enc = Encoder2D(96, n_classes=NUM_CLASSES,
+                    generator=torch.Generator().manual_seed(SEED + 7))
+    pert = copy.deepcopy(enc)
+    noise = torch.Generator().manual_seed(SEED + 8)
+    with torch.no_grad():
+        for p in pert.parameters():
+            p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=noise))
+    cpu = torch.device("cpu")
+    # (device, model, oneDNN convolutions on the CPU)
+    runs = {"cuda": (dev, copy.deepcopy(enc), False),
+            "cpu": (cpu, enc, False),
+            "floor": (cpu, pert, False),
+            "onednn": (cpu, copy.deepcopy(enc), True)}
+    out = {}
+    for where, (d, model, onednn) in runs.items():
+        torch.backends.mkldnn.enabled = onednn
+        model = model.to(d).train()
+        # a leaf of its own per run: on the CPU, feats.to(d) is feats itself,
+        # and a second backward would add into the first run's grad
+        f = feats.to(d, copy=True).requires_grad_()
+        t0 = time.perf_counter()
+        bev = bev_scatter_pooled(l0.coords.to(d), f, l0.real.to(d),
+                                 num_batches=1, voxel_size=VOXEL,
+                                 bound=BOUND_2D)
+        hw = bev.shape[1]
+        loss = DICELoss(ignore_label=-1)(model(bev), labels.to(d))
+        loss.backward()
+        grads = {n: p.grad.detach().cpu().clone()
+                 for n, p in model.named_parameters()}
+        grads["feats"] = f.grad.detach().cpu().clone()
+        out[where] = {"loss": float(loss.detach()), "grads": grads,
+                      "s": time.perf_counter() - t0}
+    torch.backends.mkldnn.enabled = True
+
+    def compare(a, b):
+        num = sum(float(((a["grads"][n] - g) ** 2).sum())
+                  for n, g in b["grads"].items())
+        den = sum(float((g ** 2).sum()) for g in b["grads"].values())
+        per = {n: float((a["grads"][n] - g).norm() / g.norm().clamp(
+            min=1e-30)) for n, g in b["grads"].items()}
+        return {"loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+                "grad_l2": (num / den) ** 0.5,
+                "grad_l2_worst": max(per.values()),
+                "grad_l2_worst_tensor": max(per, key=per.get),
+                "grad_l2_per_tensor": per}
+
+    got = compare(out["cuda"], out["cpu"])
+    floor = compare(out["floor"], out["cpu"])
+    lib = compare(out["onednn"], out["cpu"])
+    print(f"[bev-check] card vs CPU, f32, one scan, {int(l0.real.sum())} "
+          f"rows -> {hw}^2 -> {BEV_HEAD}^2: {got}; floor (CPU, weights x (1 "
+          f"+ 1e-7 N)): {floor}; floor (CPU, oneDNN convs): {lib}; s card "
+          f"{out['cuda']['s']:.2f} CPU {out['cpu']['s']:.2f}", flush=True)
+    bounds = {"grad_l2": 10 * max(floor["grad_l2"], lib["grad_l2"]) + 1e-6}
+    for n in got["grad_l2_per_tensor"]:
+        bounds[n] = 10 * max(floor["grad_l2_per_tensor"][n],
+                             lib["grad_l2_per_tensor"][n]) + 1e-6
+    if not got["loss"] <= 1e-5:
+        raise AssertionError(f"BEV cross-check loss: {got['loss']} > 1e-5")
+    for k, b in bounds.items():
+        v = got[k] if k == "grad_l2" else got["grad_l2_per_tensor"][k]
+        if not v <= b:
+            raise AssertionError(f"BEV cross-check {k}: {v} > {b}")
+    return {"card_vs_cpu": got, "floor": floor, "floor_onednn": lib,
+            "loss": out["cpu"]["loss"]}
+
+
 def main():
     import torch
 
@@ -869,6 +1229,7 @@ def main():
     tplan = train_plan_builder()(tbatch["coords"], tbatch["mask"])
     rows += backward_kernel_checks(tplan,
                                    torch.Generator().manual_seed(SEED + 8))
+    rows += bev_kernel_checks(tplan, torch.Generator().manual_seed(SEED + 9))
     del tbatch, tplan
     torch.cuda.empty_cache()
 
@@ -887,9 +1248,21 @@ def main():
           f"scans/s), peak {tstats['peak_mem_gb']:.2f} GB on {card}; stages "
           f"{tstats['stages_ms']}", flush=True)
     tcheck = train_cross_check(dev)
+    torch.cuda.empty_cache()
 
-    by_path = {"serve": stats["launches"], "train": tstats["launches"]}
-    for path, names in (("serve", PER_FORWARD), ("train", PER_STEP)):
+    zero_counters()
+    lstats = lidog(dev)
+    print(f"[lidog] p50 {lstats['p50_ms']:.3f} ms per step of "
+          f"{TRAIN_BATCH} x {POINTS} points ({lstats['scans_per_s']:.3f} "
+          f"scans/s), peak {lstats['peak_mem_gb']:.2f} GB on {card}; stages "
+          f"{lstats['stages_ms']}", flush=True)
+    torch.cuda.empty_cache()
+    bcheck = bev_cross_check(dev)
+
+    by_path = {"serve": stats["launches"], "train": tstats["launches"],
+               "lidog": lstats["launches"]}
+    for path, names in (("serve", PER_FORWARD), ("train", PER_STEP),
+                        ("lidog", PER_LIDOG_STEP)):
         for k in names:  # every kernel of the path ran in the path's run
             if by_path[path][k] <= 0:
                 raise AssertionError(f"{k} never launched on the {path} path")
@@ -901,7 +1274,8 @@ def main():
     summary = {"card": card, "build_s": build_s,
                "total_s": time.perf_counter() - t_start,
                "serve": stats, "label_agreement_vs_cpu": agree,
-               "train": tstats, "train_check_vs_cpu": tcheck}
+               "train": tstats, "train_check_vs_cpu": tcheck,
+               "lidog": lstats, "bev_check_vs_cpu": bcheck}
     print("[summary] " + json.dumps(summary), flush=True)
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -25,3 +25,10 @@ def canon_labels(plan: ZPlan, labels):
     engine.py:40-56, the ZPlan branch for unique input."""
     lab = _zplan(plan).scatter_rows(labels.to(torch.int32), fill=-1)
     return lab, plan.level(0).real & (lab >= 0)
+
+
+def input_to_canon_map(plan: ZPlan):
+    """int32 [N_in]: input (collated) row -> level-0 row, -1 where the row
+    was dropped or is padding (lidog_tpu/core/engine.py:61, ZPlan
+    branch)."""
+    return _zplan(plan).pos

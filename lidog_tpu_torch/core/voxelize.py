@@ -1,6 +1,10 @@
-"""Batched device voxelization (`ME.utils.sparse_quantize` equivalent).
+"""Voxelization (`ME.utils.sparse_quantize` equivalent), host and device.
 
-Port of lidog_tpu/core/voxelize.py:71-118 (`voxelize_device`): floor-divide
+`voxelize_np` is a copy of the numpy path of lidog_tpu/core/voxelize.py:38
+(one scan on the host, for the BEV preprocessing of data/bev.py; the C++
+twin of the JAX package is not ported).
+
+`voxelize_device` ports lidog_tpu/core/voxelize.py:71-118: floor-divide
 metric points by the voxel size, keep one representative point per voxel
 (the smallest original index), and emit the voxels in canonical
 (batch, x, y, z) order into fixed-capacity padded arrays.  Outputs are
@@ -15,9 +19,38 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from lidog_tpu_torch.core import keys
+
+
+class VoxelizedNP(NamedTuple):
+    coords: np.ndarray  # int32 [M, 3]
+    voxel_idx: np.ndarray  # int64 [M] representative point index
+    inverse: np.ndarray  # int64 [P] point -> voxel index
+
+
+def voxelize_np(points: np.ndarray, voxel_size: float) -> VoxelizedNP:
+    """Quantize one scan on the host: unique voxel coords sorted
+    lexicographically by (x, y, z), the representative (smallest) point
+    index of each voxel, and the point -> voxel map."""
+    disc = np.floor(points[:, :3] / voxel_size).astype(np.int32)
+    h = (((disc[:, 0].astype(np.int64) + keys.COORD_HALF)
+          << (2 * keys.COORD_BITS))
+         | ((disc[:, 1].astype(np.int64) + keys.COORD_HALF) << keys.COORD_BITS)
+         | (disc[:, 2].astype(np.int64) + keys.COORD_HALF))
+    order = np.lexsort((np.arange(h.shape[0]), h))
+    h_sorted = h[order]
+    first = np.empty(h.shape[0], dtype=bool)
+    if h.shape[0]:
+        first[0] = True
+        np.not_equal(h_sorted[1:], h_sorted[:-1], out=first[1:])
+    uniq_pos = np.cumsum(first) - 1
+    voxel_idx = order[first]
+    inverse = np.empty(h.shape[0], dtype=np.int64)
+    inverse[order] = uniq_pos
+    return VoxelizedNP(disc[voxel_idx], voxel_idx, inverse)
 
 
 class VoxelizedDevice(NamedTuple):

@@ -1,9 +1,10 @@
-"""SoftDICE, the main 3D criterion (lidog_tpu/losses/losses.py:70).
+"""SoftDICE, the main 3D criterion (lidog_tpu/losses/losses.py:70), and
+DICE, LiDOG's BEV criterion (:98).
 
 Masked, in float32: padded and ignored rows contribute zero to every sum,
 which is the reference's "drop ignored rows then sum".  Plain PyTorch
-under autograd: the JAX package has no kernel here.  Takes (logits [N, C],
-labels [N], valid [N]) and returns a scalar.
+under autograd: the JAX package has no kernel here.  Each takes (logits
+[..., C], labels [...], valid [...] or None) and returns a scalar.
 """
 
 from __future__ import annotations
@@ -15,7 +16,11 @@ import torch
 
 
 def _flatten(logits, labels, valid):
+    """-> logits [N, C] f32, labels [N], valid [N] (all rows when None)."""
     c = logits.shape[-1]
+    if valid is None:
+        valid = torch.ones(labels.shape, dtype=torch.bool,
+                           device=labels.device)
     return (logits.reshape(-1, c).float(), labels.reshape(-1),
             valid.reshape(-1))
 
@@ -71,9 +76,6 @@ class SoftDICELoss:
     is_kitti: bool = False
 
     def __call__(self, logits, labels, valid=None, return_class: bool = False):
-        if valid is None:
-            valid = torch.ones(labels.shape, dtype=torch.bool,
-                               device=labels.device)
         logits, labels, valid = _flatten(logits, labels, valid)
         if self.ignore_label is not None:
             valid = valid & (labels != self.ignore_label)
@@ -85,3 +87,26 @@ class SoftDICELoss:
         loss = -iou if self.neg_range else 1.0 - iou
         cls = -iou_class if self.neg_range else 1.0 - iou_class
         return (loss, cls) if return_class else loss
+
+
+@dataclasses.dataclass
+class DICELoss:
+    """Reference DICELoss (lidog_tpu/losses/losses.py:98): hard one-hot
+    targets, on BEV logits [B, S, S, C] with labels [B, S, S] (-1 =
+    empty pixel with ignore_label=-1)."""
+
+    ignore_label: Optional[int] = None
+    powerize: bool = False
+    use_tmask: bool = False
+
+    def __call__(self, logits, labels, valid=None):
+        logits, labels, valid = _flatten(logits, labels, valid)
+        if self.ignore_label is not None:
+            valid = valid & (labels != self.ignore_label)
+        c = logits.shape[-1]
+        onehot = torch.nn.functional.one_hot(labels.clamp(min=0).long(),
+                                             c).float()
+        probs = torch.softmax(logits, dim=-1)
+        iou, _ = _dice_core(probs, onehot, onehot, valid, self.powerize,
+                            self.use_tmask)
+        return 1.0 - iou

@@ -152,8 +152,11 @@ class BasicBlock(nn.Module):
 
 class MinkUNetBackbone(nn.Module):
     """Shared encoder-decoder, configured by its fields (planes and layers
-    may be narrowed, e.g. for tests).  Returns logits [N0, out_channels]
-    in the compute dtype."""
+    may be narrowed, e.g. for tests).  Returns (logits [N0, out_channels]
+    in the compute dtype, taps): the taps are the SparseTensors "bottle"
+    (the encoder's output, level 4) and "block5".."block8" (each decoder
+    stage's output, levels 3..0), as lidog_tpu/models/minkunet.py:340-358
+    returns them."""
 
     def __init__(self, out_channels: int = 7, compute_dtype=torch.float32,
                  init_dim: int = 32,
@@ -196,7 +199,7 @@ class MinkUNetBackbone(nn.Module):
             x = getattr(self, f"{name}_{b}")(x, plan)
         return x
 
-    def forward(self, x: SparseTensor, plan: ZPlan) -> torch.Tensor:
+    def forward(self, x: SparseTensor, plan: ZPlan):
         x = x.with_feats(x.feats.to(self.compute_dtype))
         out = self.norm0(self.conv0(x, plan))
         skips = [out]
@@ -206,6 +209,7 @@ class MinkUNetBackbone(nn.Module):
                 getattr(self, f"conv{s + 1}")(enc, plan))
             enc = self._stage(down, f"block{s + 1}", self.layers[s], plan)
             skips.append(enc)
+        taps = {"bottle": enc}
         dec = enc
         for d in range(4):
             lvl = 3 - d
@@ -213,7 +217,8 @@ class MinkUNetBackbone(nn.Module):
                 getattr(self, f"convtr{4 + d}")(dec, plan))
             dec = self._stage(cat(up, skips[lvl]), f"block{5 + d}",
                               self.layers[4 + d], plan)
-        return self.final(dec).feats
+            taps[f"block{5 + d}"] = dec
+        return self.final(dec).feats, taps
 
 
 class MinkUNet34(nn.Module):
@@ -233,4 +238,4 @@ class MinkUNet34(nn.Module):
             generator=generator)
 
     def forward(self, x: SparseTensor, plan: ZPlan) -> torch.Tensor:
-        return self.backbone(x, plan)
+        return self.backbone(x, plan)[0]

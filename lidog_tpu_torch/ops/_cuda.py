@@ -19,7 +19,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lidog_tpu_torch"
 SOURCES = ("zconv3_fwd", "zconv_down_fwd", "zconv_up_fwd", "zconv3_bwd_dx",
-           "zconv_wgrad")
+           "zconv_wgrad", "bev_scatter_max")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -33,10 +33,14 @@ _ARGTYPES = {
     "zconv3_wgrad": [_P] * 8 + [_I] * 6 + [_P],
     "zconv_down_wgrad": [_P] * 7 + [_I] * 7 + [_P],
     "zconv_up_wgrad": [_P] * 7 + [_I] * 7 + [_P],
+    "bev_scatter_max_fwd": [_P] * 4 + [_I] * 9 + [_P],
+    "bev_scatter_max_bwd": [_P] * 6 + [_I] * 9 + [_P],
 }
 # the source (library) of each C function that is not named after its own
 _SOURCE_OF = {"zconv3_wgrad": "zconv_wgrad", "zconv_down_wgrad": "zconv_wgrad",
-              "zconv_up_wgrad": "zconv_wgrad"}
+              "zconv_up_wgrad": "zconv_wgrad",
+              "bev_scatter_max_fwd": "bev_scatter_max",
+              "bev_scatter_max_bwd": "bev_scatter_max"}
 
 _libs = {}
 

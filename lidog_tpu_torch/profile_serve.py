@@ -46,7 +46,11 @@ _GROUPS = (("Conv3Map", "zconv3_fwd"), ("DownMap", "zconv_down_fwd"),
            ("wgrad_sum_kernel", "zconv wgrad sum pass (KF)"),
            ("bn_stats_kernel", "bn_train_fwd"),
            ("bn_train_finalize_kernel", "bn_train_fwd"),
-           ("bn_bwd_", "bn_train_bwd"))
+           ("bn_bwd_", "bn_train_bwd"),
+           ("scatter_max_bwd", "bev_scatter_max_bwd"),
+           ("scatter_max_bf16", "bev_scatter_max"),
+           ("scatter_max_f32", "bev_scatter_max"),
+           ("Memset", "memset (every cudaMemset; KI's zero-fill is one)"))
 
 
 def _group(name: str) -> str:

@@ -1,14 +1,18 @@
 """Where the device time of one full-width training step goes.
 
-    python -m lidog_tpu_torch.profile_train [--steps 3]
+    python -m lidog_tpu_torch.profile_train [--steps 3] [--lidog]
 
 Runs the training step of bench.py's shapes (MinkUNet34 bf16 with seeded
 random weights; 4 synthetic scans x 100,000 points, voxel 0.05, the
 per-scan plan caps of bench.py:40-44, grid_half 1024; SoftDICE + Adam lr
-1e-3: voxelize, plan, forward, backward, update), then traces `--steps`
-steps with torch.profiler and prints, per step: wall ms, device busy ms and
-idle share, and the device ms and launches of each hand-written kernel and
-of everything else.  Needs a CUDA card; prints the card's name and power
+1e-3: voxelize, plan, forward, backward, update), or with --lidog the
+LiDOG step of bench_lidog.py's shapes (MinkUNet34BEV bf16; the same scans
+through the host BEV preprocessing with 167^2 labels at level block8,
+collated to 393,216 rows; plan, forward with the pooled BEV scatter and
+Encoder2D, SoftDICE + DICE, backward, Adam), then traces `--steps` steps
+with torch.profiler and prints, per step: wall ms, device busy ms and idle
+share, and the device ms and launches of each hand-written kernel and of
+everything else.  Needs a CUDA card; prints the card's name and power
 limit first.
 """
 
@@ -17,30 +21,22 @@ from __future__ import annotations
 import argparse
 import time
 
+CAPS = dict(caps_real=(92_160, 61_440, 22_528, 9_216, 3_584),
+            caps_aug=(122_880, 77_824, 25_600, 10_752, 4_352),
+            caps_col_dil=(196_608, 93_184, 54_272, 23_552, 9_728))
 
-def main(argv=None):
+
+def _train_step(scans, builder):
+    """bench.py's step as a closure."""
     import numpy as np
     import torch
 
-    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
-    from lidog_tpu_torch.data.synthetic import SyntheticLidarDataset
     from lidog_tpu_torch.losses.losses import SoftDICELoss
     from lidog_tpu_torch.models.minkunet import MinkUNet34
-    from lidog_tpu_torch.profile_serve import (_kernel_events, card_line,
-                                               print_groups)
     from lidog_tpu_torch.train.device_pipeline import device_batch_from_points
     from lidog_tpu_torch.train.optim import make_optimizer
     from lidog_tpu_torch.train.train_step import TrainState, make_train_step
 
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=3)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_train: needs a CUDA device")
-    print(card_line())
-    ds = SyntheticLidarDataset(num_scans=4, points_per_scan=100_000,
-                               radius=50.0, seed=0)
-    scans = [ds[i] for i in range(4)]
     pts = torch.from_numpy(np.stack([d["points"] for d in scans])).cuda()
     labels = torch.from_numpy(np.stack([d["sem_labels"] for d in scans])
                               .astype(np.int32)).cuda()
@@ -48,16 +44,71 @@ def main(argv=None):
     model = MinkUNet34(out_channels=7, compute_dtype=torch.bfloat16,
                        generator=torch.Generator().manual_seed(0))
     state = TrainState.create(model, make_optimizer("Adam", lr=1e-3))
-    builder = ZSegPlanBuilder((92_160, 61_440, 22_528, 9_216, 3_584),
-                              (122_880, 77_824, 25_600, 10_752, 4_352),
-                              num_batches=4, grid_half=1024,
-                              caps_col_dil=(196_608, 93_184, 54_272, 23_552,
-                                            9_728))
     step = make_train_step(SoftDICELoss(ignore_label=-1), num_classes=7)
 
     def full_step():
         batch = device_batch_from_points(pts, valid, labels, 0.05, 393_216)
         step(state, batch, builder(batch["coords"], batch["mask"]))
+
+    return full_step
+
+
+def _lidog_step(scans, builder):
+    """bench_lidog.py's step as a closure (the host BEV preprocessing is
+    input, made once)."""
+    import torch
+
+    from lidog_tpu_torch.data.bev import collate_bev, preprocess_scan_bev
+    from lidog_tpu_torch.losses.losses import DICELoss, SoftDICELoss
+    from lidog_tpu_torch.models.minkunet_bev import MinkUNet34BEV
+    from lidog_tpu_torch.train.lidog_step import make_lidog_train_step
+    from lidog_tpu_torch.train.optim import make_optimizer
+    from lidog_tpu_torch.train.train_step import TrainState
+
+    samples = [preprocess_scan_bev(d["points"], d["sem_labels"],
+                                   voxel_size=0.05, bound_2d=50.0, sub_p=1.0,
+                                   train=False, bev_img_sizes={"block8": 167})
+               for d in scans]
+    arrays = collate_bev(samples, 393_216)
+    arrays.pop("dropped")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
+    model = MinkUNet34BEV(out_channels=7, num_batches=len(scans),
+                          voxel_size=0.05, bound_2d=50.0,
+                          compute_dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(0))
+    state = TrainState.create(model, make_optimizer("Adam", lr=1e-3))
+    step = make_lidog_train_step(SoftDICELoss(ignore_label=-1),
+                                 DICELoss(ignore_label=-1), num_classes=7)
+
+    def full_step():
+        step(state, batch, builder(batch["coords"], batch["mask"]))
+
+    return full_step
+
+
+def main(argv=None):
+    import torch
+
+    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+    from lidog_tpu_torch.data.synthetic import SyntheticLidarDataset
+    from lidog_tpu_torch.profile_serve import (_kernel_events, card_line,
+                                               print_groups)
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--lidog", action="store_true",
+                    help="profile the LiDOG step (MinkUNet34BEV)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train: needs a CUDA device")
+    print(card_line())
+    ds = SyntheticLidarDataset(num_scans=4, points_per_scan=100_000,
+                               radius=50.0, seed=0)
+    scans = [ds[i] for i in range(4)]
+    builder = ZSegPlanBuilder(CAPS["caps_real"], CAPS["caps_aug"],
+                              num_batches=4, grid_half=1024,
+                              caps_col_dil=CAPS["caps_col_dil"])
+    full_step = (_lidog_step if args.lidog else _train_step)(scans, builder)
 
     for _ in range(2):
         full_step()
@@ -72,8 +123,9 @@ def main(argv=None):
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
     kernels = _kernel_events(prof)
     busy_ms = sum(us for _, us, _ in kernels) / 1e3 / args.steps
-    print(f"[profile] per step: wall {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+    print(f"[profile] {'lidog' if args.lidog else 'train'} per step: wall "
+          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}")
     print_groups(kernels, args.steps, "step")
     print("[profile] top device kernels per step:")
     for name, us, n in kernels[:15]:

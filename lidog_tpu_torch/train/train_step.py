@@ -46,6 +46,8 @@ class TrainState:
 def _forward_loss(model, batch, criterion, num_classes, plan, suffix=""):
     x = input_tensor(plan, batch[f"feats{suffix}"])
     logits = model(x, plan)
+    if isinstance(logits, tuple):  # MinkUNet34BEV: (logits, {}) in eval
+        logits = logits[0]
     labels_c, valid = canon_labels(plan, batch[f"labels{suffix}"])
     loss = criterion(logits, labels_c, valid)
     cm = confusion_matrix(logits.argmax(-1), labels_c, valid, num_classes)
@@ -86,7 +88,8 @@ def make_train_step(criterion: Callable, num_classes: int = 7,
 
 def make_eval_step(criterion: Callable, num_classes: int = 7):
     """eval_step(state, batch, plan) -> {"loss", "confusion"}, with the
-    running statistics and no update."""
+    running statistics and no update.  The model may return logits or
+    (logits, {}), as MinkUNet34BEV does outside training."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch, plan):

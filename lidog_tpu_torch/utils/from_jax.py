@@ -5,7 +5,10 @@ arrays; call jax.device_get on the JAX side) maps leaf by leaf onto the
 port's state_dict: the path `backbone/block2_0/conv1/kernel` becomes the
 key `backbone.block2_0.conv1.kernel`, with the same shape and dtype.
 batch_stats leaves (BatchNorm `mean`/`var`) become buffers, the rest
-parameters: the two collections share no leaf name.
+parameters: the two collections share no leaf name.  This holds for
+MinkUNet34BEV's Encoder2D subtrees too (`encoder2d_block8.down1.conv0.
+kernel` [3, 3, Cin, Cout], flax BatchNorm `bn0.scale`/`bias`/`mean`/
+`var`).
 
 A lidog_tpu TrainState (params, batch_stats, the optax Adam state, step;
 also through jax.device_get) carries into the port's TrainState, so that

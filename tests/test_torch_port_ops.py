@@ -346,6 +346,154 @@ def test_batchnorm_train_match_jax(dtype, request):
             assert err <= tol, (with_res, relu, k, err)
 
 
+def _ulp(a, dtype):
+    """One unit in the last place of dtype at |a| (a as float32 numpy)."""
+    mant = {"float32": 23, "bfloat16": 7}[dtype]
+    _, e = np.frexp(np.abs(np.asarray(a, np.float32)))
+    return np.ldexp(np.float32(1.0), e - 1 - mant)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bev_scatter_pooled_match_jax(dtype, request):
+    """bev_scatter_pooled forward and VJP against lidog_tpu's, with both of
+    its backward plans (segmented_rows), at pool strides 3 and 5 on a 40^2
+    grid of 2 scans.  The rows include masked ones, coords off the grid,
+    exact ties (same pixel, same features), all-zero rows and negative
+    values.  Forward: equal.  Grad: f32 within 1e-6 of max |JAX grad|,
+    bf16 within 1 ulp (both sum the same terms in f32 in the same order
+    and round once)."""
+    from tests.conftest import run_isolated
+
+    if run_isolated(request):
+        return
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from lidog_tpu.ops.bev import bev_scatter_pooled as jax_bev
+    from lidog_tpu_torch.ops import bev as tb
+
+    rng = np.random.RandomState(5)
+    grid, n_per, c = 40, 150, 4
+    n = 2 * n_per
+    coords = np.hstack([
+        np.repeat([[0], [1]], n_per, axis=0),  # per-scan segmented rows
+        rng.randint(-grid // 2 - 3, grid // 2 + 3, (n, 2)),  # some off grid
+        rng.randint(-5, 5, (n, 1)),
+    ]).astype(np.int32)
+    feats = rng.randn(n, c).astype(np.float32)
+    feats[rng.rand(n) < 0.3] = 0.0  # ReLU-like zero rows
+    coords[20:40, :3] = coords[0:20, :3]  # same pixel, another z
+    feats[20:40] = feats[0:20]  # exact ties
+    mask = rng.rand(n) > 0.1
+    dout = rng.randn(*(2, 13, 13, c)).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    launches = dict(tb.LAUNCHES)
+    for stride in (3, 5):
+        fj = jnp.asarray(feats, jdt)
+        kw = dict(num_batches=2, voxel_size=1.0, bound=grid / 2,
+                  pool_stride=stride)
+        ft = torch.from_numpy(feats).to(tdt).requires_grad_()
+        out_t = tb.bev_scatter_pooled(torch.from_numpy(coords), ft,
+                                      torch.from_numpy(mask), **kw)
+        hw = out_t.shape[1]
+        dj = dout[:, :hw, :hw]
+        out_t.backward(torch.from_numpy(np.ascontiguousarray(dj)).to(tdt))
+        g_t = ft.grad.float().numpy()
+        assert (g_t != 0).sum() > 20, stride
+        for seg in (False, True):
+            out_j, vjp = jax.vjp(jax.jit(lambda f: jax_bev(
+                jnp.asarray(coords), f, jnp.asarray(mask),
+                segmented_rows=seg, **kw)), fj)
+            np.testing.assert_array_equal(
+                np.asarray(out_j.astype(jnp.float32)),
+                out_t.detach().float().numpy(), err_msg=f"{stride} {seg}")
+            g_j = np.asarray(vjp(jnp.asarray(dj, jdt))[0].astype(jnp.float32))
+            if dtype == "float32":
+                assert _rel(g_j, g_t) <= 1e-6, (stride, seg)
+            else:
+                assert (np.abs(g_j - g_t) <= _ulp(g_j, dtype)).all(), \
+                    (stride, seg)
+        assert (out_t > 0).sum() > 20, stride
+    assert tb.LAUNCHES == launches  # the CPU path launches no kernel
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encoder2d_dice_match_jax(dtype, request):
+    """Encoder2D in train mode with from_jax weights against flax's on
+    [2, 33, 33, 16]: the logits, the DICE(-1) loss on them, the grads of
+    every parameter and of the input, and both BatchNorms' running mean
+    and var after the update (flax's biased variance, momentum 0.9).
+    JAX runs op by op (not jitted): under jit XLA fuses the bf16 norm and
+    keeps intermediates in f32, and its bf16 grads then part from its own
+    op-by-op grads by 6-30% (BatchNorm's backward sums two rounded
+    cotangents that nearly cancel); op by op, JAX rounds where the port
+    does.  Relative to max |JAX| per tensor: f32 1e-5 (logits, loss,
+    running stats; summation order only) and 1e-4 (grads: the conv
+    backward sums in another order); bf16 2e-2 (the same rounding points,
+    other summation orders; measured <= 6e-3)."""
+    from tests.conftest import run_isolated
+
+    if run_isolated(request):
+        return
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from lidog_tpu.losses.losses import DICELoss as JaxDICE
+    from lidog_tpu.models.conv2d import Encoder2D as JaxEncoder
+    from lidog_tpu_torch.losses.losses import DICELoss
+    from lidog_tpu_torch.models.conv2d import Encoder2D
+    from lidog_tpu_torch.utils.from_jax import state_dict_from_flax
+
+    rng = np.random.RandomState(12)
+    c_in, n_cls = 16, 5
+    x = np.maximum(rng.randn(2, 33, 33, c_in), 0).astype(np.float32)
+    labels = rng.randint(-1, n_cls, (2, 9, 9)).astype(np.int32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    tol, tol_g = (1e-5, 1e-4) if dtype == "float32" else (2e-2, 2e-2)
+
+    jm = JaxEncoder(n_classes=n_cls, compute_dtype=jdt)
+    var = jax.device_get(jm.init(jax.random.PRNGKey(3), jnp.asarray(x),
+                                 train=False))
+    stats = jax.tree_util.tree_map(
+        lambda v: rng.uniform(0.5, 2.0, v.shape).astype(np.float32),
+        var["batch_stats"])
+    crit_j = JaxDICE(ignore_label=-1)
+
+    def loss_j(params, xin):
+        logits, upd = jm.apply({"params": params, "batch_stats": stats}, xin,
+                               train=True, mutable=["batch_stats"])
+        return crit_j(logits, jnp.asarray(labels)), (logits, upd)
+
+    (lj, (logits_j, upd)), (gp, gx) = jax.value_and_grad(
+        loss_j, argnums=(0, 1), has_aux=True)(var["params"],
+                                              jnp.asarray(x, jdt))
+    gp, upd = jax.device_get(gp), jax.device_get(upd)
+
+    tm = Encoder2D(c_in, n_classes=n_cls, compute_dtype=tdt).train()
+    tm.load_state_dict(state_dict_from_flax(
+        {"params": var["params"], "batch_stats": stats}), strict=True)
+    xt = torch.from_numpy(x).to(tdt).requires_grad_()
+    logits_t = tm(xt)
+    lt = DICELoss(ignore_label=-1)(logits_t, torch.from_numpy(labels))
+    lt.backward()
+    assert logits_t.dtype == torch.float32
+    assert _rel(np.asarray(logits_j), logits_t.detach()) <= tol
+    assert abs(float(lj) - lt.item()) <= tol * abs(float(lj))
+    assert _rel(np.asarray(gx.astype(jnp.float32)), xt.grad.float()) <= tol_g
+    named = dict(tm.named_parameters())
+    flat = state_dict_from_flax({"params": gp})
+    assert set(flat) == set(named)
+    for k, g in flat.items():
+        assert _rel(g.numpy(), named[k].grad) <= tol_g, k
+    new_stats = state_dict_from_flax({"batch_stats": upd["batch_stats"]})
+    buffers = dict(tm.named_buffers())
+    assert set(new_stats) == set(buffers) and len(buffers) == 4
+    for k, v in new_stats.items():
+        assert _rel(v.numpy(), buffers[k]) <= tol, k
+
+
 def test_softdice_confusion_match_jax():
     """SoftDICE (plain and is_kitti): loss and dlogits; the confusion
     matrix exactly and the IoU from it."""
@@ -438,7 +586,7 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
     counts no launch; a tensor on neither the CPU nor a card raises."""
     import torch
 
-    from lidog_tpu_torch.ops import norm, zconv
+    from lidog_tpu_torch.ops import bev, norm, zconv
 
     g = torch.Generator().manual_seed(0)
     n = 6
@@ -453,6 +601,11 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
     run = [torch.zeros(32), torch.ones(32)]
     y, mean, var_raw, inv, count = norm.bn_train_fwd_plain(
         x, m, vec[0], vec[1], *[t.clone() for t in run], 0.1, 1e-5, x, True)
+    # BEV: 2 scans on an 8^2 grid pooled (5, 3, 1) to 2^2
+    coords = torch.randint(-4, 4, (n, 4), generator=g, dtype=torch.int32)
+    coords[:, 0] = torch.arange(n) % 2
+    geom = (2, 8, 2, 5, 3, 1)
+    pooled = bev.bev_scatter_max_plain(x, coords, m, *geom)
     cases = [
         (zconv.zconv3_fwd, zconv.zconv3_plain, (x, nbr, zup, zdn, wf, m)),
         (zconv.zconv_down_fwd, zconv.zconv_down_plain, (x, nbr[:8], w8, m)),
@@ -469,8 +622,13 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
          (x, m, vec[0], vec[1], *run, 0.1, 1e-5, x, True)),
         (norm.bn_train_bwd, norm.bn_train_bwd_plain,
          (x, y, x, m, vec[0], mean, var_raw, inv, count, 1e-5, True, True)),
+        (bev.bev_scatter_max, bev.bev_scatter_max_plain,
+         (x, coords, m, *geom)),
+        (bev.bev_scatter_max_bwd, bev.bev_scatter_max_bwd_plain,
+         (x, coords, m, pooled, torch.randn(pooled.shape, generator=g),
+          *geom)),
     ]
-    before = {**zconv.LAUNCHES, **norm.LAUNCHES}
+    before = {**zconv.LAUNCHES, **norm.LAUNCHES, **bev.LAUNCHES}
     for wrapper, plain, args in cases:
         copy = [a.clone() if torch.is_tensor(a) else a for a in args]
         out, want = wrapper(*args), plain(*copy)
@@ -482,7 +640,7 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
         meta = [a.to("meta") if torch.is_tensor(a) else a for a in args]
         with pytest.raises(ValueError, match="CUDA"):
             wrapper(*meta)
-    assert {**zconv.LAUNCHES, **norm.LAUNCHES} == before
+    assert {**zconv.LAUNCHES, **norm.LAUNCHES, **bev.LAUNCHES} == before
 
 
 def test_port_imports_no_jax():

@@ -459,3 +459,76 @@ def test_train_step_needs_a_device(monkeypatch):
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
     ev = make_eval_step(crit, num_classes=5)(state, batch, plan)
     assert np.isfinite(float(ev["loss"])) and state.step == 3
+
+
+# LiDOG's BEV branch at the serve shapes: bound 10 m at voxel 0.5 is a 40^2
+# raster, pooled to 13^2, and Encoder2D's two stride-2 convs give 4^2 BEV
+# logits (bev_head_size)
+BOUND_2D = 10.0
+LIDOG_SEED = 4
+
+
+def _lidog_batches(seed, nsrc):
+    """Per source: collate_bev's numpy arrays of B scans (the port's host
+    pipeline; tests/test_torch_port_plan.py holds it bitwise to
+    lidog_tpu's)."""
+    from lidog_tpu_torch.data.bev import collate_bev, preprocess_scan_bev
+    from lidog_tpu_torch.models.minkunet_bev import bev_head_size
+
+    head = bev_head_size(BOUND_2D, VOXEL)
+    out = []
+    for pts, lab in _batches(seed, nsrc):
+        samples = [preprocess_scan_bev(pts[b], lab[b], voxel_size=VOXEL,
+                                       bound_2d=BOUND_2D, sub_p=1.0,
+                                       augmentations=None, train=False,
+                                       bev_img_sizes={"block8": head})
+                   for b in range(B)]
+        batch = collate_bev(samples, B * CAPS_R[0])
+        batch.pop("dropped")
+        out.append(batch)
+    return out
+
+
+def test_lidog_step_needs_a_device(monkeypatch):
+    """Without a card and without device="cpu" TrainState.create raises;
+    with device="cpu" the LiDOG step of a narrow MinkUNet34BEV runs on the
+    plain path and trains (total, sem and bev losses finite, the total
+    falling, proj_iou in [0, 1]), and make_eval_step takes the model's
+    (logits, {}) outside training."""
+    import torch
+
+    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+    from lidog_tpu_torch.losses.losses import DICELoss, SoftDICELoss
+    from lidog_tpu_torch.models.minkunet_bev import MinkUNet34BEV
+    from lidog_tpu_torch.ops import bev
+    from lidog_tpu_torch.train.lidog_step import make_lidog_train_step
+    from lidog_tpu_torch.train.optim import make_optimizer
+    from lidog_tpu_torch.train.train_step import TrainState, make_eval_step
+
+    model = MinkUNet34BEV(out_channels=5, num_batches=B, voxel_size=VOXEL,
+                          bound_2d=BOUND_2D, **NARROW)
+    tx = make_optimizer("Adam", lr=1e-2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrainState.create(model, tx)
+    state = TrainState.create(model, tx, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _lidog_batches(5, 1)[0].items()}
+    plan = ZSegPlanBuilder(CAPS_R, CAPS_A, num_batches=B,
+                           grid_half=GRID_HALF)(batch["coords"],
+                                                batch["mask"])
+    step = make_lidog_train_step(SoftDICELoss(ignore_label=-1),
+                                 DICELoss(ignore_label=-1), num_classes=5)
+    launches = dict(bev.LAUNCHES)
+    losses = []
+    for _ in range(3):
+        state, metrics = step(state, batch, plan)
+        losses.append([float(metrics[k]) for k in ("loss", "sem_loss",
+                                                   "bev_loss")])
+        assert 0.0 <= float(metrics["proj_iou_block8"]) <= 1.0
+    assert np.isfinite(losses).all() and losses[-1][0] < losses[0][0], losses
+    supervised = int(((batch["labels"] >= 0) & batch["mask"]).sum())
+    assert int(metrics["confusion"].sum()) == supervised
+    assert bev.LAUNCHES == launches
+    ev = make_eval_step(SoftDICELoss(ignore_label=-1), num_classes=5)(
+        state, batch, plan)
+    assert np.isfinite(float(ev["loss"])) and state.step == 3

@@ -51,7 +51,23 @@ no result line):
      and backward, f32 on one full-grid scan, on the card and on the CPU
      from the same features and weights: the loss within 1e-5, each grad
      in relative L2 within 10x the larger of a 1e-7 weight-perturbation
-     floor and the spread of two CPU convolution libraries.
+     floor and the spread of two CPU convolution libraries;
+ 11. the instance-norm kernels KK/KL and the whitening-loss kernels KM/KN
+     against their plain versions at the training plan's levels and the
+     RobustNet taps' widths (L0 x 32, L1 x 32, L2 x 64, L3 x 128; IRW at
+     L0 with rows scaled so that its hinge is live), bf16 and f32;
+ 12. full-width RobustNet training (the training cell's batch and caps):
+     MinkUNet34Robust bf16, SoftDICE + 0.5 IW over its 5 instance-normed
+     taps with the gate on from the first step, Adam (lr 1e-3); 1 warm-up
+     and 5 timed steps; the checks of phase 6, plus a finite aux_loss,
+     then the stage split;
+ 13. full-width IBN training: MinkUNet34IBN bf16 through the plain train
+     step, as phase 6;
+ 14. RobustNet cross-check: one f32 step of full-width MinkUNet34Robust on
+     a 20,000-point scan on the card and on the CPU from the same weights,
+     compared by phase 7's rule (loss and aux_loss as the loss), once with
+     the gate on and once off; with the gate off the aux loss's grads
+     (what the whitening loss sends back into each tap) are exactly 0.
 
 The line before the last is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.  Exits non-zero without a card, and
@@ -106,6 +122,19 @@ BEV_HEAD = 167
 LEVELS = ("block8",)
 PER_LIDOG_STEP = {**PER_STEP, "bev_scatter_max": len(LEVELS),
                   "bev_scatter_max_bwd": len(LEVELS)}
+# RobustNet (models/minkunet_robustnet.py): MinkUNet34's convs; an instance
+# norm instead of the stem's BN and none after the first down conv (60
+# BNs); instance norms in0, in1 and one per RobustBlock of stages 1-3 (2 +
+# 3 + 4); the whitening loss on the 5 taps
+PER_ROBUST_STEP = {**PER_STEP, "bn_act": 60, "bn_train_fwd": 60,
+                   "bn_train_bwd": 60, "instance_norm_fwd": 11,
+                   "instance_norm_bwd": 11, "whitening_fwd": 5,
+                   "whitening_bwd": 5}
+# IBN (models/minkunet_ibn.py): MinkUNet34's convs and BNs, and one
+# instance norm beside the first BN of each IBNBlock of stages 1-3
+PER_IBN_STEP = {**PER_STEP, "instance_norm_fwd": 9, "instance_norm_bwd": 9}
+PER_VARIANT_STEP = {"source": PER_STEP, "robustnet": PER_ROBUST_STEP,
+                    "ibn": PER_IBN_STEP}
 
 
 def card_line():
@@ -132,16 +161,19 @@ def cuda_ms(fn, iters=10):
     return start.elapsed_time(end) / iters
 
 
-def counters():
+def _launch_tables():
+    from lidog_tpu_torch.losses import losses
     from lidog_tpu_torch.ops import bev, norm, zconv
 
-    return {**zconv.LAUNCHES, **norm.LAUNCHES, **bev.LAUNCHES}
+    return (zconv.LAUNCHES, norm.LAUNCHES, bev.LAUNCHES, losses.LAUNCHES)
+
+
+def counters():
+    return {k: v for d in _launch_tables() for k, v in d.items()}
 
 
 def zero_counters():
-    from lidog_tpu_torch.ops import bev, norm, zconv
-
-    for d in (zconv.LAUNCHES, norm.LAUNCHES, bev.LAUNCHES):
+    for d in _launch_tables():
         for k in d:
             d[k] = 0
 
@@ -506,6 +538,76 @@ def backward_kernel_checks(plan, gen):
     return ck.rows
 
 
+def variant_kernel_checks(plan, gen):
+    """Phase 11: KK/KL (instance norm) and KM/KN (IW, and IRW at L0) at
+    the training plan's levels, at the widths of the RobustNet taps that
+    live there: in0 (L0 x 32), in1 and block1 (L1 x 32), block2 (L2 x
+    64), block3 (L3 x 128); the IBN norms take the same widths."""
+    import torch
+
+    from lidog_tpu_torch.losses import losses
+    from lidog_tpu_torch.ops import norm
+
+    dev = plan.levels[0].coords.device
+    ck = Checker(gen, dev)
+    in_src = "lidog_tpu_torch/ops/bn_act_triton.py"
+    wh_src = "lidog_tpu_torch/losses/whiten_triton.py"
+    for lvl, c in ((0, 32), (1, 32), (2, 64), (3, 128)):
+        L = plan.level(lvl)
+        n, bidx = L.coords.shape[0], L.coords[:, 0]
+        real = int(L.real.sum())
+        shape = f"L{lvl} {n} rows ({real} real) x {c}"
+        for dt in (torch.bfloat16, torch.float32):
+            esz = torch.finfo(dt).bits // 8
+            # conv outputs: shifted and scaled per channel, masked
+            x = (ck.feats(n, c, L.real, torch.float32) * 3.0 + 1.5).to(dt)
+            x = (x * L.real[:, None].to(dt)).contiguous()
+            io = nbytes(L.real) + 4 * n  # the mask and coords[:, 0]
+            ck.record("instance_norm_fwd", in_src,
+                      "lidog_tpu/ops/norm.py:79 (MaskedInstanceNorm)",
+                      lambda: norm.instance_norm_fwd(x, L.real, bidx)[:3],
+                      lambda: norm.instance_norm_fwd_plain(
+                          x, L.real, bidx)[:3],
+                      dt, 2 * n * c * esz + io, 8 * real * c, shape,
+                      mma=False)
+            _, mean, var_raw, rstd, count = norm.instance_norm_fwd_plain(
+                x, L.real, bidx)
+            dy = ck.feats(n, c, L.real, dt)
+            args = (dy, x, L.real, bidx, mean, var_raw, rstd, count)
+            ck.record("instance_norm_bwd", in_src,
+                      "autodiff of lidog_tpu/ops/norm.py:79-104",
+                      lambda: norm.instance_norm_bwd(*args),
+                      lambda: norm.instance_norm_bwd_plain(*args),
+                      dt, 3 * n * c * esz + io, 10 * real * c, shape,
+                      mma=False)
+            irws = (False, True) if lvl == 0 else (False,)
+            for irw in irws:
+                xw = x
+                if irw:  # rows scaled so that IRW's hinge is live on some
+                    big = torch.rand(n, generator=gen).to(dev) < 0.3
+                    xw = (x.float() * torch.where(big, 12.0, 1.0)[:, None]
+                          ).to(dt).contiguous()
+                tag = f"{shape} {'IRW' if irw else 'IW'}"
+                ck.record("whitening_fwd", wh_src,
+                          "lidog_tpu/losses/losses.py:211 "
+                          "(_per_row_offdiag_abs) + :234 (IWLoss), :249 "
+                          "(IRWLoss)",
+                          lambda: losses.whitening_fwd(xw, L.real, irw),
+                          lambda: losses.whitening_fwd_plain(xw, L.real, irw),
+                          dt, n * c * esz + nbytes(L.real) + 4 * n,
+                          4 * real * c, tag, mma=False)
+                _, srow, nv = losses.whitening_fwd_plain(xw, L.real, irw)
+                dl = torch.ones((), device=dev)
+                wargs = (dl, xw, L.real, srow, nv, irw)
+                ck.record("whitening_bwd", wh_src,
+                          "autodiff of lidog_tpu/losses/losses.py:211-265",
+                          lambda: losses.whitening_bwd(*wargs),
+                          lambda: losses.whitening_bwd_plain(*wargs),
+                          dt, 2 * n * c * esz + nbytes(L.real) + 4 * n,
+                          6 * real * c, tag, mma=False)
+    return ck.rows
+
+
 def serve(model, pts, dev):
     """Phase 4: timed requests through the Predictor; returns stats."""
     import torch
@@ -656,23 +758,50 @@ def train_data():
             np.stack([d["sem_labels"] for d in scans]).astype(np.int32))
 
 
-def train(dev):
-    """Phase 6: full-width bf16 training steps; returns stats."""
+def variant_model(variant, dtype, generator):
+    """The model of a training path at full width: "source" MinkUNet34,
+    "ibn" MinkUNet34IBN, "robustnet" MinkUNet34Robust."""
+    from lidog_tpu_torch.models.minkunet import MinkUNet34
+    from lidog_tpu_torch.models.minkunet_ibn import MinkUNet34IBN
+    from lidog_tpu_torch.models.minkunet_robustnet import MinkUNet34Robust
+
+    cls = {"source": MinkUNet34, "ibn": MinkUNet34IBN,
+           "robustnet": MinkUNet34Robust}[variant]
+    return cls(out_channels=NUM_CLASSES, compute_dtype=dtype,
+               generator=generator)
+
+
+def variant_step(variant, cov_stat_epoch=0, whitening=None):
+    """The train step of a path: make_train_step (source, IBN), or the
+    RobustNet step with IW (or the given whitening loss) and its gate on
+    from epoch cov_stat_epoch."""
+    from lidog_tpu_torch.losses.losses import IWLoss, SoftDICELoss
+    from lidog_tpu_torch.train.robustnet_step import make_robustnet_train_step
+    from lidog_tpu_torch.train.train_step import make_train_step
+
+    crit = SoftDICELoss(ignore_label=-1)
+    if variant == "robustnet":
+        return make_robustnet_train_step(
+            crit, whitening or IWLoss(), num_classes=NUM_CLASSES,
+            cov_stat_epoch=cov_stat_epoch)
+    return make_train_step(crit, num_classes=NUM_CLASSES)
+
+
+def train(dev, variant="source"):
+    """Phases 6, 12 and 13: full-width bf16 training steps of one path;
+    returns stats."""
     import torch
 
-    from lidog_tpu_torch.losses.losses import SoftDICELoss
-    from lidog_tpu_torch.models.minkunet import MinkUNet34
     from lidog_tpu_torch.train.optim import make_optimizer
-    from lidog_tpu_torch.train.train_step import TrainState, make_train_step
+    from lidog_tpu_torch.train.train_step import TrainState
 
     pts, labels = train_data()
-    model = MinkUNet34(out_channels=NUM_CLASSES, compute_dtype=torch.bfloat16,
-                       generator=torch.Generator().manual_seed(SEED))
+    model = variant_model(variant, torch.bfloat16,
+                          torch.Generator().manual_seed(SEED))
+    step = variant_step(variant)
     state = TrainState.create(model, make_optimizer("Adam", lr=1e-3),
                               device=dev)
     builder = train_plan_builder()
-    step = make_train_step(SoftDICELoss(ignore_label=-1),
-                           num_classes=NUM_CLASSES)
 
     def full_step():
         batch = train_batch(pts, labels, dev)
@@ -687,6 +816,7 @@ def train(dev):
         raise AssertionError(f"training plan overflow {overflow}")
     supervised = int(((batch["labels"] >= 0) & batch["mask"]).sum())
     losses = [float(metrics["loss"])]
+    aux = [float(metrics["aux_loss"])] if "aux_loss" in metrics else []
     torch.cuda.reset_peak_memory_stats()
     zero_counters()
     ms = []
@@ -696,36 +826,44 @@ def train(dev):
         _, _, metrics = full_step()
         ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
+        if aux:
+            aux.append(float(metrics["aux_loss"]))
         total = int(metrics["confusion"].sum())
         if total != supervised:
             raise AssertionError(f"confusion total {total} != {supervised} "
                                  "supervised voxels")
     launches = counters()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[train] overflow {overflow} supervised voxels {supervised} "
-          f"losses {losses} step ms {ms}", flush=True)
-    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"losses {losses}: not finite or not falling")
-    for k, per in PER_STEP.items():
+    print(f"[{variant}] overflow {overflow} supervised voxels {supervised} "
+          f"losses {losses} aux losses {aux} step ms {ms}", flush=True)
+    if not all(math.isfinite(v) for v in losses + aux) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"{variant} losses {losses}, aux {aux}: not "
+                             "finite or not falling")
+    if variant == "robustnet" and not aux:
+        raise AssertionError("the RobustNet step reported no aux_loss")
+    for k, per in PER_VARIANT_STEP[variant].items():
         if launches[k] != per * TRAIN_STEPS:
-            raise AssertionError(f"{k}: {launches[k]} launches in training, "
-                                 f"expected {per} x {TRAIN_STEPS}")
-    stages = train_stage_split(state, pts, labels, builder, dev)
+            raise AssertionError(f"{k}: {launches[k]} launches in {variant} "
+                                 f"training, expected {per} x {TRAIN_STEPS}")
+    stages = train_stage_split(state, pts, labels, builder, dev, variant)
     p50 = statistics.median(ms)
     return {"p50_ms": p50, "scans_per_s": TRAIN_BATCH / p50 * 1e3,
-            "step_ms": ms, "losses": losses, "launches": launches,
-            "stages_ms": stages, "supervised_voxels": supervised,
+            "step_ms": ms, "losses": losses, "aux_losses": aux,
+            "launches": launches, "stages_ms": stages,
+            "supervised_voxels": supervised,
             "real_rows_per_level": [int(l.real.sum()) for l in plan.levels],
             "peak_mem_gb": peak,
             "params": sum(p.numel() for p in model.parameters())}
 
 
-def train_stage_split(state, pts, labels, builder, dev):
+def train_stage_split(state, pts, labels, builder, dev, variant="source"):
     """Device ms of voxelize / plan / forward+loss / backward / optimizer
     for one step (CUDA events between the stages; median of 3)."""
     import torch
 
-    from lidog_tpu_torch.losses.losses import SoftDICELoss
+    from lidog_tpu_torch.losses.losses import IWLoss, SoftDICELoss
+    from lidog_tpu_torch.train.robustnet_step import robust_forward
     from lidog_tpu_torch.train.train_step import _forward_loss
 
     crit = SoftDICELoss(ignore_label=-1)
@@ -738,8 +876,13 @@ def train_stage_split(state, pts, labels, builder, dev):
         plan = builder(batch["coords"], batch["mask"])
         ev[2].record()
         state.optimizer.zero_grad()
-        loss, _ = _forward_loss(state.model.train(), batch, crit, NUM_CLASSES,
-                                plan)
+        model = state.model.train()
+        if variant == "robustnet":  # the step's loss, gate on
+            sem, aux, _ = robust_forward(model, batch, crit, IWLoss(),
+                                         NUM_CLASSES, plan)
+            loss = sem + 0.5 * aux
+        else:
+            loss, _ = _forward_loss(model, batch, crit, NUM_CLASSES, plan)
         ev[3].record()
         loss.backward()
         ev[4].record()
@@ -752,30 +895,47 @@ def train_stage_split(state, pts, labels, builder, dev):
             for i, n in enumerate(names)}
 
 
-def train_cross_check(dev):
-    """Phase 7: one f32 step of full-width MinkUNet34 on a 20,000-point scan
-    on the card and on the CPU from the same weights, and a third step on
-    the CPU from the weights scaled by (1 + 1e-7 N(0, 1)): the floor.
+class AuxProbe:
+    """A whitening loss that records the grad it sends back into each tap
+    (through a view of the tap that only the loss reads)."""
 
-    The forward is well-conditioned: loss and batch_stats within 1e-4 of
-    the CPU's (relative, per tensor).  The backward is not: a ReLU input
-    within rounding of 0 flips its gate, so a 1e-7 change of the weights
-    moves single grad entries by percents.  So the grads are held, in
-    relative L2 norm (whole model, and the worst tensor), to 10x the
+    def __init__(self, loss):
+        self.loss, self.grads = loss, []
+
+    def __call__(self, feats, mask):
+        tap = feats.view_as(feats)
+        tap.register_hook(lambda g: self.grads.append(g.detach().cpu()))
+        return self.loss(feats=tap, mask=mask)
+
+
+def train_cross_check(dev, variant="source"):
+    """Phases 7 and 14: one f32 step of a full-width model on a
+    20,000-point scan on the card and on the CPU from the same weights,
+    and a third step on the CPU from the weights scaled by (1 + 1e-7 N(0,
+    1)): the floor.  RobustNet runs the card and the CPU step twice, with
+    the gate on (and its floor) and with it off, where the grads of the
+    aux loss into its 5 taps must be exactly 0.
+
+    The forward is well-conditioned: loss, aux_loss and batch_stats within
+    1e-4 of the CPU's (relative, per tensor).  The backward is not: a ReLU
+    input within rounding of 0 flips its gate, so a 1e-7 change of the
+    weights moves single grad entries by percents.  So the grads are held,
+    in relative L2 norm (whole model, and the worst tensor), to 10x the
     floor's; the params after Adam's first step (lr * g / (|g| + eps),
     about lr * sign(g)) to 2 lr everywhere, and the share of entries whose
-    update changed sign to 10x the floor's share + 1e-4."""
+    update changed sign to 10x the floor's share + 1e-4.  The gate-off
+    step takes the gate-on floor: its grads are the SoftDICE part of the
+    same model's."""
     import numpy as np
     import torch
 
     from lidog_tpu_torch.caps import make_zcaps
     from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
     from lidog_tpu_torch.data.synthetic import SyntheticLidarDataset
-    from lidog_tpu_torch.losses.losses import SoftDICELoss
-    from lidog_tpu_torch.models.minkunet import MinkUNet34
+    from lidog_tpu_torch.losses.losses import IWLoss
     from lidog_tpu_torch.train.device_pipeline import device_batch_from_points
     from lidog_tpu_torch.train.optim import make_optimizer
-    from lidog_tpu_torch.train.train_step import TrainState, make_train_step
+    from lidog_tpu_torch.train.train_step import TrainState
 
     lr = 1e-3
     scan0 = SyntheticLidarDataset(num_scans=1, points_per_scan=CHECK_POINTS,
@@ -783,18 +943,23 @@ def train_cross_check(dev):
     pts = scan0["points"][None]
     labels = scan0["sem_labels"][None].astype(np.int32)
     caps_r, caps_a, caps_d = make_zcaps(PER_SCAN)
-    cpu_model = MinkUNet34(out_channels=NUM_CLASSES,
-                           generator=torch.Generator().manual_seed(SEED + 3))
+    cpu_model = variant_model(variant, torch.float32,
+                              torch.Generator().manual_seed(SEED + 3))
     pert_model = copy.deepcopy(cpu_model)
     noise = torch.Generator().manual_seed(SEED + 4)
     with torch.no_grad():
         for p in pert_model.parameters():
             p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=noise))
-    runs = {"cuda": (dev, copy.deepcopy(cpu_model)),
-            "cpu": (torch.device("cpu"), cpu_model),
-            "floor": (torch.device("cpu"), pert_model)}
+    cpu = torch.device("cpu")
+    # (gate on from epoch: 0 on, 1 off at the step's epoch 0; device, model)
+    runs = {"cuda": (0, dev, cpu_model), "cpu": (0, cpu, cpu_model),
+            "floor": (0, cpu, pert_model)}
+    if variant == "robustnet":
+        runs.update({"cuda_gate_off": (1, dev, cpu_model),
+                     "cpu_gate_off": (1, cpu, cpu_model)})
     out = {}
-    for where, (d, model) in runs.items():
+    for where, (cov, d, base) in runs.items():
+        model = copy.deepcopy(base)
         before = {n: p.detach().cpu().clone()
                   for n, p in model.named_parameters()}
         state = TrainState.create(model, make_optimizer("Adam", lr=lr),
@@ -808,12 +973,13 @@ def train_cross_check(dev):
             batch["coords"], batch["mask"])
         if int(plan.overflow.sum()) != 0:
             raise AssertionError(f"check plan overflow {plan.overflow}")
+        probe = AuxProbe(IWLoss())
         t0 = time.perf_counter()
-        _, metrics = make_train_step(SoftDICELoss(ignore_label=-1),
-                                     num_classes=NUM_CLASSES)(state, batch,
-                                                              plan)
+        _, metrics = variant_step(variant, cov, probe)(state, batch, plan)
         out[where] = {
             "loss": float(metrics["loss"]),
+            "aux_loss": float(metrics.get("aux_loss", 0.0)),
+            "aux_grads": probe.grads,
             "confusion": metrics["confusion"].cpu(),
             "grads": {n: p.grad.detach().cpu()
                       for n, p in model.named_parameters()},
@@ -835,6 +1001,8 @@ def train_cross_check(dev):
                     for n, u in b["update"].items())
         total = sum(u.numel() for u in b["update"].values())
         return {"loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+                "aux_loss": abs(a["aux_loss"] - b["aux_loss"])
+                / max(abs(b["aux_loss"]), 1e-30),
                 "stats": max(rel_err(a["stats"][n], v)
                              for n, v in b["stats"].items()),
                 "grad_l2": (num / den) ** 0.5, "grad_l2_worst": max(
@@ -846,21 +1014,42 @@ def train_cross_check(dev):
                 "confusion_abs_diff": int(
                     (a["confusion"] - b["confusion"]).abs().sum())}
 
-    got, floor = compare(out["cuda"], out["cpu"]), compare(out["floor"],
-                                                           out["cpu"])
-    print(f"[train-check] card vs CPU, f32 full width, {CHECK_POINTS} points: "
-          f"{got}; floor (CPU, weights x (1 + 1e-7 N)): {floor}; step s "
-          f"card {out['cuda']['s']:.2f} CPU {out['cpu']['s']:.2f}",
-          flush=True)
-    bounds = {"loss": 1e-4, "stats": 1e-4,
+    floor = compare(out["floor"], out["cpu"])
+    result = {"floor": floor}
+    bounds = {"loss": 1e-4, "aux_loss": 1e-4, "stats": 1e-4,
               "grad_l2": 10 * floor["grad_l2"] + 1e-6,
               "grad_l2_worst": 10 * floor["grad_l2_worst"] + 1e-6,
               "update_sign_flips": 10 * floor["update_sign_flips"] + 1e-4,
               "param_lr": 2.0}
-    for k, b in bounds.items():
-        if not got[k] <= b:
-            raise AssertionError(f"train cross-check {k}: {got[k]} > {b}")
-    return {"card_vs_cpu": got, "floor": floor}
+    for gate in [""] + (["_gate_off"] if variant == "robustnet" else []):
+        got = compare(out["cuda" + gate], out["cpu" + gate])
+        print(f"[{variant}-check{gate}] card vs CPU, f32 full width, "
+              f"{CHECK_POINTS} points: {got}; floor (CPU, weights x (1 + "
+              f"1e-7 N)): {floor}; step s card "
+              f"{out['cuda' + gate]['s']:.2f} CPU "
+              f"{out['cpu' + gate]['s']:.2f}", flush=True)
+        result["card_vs_cpu" + gate] = got
+    for gate in [""] + (["_gate_off"] if variant == "robustnet" else []):
+        got = result["card_vs_cpu" + gate]
+        for k, b in bounds.items():
+            if not got[k] <= b:
+                raise AssertionError(f"{variant} cross-check{gate} {k}: "
+                                     f"{got[k]} > {b}")
+    if variant == "robustnet":
+        on, off = out["cuda"]["aux_grads"], out["cuda_gate_off"]["aux_grads"]
+        if len(on) != 5 or len(off) != 5:
+            raise AssertionError(f"aux grads of {len(on)}, {len(off)} taps, "
+                                 "expected 5")
+        if not all(bool(g.abs().sum() > 0) for g in on):
+            raise AssertionError("a tap got no aux grad with the gate on")
+        nonzero = [int((g != 0).sum()) for g in off]
+        print(f"[{variant}-check] aux grads into the 5 taps: gate on max "
+              f"{[float(g.abs().max()) for g in on]}, gate off nonzero "
+              f"entries {nonzero}", flush=True)
+        if any(nonzero):
+            raise AssertionError(f"gate off: aux grads not 0 ({nonzero})")
+        result["aux_grad_nonzero_gate_off"] = nonzero
+    return result
 
 
 def bev_kernel_checks(plan, gen):
@@ -1230,6 +1419,8 @@ def main():
     rows += backward_kernel_checks(tplan,
                                    torch.Generator().manual_seed(SEED + 8))
     rows += bev_kernel_checks(tplan, torch.Generator().manual_seed(SEED + 9))
+    rows += variant_kernel_checks(tplan,
+                                  torch.Generator().manual_seed(SEED + 10))
     del tbatch, tplan
     torch.cuda.empty_cache()
 
@@ -1241,12 +1432,17 @@ def main():
     del model
     torch.cuda.empty_cache()
 
-    zero_counters()
-    tstats = train(dev)
-    print(f"[train] p50 {tstats['p50_ms']:.3f} ms per step of "
-          f"{TRAIN_BATCH} x {POINTS} points ({tstats['scans_per_s']:.3f} "
-          f"scans/s), peak {tstats['peak_mem_gb']:.2f} GB on {card}; stages "
-          f"{tstats['stages_ms']}", flush=True)
+    def train_path(variant):
+        zero_counters()
+        st = train(dev, variant)
+        print(f"[{variant}] p50 {st['p50_ms']:.3f} ms per step of "
+              f"{TRAIN_BATCH} x {POINTS} points ({st['scans_per_s']:.3f} "
+              f"scans/s), peak {st['peak_mem_gb']:.2f} GB on {card}; stages "
+              f"{st['stages_ms']}", flush=True)
+        torch.cuda.empty_cache()
+        return st
+
+    tstats = train_path("source")
     tcheck = train_cross_check(dev)
     torch.cuda.empty_cache()
 
@@ -1259,10 +1455,17 @@ def main():
     torch.cuda.empty_cache()
     bcheck = bev_cross_check(dev)
 
+    rstats = train_path("robustnet")
+    istats = train_path("ibn")
+    rcheck = train_cross_check(dev, "robustnet")
+
     by_path = {"serve": stats["launches"], "train": tstats["launches"],
-               "lidog": lstats["launches"]}
+               "lidog": lstats["launches"], "robustnet": rstats["launches"],
+               "ibn": istats["launches"]}
     for path, names in (("serve", PER_FORWARD), ("train", PER_STEP),
-                        ("lidog", PER_LIDOG_STEP)):
+                        ("lidog", PER_LIDOG_STEP),
+                        ("robustnet", PER_ROBUST_STEP),
+                        ("ibn", PER_IBN_STEP)):
         for k in names:  # every kernel of the path ran in the path's run
             if by_path[path][k] <= 0:
                 raise AssertionError(f"{k} never launched on the {path} path")
@@ -1275,8 +1478,11 @@ def main():
                "total_s": time.perf_counter() - t_start,
                "serve": stats, "label_agreement_vs_cpu": agree,
                "train": tstats, "train_check_vs_cpu": tcheck,
-               "lidog": lstats, "bev_check_vs_cpu": bcheck}
+               "lidog": lstats, "bev_check_vs_cpu": bcheck,
+               "robustnet": rstats, "ibn": istats,
+               "robustnet_check_vs_cpu": rcheck}
     print("[summary] " + json.dumps(summary), flush=True)
+    print(f"[total] {summary['total_s']:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -40,7 +40,7 @@ from torch import nn
 
 from lidog_tpu_torch.core.sparse import SparseTensor, cat
 from lidog_tpu_torch.core.zseg import ZPlan
-from lidog_tpu_torch.ops.norm import MaskedBatchNorm
+from lidog_tpu_torch.ops.norm import MaskedBatchNorm, MaskedInstanceNorm
 from lidog_tpu_torch.ops.sparse_conv import sparse_conv_1x1
 from lidog_tpu_torch.ops.zconv import zconv3, zconv_down, zconv_up
 
@@ -110,17 +110,35 @@ class SparseConv1x1(nn.Module):
 
 
 class NormReLU(nn.Module):
-    """BN with optional residual add and ReLU, one fused pass."""
+    """A norm and an optional ReLU (lidog_tpu/models/minkunet.py:188):
+    'bn' is the masked BatchNorm with the residual add and the ReLU in one
+    fused pass; 'in' the per-scan instance norm; 'ibn' both over the same
+    input, concatenated [BN, IN] to twice the channels (IBN-Net)."""
 
-    def __init__(self, channels: int, relu: bool = True):
+    def __init__(self, channels: int, relu: bool = True, norm: str = "bn"):
         super().__init__()
-        self.relu = relu
-        self.bn = MaskedBatchNorm(channels)
+        if norm not in ("bn", "in", "ibn"):
+            raise ValueError(f"unknown norm {norm!r}")
+        self.relu, self.norm = relu, norm
+        if norm != "in":
+            self.bn = MaskedBatchNorm(channels)
+        if norm != "bn":
+            self.inorm = MaskedInstanceNorm()
 
     def forward(self, x: SparseTensor, res: Optional[SparseTensor] = None
                 ) -> SparseTensor:
-        return x.with_feats(self.bn(
-            x.feats, x.mask, None if res is None else res.feats, self.relu))
+        if self.norm == "bn":
+            return x.with_feats(self.bn(
+                x.feats, x.mask, None if res is None else res.feats,
+                self.relu))
+        if res is not None:
+            raise ValueError("the residual add is fused into 'bn' only")
+        f = self.inorm(x.feats, x.mask, x.coords[:, 0])
+        if self.relu:
+            f = torch.relu(f)
+        if self.norm == "ibn":
+            f = torch.cat([self.bn(x.feats, x.mask, None, self.relu), f], -1)
+        return x.with_feats(f)
 
 
 class BasicBlock(nn.Module):
@@ -148,6 +166,45 @@ class BasicBlock(nn.Module):
         if self.shortcut_conv is not None:
             r = self.shortcut_norm(self.shortcut_conv(x))
         return self.norm2(y, res=r)
+
+
+def run_blocks(mod, x, name, n, plan):
+    """The blocks `{name}_0` .. `{name}_{n-1}` of `mod`, in order."""
+    for b in range(n):
+        x = getattr(mod, f"{name}_{b}")(x, plan)
+    return x
+
+
+def add_decoder(mod, ch, skip_ch, planes, layers, g):
+    """The four decoder stages of every MinkUNet34 variant onto `mod`:
+    transposed conv -> BN -> ReLU -> concat skip -> BasicBlocks; returns
+    the output width."""
+    for d in range(4):
+        lvl = 3 - d
+        setattr(mod, f"convtr{4 + d}",
+                SparseConv(ch, planes[4 + d], f"up_l{lvl}", lvl + 1, lvl, g))
+        setattr(mod, f"normtr{4 + d}", NormReLU(planes[4 + d]))
+        ch = planes[4 + d] + skip_ch[lvl]
+        for b in range(layers[4 + d]):
+            setattr(mod, f"block{5 + d}_{b}",
+                    BasicBlock(ch, planes[4 + d], lvl, g))
+            ch = planes[4 + d]
+    return ch
+
+
+def run_decoder(mod, dec, skips, plan, taps=None):
+    """The decoder that add_decoder built, from the encoder's output and
+    the skips of levels 0..3; each stage's output lands in `taps` as
+    "block5".."block8" when given."""
+    for d in range(4):
+        lvl = 3 - d
+        up = getattr(mod, f"normtr{4 + d}")(
+            getattr(mod, f"convtr{4 + d}")(dec, plan))
+        dec = run_blocks(mod, cat(up, skips[lvl]), f"block{5 + d}",
+                         mod.layers[4 + d], plan)
+        if taps is not None:
+            taps[f"block{5 + d}"] = dec
+    return dec
 
 
 class MinkUNetBackbone(nn.Module):
@@ -180,24 +237,9 @@ class MinkUNetBackbone(nn.Module):
                         BasicBlock(ch, planes[s], s + 1, g))
                 ch = planes[s]
             skip_ch.append(ch)
-        for d in range(4):
-            lvl = 3 - d
-            setattr(self, f"convtr{4 + d}",
-                    SparseConv(ch, planes[4 + d], f"up_l{lvl}", lvl + 1, lvl,
-                               g))
-            setattr(self, f"normtr{4 + d}", NormReLU(planes[4 + d]))
-            ch = planes[4 + d] + skip_ch[lvl]
-            for b in range(layers[4 + d]):
-                setattr(self, f"block{5 + d}_{b}",
-                        BasicBlock(ch, planes[4 + d], lvl, g))
-                ch = planes[4 + d]
+        ch = add_decoder(self, ch, skip_ch, planes, layers, g)
         self.final = SparseConv1x1(ch, out_channels, g, use_bias=True)
         self.layers = tuple(layers)
-
-    def _stage(self, x, name, n, plan):
-        for b in range(n):
-            x = getattr(self, f"{name}_{b}")(x, plan)
-        return x
 
     def forward(self, x: SparseTensor, plan: ZPlan):
         x = x.with_feats(x.feats.to(self.compute_dtype))
@@ -207,17 +249,11 @@ class MinkUNetBackbone(nn.Module):
         for s in range(4):
             down = getattr(self, f"norm{s + 1}")(
                 getattr(self, f"conv{s + 1}")(enc, plan))
-            enc = self._stage(down, f"block{s + 1}", self.layers[s], plan)
+            enc = run_blocks(self, down, f"block{s + 1}", self.layers[s],
+                             plan)
             skips.append(enc)
         taps = {"bottle": enc}
-        dec = enc
-        for d in range(4):
-            lvl = 3 - d
-            up = getattr(self, f"normtr{4 + d}")(
-                getattr(self, f"convtr{4 + d}")(dec, plan))
-            dec = self._stage(cat(up, skips[lvl]), f"block{5 + d}",
-                              self.layers[4 + d], plan)
-            taps[f"block{5 + d}"] = dec
+        dec = run_decoder(self, enc, skips, plan, taps)
         return self.final(dec).feats, taps
 
 

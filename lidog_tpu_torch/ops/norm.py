@@ -1,4 +1,5 @@
-"""Masked batch normalization fused with the residual add and ReLU.
+"""Masked batch normalization fused with the residual add and ReLU, and
+masked instance normalization.
 
 Port of lidog_tpu/ops/norm.py:41 `MaskedBatchNorm` (axis_name=None), plus
 the ReLU and residual add that follow it in
@@ -15,10 +16,20 @@ with the unbiased variance (:61-71); its gradient is JAX's autodiff of the
 same expression, for feats, scale, bias and res, zero on rows outside the
 mask.
 
-Three hand-written Triton kernels (ops/bn_act_triton.py): KD `bn_act`
+`MaskedInstanceNorm` ports lidog_tpu/ops/norm.py:79: each scan of the
+batch (segment coords[:, 0]; masked rows go to an extra padding segment)
+is normalised with its own per-channel masked moments, with no
+parameters and no running statistics, so eval mode is the same pass:
+
+    y = cast((f - mean[seg]) * rsqrt(var[seg] + eps) * m),   f = x * m
+
+Its gradient is JAX's autodiff of the same expression.
+
+Five hand-written Triton kernels (ops/bn_act_triton.py): KD `bn_act`
 (the fused normalising pass), KG `bn_train_fwd` (moments and running
-update, then KD) and KH `bn_train_bwd`.  Each `*_plain` function is the
-plain PyTorch version its wrapper takes for a tensor on the CPU.
+update, then KD), KH `bn_train_bwd`, KK `instance_norm_fwd` and KL
+`instance_norm_bwd`.  Each `*_plain` function is the plain PyTorch
+version its wrapper takes for a tensor on the CPU.
 """
 
 from __future__ import annotations
@@ -26,10 +37,16 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-LAUNCHES = {"bn_act": 0, "bn_train_fwd": 0, "bn_train_bwd": 0}
+LAUNCHES = {"bn_act": 0, "bn_train_fwd": 0, "bn_train_bwd": 0,
+            "instance_norm_fwd": 0, "instance_norm_bwd": 0}
 
 # KG/KH column reductions: about eight programs per SM of an H100
 _REDUCE_PROGRAMS = 8 * 132
+# KK/KL segmented reductions: two programs per SM, so that the [P, S, C]
+# partials stay small against the rows they sum
+_SEGMENT_PROGRAMS = 2 * 132
+# the static bound on the scans of a batch (lidog_tpu/ops/norm.py:90)
+NUM_BATCHES = 16
 
 
 def bn_act_plain(x, mean, inv, bias, mask, res=None, relu=False):
@@ -56,7 +73,7 @@ def bn_act(x, mean, inv, bias, mask, res=None, relu=False):
     """
     if x.device.type == "cpu":
         return bn_act_plain(x, mean, inv, bias, mask, res, relu)
-    _check_rows("bn_act", x, mask, res, (mean, inv, bias))
+    check_rows("bn_act", x, mask, res, (mean, inv, bias))
     n, c = x.shape
     out = torch.empty_like(x)
     if n == 0:
@@ -120,9 +137,9 @@ def bn_train_bwd_plain(dy, y, x, mask, scale, mean, var_raw, inv, count, eps,
     return dx, s2 * rstd, s1, (g if has_res else None)
 
 
-def _check_rows(name, x, mask, res, vecs):
-    """The checks KD, KG and KH share: x [N, C] contiguous f32/bf16 on a
-    card, mask bool [N], res like x, vecs f32 [C]."""
+def check_rows(name, x, mask, res, vecs):
+    """The checks the norm and whitening kernels share: x [N, C] contiguous
+    f32/bf16 on a card, mask bool [N], res like x, vecs f32 [C]."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got {x.device}")
     if x.dim() != 2 or not x.is_contiguous():
@@ -144,13 +161,13 @@ def _check_rows(name, x, mask, res, vecs):
         raise ValueError(f"{name}: res must match x")
 
 
-def _reduce_split(n, block_r):
+def reduce_split(n, block_r, programs=_REDUCE_PROGRAMS):
     """Rows per program (a power of two, a multiple of block_r) and the
-    program count of a KG/KH column reduction."""
+    program count of a column reduction over about `programs` slabs."""
     import triton
 
     rows = max(block_r, triton.next_power_of_2(
-        triton.cdiv(max(n, 1), _REDUCE_PROGRAMS)))
+        triton.cdiv(max(n, 1), programs)))
     return rows, max(1, triton.cdiv(n, rows))
 
 
@@ -173,7 +190,7 @@ def bn_train_fwd(x, mask, scale, bias, run_mean, run_var, momentum, eps,
     if x.device.type == "cpu":
         return bn_train_fwd_plain(x, mask, scale, bias, run_mean, run_var,
                                   momentum, eps, res, relu)
-    _check_rows("bn_train_fwd", x, mask, res,
+    check_rows("bn_train_fwd", x, mask, res,
                 (scale, bias, run_mean, run_var))
     import triton
 
@@ -183,7 +200,7 @@ def bn_train_fwd(x, mask, scale, bias, run_mean, run_var, momentum, eps,
     n, c = x.shape
     block_c = triton.next_power_of_2(c)
     block_r = max(1, 4096 // block_c)
-    rows, progs = _reduce_split(n, block_r)
+    rows, progs = reduce_split(n, block_r)
     f32 = dict(dtype=torch.float32, device=x.device)
     psum, psq = torch.empty(progs, c, **f32), torch.empty(progs, c, **f32)
     pcnt = torch.empty(progs, **f32)
@@ -219,9 +236,9 @@ def bn_train_bwd(dy, y, x, mask, scale, mean, var_raw, inv, count, eps,
     if dy.device.type == "cpu":
         return bn_train_bwd_plain(dy, y, x, mask, scale, mean, var_raw, inv,
                                   count, eps, has_res, relu)
-    _check_rows("bn_train_bwd", x, mask, dy, (scale, mean, var_raw, inv))
+    check_rows("bn_train_bwd", x, mask, dy, (scale, mean, var_raw, inv))
     if relu:
-        _check_rows("bn_train_bwd", x, mask, y, ())
+        check_rows("bn_train_bwd", x, mask, y, ())
     import triton
 
     from lidog_tpu_torch.ops.bn_act_triton import (
@@ -230,7 +247,7 @@ def bn_train_bwd(dy, y, x, mask, scale, mean, var_raw, inv, count, eps,
     n, c = x.shape
     block_c = triton.next_power_of_2(c)
     block_r = max(1, 4096 // block_c)
-    rows, progs = _reduce_split(n, block_r)
+    rows, progs = reduce_split(n, block_r)
     f32 = dict(dtype=torch.float32, device=x.device)
     ps1, ps2 = torch.empty(progs, c, **f32), torch.empty(progs, c, **f32)
     y_arg = y if relu else x
@@ -302,3 +319,203 @@ class MaskedBatchNorm(nn.Module):
                                          self.MOMENTUM, self.epsilon, relu)
         inv = torch.rsqrt(self.var + self.epsilon) * self.scale
         return bn_act(feats, self.mean, inv, self.bias, mask, res, relu)
+
+
+def _segments(mask, batch_idx, num_batches):
+    """seg = batch_idx on the rows of the mask, num_batches (the padding
+    segment) elsewhere."""
+    return torch.where(mask, batch_idx.long(),
+                       torch.full_like(batch_idx, num_batches).long())
+
+
+def _segment_sum(values, seg, num_segments):
+    """f32 sums per segment, accumulated in f64 and rounded once: a plain
+    f32 index_add_ adds a scan's ~10^5 rows one after another into one
+    value (a relative error of ~1e-5 at full size, more than the kernels'
+    blocked sums make), so the reference sums exactly."""
+    out = torch.zeros((num_segments,) + values.shape[1:], dtype=torch.float64,
+                      device=values.device)
+    return out.index_add_(0, seg, values.double()).float()
+
+
+def instance_norm_fwd_plain(x, mask, batch_idx, num_batches=NUM_BATCHES,
+                            eps=1e-5):
+    """Returns (y, mean, var_raw, rstd, count): per segment [S, C] f32
+    (S = num_batches + 1) the mean, the unclamped biased variance and
+    rsqrt(max(var_raw, 0) + eps); count [S] clamped at 1."""
+    ns = num_batches + 1
+    m = mask.float()[:, None]
+    f = x.float() * m
+    seg = _segments(mask, batch_idx, num_batches)
+    count = _segment_sum(m[:, 0], seg, ns).clamp(min=1.0)
+    mean = _segment_sum(f, seg, ns) / count[:, None]
+    var_raw = _segment_sum(f * f, seg, ns) / count[:, None] - mean * mean
+    rstd = torch.rsqrt(var_raw.clamp(min=0.0) + eps)
+    y = ((f - mean[seg]) * rstd[seg] * m).to(x.dtype)
+    return y, mean, var_raw, rstd, count
+
+
+def instance_norm_bwd_plain(dy, x, mask, batch_idx, mean, var_raw, rstd,
+                            count, eps=1e-5):
+    """dx of the instance norm: m * (g * rstd + a + b * f) per segment,
+    with g = dy in f32, a = dmean / count and b = 2 dvar / count (JAX's
+    tie rule at var_raw == 0), rounded once to x's dtype."""
+    num_batches = mean.shape[0] - 1
+    m = mask.float()[:, None]
+    g = dy.float() * m
+    f = x.float() * m
+    seg = _segments(mask, batch_idx, num_batches)
+    s1 = _segment_sum(g, seg, num_batches + 1)
+    s2 = _segment_sum(g * (f - mean[seg]), seg, num_batches + 1)
+    ve = var_raw.clamp(min=0.0) + eps
+    dvar = s2 * (-0.5 * rstd / ve)
+    # max(var_raw, 0): JAX's balanced gradient, 1/2 each side at a tie
+    dvar = dvar * torch.where(var_raw > 0, 1.0,
+                              torch.where(var_raw == 0, 0.5, 0.0))
+    dmean = -(s1 * rstd) - 2.0 * mean * dvar
+    a, b = dmean / count[:, None], 2.0 * dvar / count[:, None]
+    return ((g * rstd[seg] + a[seg] + b[seg] * f) * m).to(x.dtype)
+
+
+def _check_segments(name, x, mask, batch_idx, dy=None):
+    check_rows(name, x, mask, dy, ())
+    if batch_idx.dtype != torch.int32 or batch_idx.dim() != 1 \
+            or batch_idx.shape[0] != x.shape[0] \
+            or batch_idx.device != x.device:
+        raise ValueError(f"{name}: batch_idx must be int32 [{x.shape[0]}] on "
+                         f"{x.device}")
+
+
+def instance_norm_fwd(x, mask, batch_idx, num_batches=NUM_BATCHES,
+                      eps=1e-5):
+    """KK: the segmented masked instance norm (the plain version for a
+    CPU tensor).  Returns (y, mean, var_raw, rstd, count) as
+    instance_norm_fwd_plain.
+
+    Replaces lidog_tpu/ops/norm.py:79-104 (MaskedInstanceNorm: three
+    segment_sums, then the gathered normalising pass).  Bound on an H100:
+    bytes (x read twice, y written once; the [S, C] statistics stay in
+    cache), no tensor-core work.  Design: (1) one program per contiguous
+    slab of rows finds the segments of its real rows (rows of a scan sit
+    together in a plan level, so usually one or two), and for each sums
+    f, f * f and the count into f32 partials [P, S, C], so the result does
+    not depend on which program runs first (no float atomics); (2) one
+    program per (segment, channel block) sums the partials in order and
+    applies JAX's clamps; (3) one elementwise pass gathers each row's
+    segment statistics and normalises.
+    """
+    if x.device.type == "cpu":
+        return instance_norm_fwd_plain(x, mask, batch_idx, num_batches, eps)
+    _check_segments("instance_norm_fwd", x, mask, batch_idx)
+    import triton
+
+    from lidog_tpu_torch.ops.bn_act_triton import (
+        in_apply_kernel, in_finalize_kernel, in_stats_kernel)
+
+    n, c = x.shape
+    ns = num_batches + 1
+    block_c = triton.next_power_of_2(c)
+    block_r = max(1, 4096 // block_c)
+    rows, progs = reduce_split(n, block_r, _SEGMENT_PROGRAMS)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    psum, psq = torch.zeros(progs, ns, c, **f32), torch.zeros(progs, ns, c,
+                                                              **f32)
+    pcnt = torch.zeros(progs, ns, **f32)
+    mask_u8 = mask.view(torch.uint8)
+    bstride = batch_idx.stride(0)
+    in_stats_kernel[(progs,)](x, mask_u8, batch_idx, bstride, psum, psq,
+                              pcnt, n, c, S=ns, ROWS=rows, BLOCK_R=block_r,
+                              BLOCK_C=block_c, num_warps=4)
+    mean, var_raw, rstd = (torch.empty(ns, c, **f32) for _ in range(3))
+    count = torch.empty(ns, **f32)
+    fin_c = min(block_c, 128)
+    in_finalize_kernel[(ns, triton.cdiv(c, fin_c))](
+        psum, psq, pcnt, progs, mean, var_raw, rstd, count, c, float(eps),
+        S=ns, BLOCK_P=4096 // fin_c, BLOCK_C=fin_c, num_warps=4)
+    y = torch.empty_like(x)
+    if n:
+        in_apply_kernel[(triton.cdiv(n, block_r),)](
+            x, mask_u8, batch_idx, bstride, mean, rstd, y, n, c, S=ns,
+            BLOCK_R=block_r, BLOCK_C=block_c, num_warps=4)
+    LAUNCHES["instance_norm_fwd"] += 1
+    return y, mean, var_raw, rstd, count
+
+
+def instance_norm_bwd(dy, x, mask, batch_idx, mean, var_raw, rstd, count,
+                      eps=1e-5):
+    """KL: the backward of the instance norm (the plain version for a CPU
+    tensor).  Returns dx.
+
+    Replaces JAX's autodiff of lidog_tpu/ops/norm.py:79-104.  Bound on an
+    H100: bytes (dy and x read twice, dx written once).  Design: (1) per
+    program and segment of its slab, f32 partials of sum(g) and sum(g *
+    (f - mean)) over the real rows; (2) per (segment, channel block), the
+    partials summed in order into the two coefficients of the moment
+    term; (3) one elementwise pass writes dx = m * (g * rstd + a + b * f),
+    zero on masked rows.
+    """
+    if dy.device.type == "cpu":
+        return instance_norm_bwd_plain(dy, x, mask, batch_idx, mean, var_raw,
+                                       rstd, count, eps)
+    _check_segments("instance_norm_bwd", x, mask, batch_idx, dy)
+    import triton
+
+    from lidog_tpu_torch.ops.bn_act_triton import (
+        in_bwd_apply_kernel, in_bwd_finalize_kernel, in_bwd_reduce_kernel)
+
+    n, c = x.shape
+    ns = mean.shape[0]
+    block_c = triton.next_power_of_2(c)
+    block_r = max(1, 4096 // block_c)
+    rows, progs = reduce_split(n, block_r, _SEGMENT_PROGRAMS)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    ps1, ps2 = torch.zeros(progs, ns, c, **f32), torch.zeros(progs, ns, c,
+                                                             **f32)
+    mask_u8 = mask.view(torch.uint8)
+    bstride = batch_idx.stride(0)
+    in_bwd_reduce_kernel[(progs,)](dy, x, mask_u8, batch_idx, bstride, mean,
+                                   ps1, ps2, n, c, S=ns, ROWS=rows,
+                                   BLOCK_R=block_r, BLOCK_C=block_c,
+                                   num_warps=4)
+    a, b = torch.empty(ns, c, **f32), torch.empty(ns, c, **f32)
+    fin_c = min(block_c, 128)
+    in_bwd_finalize_kernel[(ns, triton.cdiv(c, fin_c))](
+        ps1, ps2, progs, mean, var_raw, rstd, count, a, b, c, float(eps),
+        S=ns, BLOCK_P=4096 // fin_c, BLOCK_C=fin_c, num_warps=4)
+    dx = torch.empty_like(x)
+    if n:
+        in_bwd_apply_kernel[(triton.cdiv(n, block_r),)](
+            dy, x, mask_u8, batch_idx, bstride, rstd, a, b, dx, n, c, S=ns,
+            BLOCK_R=block_r, BLOCK_C=block_c, num_warps=4)
+    LAUNCHES["instance_norm_bwd"] += 1
+    return dx
+
+
+class _InstanceNorm(torch.autograd.Function):
+    """MaskedInstanceNorm: KK forward, KL backward; the grad of feats."""
+
+    @staticmethod
+    def forward(ctx, x, mask, batch_idx, num_batches, eps):
+        y, mean, var_raw, rstd, count = instance_norm_fwd(
+            x, mask, batch_idx, num_batches, eps)
+        ctx.save_for_backward(x, mask, batch_idx, mean, var_raw, rstd, count)
+        ctx.eps = eps
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx = instance_norm_bwd(dy.contiguous(), *ctx.saved_tensors, ctx.eps)
+        return dx, None, None, None, None
+
+
+class MaskedInstanceNorm(nn.Module):
+    """Per-scan normalisation of the rows of the mask, no parameters (the
+    IBN and RobustNet norms).  batch_idx: int32 [N], coords[:, 0] of the
+    level, below NUM_BATCHES; the masked rows form one more, padding,
+    segment."""
+
+    EPSILON = 1e-5
+
+    def forward(self, feats, mask, batch_idx):
+        return _InstanceNorm.apply(feats, mask, batch_idx, NUM_BATCHES,
+                                   self.EPSILON)

@@ -50,6 +50,13 @@ _GROUPS = (("Conv3Map", "zconv3_fwd"), ("DownMap", "zconv_down_fwd"),
            ("scatter_max_bwd", "bev_scatter_max_bwd"),
            ("scatter_max_bf16", "bev_scatter_max"),
            ("scatter_max_f32", "bev_scatter_max"),
+           ("in_stats_kernel", "instance_norm_fwd"),
+           ("in_finalize_kernel", "instance_norm_fwd"),
+           ("in_apply_kernel", "instance_norm_fwd"),
+           ("in_bwd_", "instance_norm_bwd"),
+           ("whiten_rows_kernel", "whitening_fwd"),
+           ("whiten_finalize_kernel", "whitening_fwd"),
+           ("whiten_bwd_kernel", "whitening_bwd"),
            ("Memset", "memset (every cudaMemset; KI's zero-fill is one)"))
 
 

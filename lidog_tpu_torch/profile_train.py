@@ -1,6 +1,7 @@
 """Where the device time of one full-width training step goes.
 
-    python -m lidog_tpu_torch.profile_train [--steps 3] [--lidog]
+    python -m lidog_tpu_torch.profile_train [--steps 3]
+        [--lidog | --robustnet | --ibn]
 
 Runs the training step of bench.py's shapes (MinkUNet34 bf16 with seeded
 random weights; 4 synthetic scans x 100,000 points, voxel 0.05, the
@@ -9,7 +10,11 @@ per-scan plan caps of bench.py:40-44, grid_half 1024; SoftDICE + Adam lr
 LiDOG step of bench_lidog.py's shapes (MinkUNet34BEV bf16; the same scans
 through the host BEV preprocessing with 167^2 labels at level block8,
 collated to 393,216 rows; plan, forward with the pooled BEV scatter and
-Encoder2D, SoftDICE + DICE, backward, Adam), then traces `--steps` steps
+Encoder2D, SoftDICE + DICE, backward, Adam), with --robustnet the
+RobustNet step (MinkUNet34Robust bf16 on the training step's batch;
+SoftDICE + 0.5 IW over its 5 instance-normed taps, the gate on from the
+first step) or with --ibn the IBN step (MinkUNet34IBN bf16, SoftDICE),
+then traces `--steps` steps
 with torch.profiler and prints, per step: wall ms, device busy ms and idle
 share, and the device ms and launches of each hand-written kernel and of
 everything else.  Needs a CUDA card; prints the card's name and power
@@ -26,25 +31,35 @@ CAPS = dict(caps_real=(92_160, 61_440, 22_528, 9_216, 3_584),
             caps_col_dil=(196_608, 93_184, 54_272, 23_552, 9_728))
 
 
-def _train_step(scans, builder):
-    """bench.py's step as a closure."""
+def _train_step(scans, builder, variant="source"):
+    """bench.py's step as a closure, with MinkUNet34 or (variant "ibn")
+    MinkUNet34IBN, or (variant "robustnet") the RobustNet step."""
     import numpy as np
     import torch
 
-    from lidog_tpu_torch.losses.losses import SoftDICELoss
+    from lidog_tpu_torch.losses.losses import IWLoss, SoftDICELoss
     from lidog_tpu_torch.models.minkunet import MinkUNet34
+    from lidog_tpu_torch.models.minkunet_ibn import MinkUNet34IBN
+    from lidog_tpu_torch.models.minkunet_robustnet import MinkUNet34Robust
     from lidog_tpu_torch.train.device_pipeline import device_batch_from_points
     from lidog_tpu_torch.train.optim import make_optimizer
+    from lidog_tpu_torch.train.robustnet_step import make_robustnet_train_step
     from lidog_tpu_torch.train.train_step import TrainState, make_train_step
 
     pts = torch.from_numpy(np.stack([d["points"] for d in scans])).cuda()
     labels = torch.from_numpy(np.stack([d["sem_labels"] for d in scans])
                               .astype(np.int32)).cuda()
     valid = torch.ones(pts.shape[:2], dtype=torch.bool, device="cuda")
-    model = MinkUNet34(out_channels=7, compute_dtype=torch.bfloat16,
-                       generator=torch.Generator().manual_seed(0))
+    cls = {"source": MinkUNet34, "ibn": MinkUNet34IBN,
+           "robustnet": MinkUNet34Robust}[variant]
+    model = cls(out_channels=7, compute_dtype=torch.bfloat16,
+                generator=torch.Generator().manual_seed(0))
     state = TrainState.create(model, make_optimizer("Adam", lr=1e-3))
-    step = make_train_step(SoftDICELoss(ignore_label=-1), num_classes=7)
+    crit = SoftDICELoss(ignore_label=-1)
+    step = (make_robustnet_train_step(crit, IWLoss(), num_classes=7,
+                                      cov_stat_epoch=0)
+            if variant == "robustnet" else make_train_step(crit,
+                                                           num_classes=7))
 
     def full_step():
         batch = device_batch_from_points(pts, valid, labels, 0.05, 393_216)
@@ -96,8 +111,13 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--lidog", action="store_true",
-                    help="profile the LiDOG step (MinkUNet34BEV)")
+    paths = ap.add_mutually_exclusive_group()
+    paths.add_argument("--lidog", action="store_true",
+                       help="profile the LiDOG step (MinkUNet34BEV)")
+    paths.add_argument("--robustnet", action="store_true",
+                       help="profile the RobustNet step (MinkUNet34Robust)")
+    paths.add_argument("--ibn", action="store_true",
+                       help="profile the IBN step (MinkUNet34IBN)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA device")
@@ -108,7 +128,10 @@ def main(argv=None):
     builder = ZSegPlanBuilder(CAPS["caps_real"], CAPS["caps_aug"],
                               num_batches=4, grid_half=1024,
                               caps_col_dil=CAPS["caps_col_dil"])
-    full_step = (_lidog_step if args.lidog else _train_step)(scans, builder)
+    variant = ("lidog" if args.lidog else "robustnet" if args.robustnet
+               else "ibn" if args.ibn else "source")
+    full_step = (_lidog_step(scans, builder) if args.lidog
+                 else _train_step(scans, builder, variant))
 
     for _ in range(2):
         full_step()
@@ -123,7 +146,7 @@ def main(argv=None):
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
     kernels = _kernel_events(prof)
     busy_ms = sum(us for _, us, _ in kernels) / 1e3 / args.steps
-    print(f"[profile] {'lidog' if args.lidog else 'train'} per step: wall "
+    print(f"[profile] {variant} per step: wall "
           f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f}")
     print_groups(kernels, args.steps, "step")

@@ -8,7 +8,9 @@ batch_stats leaves (BatchNorm `mean`/`var`) become buffers, the rest
 parameters: the two collections share no leaf name.  This holds for
 MinkUNet34BEV's Encoder2D subtrees too (`encoder2d_block8.down1.conv0.
 kernel` [3, 3, Cin, Cout], flax BatchNorm `bn0.scale`/`bias`/`mean`/
-`var`).
+`var`).  MinkUNet34Robust's and MinkUNet34IBN's trees have no `backbone`
+level (`block1_0.norm1.bn.scale`), and their instance norms hold no
+leaves, as the port's modules hold no parameters or buffers.
 
 A lidog_tpu TrainState (params, batch_stats, the optax Adam state, step;
 also through jax.device_get) carries into the port's TrainState, so that

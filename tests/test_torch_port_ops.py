@@ -22,6 +22,12 @@ Tolerances (relative to max |JAX output|, per compared tensor):
     2e-2 in bf16 (one bf16 step where the f32 results round differently).
   * SoftDICE loss and dlogits: 1e-5 (f32 throughout); confusion matrix:
     exact.
+  * MaskedInstanceNorm output and grad: 1e-5 in f32 (f32 sums in another
+    order); 2e-2 in bf16 (one bf16 step where the f32 results round
+    differently).
+  * IW / IRW loss and grad: 1e-5 (f32; sums in another order).
+  * The four models' parameter trees from their YAMLs: keys, shapes and
+    dtypes equal.
   * Adam / SGD vs optax over 3 steps: 1e-6 of max |param| (f32; torch
     divides by sqrt(nu) / sqrt(1 - b2^t) where optax takes sqrt(nu / (1 -
     b2^t)), and the schedules are taken in f64 here, f32 there).
@@ -33,6 +39,8 @@ import sys
 
 import numpy as np
 import pytest
+
+from tests.test_torch_port_serve import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -67,6 +75,23 @@ def test_voxelize_bitwise(request):
     assert int(tv.overflow) > 0
 
 
+def _zseg_plan():
+    """The plan of tests/test_zseg.py's input (grid_half 64) as a lidog_tpu
+    ZPlan: the port's builder, bitwise equal to lidog_tpu's there
+    (test_plan_bitwise_equal[zseg]), converted (_jax_plan_of)."""
+    import torch
+
+    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+    from tests.test_torch_port_serve import _jax_plan_of
+    from tests.test_zseg import B, CAPS_A, CAPS_R, _build_inputs
+
+    coords, mask, _ = _build_inputs(np.random.RandomState(7))
+    return _jax_plan_of(ZSegPlanBuilder(CAPS_R, CAPS_A, num_batches=B,
+                                        grid_half=64)(
+        torch.from_numpy(np.asarray(coords)),
+        torch.from_numpy(np.asarray(mask))))
+
+
 def _rel(a, b):
     a = np.asarray(a, np.float32)
     b = np.asarray(b, np.float32)
@@ -80,19 +105,14 @@ def test_zconv_ops_match_jax(dtype, request):
 
     if run_isolated(request):
         return
-    import jax
     import jax.numpy as jnp
     import torch
 
-    from lidog_tpu.core.zseg import ZSegPlanBuilder
     from lidog_tpu.ops import zconv as jz
     from lidog_tpu_torch.ops import zconv as tz
-    from tests.test_zseg import B, CAPS_A, CAPS_R, _build_inputs
+    from tests.test_zseg import B
 
-    coords, mask, _ = _build_inputs(np.random.RandomState(7))
-    plan = jax.jit(ZSegPlanBuilder(CAPS_R, CAPS_A, num_batches=B,
-                                   grid_half=64))(
-        jnp.asarray(coords), jnp.asarray(mask))
+    plan = _zseg_plan()
     jdt = jnp.dtype(dtype)
     tdt = getattr(torch, dtype)
     tol = 1e-4 if dtype == "float32" else 2e-2
@@ -160,15 +180,11 @@ def test_zconv_grads_match_jax(dtype, request):
     import jax.numpy as jnp
     import torch
 
-    from lidog_tpu.core.zseg import ZSegPlanBuilder
     from lidog_tpu.ops import zconv as jz
     from lidog_tpu_torch.ops import zconv as tz
-    from tests.test_zseg import B, CAPS_A, CAPS_R, _build_inputs
+    from tests.test_zseg import B
 
-    coords, mask, _ = _build_inputs(np.random.RandomState(7))
-    plan = jax.jit(ZSegPlanBuilder(CAPS_R, CAPS_A, num_batches=B,
-                                   grid_half=64))(
-        jnp.asarray(coords), jnp.asarray(mask))
+    plan = _zseg_plan()
     jdt = jnp.dtype(dtype)
     tdt = getattr(torch, dtype)
     tol = 1e-5 if dtype == "float32" else 2e-2
@@ -419,19 +435,18 @@ def test_bev_scatter_pooled_match_jax(dtype, request):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_encoder2d_dice_match_jax(dtype, request):
-    """Encoder2D in train mode with from_jax weights against flax's on
-    [2, 33, 33, 16]: the logits, the DICE(-1) loss on them, the grads of
-    every parameter and of the input, and both BatchNorms' running mean
-    and var after the update (flax's biased variance, momentum 0.9).
-    JAX runs op by op (not jitted): under jit XLA fuses the bf16 norm and
-    keeps intermediates in f32, and its bf16 grads then part from its own
-    op-by-op grads by 6-30% (BatchNorm's backward sums two rounded
-    cotangents that nearly cancel); op by op, JAX rounds where the port
-    does.  Relative to max |JAX| per tensor: f32 1e-5 (logits, loss,
-    running stats; summation order only) and 1e-4 (grads: the conv
-    backward sums in another order); bf16 2e-2 (the same rounding points,
-    other summation orders; measured <= 6e-3)."""
+def test_instance_norm_match_jax(dtype, request):
+    """MaskedInstanceNorm forward and its grad through JAX's autodiff, on
+    rows of scans 0, 1, 3 and 5 of num_batches 16 (scan 2 absent, scan 5
+    a single row), a quarter of the rows masked (they go to the padding
+    segment), batch_idx read as a column of coords as the models pass
+    it.  Relative to max |JAX| per tensor: f32 1e-5 (f32 sums in another
+    order); bf16 2e-2 (the same two roundings, input and output, and one
+    bf16 step where the f32 results round differently).  A single-row
+    scan normalises to exactly 0; its variance is exactly 0, so JAX's
+    max(var, 0) sits at its tie, where JAX's gradient is 1/2 each side:
+    the port's backward applies the same rule, and the row's gradient
+    (0 on both sides, since sum g (f - mean) = 0 there) is held too."""
     from tests.conftest import run_isolated
 
     if run_isolated(request):
@@ -440,58 +455,163 @@ def test_encoder2d_dice_match_jax(dtype, request):
     import jax.numpy as jnp
     import torch
 
-    from lidog_tpu.losses.losses import DICELoss as JaxDICE
-    from lidog_tpu.models.conv2d import Encoder2D as JaxEncoder
-    from lidog_tpu_torch.losses.losses import DICELoss
-    from lidog_tpu_torch.models.conv2d import Encoder2D
-    from lidog_tpu_torch.utils.from_jax import state_dict_from_flax
+    from lidog_tpu.ops.norm import MaskedInstanceNorm as JaxIN
+    from lidog_tpu_torch.ops.norm import LAUNCHES, MaskedInstanceNorm
 
-    rng = np.random.RandomState(12)
-    c_in, n_cls = 16, 5
-    x = np.maximum(rng.randn(2, 33, 33, c_in), 0).astype(np.float32)
-    labels = rng.randint(-1, n_cls, (2, 9, 9)).astype(np.int32)
+    rng = np.random.RandomState(14)
+    n, c = 300, 24
+    bidx = rng.choice([0, 1, 3], n).astype(np.int32)
+    mask = rng.rand(n) > 0.25
+    bidx[17], mask[17] = 5, True  # the one row of scan 5
+    bidx[~mask] = rng.randint(0, 16, (~mask).sum())
+    coords = np.zeros((n, 4), np.int32)
+    coords[:, 0] = bidx
+    x = (rng.randn(n, c) * 2 + 0.7).astype(np.float32)
+    x[:, 3] *= 50.0  # a wide channel
+    dy = rng.randn(n, c).astype(np.float32)
     jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
-    tol, tol_g = (1e-5, 1e-4) if dtype == "float32" else (2e-2, 2e-2)
+    tol = 1e-5 if dtype == "float32" else 2e-2
 
-    jm = JaxEncoder(n_classes=n_cls, compute_dtype=jdt)
-    var = jax.device_get(jm.init(jax.random.PRNGKey(3), jnp.asarray(x),
-                                 train=False))
-    stats = jax.tree_util.tree_map(
-        lambda v: rng.uniform(0.5, 2.0, v.shape).astype(np.float32),
-        var["batch_stats"])
-    crit_j = JaxDICE(ignore_label=-1)
-
-    def loss_j(params, xin):
-        logits, upd = jm.apply({"params": params, "batch_stats": stats}, xin,
-                               train=True, mutable=["batch_stats"])
-        return crit_j(logits, jnp.asarray(labels)), (logits, upd)
-
-    (lj, (logits_j, upd)), (gp, gx) = jax.value_and_grad(
-        loss_j, argnums=(0, 1), has_aux=True)(var["params"],
-                                              jnp.asarray(x, jdt))
-    gp, upd = jax.device_get(gp), jax.device_get(upd)
-
-    tm = Encoder2D(c_in, n_classes=n_cls, compute_dtype=tdt).train()
-    tm.load_state_dict(state_dict_from_flax(
-        {"params": var["params"], "batch_stats": stats}), strict=True)
+    yj, vjp = jax.vjp(lambda f: JaxIN().apply({}, f, jnp.asarray(mask),
+                                              jnp.asarray(bidx)),
+                      jnp.asarray(x, jdt))
+    gj, = vjp(jnp.asarray(dy, jdt))
+    launches = dict(LAUNCHES)
     xt = torch.from_numpy(x).to(tdt).requires_grad_()
-    logits_t = tm(xt)
-    lt = DICELoss(ignore_label=-1)(logits_t, torch.from_numpy(labels))
+    ct = torch.from_numpy(coords)
+    yt = MaskedInstanceNorm()(xt, torch.from_numpy(mask), ct[:, 0])
+    yt.backward(torch.from_numpy(dy).to(tdt))
+    assert yt.dtype == xt.grad.dtype == tdt
+    for name, a, b in (("y", yj, yt), ("dx", gj, xt.grad)):
+        a = np.asarray(a.astype(jnp.float32))
+        b = b.detach().float().numpy()
+        assert _rel(a, b) <= tol, (name, _rel(a, b))
+        assert (b[~mask] == 0).all(), name
+    assert (yt[17] == 0).all() and (np.asarray(yj[17]) == 0).all()
+    assert np.abs(xt.grad[17].float().numpy()
+                  - np.asarray(gj[17].astype(jnp.float32))).max() <= \
+        tol * np.abs(np.asarray(gj.astype(jnp.float32))).max()
+    assert LAUNCHES == launches  # the CPU path launches no kernel
+
+
+@pytest.mark.parametrize("loss", ["IW", "IRW"])
+def test_whitening_losses_match_jax(loss, request):
+    """IW / IRW loss and its grad through JAX's autodiff, f32, on 200 rows
+    x 16 channels with a fifth of the rows masked, a third of the entries
+    exactly 0 and one all-zero real row (JAX's |x|' is +1 at 0, so a 0
+    entry of a live row gets the row's sum |f|), and rows scaled up so
+    that IRW's hinge is live on some rows and not on others.  Relative to
+    max |JAX|: 1e-5 (f32 sums in another order)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from lidog_tpu.losses import losses as jl
+    from lidog_tpu_torch.losses import losses as tl
+
+    rng = np.random.RandomState(15)
+    n, c = 200, 16
+    x = rng.randn(n, c).astype(np.float32)
+    x[rng.rand(n, c) < 0.3] = 0.0
+    x[5] = 0.0
+    x *= np.where(rng.rand(n) < 0.3, 12.0, 1.0).astype(np.float32)[:, None]
+    mask = rng.rand(n) > 0.2
+    mask[5] = True
+    jfn, tfn = {"IW": (jl.IWLoss(), tl.IWLoss()),
+                "IRW": (jl.IRWLoss(), tl.IRWLoss())}[loss]
+    lj, gj = jax.value_and_grad(lambda f: jfn(f, jnp.asarray(mask)))(
+        jnp.asarray(x))
+    launches = dict(tl.LAUNCHES)
+    xt = torch.from_numpy(x).requires_grad_()
+    lt = tfn(xt, torch.from_numpy(mask))
     lt.backward()
-    assert logits_t.dtype == torch.float32
-    assert _rel(np.asarray(logits_j), logits_t.detach()) <= tol
-    assert abs(float(lj) - lt.item()) <= tol * abs(float(lj))
-    assert _rel(np.asarray(gx.astype(jnp.float32)), xt.grad.float()) <= tol_g
-    named = dict(tm.named_parameters())
-    flat = state_dict_from_flax({"params": gp})
-    assert set(flat) == set(named)
-    for k, g in flat.items():
-        assert _rel(g.numpy(), named[k].grad) <= tol_g, k
-    new_stats = state_dict_from_flax({"batch_stats": upd["batch_stats"]})
-    buffers = dict(tm.named_buffers())
-    assert set(new_stats) == set(buffers) and len(buffers) == 4
-    for k, v in new_stats.items():
-        assert _rel(v.numpy(), buffers[k]) <= tol, k
+    assert lt.shape == () and float(lj) > 0
+    assert abs(float(lj) - lt.item()) <= 1e-5 * abs(float(lj))
+    g = xt.grad.numpy()
+    assert _rel(np.asarray(gj), g) <= 1e-5
+    assert (g[~mask] == 0).all() and (g[x == 0] != 0).any()
+    if loss == "IRW":  # the hinge is live on some rows, not on others
+        assert 0 < (np.abs(g).sum(1) > 0).sum() < mask.sum()
+    assert tl.LAUNCHES == launches
+
+
+@pytest.mark.parametrize("case", ["float32", "float32-2src-gate"])
+def test_robustnet_step_matches_jax(case, request, monkeypatch):
+    """The RobustNet step (narrow MinkUNet34Robust: instance norms KK/KL
+    and IW's KM/KN on their plain versions; SoftDICE + 0.5 IW over the 5
+    taps, Adam) against lidog_tpu's, two steps from a carried-over
+    TrainState: loss, aux_loss, confusion, grads, params after Adam and
+    batch_stats, with the tolerances of test_train_step_matches_jax.  The
+    gate is on at both steps, or, with two sources, off at the first and
+    on at the second.  The helper and its tolerances are in
+    tests/test_torch_port_serve.py; the test sits here so that the three
+    port files share the heavy parity tests."""
+    from tests.conftest import run_isolated
+
+    if run_isolated(request):
+        return
+    from tests.test_torch_port_serve import _variant_step_matches_jax
+
+    _variant_step_matches_jax("robustnet", case, monkeypatch)
+
+
+def _shapes_of(tree, prefix, out):
+    """Flax tree of ShapeDtypeStructs -> {dotted key: (shape, dtype)}."""
+    for k, v in tree.items():
+        key = f"{prefix}.{k}" if prefix else str(k)
+        if hasattr(v, "items"):
+            _shapes_of(v, key, out)
+        else:
+            assert key not in out, key
+            out[key] = (tuple(v.shape), str(v.dtype))
+    return out
+
+
+def test_variant_registry_and_weights():
+    """get_model builds each of the four models from its YAML at full
+    width, with the YAML's compute dtype, and its state_dict has exactly
+    the keys and shapes of lidog_tpu's flax tree for the same YAML
+    (jax.eval_shape of the init: traced, not compiled)."""
+    import jax
+    import jax.numpy as jnp
+
+    from lidog_tpu.config import get_config as jax_config
+    from lidog_tpu.core.engine import input_tensor as jax_input
+    from lidog_tpu.models.registry import get_model as jax_get_model
+    from lidog_tpu.models.registry import precision_dtype as jax_precision
+    from lidog_tpu_torch.config import get_config
+    from lidog_tpu_torch.core.engine import input_tensor
+    from lidog_tpu_torch.models.registry import get_model
+    from tests.test_torch_port_serve import _jax_plan_of, _points, _torch_plan
+
+    tvox, tplan = _torch_plan(_points())
+    jplan = _jax_plan_of(tplan)
+    x = jax_input(jplan, jnp.asarray(tvox.mask.numpy())[:, None].astype(
+        jnp.float32))
+    assert input_tensor(tplan, tvox.mask[:, None].float()).feats.shape == \
+        x.feats.shape
+    for method, name in (("source", "MinkUNet34"), ("ibn", "MinkUNet34IBN"),
+                         ("robustnet", "MinkUNet34Robust"),
+                         ("lidog", "MinkUNet34BEV")):
+        path = f"configs/{method}/single/semantickitti.yaml"
+        config = jax_config(path)
+        assert config.model.name == name and config.model.in_channels == 1
+        jm = jax_get_model(config, num_batches=2)
+        kw = {"is_train": True} if name == "MinkUNet34BEV" else {}
+        shapes = jax.eval_shape(
+            lambda k: jm.init(k, x, jplan, train=False, **kw),
+            jax.random.PRNGKey(0))
+        want = {}
+        for col in ("params", "batch_stats"):
+            _shapes_of(shapes.get(col, {}), "", want)
+        model = get_model(get_config(path), num_batches=2)
+        assert type(model).__name__ == name
+        got = {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
+               for k, v in model.state_dict().items()}
+        assert got == want, (name, set(got) ^ set(want))
+        dt = getattr(model, "compute_dtype", None) or \
+            model.backbone.compute_dtype
+        assert str(dt) == f"torch.{jnp.dtype(jax_precision(config)).name}"
 
 
 def test_softdice_confusion_match_jax():
@@ -586,6 +706,7 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
     counts no launch; a tensor on neither the CPU nor a card raises."""
     import torch
 
+    from lidog_tpu_torch.losses import losses
     from lidog_tpu_torch.ops import bev, norm, zconv
 
     g = torch.Generator().manual_seed(0)
@@ -606,6 +727,12 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
     coords[:, 0] = torch.arange(n) % 2
     geom = (2, 8, 2, 5, 3, 1)
     pooled = bev.bev_scatter_max_plain(x, coords, m, *geom)
+    # instance norm over one scan (batch_idx as a column of coords); IW,
+    # and IRW on rows scaled so that its hinge is live
+    bidx = torch.zeros(n, 4, dtype=torch.int32)[:, 0]
+    _, mean_i, var_i, rstd_i, count_i = norm.instance_norm_fwd_plain(x, m,
+                                                                     bidx)
+    _, s_w, n_w = losses.whitening_fwd_plain(x, m)
     cases = [
         (zconv.zconv3_fwd, zconv.zconv3_plain, (x, nbr, zup, zdn, wf, m)),
         (zconv.zconv_down_fwd, zconv.zconv_down_plain, (x, nbr[:8], w8, m)),
@@ -627,8 +754,17 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
         (bev.bev_scatter_max_bwd, bev.bev_scatter_max_bwd_plain,
          (x, coords, m, pooled, torch.randn(pooled.shape, generator=g),
           *geom)),
+        (norm.instance_norm_fwd, norm.instance_norm_fwd_plain, (x, m, bidx)),
+        (norm.instance_norm_bwd, norm.instance_norm_bwd_plain,
+         (x, x, m, bidx, mean_i, var_i, rstd_i, count_i)),
+        (losses.whitening_fwd, losses.whitening_fwd_plain, (x, m, False)),
+        (losses.whitening_fwd, losses.whitening_fwd_plain,
+         (12 * x, m, True)),
+        (losses.whitening_bwd, losses.whitening_bwd_plain,
+         (torch.tensor(1.0), x, m, s_w, n_w, False)),
     ]
-    before = {**zconv.LAUNCHES, **norm.LAUNCHES, **bev.LAUNCHES}
+    before = {**zconv.LAUNCHES, **norm.LAUNCHES, **bev.LAUNCHES,
+              **losses.LAUNCHES}
     for wrapper, plain, args in cases:
         copy = [a.clone() if torch.is_tensor(a) else a for a in args]
         out, want = wrapper(*args), plain(*copy)
@@ -640,23 +776,26 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
         meta = [a.to("meta") if torch.is_tensor(a) else a for a in args]
         with pytest.raises(ValueError, match="CUDA"):
             wrapper(*meta)
-    assert {**zconv.LAUNCHES, **norm.LAUNCHES, **bev.LAUNCHES} == before
+    assert {**zconv.LAUNCHES, **norm.LAUNCHES, **bev.LAUNCHES,
+            **losses.LAUNCHES} == before
 
 
 def test_port_imports_no_jax():
     """Importing every lidog_tpu_torch module (and chip_smoke.py) leaves
-    jax, flax and lidog_tpu out of sys.modules.  bn_act_triton is the one
-    module that needs the triton package; it is imported only by the
-    launching function."""
+    jax, flax and lidog_tpu out of sys.modules.  bn_act_triton and
+    whiten_triton are the modules that need the triton package; each is
+    imported only by its launching functions."""
     code = r"""
 import importlib, pkgutil, sys
 import lidog_tpu_torch
 names = ["chip_smoke"]
 for m in pkgutil.walk_packages(lidog_tpu_torch.__path__, "lidog_tpu_torch."):
     names.append(m.name)
-assert "lidog_tpu_torch.ops.bn_act_triton" in names
+triton_modules = {"lidog_tpu_torch.ops.bn_act_triton",
+                  "lidog_tpu_torch.losses.whiten_triton"}
+assert triton_modules <= set(names)
 for n in names:
-    if n != "lidog_tpu_torch.ops.bn_act_triton":
+    if n not in triton_modules:
         importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "lidog_tpu"))

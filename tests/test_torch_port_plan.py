@@ -10,11 +10,17 @@ tests/test_zseg.py (grid_half 64), the same input with starved capacities
 tests/test_serve.py (voxelized points, grid_half 32).
 
 Also the LiDOG step's host and device pipeline: the BEV preprocessing and
-collation bitwise, and the whole LiDOG train step against lidog_tpu's.
+collation bitwise, Encoder2D + DICE, and the whole LiDOG train step
+against lidog_tpu's; the full-width Predictor and the IBN train step
+against lidog_tpu's.  The last three sit here so that the three port
+files share the heavy parity tests (pytest-xdist runs a file on one
+worker).
 """
 
 import numpy as np
 import pytest
+
+from tests.test_torch_port_serve import one_torch_thread  # noqa: F401
 
 
 def _assert_plans_equal(jp, tp):
@@ -158,8 +164,6 @@ def test_lidog_step_matches_jax(case, request):
     import jax.numpy as jnp
     import torch
 
-    from lidog_tpu.core.zseg import ZLevel as JaxLevel
-    from lidog_tpu.core.zseg import ZPlan as JaxPlan
     from lidog_tpu.losses import DICELoss as JaxDICE
     from lidog_tpu.losses import SoftDICELoss as JaxSoftDICE
     from lidog_tpu.models.conv2d import Encoder2D as JaxEncoder
@@ -178,8 +182,8 @@ def test_lidog_step_matches_jax(case, request):
                                                 state_dict_from_flax)
     from tests.test_torch_port_serve import (B, BOUND_2D, CAPS_A, CAPS_R,
                                              GRID_HALF, LIDOG_SEED, NARROW,
-                                             TRAIN_TOL, VOXEL, _lidog_batches,
-                                             _rel)
+                                             TRAIN_TOL, VOXEL, _jax_plan_of,
+                                             _lidog_batches, _rel)
 
     nsrc = 2 if "2src" in case else 1
     warmup = 2 if case.endswith("warmup") else 0
@@ -204,18 +208,6 @@ def test_lidog_step_matches_jax(case, request):
             return logits, {"block8": JaxEncoder(
                 n_classes=C, name="encoder2d_block8")(bev, train)}
 
-    def to_jax(t):
-        return (jnp.asarray(t.float().numpy(), jnp.bfloat16)
-                if t.dtype == torch.bfloat16 else jnp.asarray(t.numpy()))
-
-    def jax_plan(tp):
-        return JaxPlan(
-            levels=tuple(JaxLevel(*(to_jax(getattr(lv, f)) for f in (
-                "coords", "real", "valid", "zup", "zdn")), stride=lv.stride)
-                for lv in tp.levels),
-            kmaps={k: to_jax(v) for k, v in tp.kmaps.items()},
-            pos=to_jax(tp.pos), overflow=to_jax(tp.overflow))
-
     jm = JaxNarrowBEV()
     tbuilder = ZSegPlanBuilder(CAPS_R, CAPS_A, num_batches=B,
                                grid_half=GRID_HALF)
@@ -224,7 +216,7 @@ def test_lidog_step_matches_jax(case, request):
         for k, v in nb.items():
             jbatch[k + s], tbatch[k + s] = jnp.asarray(v), torch.from_numpy(v)
         tplans[s] = tbuilder(tbatch["coords" + s], tbatch["mask" + s])
-        jplans[s] = jax_plan(tplans[s])
+        jplans[s] = _jax_plan_of(tplans[s])
         assert int(tplans[s].overflow.sum()) == 0
     jplan_arg = jplans if nsrc > 1 else jplans[""]
     tplan_arg = tplans if nsrc > 1 else tplans[""]
@@ -306,3 +298,149 @@ def test_lidog_step_matches_jax(case, request):
                         buf.numpy()) <= tol_grad, (step, name)
     assert gates == ([0.0, 1.0] if warmup else [1.0, 1.0])
     assert tstate.step == int(jstate.step) == 3
+
+
+def test_full_predictor_matches_jax(request):
+    """Full-width MinkUNet34 in f32: the port's Predictor on the CPU vs
+    lidog_tpu.serve.Predictor, at the shapes and tolerances of
+    tests/test_torch_port_serve.py (logits 1e-3 of max |JAX logits|;
+    per-point labels equal wherever the JAX top-2 logit margin exceeds
+    1e-3 of max |logits|).  It sits here so that the three port files
+    share the heavy parity tests (pytest-xdist runs a file on one
+    worker)."""
+    from tests.conftest import run_isolated
+
+    if run_isolated(request):
+        return
+    import jax
+
+    from lidog_tpu.models import MinkUNet34 as JaxMinkUNet34
+    from lidog_tpu.serve import Predictor as JaxPredictor
+    from lidog_tpu_torch.models.minkunet import MinkUNet34
+    from lidog_tpu_torch.serve import Predictor
+    from lidog_tpu_torch.utils.from_jax import state_dict_from_flax
+    from tests.test_torch_port_serve import (B, CAPS_A, CAPS_R, GRID_HALF,
+                                             VOXEL, P, _jax_plan,
+                                             _jax_variables, _points, _rel)
+
+    pts = _points()
+    vox, plan = _jax_plan(pts)
+    jm = JaxMinkUNet34(out_channels=7)
+    model = MinkUNet34(out_channels=7)
+    variables, x = _jax_variables(model, vox, plan)
+    kw = dict(batch_size=B, voxel_size=VOXEL, caps_per_scan=CAPS_R[0],
+              grid_half=GRID_HALF, caps=(CAPS_R, CAPS_A, None))
+    jlabels = np.asarray(JaxPredictor(jm, variables, **kw)(pts))
+    jlogits = np.asarray(jax.jit(
+        lambda v: jm.apply(v, x, plan, train=False))(variables))
+
+    model.load_state_dict(state_dict_from_flax(variables), strict=True)
+    pred = Predictor(model, device="cpu", **kw)
+    _, tplan, tlogits = pred.forward_voxels(pts)
+    labels = pred(pts).numpy()
+    assert pred.overflow is not None and pred.overflow.sum() == 0
+    assert _rel(jlogits, tlogits.numpy()) <= 1e-3
+
+    # per-point JAX top-2 margin, through the plan and voxel inverse maps
+    top2 = np.sort(jlogits, axis=-1)[:, -2:]
+    margin_row = top2[:, 1] - top2[:, 0]
+    pos = np.asarray(plan.pos)
+    inv = np.asarray(vox.inverse)
+    row_of_pt = np.where(inv >= 0, pos[np.maximum(inv, 0)], -1)
+    margin = np.where(row_of_pt >= 0,
+                      margin_row[np.maximum(row_of_pt, 0)], 0.0)
+    sure = (margin > 1e-3 * np.abs(jlogits).max()).reshape(B, P)
+    assert sure.mean() > 0.9
+    np.testing.assert_array_equal(labels[sure], jlabels[sure])
+    assert ((labels >= 0) == (jlabels >= 0)).all()
+
+
+@pytest.mark.parametrize("case", ["float32"])
+def test_ibn_step_matches_jax(case, request, monkeypatch):
+    """The IBN step (narrow MinkUNet34IBN: the [BN, IN] norms of stages
+    1-3; SoftDICE, Adam, through make_train_step) against lidog_tpu's, as
+    test_robustnet_step_matches_jax (tests/test_torch_port_ops.py)."""
+    from tests.conftest import run_isolated
+
+    if run_isolated(request):
+        return
+    from tests.test_torch_port_serve import _variant_step_matches_jax
+
+    _variant_step_matches_jax("ibn", case, monkeypatch)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encoder2d_dice_match_jax(dtype, request):
+    """Encoder2D in train mode with from_jax weights against flax's on
+    [2, 33, 33, 16]: the logits, the DICE(-1) loss on them, the grads of
+    every parameter and of the input, and both BatchNorms' running mean
+    and var after the update (flax's biased variance, momentum 0.9).
+    JAX runs op by op (not jitted): under jit XLA fuses the bf16 norm and
+    keeps intermediates in f32, and its bf16 grads then part from its own
+    op-by-op grads by 6-30% (BatchNorm's backward sums two rounded
+    cotangents that nearly cancel); op by op, JAX rounds where the port
+    does.  Relative to max |JAX| per tensor: f32 1e-5 (logits, loss,
+    running stats; summation order only) and 1e-4 (grads: the conv
+    backward sums in another order); bf16 2e-2 (the same rounding points,
+    other summation orders; measured <= 6e-3)."""
+    from tests.conftest import run_isolated
+
+    if run_isolated(request):
+        return
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from lidog_tpu.losses.losses import DICELoss as JaxDICE
+    from lidog_tpu.models.conv2d import Encoder2D as JaxEncoder
+    from lidog_tpu_torch.losses.losses import DICELoss
+    from lidog_tpu_torch.models.conv2d import Encoder2D
+    from lidog_tpu_torch.utils.from_jax import state_dict_from_flax
+    from tests.test_torch_port_serve import _rel
+
+    rng = np.random.RandomState(12)
+    c_in, n_cls = 16, 5
+    x = np.maximum(rng.randn(2, 33, 33, c_in), 0).astype(np.float32)
+    labels = rng.randint(-1, n_cls, (2, 9, 9)).astype(np.int32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    tol, tol_g = (1e-5, 1e-4) if dtype == "float32" else (2e-2, 2e-2)
+
+    jm = JaxEncoder(n_classes=n_cls, compute_dtype=jdt)
+    var = jax.device_get(jm.init(jax.random.PRNGKey(3), jnp.asarray(x),
+                                 train=False))
+    stats = jax.tree_util.tree_map(
+        lambda v: rng.uniform(0.5, 2.0, v.shape).astype(np.float32),
+        var["batch_stats"])
+    crit_j = JaxDICE(ignore_label=-1)
+
+    def loss_j(params, xin):
+        logits, upd = jm.apply({"params": params, "batch_stats": stats}, xin,
+                               train=True, mutable=["batch_stats"])
+        return crit_j(logits, jnp.asarray(labels)), (logits, upd)
+
+    (lj, (logits_j, upd)), (gp, gx) = jax.value_and_grad(
+        loss_j, argnums=(0, 1), has_aux=True)(var["params"],
+                                              jnp.asarray(x, jdt))
+    gp, upd = jax.device_get(gp), jax.device_get(upd)
+
+    tm = Encoder2D(c_in, n_classes=n_cls, compute_dtype=tdt).train()
+    tm.load_state_dict(state_dict_from_flax(
+        {"params": var["params"], "batch_stats": stats}), strict=True)
+    xt = torch.from_numpy(x).to(tdt).requires_grad_()
+    logits_t = tm(xt)
+    lt = DICELoss(ignore_label=-1)(logits_t, torch.from_numpy(labels))
+    lt.backward()
+    assert logits_t.dtype == torch.float32
+    assert _rel(np.asarray(logits_j), logits_t.detach()) <= tol
+    assert abs(float(lj) - lt.item()) <= tol * abs(float(lj))
+    assert _rel(np.asarray(gx.astype(jnp.float32)), xt.grad.float()) <= tol_g
+    named = dict(tm.named_parameters())
+    flat = state_dict_from_flax({"params": gp})
+    assert set(flat) == set(named)
+    for k, g in flat.items():
+        assert _rel(g.numpy(), named[k].grad) <= tol_g, k
+    new_stats = state_dict_from_flax({"batch_stats": upd["batch_stats"]})
+    buffers = dict(tm.named_buffers())
+    assert set(new_stats) == set(buffers) and len(buffers) == 4
+    for k, v in new_stats.items():
+        assert _rel(v.numpy(), buffers[k]) <= tol, k

@@ -1,18 +1,18 @@
-"""lidog_tpu_torch's model, Predictor and train step vs lidog_tpu's, on
-the CPU.
+"""lidog_tpu_torch's models and train steps vs lidog_tpu's, on the CPU.
 
-Weights come from the JAX model's init (flax tree -> state_dict through
-lidog_tpu_torch.utils.from_jax), with BatchNorm running statistics
-randomized from a numpy seed so the eval-mode norm is not the identity.
+Weights come from the port model's seeded init, carried into lidog_tpu
+as a flax tree (and back through lidog_tpu_torch.utils.from_jax), with
+BatchNorm running statistics randomized from a numpy seed so the
+eval-mode norm is not the identity.
 Shapes are those of tests/test_serve.py (B = 2, P = 600, voxel 0.5,
-grid_half 32).
+grid_half 32).  lidog_tpu's side takes the port's plans (_jax_plan_of),
+which are bitwise equal to its own builder's (test_plan_bitwise_equal).
+The full-width Predictor test, at these shapes, sits in
+tests/test_torch_port_plan.py.
 
 Tolerances (relative to max |JAX logits|):
   * narrow backbone, f32: 1e-4 (summation order only); bf16: 2e-2 and
     >= 99% equal argmax labels (the same rounding points, other sums);
-  * full MinkUNet34 Predictor, f32: logits 1e-3 (23 blocks of f32 sums in
-    another order), and per-point labels equal wherever the JAX top-2
-    logit margin exceeds 1e-3 of max |logits|.
   * train step (narrow backbone, SoftDICE, Adam), each of two steps from
     a carried-over lidog_tpu TrainState: see TRAIN_TOL.  In f32 the loss,
     every grad and the batch_stats agree to summation order, and the
@@ -24,6 +24,12 @@ Tolerances (relative to max |JAX logits|):
     summation orders: one bf16 step moves a logit by 4e-3 relative, so
     argmax may differ on near-ties, and the confusion matrix then agrees
     in its total and in all but a few rows.
+  * RobustNet and IBN steps (narrow, f32): as the train step, plus
+    aux_loss as the loss.  A RobustBlock's BN shifts (norm2's and the
+    shortcut's bias) reach only its instance norm, which removes them:
+    their grads are 0 but for rounding, so both sides are held below
+    1e-4 of the same norm's scale grad instead, and their params within
+    2 lr.
 """
 
 import numpy as np
@@ -36,36 +42,68 @@ NARROW = dict(init_dim=8, planes=(8, 8, 16, 16, 16, 16, 8, 8),
               layers=(1,) * 8)
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The port's CPU side runs on one thread in these tests (the ops and
+    plan files take this fixture too).  Their inputs are small, and beside
+    the other pytest-xdist workers torch's thread pool oversubscribes the
+    cores: a narrow train step took 3.8 s alone, 45 s with 8 threads
+    beside 8 busy processes, 3.8 s with one thread."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _points(seed=0):
     rng = np.random.RandomState(seed)
     return (rng.rand(B, P, 3).astype(np.float32) - 0.5) * 10.0
 
 
-def _jax_plan(pts):
-    import jax
+def _jax_plan_of(tp):
+    """The port's ZPlan as a lidog_tpu ZPlan.  The port's builder is
+    bitwise equal to lidog_tpu's (test_plan_bitwise_equal), whose XLA:CPU
+    compile would add ~15 s to every test that built one."""
     import jax.numpy as jnp
+    import torch
+
+    from lidog_tpu.core.zseg import ZLevel, ZPlan
+
+    def to_jax(t):
+        return (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                if t.dtype == torch.bfloat16 else jnp.asarray(t.numpy()))
+
+    return ZPlan(
+        levels=tuple(ZLevel(*(to_jax(getattr(lv, f)) for f in (
+            "coords", "real", "valid", "zup", "zdn")), stride=lv.stride)
+            for lv in tp.levels),
+        kmaps={k: to_jax(v) for k, v in tp.kmaps.items()},
+        pos=to_jax(tp.pos), overflow=to_jax(tp.overflow))
+
+
+def _jax_plan(pts):
+    """lidog_tpu's voxels of the points and their plan (_jax_plan_of)."""
+    import jax.numpy as jnp
+    import torch
 
     from lidog_tpu.core.voxelize import voxelize_device
-    from lidog_tpu.core.zseg import ZSegPlanBuilder
+    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
 
     vox = voxelize_device(
         jnp.asarray(pts.reshape(-1, 3)), jnp.ones((B * P,), bool),
         jnp.repeat(jnp.arange(B, dtype=jnp.int32), P), VOXEL, B * CAPS_R[0])
-    plan = jax.jit(ZSegPlanBuilder(CAPS_R, CAPS_A, num_batches=B,
-                                   grid_half=GRID_HALF))(vox.coords, vox.mask)
-    return vox, plan
+    plan = ZSegPlanBuilder(CAPS_R, CAPS_A, num_batches=B,
+                           grid_half=GRID_HALF)(
+        torch.from_numpy(np.asarray(vox.coords)),
+        torch.from_numpy(np.asarray(vox.mask)))
+    return vox, _jax_plan_of(plan)
 
 
-def _jax_variables(model, vox, plan, seed=1):
-    """Init the flax model; randomize its BatchNorm running statistics."""
-    import jax
-    import jax.numpy as jnp
-
-    from lidog_tpu.core.engine import input_tensor
-
-    x = input_tensor(plan, vox.mask[:, None].astype(jnp.float32))
-    var = jax.device_get(jax.jit(
-        lambda k: model.init(k, x, plan, train=False))(jax.random.PRNGKey(0)))
+def _with_random_stats(var, seed=1):
+    """A flax tree with its BatchNorm running statistics randomized from a
+    numpy seed."""
     rng = np.random.RandomState(seed)
 
     def perturb(tree):
@@ -79,8 +117,24 @@ def _jax_variables(model, vox, plan, seed=1):
                 out[k] = rng.uniform(0.5, 2.0, v.shape).astype(np.float32)
         return out
 
-    return ({"params": var["params"],
-             "batch_stats": perturb(var["batch_stats"])}, x)
+    return {"params": var["params"],
+            "batch_stats": perturb(var["batch_stats"])}
+
+
+def _jax_variables(model, vox, plan, seed=1, subtree=None):
+    """The port model's seeded initial weights as a flax tree (`subtree`:
+    the level of it that the flax module holds) with randomized BatchNorm
+    statistics, and lidog_tpu's input tensor.  Initialising the flax model
+    instead would compile its whole forward on XLA:CPU."""
+    import jax.numpy as jnp
+
+    from lidog_tpu.core.engine import input_tensor
+
+    x = input_tensor(plan, vox.mask[:, None].astype(jnp.float32))
+    var = _flax_variables_of(model)
+    if subtree is not None:
+        var = {c: var[c][subtree] for c in var}
+    return _with_random_stats(var, seed), x
 
 
 def _torch_plan(pts):
@@ -99,24 +153,37 @@ def _torch_plan(pts):
 
 
 def _rel(a, b):
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
     return float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-30))
 
 
 def test_weights_carry_over(request):
     """Every flax leaf of the full MinkUNet34 maps to exactly one torch key
-    (same shape and dtype) and back; about 37.85M parameters."""
+    (same shape and dtype) and back; about 37.85M parameters.  The leaves
+    hold seeded random values in the shapes and dtypes of the flax init
+    (jax.eval_shape: traced, not compiled)."""
     from tests.conftest import run_isolated
 
     if run_isolated(request):
         return
     import jax
+    import jax.numpy as jnp
 
+    from lidog_tpu.core.engine import input_tensor
     from lidog_tpu.models import MinkUNet34 as JaxMinkUNet34
     from lidog_tpu_torch.models.minkunet import MinkUNet34
     from lidog_tpu_torch.utils.from_jax import state_dict_from_flax
 
     vox, plan = _jax_plan(_points())
-    variables, _ = _jax_variables(JaxMinkUNet34(out_channels=7), vox, plan)
+    x = input_tensor(plan, vox.mask[:, None].astype(jnp.float32))
+    shapes = jax.eval_shape(
+        lambda k: JaxMinkUNet34(out_channels=7).init(k, x, plan, train=False),
+        jax.random.PRNGKey(0))
+    rng = np.random.RandomState(1)
+    variables = jax.tree_util.tree_map(
+        lambda s: rng.randn(*s.shape).astype(s.dtype),
+        {c: shapes[c] for c in ("params", "batch_stats")})
     leaves = jax.tree_util.tree_leaves_with_path(variables)
     sd = state_dict_from_flax(variables)
     assert len(sd) == len(leaves)
@@ -161,12 +228,12 @@ def test_narrow_backbone_logits(dtype, request):
     vox, plan = _jax_plan(pts)
     jm = MinkUNetBackbone(out_channels=5, compute_dtype=jnp.dtype(dtype),
                           **NARROW)
-    variables, x = _jax_variables(jm, vox, plan)
+    model = MinkUNet34(out_channels=5, compute_dtype=getattr(torch, dtype),
+                       **NARROW).eval()  # the running stats, as train=False
+    variables, x = _jax_variables(model, vox, plan, subtree="backbone")
     want, _ = jax.jit(lambda v: jm.apply(v, x, plan, train=False))(variables)
     want = np.asarray(want.astype(jnp.float32))
 
-    model = MinkUNet34(out_channels=5, compute_dtype=getattr(torch, dtype),
-                       **NARROW).eval()  # the running stats, as train=False
     model.load_state_dict(state_dict_from_flax(
         {c: {"backbone": variables[c]} for c in variables}), strict=True)
     tvox, tplan = _torch_plan(pts)
@@ -182,53 +249,6 @@ def test_narrow_backbone_logits(dtype, request):
         assert _rel(want, got) <= 2e-2
         agree = (want.argmax(-1) == got.argmax(-1))[real].mean()
         assert agree >= 0.99, agree
-
-
-def test_full_predictor_matches_jax(request):
-    """Full-width MinkUNet34 in f32: the port's Predictor on the CPU vs
-    lidog_tpu.serve.Predictor."""
-    from tests.conftest import run_isolated
-
-    if run_isolated(request):
-        return
-    import jax
-
-    from lidog_tpu.models import MinkUNet34 as JaxMinkUNet34
-    from lidog_tpu.serve import Predictor as JaxPredictor
-    from lidog_tpu_torch.models.minkunet import MinkUNet34
-    from lidog_tpu_torch.serve import Predictor
-    from lidog_tpu_torch.utils.from_jax import state_dict_from_flax
-
-    pts = _points()
-    vox, plan = _jax_plan(pts)
-    jm = JaxMinkUNet34(out_channels=7)
-    variables, x = _jax_variables(jm, vox, plan)
-    kw = dict(batch_size=B, voxel_size=VOXEL, caps_per_scan=CAPS_R[0],
-              grid_half=GRID_HALF, caps=(CAPS_R, CAPS_A, None))
-    jlabels = np.asarray(JaxPredictor(jm, variables, **kw)(pts))
-    jlogits = np.asarray(jax.jit(
-        lambda v: jm.apply(v, x, plan, train=False))(variables))
-
-    model = MinkUNet34(out_channels=7)
-    model.load_state_dict(state_dict_from_flax(variables), strict=True)
-    pred = Predictor(model, device="cpu", **kw)
-    _, tplan, tlogits = pred.forward_voxels(pts)
-    labels = pred(pts).numpy()
-    assert pred.overflow is not None and pred.overflow.sum() == 0
-    assert _rel(jlogits, tlogits.numpy()) <= 1e-3
-
-    # per-point JAX top-2 margin, through the plan and voxel inverse maps
-    top2 = np.sort(jlogits, axis=-1)[:, -2:]
-    margin_row = top2[:, 1] - top2[:, 0]
-    pos = np.asarray(plan.pos)
-    inv = np.asarray(vox.inverse)
-    row_of_pt = np.where(inv >= 0, pos[np.maximum(inv, 0)], -1)
-    margin = np.where(row_of_pt >= 0,
-                      margin_row[np.maximum(row_of_pt, 0)], 0.0)
-    sure = (margin > 1e-3 * np.abs(jlogits).max()).reshape(B, P)
-    assert sure.mean() > 0.9
-    np.testing.assert_array_equal(labels[sure], jlabels[sure])
-    assert ((labels >= 0) == (jlabels >= 0)).all()
 
 
 def test_predictor_needs_a_device(monkeypatch):
@@ -280,12 +300,11 @@ def test_train_step_matches_jax(case, request):
     """From a lidog_tpu TrainState (after one JAX step, so Adam's moments
     and count are not trivial) carried into the port, two steps on each
     side: loss, confusion, every grad, the params after Adam and the
-    batch_stats."""
+    batch_stats.  JAX's plans are the port's (_jax_plan_of)."""
     from tests.conftest import run_isolated
 
     if run_isolated(request):
         return
-    import types
     from typing import Any
 
     import flax.linen as fnn
@@ -293,7 +312,7 @@ def test_train_step_matches_jax(case, request):
     import jax.numpy as jnp
     import torch
 
-    from lidog_tpu.core.zseg import ZSegPlanBuilder as JaxBuilder
+    from lidog_tpu.core.engine import input_tensor as jax_input
     from lidog_tpu.losses import SoftDICELoss as JaxDice
     from lidog_tpu.models.minkunet import MinkUNetBackbone
     from lidog_tpu.train import TrainState as JaxState
@@ -328,8 +347,6 @@ def test_train_step_matches_jax(case, request):
                 x, plan, train)[0]
 
     jm = JaxNarrow(jnp.dtype(dtype))
-    jbuilder = jax.jit(JaxBuilder(CAPS_R, CAPS_A, num_batches=B,
-                                  grid_half=GRID_HALF))
     tbuilder = ZSegPlanBuilder(CAPS_R, CAPS_A, num_batches=B,
                                grid_half=GRID_HALF)
     jbatch, jplans, tbatch, tplans = {}, {}, {}, {}
@@ -343,15 +360,19 @@ def test_train_step_matches_jax(case, request):
         for k in jb:
             np.testing.assert_array_equal(np.asarray(jb[k]), tb[k].numpy())
             jbatch[k + s], tbatch[k + s] = jb[k], tb[k]
-        jplans[s] = jbuilder(jb["coords"], jb["mask"])
         tplans[s] = tbuilder(tb["coords"], tb["mask"])
+        jplans[s] = _jax_plan_of(tplans[s])
         assert int(np.asarray(jplans[s].overflow).sum()) == 0
     jplan_arg = jplans if nsrc > 1 else jplans[""]
     tplan_arg = tplans if nsrc > 1 else tplans[""]
 
-    variables, _ = _jax_variables(
-        jm, types.SimpleNamespace(mask=jbatch["mask" + sfx[0]]),
-        jplans[sfx[0]])
+    # lidog_tpu's own init: the data and weights where lidog_tpu agrees
+    # with itself (TRAIN_SEED)
+    plan0 = jplans[sfx[0]]
+    x0 = jax_input(plan0, jbatch["mask" + sfx[0]][:, None].astype(
+        jnp.float32))
+    variables = _with_random_stats(jax.device_get(jax.jit(
+        lambda k: jm.init(k, x0, plan0, train=False))(jax.random.PRNGKey(0))))
     tx = jax_optimizer("Adam", lr=lr)
     crit = JaxDice(ignore_label=-1)
     jstep = jax.jit(jax_train_step(jm, tx, crit, CAPS_R, num_classes=C,
@@ -367,7 +388,12 @@ def test_train_step_matches_jax(case, request):
             total = total + (weights[i] * loss if nsrc > 1 else loss)
         return total
 
-    jgrad = jax.jit(jax.grad(loss_fn))
+    # JAX's grads: in f32 read back from its step's Adam moment (as in
+    # test_lidog_step_matches_jax: one compile less); in bf16 from a
+    # separately jitted grad, since XLA's fusion of the whole step rounds
+    # its bf16 grads up to ~1% apart from the op order both the port and
+    # the separate grad follow
+    jgrad = jax.jit(jax.grad(loss_fn)) if dtype == "bfloat16" else None
     jstate = JaxState.create(variables, tx)
     jstate, _ = jstep(jstate, jbatch, jplan_arg)  # Adam's moments, count 1
 
@@ -384,6 +410,10 @@ def test_train_step_matches_jax(case, request):
             tree = tree[part]
         return np.asarray(tree, np.float32)
 
+    def adam_mu(state):
+        return [p for p in jax.device_get(state.opt_state)
+                if hasattr(p, "mu")][0].mu
+
     for step in range(2):
         if step:
             # the second step starts from JAX's params (the optimizer state
@@ -392,7 +422,9 @@ def test_train_step_matches_jax(case, request):
             # params part by up to ~lr, which would blur this step
             model.load_state_dict(state_dict_from_flax(
                 {"params": jax.device_get(jstate.params)}), strict=False)
-        grads = jax.device_get(jgrad(jstate.params, jstate.batch_stats))
+        mu_before = adam_mu(jstate)
+        grads = (None if jgrad is None else
+                 jax.device_get(jgrad(jstate.params, jstate.batch_stats)))
         jstate, jm_out = jstep(jstate, jbatch, jplan_arg)
         tstate, tm_out = tstep(tstate, tbatch, tplan_arg)
         lj, lt = float(jm_out["loss"]), float(tm_out["loss"])
@@ -403,11 +435,13 @@ def test_train_step_matches_jax(case, request):
         assert cm_t.sum() > 0
         jvars = jax.device_get({"params": jstate.params,
                                 "batch_stats": jstate.batch_stats})
-        mu = [p for p in jax.device_get(jstate.opt_state)
-              if hasattr(p, "mu")][0].mu
+        mu = adam_mu(jstate)
         for name, p in model.named_parameters():
-            assert _rel(leaf(grads, name), p.grad.numpy()) <= tol_grad, \
-                (step, name)
+            # mu = 0.9 mu_before + 0.1 g (f32 rounding of mu, times 10:
+            # ~1e-6 of max |g|)
+            g = (leaf(grads, name) if grads is not None else
+                 (leaf(mu, name) - 0.9 * leaf(mu_before, name)) / 0.1)
+            assert _rel(g, p.grad.numpy()) <= tol_grad, (step, name)
             # Adam's update is well-conditioned where its new first moment
             # is not near 0 (from a fresh state mu = 0.1 g: the |g| rule)
             m = np.abs(leaf(mu, name))
@@ -532,3 +566,211 @@ def test_lidog_step_needs_a_device(monkeypatch):
     ev = make_eval_step(SoftDICELoss(ignore_label=-1), num_classes=5)(
         state, batch, plan)
     assert np.isfinite(float(ev["loss"])) and state.step == 3
+
+
+def _flax_variables_of(model):
+    """The port model's state as a flax {'params', 'batch_stats'} tree."""
+    variables = {"params": {}, "batch_stats": {}}
+    buffers = dict(model.named_buffers())
+    for name, v in model.state_dict().items():
+        node = variables["batch_stats" if name in buffers else "params"]
+        *path, last = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = v.numpy().copy()
+    return variables
+
+
+def _variant_step_matches_jax(variant, case, monkeypatch):
+    """Two steps of the RobustNet or IBN step (narrow, f32) from a
+    carried-over lidog_tpu TrainState, compared as
+    test_lidog_step_matches_jax compares them.  lidog_tpu's models take
+    their widths from module constants, narrowed here with monkeypatch (in
+    the isolated process)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from lidog_tpu.losses import IWLoss as JaxIW
+    from lidog_tpu.losses import SoftDICELoss as JaxSoftDICE
+    from lidog_tpu.models import minkunet_ibn as jibn
+    from lidog_tpu.models import minkunet_robustnet as jrob
+    from lidog_tpu.train import TrainState as JaxState
+    from lidog_tpu.train import make_optimizer as jax_optimizer
+    from lidog_tpu.train import make_train_step as jax_train_step
+    from lidog_tpu.train.robustnet_step import (
+        make_robustnet_train_step as jax_robust_step)
+    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+    from lidog_tpu_torch.losses.losses import IWLoss, SoftDICELoss
+    from lidog_tpu_torch.models.minkunet_ibn import MinkUNet34IBN
+    from lidog_tpu_torch.models.minkunet_robustnet import MinkUNet34Robust
+    from lidog_tpu_torch.train.device_pipeline import device_batch_from_points
+    from lidog_tpu_torch.train.optim import make_optimizer
+    from lidog_tpu_torch.train.robustnet_step import make_robustnet_train_step
+    from lidog_tpu_torch.train.train_step import TrainState, make_train_step
+    from lidog_tpu_torch.utils.from_jax import (load_train_state,
+                                                state_dict_from_flax)
+
+    for mod in (jrob, jibn):
+        monkeypatch.setattr(mod, "PLANES", NARROW["planes"])
+        monkeypatch.setattr(mod, "LAYERS", NARROW["layers"])
+        monkeypatch.setattr(mod, "INIT_DIM", NARROW["init_dim"])
+    nsrc = 2 if "2src" in case else 1
+    # the gate: on at both compared steps, or (cov_stat_epoch 2, one step
+    # per epoch, after the carried-over step) off at the first, on at the
+    # second
+    cov = 2 if case.endswith("gate") else 0
+    tol_loss, tol_grad, tol_param = TRAIN_TOL["float32"]
+    lr, C = 1e-3, 5
+    sfx = [""] if nsrc == 1 else [str(s) for s in range(nsrc)]
+    weights = (0.5, 0.5)
+
+    tbuilder = ZSegPlanBuilder(CAPS_R, CAPS_A, num_batches=B,
+                               grid_half=GRID_HALF)
+    jbatch, jplans, tbatch, tplans = {}, {}, {}, {}
+    for s, (pts, lab) in zip(sfx, _batches(TRAIN_SEED, nsrc)):
+        tb = device_batch_from_points(torch.from_numpy(pts),
+                                      torch.ones(B, P, dtype=torch.bool),
+                                      torch.from_numpy(lab), VOXEL,
+                                      B * CAPS_R[0])
+        for k, v in tb.items():
+            jbatch[k + s], tbatch[k + s] = jnp.asarray(v.numpy()), v
+        tplans[s] = tbuilder(tb["coords"], tb["mask"])
+        jplans[s] = _jax_plan_of(tplans[s])
+        assert int(tplans[s].overflow.sum()) == 0
+    jplan_arg = jplans if nsrc > 1 else jplans[""]
+    tplan_arg = tplans if nsrc > 1 else tplans[""]
+
+    tx = jax_optimizer("Adam", lr=lr)
+    crit = JaxSoftDICE(ignore_label=-1)
+    tcrit = SoftDICELoss(ignore_label=-1)
+    if variant == "robustnet":
+        model = MinkUNet34Robust(out_channels=C, **NARROW)
+        jstep = jax_robust_step(
+            jrob.MinkUNet34Robust(out_channels=C), tx, crit, JaxIW(), CAPS_R,
+            num_classes=C, source_weights=weights, num_sources=nsrc,
+            cov_stat_epoch=cov, steps_per_epoch=1)
+        tstep = make_robustnet_train_step(
+            tcrit, IWLoss(), num_classes=C, source_weights=weights,
+            num_sources=nsrc, cov_stat_epoch=cov, steps_per_epoch=1)
+    else:
+        model = MinkUNet34IBN(out_channels=C, **NARROW)
+        jstep = jax_train_step(jibn.MinkUNet34IBN(out_channels=C), tx, crit,
+                               CAPS_R, num_classes=C, source_weights=weights,
+                               num_sources=nsrc)
+        tstep = make_train_step(tcrit, num_classes=C, source_weights=weights,
+                                num_sources=nsrc)
+    jstep = jax.jit(jstep)
+    # RobustBlock's norm2 (with the residual) and shortcut_norm feed only
+    # its instance norm
+    vanishing = {n for n, _ in model.named_parameters()
+                 if ".norm2.bn.bias" in n or ".shortcut_norm.bn.bias" in n}
+    vanishing = {n for n in vanishing
+                 if variant == "robustnet" and n[5] in "123"}
+    jstate = JaxState.create(_flax_variables_of(model), tx)
+    jstate, _ = jstep(jstate, jbatch, jplan_arg)  # Adam's moments, count 1
+    tstate = TrainState.create(model, make_optimizer("Adam", lr=lr),
+                               device="cpu")
+    load_train_state(tstate, jax.device_get(jstate))  # strict=True
+
+    def leaf(tree, key):
+        for part in key.split("."):
+            tree = tree[part]
+        return np.asarray(tree, np.float32)
+
+    def adam_mu(state):
+        return [p for p in jax.device_get(state.opt_state)
+                if hasattr(p, "mu")][0].mu
+
+    aux = []
+    for step in range(2):
+        if step:  # as in test_train_step_matches_jax
+            model.load_state_dict(state_dict_from_flax(
+                {"params": jax.device_get(jstate.params)}), strict=False)
+        mu_before = adam_mu(jstate)
+        jstate, jm_out = jstep(jstate, jbatch, jplan_arg)
+        tstate, tm_out = tstep(tstate, tbatch, tplan_arg)
+        assert sorted(jm_out) == sorted(tm_out)
+        for k in jm_out:
+            if k != "confusion":
+                lj, lt = float(jm_out[k]), float(tm_out[k])
+                assert np.isfinite(lt) and abs(lj - lt) <= \
+                    tol_loss * abs(lj), (step, k, lj, lt)
+        aux.append(float(tm_out.get("aux_loss", 0.0)))
+        cm_t = tm_out["confusion"].numpy()
+        np.testing.assert_array_equal(np.asarray(jm_out["confusion"]), cm_t)
+        jvars = jax.device_get({"params": jstate.params,
+                                "batch_stats": jstate.batch_stats})
+        mu = adam_mu(jstate)
+        named = dict(model.named_parameters())
+        for name, p in named.items():
+            g = (leaf(mu, name) - 0.9 * leaf(mu_before, name)) / 0.1
+            m = np.abs(leaf(mu, name))
+            sure = m >= 1e-3 * m.max()
+            if name in vanishing:
+                # the BN's shift reaches only an instance norm, which
+                # removes it: the grad is 0 but for rounding on both
+                # sides, far below its scale's; the update's sign there
+                # is rounding's, so the params differ by up to 2 lr
+                scale = np.abs(named[name[:-4] + "scale"].grad.numpy()).max()
+                assert max(np.abs(g).max(), np.abs(p.grad.numpy()).max()) \
+                    <= 1e-4 * scale, (step, name)
+                sure[:] = False
+            else:
+                assert _rel(g, p.grad.numpy()) <= tol_grad, (step, name)
+            d = np.abs(leaf(jvars["params"], name) - p.detach().numpy())
+            assert (d[sure] <= tol_param * lr).all(), (step, name, d.max())
+            assert (d <= 2 * lr).all(), (step, name, d.max())
+        for name, buf in model.named_buffers():
+            assert _rel(leaf(jvars["batch_stats"], name),
+                        buf.numpy()) <= tol_grad, (step, name)
+    if variant == "robustnet":
+        assert all(v > 0 for v in aux), aux
+    assert tstate.step == int(jstate.step) == 3
+
+
+def test_robustnet_step_needs_a_device(monkeypatch):
+    """Without a card and without device="cpu" TrainState.create raises;
+    with device="cpu" the RobustNet step of a narrow MinkUNet34Robust
+    (gate on from the first step) runs on the plain path and trains: the
+    loss finite and falling, aux_loss finite and positive, the confusion
+    total equal to the supervised voxels, and no kernel launched."""
+    import torch
+
+    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+    from lidog_tpu_torch.losses import losses
+    from lidog_tpu_torch.models.minkunet_robustnet import MinkUNet34Robust
+    from lidog_tpu_torch.ops import norm
+    from lidog_tpu_torch.train.device_pipeline import device_batch_from_points
+    from lidog_tpu_torch.train.optim import make_optimizer
+    from lidog_tpu_torch.train.robustnet_step import make_robustnet_train_step
+    from lidog_tpu_torch.train.train_step import TrainState
+
+    model = MinkUNet34Robust(out_channels=5, **NARROW)
+    tx = make_optimizer("Adam", lr=1e-2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrainState.create(model, tx)
+    state = TrainState.create(model, tx, device="cpu")
+    (pts, lab), = _batches(4, 1)
+    batch = device_batch_from_points(torch.from_numpy(pts),
+                                     torch.ones(B, P, dtype=torch.bool),
+                                     torch.from_numpy(lab), VOXEL,
+                                     B * CAPS_R[0])
+    plan = ZSegPlanBuilder(CAPS_R, CAPS_A, num_batches=B,
+                           grid_half=GRID_HALF)(batch["coords"],
+                                                batch["mask"])
+    step = make_robustnet_train_step(losses.SoftDICELoss(ignore_label=-1),
+                                     losses.IWLoss(), num_classes=5,
+                                     cov_stat_epoch=0)
+    before = {**norm.LAUNCHES, **losses.LAUNCHES}
+    out = []
+    for _ in range(3):
+        state, metrics = step(state, batch, plan)
+        out.append((float(metrics["loss"]), float(metrics["aux_loss"])))
+    assert np.isfinite(out).all() and out[-1][0] < out[0][0], out
+    assert all(aux > 0 for _, aux in out), out
+    supervised = int(((batch["labels"] >= 0) & batch["mask"]).sum())
+    assert int(metrics["confusion"].sum()) == supervised
+    assert {**norm.LAUNCHES, **losses.LAUNCHES} == before
+    assert state.step == 3

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive lidog_tpu_torch's serving path and training step on one CUDA
+"""Drive lidog_tpu_torch's serving path and training steps on one CUDA
 card and check them.
 
     python3 chip_smoke.py
@@ -67,7 +67,24 @@ no result line):
      a 20,000-point scan on the card and on the CPU from the same weights,
      compared by phase 7's rule (loss and aux_loss as the loss), once with
      the gate on and once off; with the gate off the aux loss's grads
-     (what the whitening loss sends back into each tap) are exactly 0.
+     (what the whitening loss sends back into each tap) are exactly 0;
+ 15. the general stem's kernels at the training plan's level 0 built with
+     stem_feature_map=True (491,520 rows, K = 125): KQ (the stem125 and
+     conv9 maps) equal to its plain version; KO (4 -> 32), KO as dx (32 ->
+     4) and KP (dW) in bf16 and f32 within the bounds of phase 3;
+ 16. full-width training of MinkUNet34 with 4 input channels (each
+     voxel's representative point's x, y, z and a seeded remission) on
+     the general stem, as phase 6 (counters per step: KO 1, KP 1, KQ 1,
+     no KO as dx), plus one eval step; then phase 7's check of it, with
+     the card's stem125 map equal to the CPU's, the stem output within
+     1e-4 and the stem kernel's grad by the L2 rule;
+ 17. the sortless path: Predictor(sortless=True) against the sorted
+     Predictor on phase 4's scan (plans and every point's label equal),
+     5 timed sortless requests; the sortless training step (raw per-point
+     cells -> assume_unique=False plan): its plan equal to the sorted
+     one's, its first-step loss equal to the sorted step's (within the
+     spread of two sorted runs, which is printed), 5 timed steps as
+     phase 6; requests and steps timed in turns with the sorted path's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.  Exits non-zero without a card, and
@@ -133,8 +150,15 @@ PER_ROBUST_STEP = {**PER_STEP, "bn_act": 60, "bn_train_fwd": 60,
 # IBN (models/minkunet_ibn.py): MinkUNet34's convs and BNs, and one
 # instance norm beside the first BN of each IBNBlock of stages 1-3
 PER_IBN_STEP = {**PER_STEP, "instance_norm_fwd": 9, "instance_norm_bwd": 9}
+# the general stem (in_channels 4): MinkUNet34's kernels, the stem as KO
+# (its dW as KP; the input features take no grad, so no KO as dx), and KQ
+# once per plan
+IN_CHANNELS = 4
+STEM_R = 2
+PER_CIN_STEP = {**PER_STEP, "zconv_full_fwd": 1, "zconv_full_wgrad": 1,
+                "stem_feat125": 1}
 PER_VARIANT_STEP = {"source": PER_STEP, "robustnet": PER_ROBUST_STEP,
-                    "ibn": PER_IBN_STEP}
+                    "ibn": PER_IBN_STEP, "cin4": PER_CIN_STEP}
 
 
 def card_line():
@@ -162,10 +186,12 @@ def cuda_ms(fn, iters=10):
 
 
 def _launch_tables():
+    from lidog_tpu_torch.core import zseg
     from lidog_tpu_torch.losses import losses
     from lidog_tpu_torch.ops import bev, norm, zconv
 
-    return (zconv.LAUNCHES, norm.LAUNCHES, bev.LAUNCHES, losses.LAUNCHES)
+    return (zconv.LAUNCHES, norm.LAUNCHES, bev.LAUNCHES, losses.LAUNCHES,
+            zseg.LAUNCHES)
 
 
 def counters():
@@ -255,7 +281,12 @@ class Checker:
         if not isinstance(out_k, tuple):
             out_k, out_p = (out_k,), (out_p,)
         dname = str(dt).split(".")[-1]
-        if ulps is None:
+        if not out_p[0].is_floating_point():  # integer maps: equal
+            t = "equal"
+            errs = [int((a != b).sum()) for a, b in zip(out_k, out_p)]
+            err = max(errs)
+            ok = err == 0
+        elif ulps is None:
             t = self.TOL[dname].get(name, self.TOL_DEFAULT[dname])
             errs = [rel_err(a, b) for a, b in zip(out_k, out_p)]
             err = max(errs)
@@ -273,7 +304,8 @@ class Checker:
                "shape": shape, "max_abs_err": max(
                    float((a.float() - b.float()).abs().max())
                    for a, b in zip(out_k, out_p)),
-               "max_rel_err": max(rel_err(a, b) for a, b in zip(out_k, out_p)),
+               "max_rel_err": max(rel_err(a, b) for a, b in zip(out_k, out_p))
+               if out_p[0].is_floating_point() else 0.0,
                "tol_rel": t, "ms": cuda_ms(kfn),
                "plain_ms": cuda_ms(pfn), "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": None}
@@ -608,8 +640,104 @@ def variant_kernel_checks(plan, gen):
     return ck.rows
 
 
+def stem_lookups(args, kwargs):
+    """(grid cells, packed rows) that KQ's rows look up: the bytes its
+    inputs must give, on this run's data."""
+    import torch
+
+    grid, packed, coords, valid, g, ccap, cap_a, r, nb = args
+    gh, lvl = kwargs["grid_half"], kwargs["level"]
+    n = coords.shape[0]
+    b = torch.arange(n, device=coords.device) // (n // nb)
+    gx0 = (coords[:, 1] >> lvl) + (gh >> lvl)
+    gy0 = (coords[:, 2] >> lvl) + (gh >> lvl)
+    cells, slots = [], []
+    for dx in range(-r, r + 1):
+        ok = valid & (gx0 + dx >= 0) & (gx0 + dx < g)
+        flat = ((b * g + gx0 + dx) * g + gy0)[ok]
+        cells.append(flat)
+        cid = grid[flat]
+        slots.append(cid[cid >= 0])
+    return (int(torch.unique(torch.cat(cells)).numel()),
+            int(torch.unique(torch.cat(slots)).numel()))
+
+
+def stem_kernel_checks(dev, gen):
+    """Phase 15: KQ, KO (forward and as dx) and KP at the training plan's
+    level 0 of the general stem (4 scans, stem_feature_map=True,
+    in_channels 4): KQ bitwise equal to its plain version, KO and KP in
+    bf16 and f32 within the stated bounds."""
+    import torch
+
+    from lidog_tpu_torch.core import zseg
+    from lidog_tpu_torch.core.bitgrid import ZWORDS
+    from lidog_tpu_torch.ops import zconv
+
+    pts, labels = train_data()
+    batch = train_batch(pts, labels, dev)
+    builder = train_plan_builder(IN_CHANNELS)
+    plan = builder(batch["coords"], batch["mask"])
+    args, kwargs = builder.stem_inputs(batch["coords"], batch["mask"])
+    if int(plan.overflow.sum()) != 0:
+        raise AssertionError(f"stem plan overflow {plan.overflow.tolist()}")
+    ck = Checker(gen, dev)
+    l0 = plan.level(0)
+    n = l0.coords.shape[0]
+    nbr = plan.kmaps["stem125"]
+    k = nbr.shape[0]
+    cells, slots = stem_lookups(args, kwargs)
+    aug_bytes = (2 * STEM_R + 1) * (ZWORDS + 1) * 8  # a row's aug slabs
+    ck.record("stem_feat125", "lidog_tpu_torch/csrc/stem_feat125.cu",
+              "lidog_tpu/core/zseg.py:540 (stem_feat125_packed)",
+              lambda: zseg.stem_feat125_packed(*args, **kwargs),
+              lambda: zseg.stem_feat125_plain(*args, **kwargs),
+              torch.int32, (k + 9) * n * 4 + nbytes(l0.coords, l0.valid)
+              + cells * 8 + slots * aug_bytes, 0,
+              f"L0 {n} rows ({cells} cells, {slots} columns) -> "
+              f"[{k}+9, {n}]", mma=False)
+    del args, kwargs
+    src = "lidog_tpu_torch/csrc/zconv_full.cu"
+    hits = int(((nbr >= 0) & l0.real[None]).sum())  # forward: real outputs
+    src_real = (nbr >= 0) & l0.real[nbr.clamp(min=0).long()]
+    hits_dx = int(src_real.sum())  # dx: sources on real rows
+    hits_dw = int(src_real.flip(0).sum())  # dW[o] reads nbr[K-1-o]
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    cin, cout = IN_CHANNELS, 32
+    for dt in (torch.bfloat16, torch.float32):
+        esz = torch.finfo(dt).bits // 8
+        x = ck.feats(n, cin, l0.real, dt)
+        w = ck.weights(dt, k, cin, cout)
+        shape = f"L0 {n} rows K {k} {cin}->{cout}"
+        ck.record("zconv_full_fwd", src,
+                  "lidog_tpu/ops/zconv.py:342 (_zfull_core)",
+                  lambda: zconv.zconv_full_fwd(x, nbr, w, l0.real),
+                  lambda: zconv.zconv_full_plain(x, nbr, w, l0.real),
+                  dt, nbytes(nbr, x, w, l0.real) + n * cout * esz,
+                  2 * cin * cout * hits, shape)
+        dout = ck.feats(n, cout, ones, dt)
+        wt = w.flip(0).transpose(1, 2).contiguous()
+        ck.record("zconv_full_fwd", src,
+                  "lidog_tpu/ops/zconv.py:373 (_zfull_bwd dx)",
+                  lambda: zconv.zconv_full_fwd(dout, nbr, wt, None,
+                                               src_mask=l0.real),
+                  lambda: zconv.zconv_full_plain(dout, nbr, wt, None,
+                                                 src_mask=l0.real),
+                  dt, nbytes(nbr, dout, wt, l0.real) + n * cin * esz,
+                  2 * cin * cout * hits_dx,
+                  f"bwd dx L0 {n} rows K {k} {cout}->{cin}")
+        ck.record("zconv_full_wgrad", src,
+                  "lidog_tpu/ops/zconv.py:373 (_zfull_bwd dW)",
+                  lambda: zconv.zconv_full_wgrad(x, dout, nbr, l0.real),
+                  lambda: zconv.zconv_full_wgrad_plain(x, dout, nbr, l0.real),
+                  dt, nbytes(x, dout, nbr, l0.real) + k * cin * cout * esz,
+                  2 * cin * cout * hits_dw, shape)
+    return ck.rows
+
+
 def serve(model, pts, dev):
-    """Phase 4: timed requests through the Predictor; returns stats."""
+    """Phase 4: timed requests through the Predictor, each followed by one
+    request split into stages (in turns, so that both see the same host);
+    returns stats."""
     import torch
 
     from lidog_tpu_torch.serve import Predictor
@@ -619,19 +747,24 @@ def serve(model, pts, dev):
     pts_dev = torch.from_numpy(pts).to(dev)
     labels = pred(pts_dev)  # warm-up (Triton specializations, caches)
     torch.cuda.synchronize()
-    zero_counters()
-    ms = []
+    ms, splits = [], []
+    launches = dict.fromkeys(counters(), 0)
     for _ in range(REQUESTS):
+        zero_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         labels = pred(pts_dev)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    launches = counters()
+        for k, v in counters().items():
+            launches[k] += v
+        split, plan_rows, bounds = stage_split(pred, pts_dev)
+        splits.append(split)
     lab = labels.cpu().numpy()
     ov = pred.overflow
     print(f"[serve] overflow {ov.tolist()} labelled "
-          f"{(lab >= 0).mean():.4f} request ms {ms}", flush=True)
+          f"{(lab >= 0).mean():.4f} request ms {ms}; split in turns "
+          f"{splits}", flush=True)
     if ov.sum() != 0:
         raise AssertionError(f"plan overflow {ov.tolist()}")
     if not (lab >= 0).mean() >= 0.95:
@@ -642,53 +775,92 @@ def serve(model, pts, dev):
         if launches[k] != per * REQUESTS:
             raise AssertionError(f"{k}: {launches[k]} launches, expected "
                                  f"{per} x {REQUESTS}")
-    stages, plan_rows = stage_split(pred, pts_dev)
+    stages = {n: statistics.median(sp[n] for sp in splits) for n in splits[0]}
+    print(f"[serve] plain stages' byte bounds: {bounds}", flush=True)
     return {"p50_ms": statistics.median(ms), "request_ms": ms,
-            "launches": launches, "stages_ms": stages,
+            "launches": launches, "stages_ms": stages, "stage_runs_ms": splits,
+            "stage_bounds": bounds,
             "real_rows_per_level": plan_rows,
             "labelled": float((lab >= 0).mean()),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+def plan_nbytes(plan):
+    """Bytes of every tensor a plan holds: what the plan build writes."""
+    ts = [getattr(lv, f) for lv in plan.levels
+          for f in ("coords", "real", "valid", "zup", "zdn")]
+    ts += list(plan.kmaps.values()) + [plan.pos, plan.overflow]
+    return nbytes(*ts) + (0 if plan.rep is None else nbytes(plan.rep))
+
+
+def byte_bounds(**stage_bytes):
+    """{stage: (bytes, least ms on an H100: the bytes over 3.35 TB/s)} for
+    the stages that run as plain torch (K1 voxelize, K2-K10 the plan, K15
+    the labels): each input read once, each output written once."""
+    return {k: {"bytes": b, "bound_ms": b / HBM_BYTES_PER_S * 1e3}
+            for k, b in stage_bytes.items()}
+
+
 def stage_split(pred, pts_dev):
     """Device ms of voxelize / plan / forward / labels for one request
-    (CUDA events between the Predictor's stages; median of 3)."""
+    (CUDA events between the Predictor's stages), the real rows per level,
+    and the plain stages' byte bounds."""
     import torch
 
     from lidog_tpu_torch.core.engine import input_tensor
     from lidog_tpu_torch.core.voxelize import voxelize_device
 
-    runs = []
-    for _ in range(3):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        with torch.no_grad():
-            ev[0].record()
-            flat = pts_dev.reshape(-1, 3)
-            valid = torch.ones(flat.shape[0], dtype=torch.bool,
-                               device=flat.device)
-            bidx = torch.zeros(flat.shape[0], dtype=torch.int32,
-                               device=flat.device)
-            vox = voxelize_device(flat, valid, bidx, pred.voxel_size,
-                                  pred.cap_in)
-            ev[1].record()
-            plan = pred.builder(vox.coords, vox.mask)
-            ev[2].record()
-            logits = pred.model(input_tensor(
-                plan, vox.mask[:, None].float()), plan)
-            ev[3].record()
-            vp = torch.where(plan.level(0).real,
-                             logits.argmax(-1).to(torch.int32), -1)
-            pv = torch.where(plan.pos >= 0, vp[plan.pos.clamp(min=0).long()],
-                             -1)
-            torch.where(vox.inverse >= 0,
-                        pv[vox.inverse.clamp(min=0).long()], -1)
-            ev[4].record()
-        torch.cuda.synchronize()
-        runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    with torch.no_grad():
+        ev[0].record()
+        flat = pts_dev.reshape(-1, 3)
+        valid = torch.ones(flat.shape[0], dtype=torch.bool,
+                           device=flat.device)
+        bidx = torch.zeros(flat.shape[0], dtype=torch.int32,
+                           device=flat.device)
+        vox = voxelize_device(flat, valid, bidx, pred.voxel_size,
+                              pred.cap_in)
+        ev[1].record()
+        plan = pred.builder(vox.coords, vox.mask)
+        ev[2].record()
+        logits = pred.model(input_tensor(
+            plan, vox.mask[:, None].float()), plan)
+        ev[3].record()
+        out = pred.labels_of(plan, logits, vox)
+        ev[4].record()
+    torch.cuda.synchronize()
     names = ("voxelize", "plan", "forward", "labels")
-    return ({n: statistics.median(r[i] for r in runs)
-             for i, n in enumerate(names)},
-            [int(l.real.sum()) for l in plan.levels])
+    bounds = byte_bounds(
+        voxelize=nbytes(flat, valid, bidx, vox.coords, vox.mask, vox.rep_idx,
+                        vox.inverse),
+        plan=nbytes(vox.coords, vox.mask) + plan_nbytes(plan),
+        labels=nbytes(logits, plan.level(0).real, plan.pos, vox.inverse,
+                      out))
+    return ({n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)},
+            [int(l.real.sum()) for l in plan.levels], bounds)
+
+
+def plans_equal(a, b, what):
+    """Raise unless two plans (on any devices) have equal levels, kmaps and
+    overflow, and the overflow is 0."""
+    import torch
+
+    def same(x, y):
+        return torch.equal(x.cpu(), y.cpu())
+
+    for i, (la, lb) in enumerate(zip(a.levels, b.levels)):
+        for f in ("coords", "real", "valid", "zup", "zdn"):
+            if not same(getattr(la, f), getattr(lb, f)):
+                raise AssertionError(f"{what}: level {i} {f} differs")
+    if sorted(a.kmaps) != sorted(b.kmaps):
+        raise AssertionError(f"{what}: kmaps {sorted(a.kmaps)} vs "
+                             f"{sorted(b.kmaps)}")
+    for k in a.kmaps:
+        if not same(a.kmaps[k], b.kmaps[k]):
+            raise AssertionError(f"{what}: kmap {k} differs")
+    if not same(a.overflow, b.overflow) or int(a.overflow.sum()):
+        raise AssertionError(f"{what}: overflow {a.overflow.tolist()} vs "
+                             f"{b.overflow.tolist()}")
 
 
 def cross_check(model, dev):
@@ -704,18 +876,9 @@ def cross_check(model, dev):
     cpu = Predictor(copy.deepcopy(model).cpu(), device="cpu", **kw)
     _, plan_g, _ = gpu.forward_voxels(pts)
     _, plan_c, _ = cpu.forward_voxels(pts)
-    for i, (lg, lc) in enumerate(zip(plan_g.levels, plan_c.levels)):
-        for f in ("coords", "real", "valid", "zup", "zdn"):
-            if not torch.equal(getattr(lg, f).cpu(), getattr(lc, f)):
-                raise AssertionError(f"plan level {i} {f} differs")
-    for k in plan_c.kmaps:
-        if not torch.equal(plan_g.kmaps[k].cpu(), plan_c.kmaps[k]):
-            raise AssertionError(f"plan kmap {k} differs")
-    for f in ("pos", "overflow"):
-        if not torch.equal(getattr(plan_g, f).cpu(), getattr(plan_c, f)):
-            raise AssertionError(f"plan {f} differs")
-    if int(plan_c.overflow.sum()) != 0:
-        raise AssertionError(f"plan overflow {plan_c.overflow.tolist()}")
+    plans_equal(plan_g, plan_c, "card vs CPU plan")
+    if not torch.equal(plan_g.pos.cpu(), plan_c.pos):
+        raise AssertionError("card vs CPU plan: pos differs")
     lab_g = gpu(pts).cpu().numpy()
     lab_c = cpu(pts).numpy()
     both = (lab_g >= 0) | (lab_c >= 0)
@@ -727,23 +890,34 @@ def cross_check(model, dev):
     return agree
 
 
-def train_batch(points, labels, dev):
+def train_batch(points, labels, dev, feats=None, sortless=False,
+                cap_in=TRAIN_CAP_IN):
+    """The training batch of the points: voxelized (or, sortless, the raw
+    per-point cells), with one constant input channel or the per-point
+    features `feats` (numpy [B, P, C]; point_features)."""
     import torch
 
-    from lidog_tpu_torch.train.device_pipeline import device_batch_from_points
+    from lidog_tpu_torch.train.device_pipeline import (
+        device_batch_from_points, device_batch_raw)
 
     b, p = points.shape[:2]
-    return device_batch_from_points(
-        torch.from_numpy(points).to(dev),
-        torch.ones(b, p, dtype=torch.bool, device=dev),
-        torch.from_numpy(labels).to(dev), VOXEL, TRAIN_CAP_IN)
+    args = (torch.from_numpy(points).to(dev),
+            torch.ones(b, p, dtype=torch.bool, device=dev),
+            torch.from_numpy(labels).to(dev), VOXEL)
+    if feats is not None:
+        feats = torch.from_numpy(feats).to(dev)
+    if sortless:
+        return device_batch_raw(*args, point_feats=feats)
+    return device_batch_from_points(*args, cap_in, point_feats=feats)
 
 
-def train_plan_builder():
-    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+def train_plan_builder(in_channels=1, **options):
+    """The plan builder at bench.py's training caps for a model with
+    `in_channels` input channels."""
+    from lidog_tpu_torch.caps import plan_builder
 
-    return ZSegPlanBuilder(ZCAPS_R, ZCAPS_A, num_batches=TRAIN_BATCH,
-                           grid_half=GRID_HALF, caps_col_dil=ZCAPS_D)
+    return plan_builder(in_channels, TRAIN_BATCH, (ZCAPS_R, ZCAPS_A, ZCAPS_D),
+                        grid_half=GRID_HALF, **options)
 
 
 def train_data():
@@ -760,15 +934,30 @@ def train_data():
 
 def variant_model(variant, dtype, generator):
     """The model of a training path at full width: "source" MinkUNet34,
-    "ibn" MinkUNet34IBN, "robustnet" MinkUNet34Robust."""
+    "ibn" MinkUNet34IBN, "robustnet" MinkUNet34Robust, "cin4" MinkUNet34
+    with IN_CHANNELS input channels (the general stem)."""
     from lidog_tpu_torch.models.minkunet import MinkUNet34
     from lidog_tpu_torch.models.minkunet_ibn import MinkUNet34IBN
     from lidog_tpu_torch.models.minkunet_robustnet import MinkUNet34Robust
 
-    cls = {"source": MinkUNet34, "ibn": MinkUNet34IBN,
+    cls = {"source": MinkUNet34, "ibn": MinkUNet34IBN, "cin4": MinkUNet34,
            "robustnet": MinkUNet34Robust}[variant]
     return cls(out_channels=NUM_CLASSES, compute_dtype=dtype,
-               generator=generator)
+               generator=generator, in_channels=in_channels_of(variant))
+
+
+def in_channels_of(variant):
+    return IN_CHANNELS if variant == "cin4" else 1
+
+
+def features_of(variant, points):
+    """The per-point input features of a path's model (None: one constant
+    channel): for the general stem, the points' x, y, z and a remission
+    drawn from the seed."""
+    from lidog_tpu_torch.data.synthetic import point_features
+
+    cin = in_channels_of(variant)
+    return None if cin == 1 else point_features(points, cin, SEED)
 
 
 def variant_step(variant, cov_stat_epoch=0, whitening=None):
@@ -788,12 +977,14 @@ def variant_step(variant, cov_stat_epoch=0, whitening=None):
 
 
 def train(dev, variant="source"):
-    """Phases 6, 12 and 13: full-width bf16 training steps of one path;
-    returns stats."""
+    """Phases 6, 12, 13 and 16: full-width bf16 training steps of one path;
+    returns stats.  The general stem (variant "cin4") also takes one eval
+    step."""
     import torch
 
+    from lidog_tpu_torch.losses.losses import SoftDICELoss
     from lidog_tpu_torch.train.optim import make_optimizer
-    from lidog_tpu_torch.train.train_step import TrainState
+    from lidog_tpu_torch.train.train_step import TrainState, make_eval_step
 
     pts, labels = train_data()
     model = variant_model(variant, torch.bfloat16,
@@ -801,10 +992,11 @@ def train(dev, variant="source"):
     step = variant_step(variant)
     state = TrainState.create(model, make_optimizer("Adam", lr=1e-3),
                               device=dev)
-    builder = train_plan_builder()
+    builder = train_plan_builder(in_channels_of(variant))
+    feats = features_of(variant, pts)
 
     def full_step():
-        batch = train_batch(pts, labels, dev)
+        batch = train_batch(pts, labels, dev, feats)
         plan = builder(batch["coords"], batch["mask"])
         _, metrics = step(state, batch, plan)
         torch.cuda.synchronize()
@@ -846,10 +1038,23 @@ def train(dev, variant="source"):
         if launches[k] != per * TRAIN_STEPS:
             raise AssertionError(f"{k}: {launches[k]} launches in {variant} "
                                  f"training, expected {per} x {TRAIN_STEPS}")
-    stages = train_stage_split(state, pts, labels, builder, dev, variant)
+    evals = {}
+    if variant == "cin4":
+        batch = train_batch(pts, labels, dev, feats)
+        plan = builder(batch["coords"], batch["mask"])
+        ev = make_eval_step(SoftDICELoss(ignore_label=-1),
+                            NUM_CLASSES)(state, batch, plan)
+        evals = {"eval_loss": float(ev["loss"]),
+                 "eval_confusion_total": int(ev["confusion"].sum())}
+        print(f"[{variant}] eval step: {evals}", flush=True)
+        if not math.isfinite(evals["eval_loss"]) \
+                or evals["eval_confusion_total"] != supervised:
+            raise AssertionError(f"{variant} eval step {evals}")
+    stages = train_stage_split(state, pts, labels, builder, dev, variant,
+                               feats)
     p50 = statistics.median(ms)
     return {"p50_ms": p50, "scans_per_s": TRAIN_BATCH / p50 * 1e3,
-            "step_ms": ms, "losses": losses, "aux_losses": aux,
+            "step_ms": ms, "losses": losses, "aux_losses": aux, **evals,
             "launches": launches, "stages_ms": stages,
             "supervised_voxels": supervised,
             "real_rows_per_level": [int(l.real.sum()) for l in plan.levels],
@@ -857,7 +1062,8 @@ def train(dev, variant="source"):
             "params": sum(p.numel() for p in model.parameters())}
 
 
-def train_stage_split(state, pts, labels, builder, dev, variant="source"):
+def train_stage_split(state, pts, labels, builder, dev, variant="source",
+                      feats=None):
     """Device ms of voxelize / plan / forward+loss / backward / optimizer
     for one step (CUDA events between the stages; median of 3)."""
     import torch
@@ -871,7 +1077,7 @@ def train_stage_split(state, pts, labels, builder, dev, variant="source"):
     for _ in range(3):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
         ev[0].record()
-        batch = train_batch(pts, labels, dev)
+        batch = train_batch(pts, labels, dev, feats)
         ev[1].record()
         plan = builder(batch["coords"], batch["mask"])
         ev[2].record()
@@ -891,8 +1097,14 @@ def train_stage_split(state, pts, labels, builder, dev, variant="source"):
         torch.cuda.synchronize()
         runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(5)])
     names = ("voxelize", "plan", "forward", "backward", "optimizer")
-    return {n: statistics.median(r[i] for r in runs)
-            for i, n in enumerate(names)}
+    stages = {n: statistics.median(r[i] for r in runs)
+              for i, n in enumerate(names)}
+    n = pts.shape[0] * pts.shape[1]
+    in_bytes = n * (12 + 1 + 4) + (0 if feats is None else feats.nbytes)
+    stages["bounds"] = byte_bounds(
+        voxelize=in_bytes + nbytes(*batch.values()),
+        plan=nbytes(batch["coords"], batch["mask"]) + plan_nbytes(plan))
+    return stages
 
 
 class AuxProbe:
@@ -925,15 +1137,18 @@ def train_cross_check(dev, variant="source"):
     about lr * sign(g)) to 2 lr everywhere, and the share of entries whose
     update changed sign to 10x the floor's share + 1e-4.  The gate-off
     step takes the gate-on floor: its grads are the SoftDICE part of the
-    same model's."""
+    same model's.
+
+    The general stem (phase 16, variant "cin4"; 4 input channels, plans
+    with the stem's source-row maps): also the card's stem125 map equal to
+    the CPU's, the stem's output within 1e-4 of the CPU's (relative to its
+    max), and the stem kernel's grad by the L2 rule above."""
     import numpy as np
     import torch
 
-    from lidog_tpu_torch.caps import make_zcaps
-    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+    from lidog_tpu_torch.caps import make_zcaps, plan_builder
     from lidog_tpu_torch.data.synthetic import SyntheticLidarDataset
     from lidog_tpu_torch.losses.losses import IWLoss
-    from lidog_tpu_torch.train.device_pipeline import device_batch_from_points
     from lidog_tpu_torch.train.optim import make_optimizer
     from lidog_tpu_torch.train.train_step import TrainState
 
@@ -964,19 +1179,25 @@ def train_cross_check(dev, variant="source"):
                   for n, p in model.named_parameters()}
         state = TrainState.create(model, make_optimizer("Adam", lr=lr),
                                   device=d)
-        batch = device_batch_from_points(
-            torch.from_numpy(pts).to(d),
-            torch.ones(1, CHECK_POINTS, dtype=torch.bool, device=d),
-            torch.from_numpy(labels).to(d), VOXEL, caps_r[0])
-        plan = ZSegPlanBuilder(caps_r, caps_a, num_batches=1,
-                               grid_half=GRID_HALF, caps_col_dil=caps_d)(
+        batch = train_batch(pts, labels, d, features_of(variant, pts),
+                            cap_in=caps_r[0])
+        plan = plan_builder(in_channels_of(variant), 1,
+                            (caps_r, caps_a, caps_d), grid_half=GRID_HALF)(
             batch["coords"], batch["mask"])
         if int(plan.overflow.sum()) != 0:
             raise AssertionError(f"check plan overflow {plan.overflow}")
         probe = AuxProbe(IWLoss())
+        stem = model.backbone.conv0 if hasattr(model, "backbone") \
+            else model.conv0
+        stem_out = []
+        hook = stem.register_forward_hook(
+            lambda mod, args, res: stem_out.append(res.feats.detach().cpu()))
         t0 = time.perf_counter()
         _, metrics = variant_step(variant, cov, probe)(state, batch, plan)
+        hook.remove()
         out[where] = {
+            "stem_map": plan.kmaps.get("stem125", plan.kmaps["conv9_l0"])
+            .cpu(), "stem_out": stem_out[0],
             "loss": float(metrics["loss"]),
             "aux_loss": float(metrics.get("aux_loss", 0.0)),
             "aux_grads": probe.grads,
@@ -1012,8 +1233,13 @@ def train_cross_check(dev, variant="source"):
                 "param_lr": max(float((a["params"][n] - p).abs().max())
                                 for n, p in b["params"].items()) / lr,
                 "confusion_abs_diff": int(
-                    (a["confusion"] - b["confusion"]).abs().sum())}
+                    (a["confusion"] - b["confusion"]).abs().sum()),
+                "stem_map_equal": bool(torch.equal(a["stem_map"],
+                                                   b["stem_map"])),
+                "stem_out": rel_err(a["stem_out"], b["stem_out"]),
+                "stem_grad_l2": per[stem_key]}
 
+    stem_key = next(n for n in out["cpu"]["grads"] if "conv0.kernel" in n)
     floor = compare(out["floor"], out["cpu"])
     result = {"floor": floor}
     bounds = {"loss": 1e-4, "aux_loss": 1e-4, "stats": 1e-4,
@@ -1021,6 +1247,12 @@ def train_cross_check(dev, variant="source"):
               "grad_l2_worst": 10 * floor["grad_l2_worst"] + 1e-6,
               "update_sign_flips": 10 * floor["update_sign_flips"] + 1e-4,
               "param_lr": 2.0}
+    if variant == "cin4":
+        bounds.update({"stem_out": 1e-4,
+                       "stem_grad_l2": 10 * floor["stem_grad_l2"] + 1e-6})
+        if not compare(out["cuda"], out["cpu"])["stem_map_equal"]:
+            raise AssertionError("cin4 cross-check: the card's stem125 map "
+                                 "differs from the CPU's")
     for gate in [""] + (["_gate_off"] if variant == "robustnet" else []):
         got = compare(out["cuda" + gate], out["cpu" + gate])
         print(f"[{variant}-check{gate}] card vs CPU, f32 full width, "
@@ -1050,6 +1282,151 @@ def train_cross_check(dev, variant="source"):
             raise AssertionError(f"gate off: aux grads not 0 ({nonzero})")
         result["aux_grad_nonzero_gate_off"] = nonzero
     return result
+
+
+def sortless(dev):
+    """Phase 17: the sortless path.  Serving: Predictor(sortless=True) and
+    the sorted Predictor (MinkUNet34 bf16, phase 4's seeded weights) on
+    phase 4's scan: the two plans' levels, kmaps and overflow equal, every
+    point's label equal; then 5 timed requests of each, in turns (sorted,
+    sortless, sortless, sorted, ...; the sortless counters = launches x
+    requests).  Training (the training cell's batch and caps): the sorted
+    step twice and the sortless one (device_batch_raw -> assume_unique=
+    False plan -> step) from the same weights, the plans equal and the
+    sortless loss equal to the sorted one (bitwise where the two sorted
+    runs agree bitwise, else within their spread); then 5 more steps of
+    each, in turns (finite losses, the last below the first, confusion
+    totals equal to the supervised voxels, the sortless counters =
+    launches x steps), and one sortless step alone for its peak memory."""
+    import torch
+
+    from lidog_tpu_torch.models.minkunet import MinkUNet34
+    from lidog_tpu_torch.serve import Predictor
+    from lidog_tpu_torch.train.optim import make_optimizer
+    from lidog_tpu_torch.train.train_step import TrainState
+
+    model = MinkUNet34(out_channels=NUM_CLASSES, compute_dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(SEED))
+    pts = torch.from_numpy(scan(POINTS, SEED)).to(dev)
+    kw = dict(batch_size=1, voxel_size=VOXEL, caps_per_scan=PER_SCAN,
+              grid_half=GRID_HALF, device=dev)
+    preds = {"sorted": Predictor(model, **kw),
+             "sortless": Predictor(model, sortless=True, **kw)}
+    plans = {k: p.forward_voxels(pts)[1] for k, p in preds.items()}
+    plans_equal(plans["sorted"], plans["sortless"], "sortless serving plan")
+    labels = {k: p(pts) for k, p in preds.items()}
+    same = float((labels["sorted"] == labels["sortless"]).float().mean())
+    print(f"[sortless] serving plan equal to the sorted one; labels equal on "
+          f"{same:.6f} of {POINTS} points", flush=True)
+    if not torch.equal(labels["sorted"], labels["sortless"]):
+        raise AssertionError(f"sortless labels differ ({same} equal)")
+    del plans
+    # the two paths in turns (sorted, sortless, sortless, sorted, ...), the
+    # counters read for the sortless requests only
+    serve_ms = {"sorted": [], "sortless": []}
+    serve_launches = dict.fromkeys(counters(), 0)
+    for i in range(REQUESTS):
+        for kind in in_turns(("sorted", "sortless"), i):
+            zero_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            preds[kind](pts)
+            torch.cuda.synchronize()
+            serve_ms[kind].append((time.perf_counter() - t0) * 1e3)
+            if kind == "sortless":
+                for k, v in counters().items():
+                    serve_launches[k] += v
+    for k, per in PER_FORWARD.items():
+        if serve_launches[k] != per * REQUESTS:
+            raise AssertionError(f"{k}: {serve_launches[k]} launches in "
+                                 f"sortless serving, expected {per} x "
+                                 f"{REQUESTS}")
+    del preds, model
+    torch.cuda.empty_cache()
+
+    tpts, tlabels = train_data()
+    builders = {"sorted": train_plan_builder(),
+                "sortless": train_plan_builder(assume_unique=False)}
+    step = variant_step("source")
+
+    def run_step(kind, state):
+        batch = train_batch(tpts, tlabels, dev, sortless=kind == "sortless")
+        plan = builders[kind](batch["coords"], batch["mask"])
+        _, metrics = step(state, batch, plan)
+        return metrics, plan, batch
+
+    def first_step(kind):
+        m = variant_model("source", torch.bfloat16,
+                          torch.Generator().manual_seed(SEED))
+        state = TrainState.create(m, make_optimizer("Adam", lr=1e-3),
+                                  device=dev)
+        metrics, plan, batch = run_step(kind, state)
+        return float(metrics["loss"]), state, plan, batch
+
+    loss_s1, state_s, plan_s, batch_s = first_step("sorted")
+    loss_s2 = first_step("sorted")[0]
+    loss_r, state_r, plan_r, _ = first_step("sortless")
+    plans_equal(plan_s, plan_r, "sortless training plan")
+    supervised = int(((batch_s["labels"] >= 0) & batch_s["mask"]).sum())
+    del plan_s, batch_s, plan_r
+    spread = abs(loss_s1 - loss_s2)
+    print(f"[sortless] first-step loss sorted {loss_s1!r}, {loss_s2!r} "
+          f"(spread {spread!r}), sortless {loss_r!r}", flush=True)
+    if not abs(loss_r - loss_s1) <= spread:
+        raise AssertionError(f"sortless loss {loss_r!r} vs sorted "
+                             f"{loss_s1!r} (two sorted runs: spread "
+                             f"{spread!r})")
+    states = {"sorted": state_s, "sortless": state_r}
+    losses = {"sorted": [loss_s1], "sortless": [loss_r]}
+    ms = {"sorted": [], "sortless": []}
+    launches = dict.fromkeys(counters(), 0)
+    for i in range(TRAIN_STEPS):
+        for kind in in_turns(("sorted", "sortless"), i):
+            zero_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = run_step(kind, states[kind])[0]
+            torch.cuda.synchronize()
+            ms[kind].append((time.perf_counter() - t0) * 1e3)
+            losses[kind].append(float(metrics["loss"]))
+            total = int(metrics["confusion"].sum())
+            if total != supervised:
+                raise AssertionError(f"{kind} confusion total {total} != "
+                                     f"{supervised} supervised voxels")
+            if kind == "sortless":
+                for k, v in counters().items():
+                    launches[k] += v
+    # the sortless step's peak memory, with its model alone on the card
+    del states, state_s
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run_step("sortless", state_r)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[sortless] losses {losses} step ms {ms}; request ms "
+          f"{serve_ms}", flush=True)
+    for kind, seq in losses.items():
+        if not all(math.isfinite(v) for v in seq) or not seq[-1] < seq[0]:
+            raise AssertionError(f"{kind} losses {seq}: not finite or not "
+                                 "falling")
+    for k, per in PER_STEP.items():
+        if launches[k] != per * TRAIN_STEPS:
+            raise AssertionError(f"{k}: {launches[k]} launches in sortless "
+                                 f"training, expected {per} x {TRAIN_STEPS}")
+    p50 = {k: statistics.median(v) for k, v in ms.items()}
+    return {"serve_p50_ms": statistics.median(serve_ms["sortless"]),
+            "serve_sorted_p50_ms": statistics.median(serve_ms["sorted"]),
+            "request_ms": serve_ms, "serve_launches": serve_launches,
+            "p50_ms": p50["sortless"], "sorted_p50_ms": p50["sorted"],
+            "scans_per_s": TRAIN_BATCH / p50["sortless"] * 1e3,
+            "step_ms": ms, "losses": losses, "launches": launches,
+            "first_loss_sorted": [loss_s1, loss_s2],
+            "first_loss_sortless": loss_r, "peak_mem_gb": peak,
+            "supervised_voxels": supervised}
+
+
+def in_turns(pair, i):
+    """The two of `pair` in the order of round i: a, b, then b, a, ..."""
+    return pair if i % 2 == 0 else pair[::-1]
 
 
 def bev_kernel_checks(plan, gen):
@@ -1423,6 +1800,8 @@ def main():
                                   torch.Generator().manual_seed(SEED + 10))
     del tbatch, tplan
     torch.cuda.empty_cache()
+    rows += stem_kernel_checks(dev, torch.Generator().manual_seed(SEED + 11))
+    torch.cuda.empty_cache()
 
     zero_counters()
     stats = serve(model, pts, dev)
@@ -1459,13 +1838,28 @@ def main():
     istats = train_path("ibn")
     rcheck = train_cross_check(dev, "robustnet")
 
+    cstats = train_path("cin4")
+    ccheck = train_cross_check(dev, "cin4")
+    torch.cuda.empty_cache()
+    sstats = sortless(dev)
+    print(f"[sortless] p50 {sstats['serve_p50_ms']:.3f} ms per 100k-point "
+          f"request (sorted in turns: {sstats['serve_sorted_p50_ms']:.3f}), "
+          f"{sstats['p50_ms']:.3f} ms per step of {TRAIN_BATCH} x {POINTS} "
+          f"points ({sstats['scans_per_s']:.3f} scans/s; sorted in turns: "
+          f"{sstats['sorted_p50_ms']:.3f} ms), peak "
+          f"{sstats['peak_mem_gb']:.2f} GB on {card}", flush=True)
+
     by_path = {"serve": stats["launches"], "train": tstats["launches"],
                "lidog": lstats["launches"], "robustnet": rstats["launches"],
-               "ibn": istats["launches"]}
+               "ibn": istats["launches"], "cin4": cstats["launches"],
+               "sortless_serve": sstats["serve_launches"],
+               "sortless": sstats["launches"]}
     for path, names in (("serve", PER_FORWARD), ("train", PER_STEP),
                         ("lidog", PER_LIDOG_STEP),
                         ("robustnet", PER_ROBUST_STEP),
-                        ("ibn", PER_IBN_STEP)):
+                        ("ibn", PER_IBN_STEP), ("cin4", PER_CIN_STEP),
+                        ("sortless_serve", PER_FORWARD),
+                        ("sortless", PER_STEP)):
         for k in names:  # every kernel of the path ran in the path's run
             if by_path[path][k] <= 0:
                 raise AssertionError(f"{k} never launched on the {path} path")
@@ -1480,7 +1874,8 @@ def main():
                "train": tstats, "train_check_vs_cpu": tcheck,
                "lidog": lstats, "bev_check_vs_cpu": bcheck,
                "robustnet": rstats, "ibn": istats,
-               "robustnet_check_vs_cpu": rcheck}
+               "robustnet_check_vs_cpu": rcheck, "cin4": cstats,
+               "cin4_check_vs_cpu": ccheck, "sortless": sstats}
     print("[summary] " + json.dumps(summary), flush=True)
     print(f"[total] {summary['total_s']:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches",

@@ -1,10 +1,14 @@
-"""Per-level plan capacities for the zseg engine.
+"""Per-level plan capacities for the zseg engine, and the plan builder
+of a config.
 
 Own copy of lidog_tpu/cli/common.py:20-57 (`_rup`, `make_zcaps` and the
-ZSEG_* tables), so the port imports nothing of the JAX package.
+ZSEG_* tables) and of its builder rule (:60-92), so the port imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
+
+from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
 
 # per-level shrink of the voxel count, ghost-row factor and y-dilated
 # column slots per real voxel (measured ring-scan ratios + headroom; see
@@ -26,3 +30,23 @@ def make_zcaps(per_scan: int = 131072):
     caps_d = tuple(min(_rup(per_scan * f * d), 5 * r)
                    for f, d, r in zip(ZSEG_SHRINK, ZSEG_COL_DIL, caps_r))
     return caps_r, caps_a, caps_d
+
+
+def plan_builder(in_channels: int, batch_size: int, caps,
+                 **options) -> ZSegPlanBuilder:
+    """The zseg plan builder for a model with `in_channels` input channels
+    at per-scan caps (caps_real, caps_aug, caps_col_dil): in_channels != 1
+    needs the stem's source-row maps (stem_feature_map=True) instead of
+    the occupancy matrix.  options (grid_half, assume_unique) go to
+    ZSegPlanBuilder."""
+    caps_r, caps_a, caps_d = caps
+    return ZSegPlanBuilder(caps_r, caps_a, num_batches=batch_size,
+                           caps_col_dil=caps_d,
+                           stem_feature_map=in_channels != 1, **options)
+
+
+def make_plan_builder(config, batch_size: int,
+                      per_scan: int = 131072) -> ZSegPlanBuilder:
+    """The plan builder of `config` at make_zcaps(per_scan)."""
+    return plan_builder(config.model.in_channels, batch_size,
+                        make_zcaps(per_scan))

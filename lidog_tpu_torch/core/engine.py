@@ -1,5 +1,5 @@
 """Engine dispatch (lidog_tpu/core/engine.py), ZPlan branch only: the port
-has one kernel-map engine, and unique (voxelized) input."""
+has one kernel-map engine, for unique (voxelized) or sortless input."""
 
 from __future__ import annotations
 
@@ -22,9 +22,17 @@ def input_tensor(plan: ZPlan, feats):
 def canon_labels(plan: ZPlan, labels):
     """Per-input-row labels -> (labels in the level-0 row layout, -1 on
     rows without one; the rows that carry a label): lidog_tpu/core/
-    engine.py:40-56, the ZPlan branch for unique input."""
-    lab = _zplan(plan).scatter_rows(labels.to(torch.int32), fill=-1)
-    return lab, plan.level(0).real & (lab >= 0)
+    engine.py:40-56, the ZPlan branch.  A sortless plan (plan.rep set)
+    takes per-point labels and picks the representative point's label by
+    gather, voxelize_device's choice."""
+    real = _zplan(plan).level(0).real
+    if plan.rep is not None:
+        hit = (plan.rep >= 0) & real
+        lab = torch.where(hit, labels[plan.rep.clamp(min=0).long()]
+                          .to(torch.int32), -1)
+        return lab, real & (lab >= 0)
+    lab = plan.scatter_rows(labels.to(torch.int32), fill=-1)
+    return lab, real & (lab >= 0)
 
 
 def input_to_canon_map(plan: ZPlan):

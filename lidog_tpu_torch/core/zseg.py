@@ -1,14 +1,16 @@
 """Segmented z-fused plan: per-scan segments + ghost-augmented levels.
 
 Port of lidog_tpu/core/zseg.py (ZLevel, ZPlan, the column-table sweeps and
-ZSegPlanBuilder for unique input with the occupancy stem).  Every ZPlan
-field is bitwise equal to the JAX builder's.
+ZSegPlanBuilder with the occupancy or the feature stem, for unique or
+sortless input).  Every ZPlan field is bitwise equal to the JAX builder's.
 
 Per level the plan holds the augmented coordinate set (real voxels plus
 ghost rows at z-gaps that are nonzero gather targets of the column-fused
 conv, ops/zconv.py) in segmented canonical order: scan b owns rows
 [b*capA, (b+1)*capA).  Kernel maps: conv9 (k=3, 9 xy taps), down8 +
-parent/off (k=2 s=2 pair), and the fused 5x5x5 stem occupancy.
+parent/off (k=2 s=2 pair), and the fused 5x5x5 stem occupancy, or for
+in_channels > 1 the stem's 125 source-row maps (`stem125`, K17: kernel KQ,
+csrc/stem_feat125.cu, on the card).  The other sweeps run as plain torch.
 
 What the JAX version shaped around the TPU is not carried over, only its
 results: the 512 B wide-row grid lookup (GRID_ROW_W), the per-scan
@@ -23,7 +25,7 @@ index arithmetic is int64; outputs are cast to the JAX dtypes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,9 +34,11 @@ from lidog_tpu_torch.core.bitgrid import (
     _word_at, popcount32,
 )
 from lidog_tpu_torch.core.sparse import SparseTensor
+from lidog_tpu_torch.ops import _cuda
 
 NUM_LEVELS = 5
 ZMAX = ZWORDS * 32
+LAUNCHES = {"stem_feat125": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,10 +55,14 @@ class ZLevel:
 class ZPlan:
     levels: Tuple[ZLevel, ...]
     # conv9_l{i} [9, B*capA_i]; down8_l{i} [8, B*capA_{i+1}];
-    # parent_l{i}, off_l{i} [B*capA_i]; stem_occ [B*capA_0, 125] bf16
+    # parent_l{i}, off_l{i} [B*capA_i]; stem_occ [B*capA_0, 125] bf16, or
+    # (feature stem) stem125 [125, B*capA_0] int32 source rows
     kmaps: Dict[str, torch.Tensor]
     pos: torch.Tensor  # int32 [N_in] input row -> level-0 row (-1 drop)
     overflow: torch.Tensor  # int32 [1 + NUM_LEVELS]
+    # sortless input only: int32 [B*capA_0], the representative (minimum)
+    # input row of each level-0 row, -1 on ghost/pad rows
+    rep: Optional[torch.Tensor] = None
     num_batches: int = 1
 
     def level(self, i: int) -> ZLevel:
@@ -191,10 +199,13 @@ def _assemble_aug(real_w, col_bxy, col_valid, grid_d, num_batches: int,
 
 
 def _build_packed(real_w, aug16, col_bxy, col_valid, num_batches: int,
-                  ccap: int, cap_a: int, r: int):
+                  ccap: int, cap_a: int, r: int, aug_r: int = 1):
     """Per-slot y-neighbourhood row, built by validated slot shifts:
-    [real words of gy-r..gy+r | (aug words + LOCAL start) of gy-1..gy+1].
-    r < 0 leaves out the real slabs (the conv9 sweep of levels > 0)."""
+    [real words of gy-r..gy+r | (aug words + LOCAL start) of
+    gy-aug_r..gy+aug_r].  r < 0 leaves out the real slabs (the conv9 sweep
+    of levels > 0); the feature-stem sweep (stem_feat125_packed) passes
+    aug_r = r.  aug_r <= max(r, 1): a neighbour column within the dilation
+    radius sits exactly dy consecutive slots away."""
     b = torch.arange(num_batches * ccap, device=real_w.device) // ccap
     m_aug = aug16[:, :ZWORDS + 1].clone()
     m_aug[:, ZWORDS] += torch.where(col_valid, -b * cap_a, 0)
@@ -206,8 +217,9 @@ def _build_packed(real_w, aug16, col_bxy, col_valid, num_batches: int,
             out = _shift_up(out, adj) if dy > 0 else _shift_dn(out, adj)
         return out
 
+    assert aug_r <= max(r, 1), "aug shifts must stay within the dilation"
     slabs = [at_dy(real_w, dy) for dy in range(-r, r + 1)]
-    slabs += [at_dy(m_aug, dy) for dy in (-1, 0, 1)]
+    slabs += [at_dy(m_aug, dy) for dy in range(-aug_r, aug_r + 1)]
     return torch.cat(slabs, dim=1)
 
 
@@ -304,6 +316,93 @@ def conv9_packed(cid_grid, packed, coords, valid, g: int, ccap: int,
     return _globalize(torch.stack(ranks, dim=0), nb, cap_a)
 
 
+def stem_feat125_plain(cid_grid, packed, coords, valid, g: int, ccap: int,
+                       cap_a: int, r: int, nb: int, grid_half: int = 0,
+                       level: int = 0):
+    """Feature-stem sweep, plain version (lidog_tpu/core/zseg.py:540): the
+    source row of every (dx, dy, dz) neighbour in the (2r+1)^3 window.
+
+    Needs the packed table built with aug_r = r.  Per (dx, dy) column one
+    rank at bz and 2r single-bit reads resolve all 2r+1 z positions:
+    rank(bz+d) = rank(bz) + bits in [bz, bz+d), and symmetrically below.
+    Returns (nbr [(2r+1)^3, N], conv9 [9, N]) int32 global rows (-1 miss)
+    in (dx, dy, dz) order, dz fastest."""
+    aug_off = (2 * r + 1) * ZWORDS
+    nbrs, c9 = [], []
+    for dx, bz0, hit, row in _sweep_rows(
+            cid_grid, packed, coords, valid, g, ccap, nb, grid_half, level,
+            range(-r, r + 1)):
+        for dyi in range(2 * r + 1):
+            off = aug_off + (ZWORDS + 1) * dyi
+            words, startv = row[:, off:off + ZWORDS], row[:, off + ZWORDS]
+            rank0, ex0 = _rank_from_row(words, bz0.clamp(0, ZMAX - 1))
+            bit = {0: ex0.long()}
+            for d in range(1, r + 1):
+                bit[d] = _bit_at(words, (bz0 + d).clamp(0, ZMAX - 1))
+                bit[-d] = _bit_at(words, (bz0 - d).clamp(0, ZMAX - 1))
+            rank = {0: rank0.long()}
+            for d in range(1, r + 1):
+                rank[d] = rank[d - 1] + bit[d - 1]
+                rank[-d] = rank[-(d - 1)] - bit[-d]
+            for dz in range(-r, r + 1):
+                bzd = bz0 + dz
+                okz = hit & (bzd >= 0) & (bzd < ZMAX) & (bit[dz] == 1)
+                idx = startv + rank[dz]
+                nbrs.append(torch.where(okz & (idx >= 0) & (idx < cap_a),
+                                        idx, -1))
+                if abs(dx) <= 1 and abs(dyi - r) <= 1 and dz == 0:
+                    c9.append(nbrs[-1])
+    return (_globalize(torch.stack(nbrs, dim=0), nb, cap_a),
+            _globalize(torch.stack(c9, dim=0), nb, cap_a))
+
+
+def stem_feat125_packed(cid_grid, packed, coords, valid, g: int, ccap: int,
+                        cap_a: int, r: int, nb: int, grid_half: int = 0,
+                        level: int = 0):
+    """KQ (csrc/stem_feat125.cu) for CUDA tensors, the plain version for
+    CPU tensors; arguments as the plain version's (the k=5 stem only: r =
+    2 on the card)."""
+    if coords.device.type == "cpu":
+        return stem_feat125_plain(cid_grid, packed, coords, valid, g, ccap,
+                                  cap_a, r, nb, grid_half, level)
+    name = "stem_feat125"
+    dev, n = coords.device, coords.shape[0]
+    if coords.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {dev}")
+    aug_off = (2 * r + 1) * ZWORDS
+    width = packed.shape[1] if packed.dim() == 2 else 0
+    checks = (
+        (r == STEM_R, f"r must be {STEM_R}, got {r}"),
+        (n % nb == 0, f"rows {n} are not {nb} equal segments"),
+        (cid_grid.dtype == torch.int64 and tuple(cid_grid.shape)
+         == (nb * g * g,), "cid_grid must be int64 [nb*g*g]"),
+        (packed.dtype == torch.int64 and packed.dim() == 2
+         and packed.shape[0] == nb * ccap
+         and width >= aug_off + (2 * r + 1) * (ZWORDS + 1),
+         "packed must be int64 [nb*ccap, W] with aug_r = r slabs"),
+        (coords.dtype == torch.int32 and tuple(coords.shape) == (n, 4),
+         "coords must be int32 [N, 4]"),
+        (valid.dtype == torch.bool and tuple(valid.shape) == (n,),
+         "valid must be bool [N]"),
+        (coords.data_ptr() % 16 == 0, "coords must be 16-byte aligned"),
+    )
+    for ok, msg in checks:
+        if not ok:
+            raise ValueError(f"{name}: {msg}")
+    for t in (cid_grid, packed, coords, valid):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous on {dev}")
+    nbr = torch.empty((2 * r + 1) ** 3, n, dtype=torch.int32, device=dev)
+    conv9 = torch.empty(9, n, dtype=torch.int32, device=dev)
+    if n:
+        _cuda.call(name, cid_grid.data_ptr(), packed.data_ptr(),
+                   coords.data_ptr(), valid.data_ptr(), nbr.data_ptr(),
+                   conv9.data_ptr(), n, nb, g, ccap, cap_a, grid_half, level,
+                   width, aug_off)
+        LAUNCHES[name] += 1
+    return nbr, conv9
+
+
 def pos3_lookup(aug16, coords, valid, g: int, cap_a: int, grid_half: int,
                 level: int, cid):
     """Own-column (z-s, z, z+s) aug positions per query row, given each
@@ -368,160 +467,89 @@ STEM_R = 2  # the k=5 stem's radius (125 occupancy columns)
 
 
 class ZSegPlanBuilder:
-    """Build a ZPlan from batched stride-1 voxel coords (unique voxels, any
-    row order; lidog_tpu/core/zseg.py:773 with assume_unique=True, the
-    occupancy stem and the default k=5 stem, column caps = caps_real).
+    """Build a ZPlan from batched stride-1 voxel coords in any row order
+    (lidog_tpu/core/zseg.py:773 with the default k=5 stem and column caps
+    = caps_real).
 
     caps_real / caps_aug: per-scan row capacities per level.
     caps_col_dil: per-scan y-dilated column capacities (default: the safe
     (2r+1) x caps_real bound).
+    stem_feature_map: emit the stem's source-row maps kmaps["stem125"]
+    (in_channels > 1, ops/zconv.py zconv_full) instead of the occupancy
+    matrix kmaps["stem_occ"] (constant input features).
+    assume_unique=False: sortless input, raw per-point voxel cells with
+    duplicates.  The column tables dedup them: the level-0 bits are
+    stamped idempotently per z byte and packed to words, overflow[0]
+    counts the deduped voxels, `pos` maps every point, and the plan
+    carries `rep`, the smallest input row of each level-0 row (the
+    representative that voxelize_device picks).
     """
 
     def __init__(self, caps_real, caps_aug, num_batches: int,
-                 grid_half: int = 1024, caps_col_dil=None):
+                 grid_half: int = 1024, caps_col_dil=None,
+                 stem_feature_map: bool = False, assume_unique: bool = True):
         assert len(caps_real) == NUM_LEVELS and len(caps_aug) == NUM_LEVELS
         self.caps_real = tuple(int(c) for c in caps_real)
         self.caps_aug = tuple(int(c) for c in caps_aug)
         self.num_batches = num_batches
         self.grid_half = grid_half
+        self.stem_feature_map = stem_feature_map
+        self.assume_unique = assume_unique
         if caps_col_dil is None:
             caps_col_dil = tuple((2 * (STEM_R if i == 0 else 1) + 1) * c
                                  for i, c in enumerate(self.caps_real))
         self.caps_col_dil = tuple(int(c) for c in caps_col_dil)
 
     def __call__(self, coords, mask) -> ZPlan:
-        B, gh = self.num_batches, self.grid_half
-        dev = coords.device
+        B, dev = self.num_batches, coords.device
         kmaps: Dict[str, torch.Tensor] = {}
         overflow = []
         levels = []
-        prev = None  # (coords_a, real_a) of the previous level
-        fine_grid = None  # (grid_d, real words, g) of the previous level
-        pos_in = None
+        t = None  # the previous level's tables
         for i in range(NUM_LEVELS):
+            t = self._level(i, coords, mask, t)
+            overflow += t.overflow
+            levels.append(t.level)
             capA = self.caps_aug[i]
-            ccap_d = self.caps_col_dil[i]
-            rpack = STEM_R if i == 0 else 1
-            s = 1 << i
-            g = (2 * gh) >> i
             if i == 0:
-                src_coords, src_valid = coords, mask
+                args, kwargs = self._stem_args(t)
+                if self.stem_feature_map:
+                    kmaps["stem125"], kmaps["conv9_l0"] = stem_feat125_packed(
+                        *args, **kwargs)
+                else:
+                    kmaps["stem_occ"], kmaps["conv9_l0"] = stem_conv9_packed(
+                        *args, **kwargs)
+                del args  # the packed table
+                pos_in = torch.where(mask, t.pos3[1], -1).to(torch.int32)
+                if not self.assume_unique:
+                    # the representative input row of each level-0 row:
+                    # the minimum input index (voxelize_device's pick)
+                    big = 2**31 - 1
+                    pslot = torch.where(pos_in >= 0, pos_in.long(), B * capA)
+                    rep_in = torch.full((B * capA + 1,), big,
+                                        dtype=torch.int32, device=dev)
+                    rep_in.scatter_reduce_(
+                        0, pslot, torch.arange(pos_in.shape[0],
+                                               dtype=torch.int32, device=dev),
+                        reduce="amin")
+                    rep_in = torch.where(rep_in[:B * capA] == big, -1,
+                                         rep_in[:B * capA])
             else:
-                pc, pr = prev
-                src_coords = torch.cat([pc[:, :1], (pc[:, 1:4] >> i) << i],
-                                       dim=1)
-                src_valid = pr
-
-            # the y-dilated column set of this level's real plane
-            b_, gx, gy, bz, inb = _cell_of(src_coords, gh, i)
-            b_, gx, gy, bz = b_.long(), gx.long(), gy.long(), bz.long()
-            ok = src_valid & inb
-            gxc = gx.clamp(0, g - 1)
-            gyc = gy.clamp(0, g - 1)
-            bsafe = torch.where(ok, b_, 0)
-            if i == 0:
-                # overflow[0]: level-0 real voxels beyond caps_real[0]
-                nreal_b = torch.zeros(B + 1, dtype=torch.long, device=dev)
-                nreal_b.index_add_(0, torch.where(ok, b_, B),
-                                   torch.ones_like(b_))
-                overflow.append(
-                    torch.clamp(nreal_b[:B] - self.caps_real[0], min=0).sum())
-            cells = B * g * g
-            has = torch.zeros(cells + 1, dtype=torch.int8, device=dev)
-            has[torch.where(ok, (bsafe * g + gxc) * g + gyc, cells)] = 1
-            has_d = _dilate_y(has[:cells].reshape(B, g * g), g, rpack)
-            grid_d, col_over_d = _grid_from_has(has_d, B, ccap_d)
-            # one lookup per voxel: an occupied column's whole +-r y-window
-            # is dilated and contiguous, so slot of (gx, gy+dy) is cid + dy
-            vox_cid = _grid_lookup(grid_d, bsafe, gxc, gyc, ok, g)
-            sink = B * ccap_d
-            col_bxy = torch.full((sink + 1,), -1, dtype=torch.long,
-                                 device=dev)
-            pack0 = _pack_bxy(bsafe, gxc, gyc)
-            seg0 = bsafe * ccap_d
-            for dy in range(-rpack, rpack + 1):
-                gyn = gyc + dy
-                okn = (ok & (gyn >= 0) & (gyn < g) & (vox_cid >= 0)
-                       & (vox_cid + dy >= seg0)
-                       & (vox_cid + dy < seg0 + ccap_d))
-                col_bxy[torch.where(okn, vox_cid + dy, sink)] = pack0 + dy
-            col_bxy = col_bxy[:sink]
-            col_valid = col_bxy >= 0
-            col_bxy = col_bxy.clamp(min=0)
-
-            if i == 0:
-                # scatter-add voxel bits: unique (b, x, y, z) => add == OR
-                word = (bz >> 5).clamp(0, ZWORDS - 1)
-                bit = torch.where(ok, 1 << (bz & 31), 0)
-                cslot = torch.where(vox_cid >= 0, vox_cid, sink)
-                real_w = torch.zeros(sink + 1, ZWORDS, dtype=torch.long,
-                                     device=dev)
-                real_w.index_put_((cslot, word), bit, accumulate=True)
-                real_w = real_w[:sink] & U32
-            else:
-                # coarse real words from the fine table: 4 child column
-                # fetches + pairwise z OR
-                f_grid, f_real, f_g = fine_grid
-                bC, gxC, gyC = _unpack_bxy(col_bxy)
-                acc = torch.zeros(sink, ZWORDS, dtype=torch.long, device=dev)
-                for cx in (0, 1):
-                    for cy in (0, 1):
-                        gxf = 2 * gxC + cx
-                        gyf = 2 * gyC + cy
-                        okf = col_valid & (gxf < f_g) & (gyf < f_g)
-                        cidf = _grid_lookup(
-                            f_grid, bC, gxf.clamp(0, f_g - 1),
-                            gyf.clamp(0, f_g - 1), okf, f_g)
-                        acc = acc | _rows_or_miss(f_real, cidf)
-                real_w = _zpair_words(acc)
-
-            aug16, counts_b = _assemble_aug(real_w, col_bxy, col_valid,
-                                            grid_d, B, g, ccap_d, capA)
-            vox_drop = (ok & (vox_cid < 0)).sum()
-            overflow.append(torch.clamp(counts_b - capA, min=0).sum()
-                            + vox_drop + col_over_d)
-
-            pos3 = pos3_lookup(aug16, src_coords, src_valid, g, capA, gh, i,
-                               cid=vox_cid)
-            # one packed int per candidate: gxgy << 9 | bz (uint32 wrap
-            # kept, as in the JAX version)
-            packed0 = ((gxc * g + gyc) << 9) | bz.clamp(0, ZMAX - 1)
-            cand_p = torch.cat([packed0 - 1, packed0, packed0 + 1]) & U32
-            packed_a = _scatter_rows(pos3.reshape(-1), cand_p, B * capA)
-            gxgy = packed_a >> 9
-            ax = (torch.div(gxgy, g, rounding_mode="floor") - (gh >> i)) << i
-            ay = ((gxgy % g) - (gh >> i)) << i
-            az = ((packed_a & 511) - ZC) << i
-            ab = torch.arange(B * capA, device=dev) // capA
-            coords_a = torch.stack([ab, ax, ay, az], dim=1).to(torch.int32)
-            real_a = _scatter_flag(pos3[1], src_valid, B * capA)
-            valid_a = _seg_valid_mask(counts_b, B, capA)
-            coords_a = torch.where(valid_a[:, None], coords_a, 0)
-            real_a = real_a & valid_a
-            zup, zdn = _z_adjacency(coords_a, valid_a, s)
-            levels.append(ZLevel(coords=coords_a, real=real_a, valid=valid_a,
-                                 zup=zup, zdn=zdn, stride=s))
-
-            if i == 0:
-                packed_l = _build_packed(real_w, aug16, col_bxy, col_valid,
-                                         B, ccap_d, capA, STEM_R)
-                kmaps["stem_occ"], kmaps["conv9_l0"] = stem_conv9_packed(
-                    grid_d, packed_l, coords_a, valid_a, g, ccap_d, capA,
-                    STEM_R, B, grid_half=gh, level=0)
-                pos_in = torch.where(mask, pos3[1], -1).to(torch.int32)
-            else:
-                packed_l = _build_packed(real_w, aug16, col_bxy, col_valid,
-                                         B, ccap_d, capA, -1)
+                lv = t.level
+                packed_l = _build_packed(t.real_w, t.aug16, t.col_bxy,
+                                         t.col_valid, B, self.caps_col_dil[i],
+                                         capA, -1)
                 kmaps[f"conv9_l{i}"] = conv9_packed(
-                    grid_d, packed_l, coords_a, valid_a, g, ccap_d, capA, B,
-                    grid_half=gh, level=i)
+                    t.grid_d, packed_l, lv.coords, lv.valid, t.g,
+                    self.caps_col_dil[i], capA, B, grid_half=self.grid_half,
+                    level=i)
                 # strided pair maps between level i-1 (fine) and i (coarse):
                 # parent per fine row is pos3's dz=0 lookup; down8 is its
                 # transpose (each real fine row is the unique child of its
                 # parent at its offset)
                 fine = levels[i - 1]
                 pxyz = (fine.coords[:, 1:4] >> i) << i
-                parent = pos3[1]
+                parent = t.pos3[1]
                 d = (fine.coords[:, 1:4] - pxyz) >> (i - 1)
                 offv = d[:, 0] * 4 + d[:, 1] * 2 + d[:, 2]
                 kmaps[f"parent_l{i-1}"] = parent.to(torch.int32)
@@ -532,18 +560,185 @@ class ZSegPlanBuilder:
                 down8[offv.clamp(0, 7).long(), pslot] = torch.arange(
                     parent.shape[0], dtype=torch.int32, device=dev)
                 kmaps[f"down8_l{i-1}"] = down8[:, :B * capA].contiguous()
-            fine_grid = (grid_d, real_w, g)
-            prev = (coords_a, real_a)
 
         return ZPlan(levels=tuple(levels), kmaps=kmaps, pos=pos_in,
                      overflow=torch.stack(overflow).to(torch.int32),
+                     rep=None if self.assume_unique else rep_in,
                      num_batches=B)
+
+    def stem_inputs(self, coords, mask):
+        """(args, kwargs) of the level-0 stem sweep of this builder's plan
+        of (coords, mask): stem_feat125_packed's with stem_feature_map,
+        else stem_conv9_packed's."""
+        return self._stem_args(self._level(0, coords, mask, None))
+
+    def _stem_args(self, t: "_LevelTables"):
+        B, capA, ccap_d = (self.num_batches, self.caps_aug[0],
+                           self.caps_col_dil[0])
+        aug_r = STEM_R if self.stem_feature_map else 1
+        packed_l = _build_packed(t.real_w, t.aug16, t.col_bxy, t.col_valid, B,
+                                 ccap_d, capA, STEM_R, aug_r=aug_r)
+        return ((t.grid_d, packed_l, t.level.coords, t.level.valid, t.g,
+                 ccap_d, capA, STEM_R, B),
+                dict(grid_half=self.grid_half, level=0))
+
+    def _level(self, i: int, coords, mask, prev: Optional["_LevelTables"]
+               ) -> "_LevelTables":
+        """Level i's rows and column tables: from the input (coords, mask)
+        at level 0, else from the previous level's tables."""
+        B, gh = self.num_batches, self.grid_half
+        dev = coords.device
+        overflow = []
+        capA = self.caps_aug[i]
+        ccap_d = self.caps_col_dil[i]
+        rpack = STEM_R if i == 0 else 1
+        s = 1 << i
+        g = (2 * gh) >> i
+        if i == 0:
+            src_coords, src_valid = coords, mask
+        else:
+            pc, pr = prev.level.coords, prev.level.real
+            src_coords = torch.cat([pc[:, :1], (pc[:, 1:4] >> i) << i],
+                                   dim=1)
+            src_valid = pr
+
+        # the y-dilated column set of this level's real plane
+        b_, gx, gy, bz, inb = _cell_of(src_coords, gh, i)
+        b_, gx, gy, bz = b_.long(), gx.long(), gy.long(), bz.long()
+        ok = src_valid & inb
+        gxc = gx.clamp(0, g - 1)
+        gyc = gy.clamp(0, g - 1)
+        bsafe = torch.where(ok, b_, 0)
+        if i == 0 and self.assume_unique:
+            # overflow[0]: level-0 real voxels beyond caps_real[0]
+            nreal_b = torch.zeros(B + 1, dtype=torch.long, device=dev)
+            nreal_b.index_add_(0, torch.where(ok, b_, B),
+                               torch.ones_like(b_))
+            overflow.append(
+                torch.clamp(nreal_b[:B] - self.caps_real[0], min=0).sum())
+        cells = B * g * g
+        has = torch.zeros(cells + 1, dtype=torch.int8, device=dev)
+        has[torch.where(ok, (bsafe * g + gxc) * g + gyc, cells)] = 1
+        has_d = _dilate_y(has[:cells].reshape(B, g * g), g, rpack)
+        grid_d, col_over_d = _grid_from_has(has_d, B, ccap_d)
+        # one lookup per voxel: an occupied column's whole +-r y-window
+        # is dilated and contiguous, so slot of (gx, gy+dy) is cid + dy
+        vox_cid = _grid_lookup(grid_d, bsafe, gxc, gyc, ok, g)
+        sink = B * ccap_d
+        col_bxy = torch.full((sink + 1,), -1, dtype=torch.long,
+                             device=dev)
+        pack0 = _pack_bxy(bsafe, gxc, gyc)
+        seg0 = bsafe * ccap_d
+        for dy in range(-rpack, rpack + 1):
+            gyn = gyc + dy
+            okn = (ok & (gyn >= 0) & (gyn < g) & (vox_cid >= 0)
+                   & (vox_cid + dy >= seg0)
+                   & (vox_cid + dy < seg0 + ccap_d))
+            col_bxy[torch.where(okn, vox_cid + dy, sink)] = pack0 + dy
+        col_bxy = col_bxy[:sink]
+        col_valid = col_bxy >= 0
+        col_bxy = col_bxy.clamp(min=0)
+
+        if i == 0 and self.assume_unique:
+            # scatter-add voxel bits: unique (b, x, y, z) => add == OR
+            word = (bz >> 5).clamp(0, ZWORDS - 1)
+            bit = torch.where(ok, 1 << (bz & 31), 0)
+            cslot = torch.where(vox_cid >= 0, vox_cid, sink)
+            real_w = torch.zeros(sink + 1, ZWORDS, dtype=torch.long,
+                                 device=dev)
+            real_w.index_put_((cslot, word), bit, accumulate=True)
+            real_w = real_w[:sink] & U32
+        elif i == 0:
+            # sortless input: an idempotent per-z byte stamp, then 32
+            # bytes -> one word, one bit position at a time (no int64
+            # copy of the whole stamp)
+            cslot = torch.where(ok & (vox_cid >= 0), vox_cid, sink)
+            zbytes = torch.zeros(sink + 1, ZMAX, dtype=torch.int8,
+                                 device=dev)
+            zbytes[cslot, bz.clamp(0, ZMAX - 1)] = 1
+            zbytes = zbytes[:sink].reshape(sink, ZWORDS, 32)
+            real_w = torch.zeros(sink, ZWORDS, dtype=torch.long,
+                                 device=dev)
+            for k in range(32):
+                real_w |= zbytes[:, :, k].long() << k
+            # overflow[0] on the deduped voxel count
+            nreal_b = popcount32(real_w).sum(-1).reshape(B, ccap_d).sum(1)
+            overflow.append(
+                torch.clamp(nreal_b - self.caps_real[0], min=0).sum())
+        else:
+            # coarse real words from the fine table: 4 child column
+            # fetches + pairwise z OR
+            f_grid, f_real, f_g = prev.grid_d, prev.real_w, prev.g
+            bC, gxC, gyC = _unpack_bxy(col_bxy)
+            acc = torch.zeros(sink, ZWORDS, dtype=torch.long, device=dev)
+            for cx in (0, 1):
+                for cy in (0, 1):
+                    gxf = 2 * gxC + cx
+                    gyf = 2 * gyC + cy
+                    okf = col_valid & (gxf < f_g) & (gyf < f_g)
+                    cidf = _grid_lookup(
+                        f_grid, bC, gxf.clamp(0, f_g - 1),
+                        gyf.clamp(0, f_g - 1), okf, f_g)
+                    acc = acc | _rows_or_miss(f_real, cidf)
+            real_w = _zpair_words(acc)
+
+        aug16, counts_b = _assemble_aug(real_w, col_bxy, col_valid,
+                                        grid_d, B, g, ccap_d, capA)
+        vox_drop = (ok & (vox_cid < 0)).sum()
+        overflow.append(torch.clamp(counts_b - capA, min=0).sum()
+                        + vox_drop + col_over_d)
+
+        pos3 = pos3_lookup(aug16, src_coords, src_valid, g, capA, gh, i,
+                           cid=vox_cid)
+        # one packed int per candidate: gxgy << 9 | bz (uint32 wrap
+        # kept, as in the JAX version)
+        packed0 = ((gxc * g + gyc) << 9) | bz.clamp(0, ZMAX - 1)
+        cand_p = torch.cat([packed0 - 1, packed0, packed0 + 1]) & U32
+        packed_a = _scatter_rows(pos3.reshape(-1), cand_p, B * capA)
+        gxgy = packed_a >> 9
+        ax = (torch.div(gxgy, g, rounding_mode="floor") - (gh >> i)) << i
+        ay = ((gxgy % g) - (gh >> i)) << i
+        az = ((packed_a & 511) - ZC) << i
+        ab = torch.arange(B * capA, device=dev) // capA
+        coords_a = torch.stack([ab, ax, ay, az], dim=1).to(torch.int32)
+        real_a = _scatter_flag(pos3[1], src_valid, B * capA)
+        valid_a = _seg_valid_mask(counts_b, B, capA)
+        coords_a = torch.where(valid_a[:, None], coords_a, 0)
+        real_a = real_a & valid_a
+        zup, zdn = _z_adjacency(coords_a, valid_a, s)
+        return _LevelTables(
+            level=ZLevel(coords=coords_a, real=real_a, valid=valid_a,
+                         zup=zup, zdn=zdn, stride=s),
+            g=g, grid_d=grid_d, real_w=real_w, aug16=aug16, col_bxy=col_bxy,
+            col_valid=col_valid, pos3=pos3, overflow=overflow)
+
+
+class _LevelTables(NamedTuple):
+    """One level of the plan build: its rows, the y-dilated column grid
+    and tables of its g x g plane, the (z-1, z, z+1) aug rows of each
+    source row (pos3) and the level's overflow terms."""
+    level: ZLevel
+    g: int
+    grid_d: torch.Tensor
+    real_w: torch.Tensor
+    aug16: torch.Tensor
+    col_bxy: torch.Tensor
+    col_valid: torch.Tensor
+    pos3: torch.Tensor
+    overflow: list
 
 
 def input_tensor_z(plan: ZPlan, feats) -> SparseTensor:
     """Caller-order features [N_in, C] -> the level-0 augmented layout
-    (ghost/pad rows zero)."""
+    (ghost/pad rows zero).  Unique input: one scatter via plan.pos.
+    Sortless input: a gather via plan.rep, which picks the representative
+    row's features (a scatter of duplicate positions would depend on the
+    write order)."""
     l0 = plan.level(0)
-    f = plan.scatter_rows(feats)
+    if plan.rep is None:
+        f = plan.scatter_rows(feats)
+    else:
+        hit = plan.rep >= 0
+        f = feats[plan.rep.clamp(min=0).long()] * hit[:, None].to(feats.dtype)
     f = f * l0.real[:, None].to(f.dtype)
     return SparseTensor(coords=l0.coords, feats=f, mask=l0.real, stride=1)

@@ -207,3 +207,19 @@ class SyntheticLidarDataset:
         sem[ign] = -1
         perm = rng.permutation(len(pts))
         return {"points": pts[perm], "sem_labels": sem[perm]}
+
+
+def point_features(points: np.ndarray, channels: int = 4,
+                   seed: int = 0) -> np.ndarray:
+    """Per-point input features [..., channels] for a model with
+    in_channels = channels (1 to 4): the first `channels` of (x, y, z) in
+    metres and a remission value drawn from `seed` in [0, 1); one channel
+    is the constant occupancy feature 1."""
+    if not 1 <= channels <= 4:
+        raise ValueError(f"channels must lie in [1, 4], got {channels}")
+    lead = points.shape[:-1]
+    if channels == 1:
+        return np.ones(lead + (1,), np.float32)
+    rem = np.random.RandomState(seed).rand(*lead, 1).astype(np.float32)
+    return np.concatenate([points[..., :3].astype(np.float32), rem],
+                          axis=-1)[..., :channels]

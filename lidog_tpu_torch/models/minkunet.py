@@ -1,10 +1,12 @@
 """MinkUNet34 (sparse 3D U-Net) on the zseg engine, eval and train mode.
 
-Port of lidog_tpu/models/minkunet.py:46-389: the occupancy stem, the
-z-fused convs (ops/zconv.py, autograd ops with the JAX custom backward),
-1x1 convs, and masked BatchNorm fused with ReLU and the residual add
-(ops/norm.py).  `module.train()` normalises with the batch moments and
-updates the running stats; `module.eval()` takes the running stats.
+Port of lidog_tpu/models/minkunet.py:46-389: the stem (the occupancy GEMM
+for one constant input channel, or for in_channels > 1 the 125-offset
+gather-GEMM zconv_full over the plan's stem125 map), the z-fused convs
+(ops/zconv.py, autograd ops with the JAX custom backward), 1x1 convs, and
+masked BatchNorm fused with ReLU and the residual add (ops/norm.py).
+`module.train()` normalises with the batch moments and updates the running
+stats; `module.eval()` takes the running stats.
 
   * stem conv k=5 -> BN -> ReLU at stride 1
   * 4 encoder stages: [down conv k=2 s=2 -> BN -> ReLU -> BasicBlock x L]
@@ -20,6 +22,9 @@ convs in that dtype with f32 accumulation; parameters stay f32 (their
 gradients arrive through the `.to(compute_dtype)` casts) and norms
 compute in f32.  The stem occupancy GEMM and the 1x1 convs are
 torch.matmul under autograd, as the JAX package leaves them to XLA.
+The stem's kernel is [125, in_channels, init_dim] either way, so flax
+trees load unchanged; which stem runs follows the plan
+(ZSegPlanBuilder(stem_feature_map=...)), as in lidog_tpu.
 
 Every norm updates its running stats with momentum 0.1: the JAX model
 takes a `bn_momentum` but never passes it on to its norms
@@ -42,7 +47,7 @@ from lidog_tpu_torch.core.sparse import SparseTensor, cat
 from lidog_tpu_torch.core.zseg import ZPlan
 from lidog_tpu_torch.ops.norm import MaskedBatchNorm, MaskedInstanceNorm
 from lidog_tpu_torch.ops.sparse_conv import sparse_conv_1x1
-from lidog_tpu_torch.ops.zconv import zconv3, zconv_down, zconv_up
+from lidog_tpu_torch.ops.zconv import zconv3, zconv_down, zconv_full, zconv_up
 
 
 def _kernel(shape, generator):
@@ -53,8 +58,10 @@ def _kernel(shape, generator):
 
 
 class SparseConv(nn.Module):
-    """A sparse conv bound to a kernel map of the plan: the occupancy stem
-    ('stem'), k=3 ('conv3_l{i}'), down ('down_l{i}') or up ('up_l{i}')."""
+    """A sparse conv bound to a kernel map of the plan: the stem ('stem':
+    zconv_full over kmaps["stem125"] where the plan has it, else the
+    occupancy GEMM), k=3 ('conv3_l{i}'), down ('down_l{i}') or up
+    ('up_l{i}')."""
 
     def __init__(self, in_channels: int, out_channels: int, kmap: str,
                  in_level: int, out_level: int, generator):
@@ -67,7 +74,10 @@ class SparseConv(nn.Module):
         out_l = plan.level(self.out_level)
         w = self.kernel.to(x.feats.dtype)
         m = out_l.real
-        if self.kmap == "stem":
+        if self.kmap == "stem" and "stem125" in plan.kmaps:
+            # in_channels > 1: the gather-GEMM over source-row maps
+            feats = zconv_full(x.feats, plan.kmaps["stem125"], w, out_mask=m)
+        elif self.kmap == "stem":
             # constant-1 input features: out = occupancy [N, 125] @ W[:, 0]
             occ = plan.kmaps["stem_occ"].to(x.feats.dtype)
             feats = (occ.float() @ w[:, 0, :].float()).to(x.feats.dtype)
@@ -219,12 +229,12 @@ class MinkUNetBackbone(nn.Module):
                  init_dim: int = 32,
                  planes: Sequence[int] = (32, 64, 128, 256, 256, 128, 96, 96),
                  layers: Sequence[int] = (2, 3, 4, 6, 2, 2, 2, 2),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 in_channels: int = 1):
         super().__init__()
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         self.compute_dtype = compute_dtype
-        # the occupancy stem: one constant input channel
-        self.conv0 = SparseConv(1, init_dim, "stem", 0, 0, g)
+        self.conv0 = SparseConv(in_channels, init_dim, "stem", 0, 0, g)
         self.norm0 = NormReLU(init_dim)
         ch = init_dim
         skip_ch = [init_dim]
@@ -259,19 +269,20 @@ class MinkUNetBackbone(nn.Module):
 
 class MinkUNet34(nn.Module):
     """Reference `MinkUNet34`: full width by default (about 37.85M
-    parameters); planes/layers/init_dim narrow it.  Only the occupancy
-    stem (in_channels=1) is ported."""
+    parameters); planes/layers/init_dim narrow it.  in_channels > 1 needs
+    plans built with stem_feature_map=True."""
 
     def __init__(self, out_channels: int = 7, compute_dtype=torch.float32,
                  init_dim: int = 32,
                  planes: Sequence[int] = (32, 64, 128, 256, 256, 128, 96, 96),
                  layers: Sequence[int] = (2, 3, 4, 6, 2, 2, 2, 2),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 in_channels: int = 1):
         super().__init__()
         self.backbone = MinkUNetBackbone(
             out_channels=out_channels, compute_dtype=compute_dtype,
             init_dim=init_dim, planes=planes, layers=layers,
-            generator=generator)
+            generator=generator, in_channels=in_channels)
 
     def forward(self, x: SparseTensor, plan: ZPlan) -> torch.Tensor:
         return self.backbone(x, plan)[0]

@@ -43,8 +43,8 @@ def bev_head_size(bound: float, voxel_size: float) -> int:
 
 class MinkUNet34BEV(nn.Module):
     """Full width by default; planes/layers/init_dim narrow the backbone
-    as in MinkUNet34.  Only the occupancy stem (in_channels=1) is
-    ported."""
+    as in MinkUNet34.  in_channels > 1 needs plans built with
+    stem_feature_map=True."""
 
     def __init__(self, out_channels: int = 7,
                  decoder_2d_levels: Sequence[str] = ("block8",),
@@ -55,13 +55,15 @@ class MinkUNet34BEV(nn.Module):
                  init_dim: int = 32,
                  planes: Sequence[int] = (32, 64, 128, 256, 256, 128, 96, 96),
                  layers: Sequence[int] = (2, 3, 4, 6, 2, 2, 2, 2),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 in_channels: int = 1):
         super().__init__()
         g = generator if generator is not None \
             else torch.Generator().manual_seed(0)
         self.backbone = MinkUNetBackbone(
             out_channels=out_channels, compute_dtype=compute_dtype,
-            init_dim=init_dim, planes=planes, layers=layers, generator=g)
+            init_dim=init_dim, planes=planes, layers=layers, generator=g,
+            in_channels=in_channels)
         self.decoder_2d_levels = tuple(decoder_2d_levels)
         self.num_batches, self.voxel_size = num_batches, voxel_size
         self.bound_2d, self.binary_seg = bound_2d, binary_seg

@@ -54,20 +54,21 @@ class IBNBlock(nn.Module):
 
 
 class MinkUNet34IBN(nn.Module):
-    """Full width by default; planes/layers/init_dim narrow it.  Only the
-    occupancy stem (in_channels=1) is ported."""
+    """Full width by default; planes/layers/init_dim narrow it.
+    in_channels > 1 needs plans built with stem_feature_map=True."""
 
     def __init__(self, out_channels: int = 7, compute_dtype=torch.float32,
                  init_dim: int = 32,
                  planes: Sequence[int] = (32, 64, 128, 256, 256, 128, 96, 96),
                  layers: Sequence[int] = (2, 3, 4, 6, 2, 2, 2, 2),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 in_channels: int = 1):
         super().__init__()
         g = generator if generator is not None \
             else torch.Generator().manual_seed(0)
         self.compute_dtype = compute_dtype
         self.layers = tuple(layers)
-        self.conv0 = SparseConv(1, init_dim, "stem", 0, 0, g)
+        self.conv0 = SparseConv(in_channels, init_dim, "stem", 0, 0, g)
         self.norm0 = NormReLU(init_dim)
         ch = init_dim
         skip_ch = [init_dim]

@@ -27,10 +27,7 @@ def get_model(config, num_batches: int = 4, generator=None):
     `generator`).  The models' bn_momentum is not read: lidog_tpu's norms
     never take it (ROADMAP section 3)."""
     m = config.model
-    if m.in_channels != 1:
-        raise NotImplementedError("only the occupancy stem (in_channels=1) "
-                                  "is ported")
-    common = dict(out_channels=m.out_channels,
+    common = dict(in_channels=m.in_channels, out_channels=m.out_channels,
                   compute_dtype=precision_dtype(config), generator=generator)
     if m.name in _MODELS:
         return _MODELS[m.name](**common)

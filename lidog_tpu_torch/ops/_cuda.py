@@ -19,7 +19,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lidog_tpu_torch"
 SOURCES = ("zconv3_fwd", "zconv_down_fwd", "zconv_up_fwd", "zconv3_bwd_dx",
-           "zconv_wgrad", "bev_scatter_max")
+           "zconv_wgrad", "bev_scatter_max", "zconv_full", "stem_feat125")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,12 +35,16 @@ _ARGTYPES = {
     "zconv_up_wgrad": [_P] * 7 + [_I] * 7 + [_P],
     "bev_scatter_max_fwd": [_P] * 4 + [_I] * 9 + [_P],
     "bev_scatter_max_bwd": [_P] * 6 + [_I] * 9 + [_P],
+    "zconv_full_fwd": [_P] * 6 + [_I] * 6 + [_P],
+    "zconv_full_wgrad": [_P] * 6 + [_I] * 7 + [_P],
+    "stem_feat125": [_P] * 6 + [_I] * 9 + [_P],
 }
 # the source (library) of each C function that is not named after its own
 _SOURCE_OF = {"zconv3_wgrad": "zconv_wgrad", "zconv_down_wgrad": "zconv_wgrad",
               "zconv_up_wgrad": "zconv_wgrad",
               "bev_scatter_max_fwd": "bev_scatter_max",
-              "bev_scatter_max_bwd": "bev_scatter_max"}
+              "bev_scatter_max_bwd": "bev_scatter_max",
+              "zconv_full_fwd": "zconv_full", "zconv_full_wgrad": "zconv_full"}
 
 _libs = {}
 

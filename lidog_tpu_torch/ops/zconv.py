@@ -2,10 +2,12 @@
 
 Port of lidog_tpu/ops/zconv.py: `zconv3` (:308, k=3 on an augmented level:
 9 xy gathers, the 3 z taps as shifts), `zconv_down` (:530, k=2 s=2, 8-tap
-gather-GEMM over the coarse rows) and `zconv_up` (:584, transposed: one
-parent gather + per-row weight select), each a `torch.autograd.Function`
-with the custom backward of the JAX version (`_zconv3_bwd:231`,
-`_zdown_bwd:505`, `_zup_bwd:561`).
+gather-GEMM over the coarse rows), `zconv_up` (:584, transposed: one
+parent gather + per-row weight select) and `zconv_full` (:410, the
+K-offset gather-GEMM of the in_channels > 1 stem over a symmetric
+source-row map), each a `torch.autograd.Function` with the custom
+backward of the JAX version (`_zconv3_bwd:231`, `_zdown_bwd:505`,
+`_zup_bwd:561`, `_zfull_bwd:373`).
 
 Each kernel has a plain PyTorch version (`*_plain`) and a hand-written CUDA
 kernel (csrc/, see each source's note):
@@ -14,6 +16,8 @@ kernel (csrc/, see each source's note):
   KB zconv_down_fwd  (also zconv_up's dx, with transposed weights)
   KC zconv_up_fwd    (also zconv_down's dx, with transposed weights)
   KF zconv_down_wgrad, zconv_up_wgrad
+  KO zconv_full_fwd  (also zconv_full's dx, with W reversed and transposed)
+  KP zconv_full_wgrad
 
 The kernel wrapper (named after the C function) takes the plain version
 for a tensor on the CPU and launches the kernel for a CUDA tensor, raising
@@ -31,7 +35,8 @@ the compute dtype, zconv3's dxc is rounded before the z fold `_zcat_t`
 (:274), and dW is summed in f32 and rounded once to the weight's dtype.
 The zconv3 kernels sum gather-first in f32 and skip the intermediate
 roundings (u9, dxc), so on bf16 they differ from the plain versions by
-about 1e-2 relative.
+about 1e-2 relative.  zconv_full rounds once after its f32 sum (:362-365,
+:391-396), as its kernels do.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from lidog_tpu_torch.ops import _cuda
 
 LAUNCHES = {"zconv3_fwd": 0, "zconv_down_fwd": 0, "zconv_up_fwd": 0,
             "zconv3_bwd_dx": 0, "zconv3_wgrad": 0, "zconv_down_wgrad": 0,
-            "zconv_up_wgrad": 0}
+            "zconv_up_wgrad": 0, "zconv_full_fwd": 0, "zconv_full_wgrad": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -167,6 +172,29 @@ def zconv_up_wgrad_plain(x, dout, parent, off, dout_mask):
     Cin], dout fine [Naf, Cout] -> [8, Cin, Cout] in x's dtype."""
     g = _gather_rows(x, parent)
     return _onehot_dw(g, _masked(dout, dout_mask), off).to(x.dtype)
+
+
+def zconv_full_plain(x, nbr, w, out_mask, src_mask=None):
+    """out[i] = sum_o x[nbr[o, i]] @ w[o] (lidog_tpu/ops/zconv.py:342-365):
+    x [Na, Cin]; nbr [K, Na]; w [K, Cin, Cout]; summed in f32, rounded
+    once.  A row s of x with src_mask[s] false reads as zero (the dx use,
+    on the forward's output mask); out_mask None keeps every row."""
+    x = _masked(x, src_mask)
+    acc = x.new_zeros(nbr.shape[1], w.shape[2], dtype=torch.float32)
+    for o in range(w.shape[0]):
+        acc += _gather_rows(x, nbr[o]).float() @ w[o].float()
+    return _masked(acc.to(x.dtype), out_mask)
+
+
+def zconv_full_wgrad_plain(x, dout, nbr, dout_mask):
+    """dW of zconv_full (lidog_tpu/ops/zconv.py:373-403): dW[o] = sum_i
+    x[i]^T dout[nbr[K-1-o, i]] in f32 (the transpose-reuse form on the
+    symmetric map) -> [K, Cin, Cout], rounded to x's dtype."""
+    d = _masked(dout, dout_mask)
+    k = nbr.shape[0]
+    xf = x.float()
+    return torch.stack([xf.T @ _gather_rows(d, nbr[k - 1 - o]).float()
+                        for o in range(k)]).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -385,6 +413,90 @@ def zconv_up_wgrad(x, dout, parent, off, dout_mask):
                   (x.shape[0], n_fine))
 
 
+# the widths KO and KP take (csrc/zconv_full.cu)
+FULL_MAX_WIDTH = 64
+
+
+def _check_full(name, x, w):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
+                         f"{x.device}")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise ValueError(f"{name}: x and w must share float32 or bfloat16, "
+                         f"got {x.dtype} and {w.dtype}")
+    cin, cout = x.shape[1], w.shape[-1]
+    if not (1 <= cin <= FULL_MAX_WIDTH and 1 <= cout <= FULL_MAX_WIDTH):
+        raise ValueError(f"{name}: widths must lie in [1, {FULL_MAX_WIDTH}], "
+                         f"got {cin} -> {cout}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError(f"{name}: x and w must be contiguous")
+
+
+def zconv_full_fwd(x, nbr, w, out_mask, src_mask=None):
+    """KO (csrc/zconv_full.cu).  x [Na, Cin]; nbr [K, Nout]; w [K, Cin,
+    Cout] -> [Nout, Cout].  Also zconv_full's dx: x the cotangent, w
+    reversed and transposed, src_mask the forward's output mask, out_mask
+    None."""
+    if x.device.type == "cpu":
+        return zconv_full_plain(x, nbr, w, out_mask, src_mask)
+    name = "zconv_full_fwd"
+    _check_full(name, x, w)
+    n_in, cin = x.shape
+    k, n_out = nbr.shape
+    if tuple(w.shape[:2]) != (k, cin):
+        raise ValueError(f"{name}: w must be [{k}, {cin}, Cout], got "
+                         f"{tuple(w.shape)}")
+    _int_map(name, nbr, (k, n_out), x.device)
+    _flag(name, out_mask, n_out, x.device)
+    _flag(name, src_mask, n_in, x.device)
+    out = torch.empty(n_out, w.shape[2], dtype=x.dtype, device=x.device)
+    if n_out:
+        _cuda.call(name, x.data_ptr(), nbr.data_ptr(), w.data_ptr(),
+                   _ptr(out_mask), _ptr(src_mask), out.data_ptr(), n_in,
+                   n_out, k, cin, w.shape[2], _DTYPES[x.dtype])
+        LAUNCHES[name] += 1
+    return out
+
+
+# pass 1 of KP: chunks of 4,096 rows per offset block.  The centre offset
+# (and dz = +-1) hits nearly every row, so the blocks of the dense offsets
+# set the kernel's time: short chunks spread them over many blocks (at the
+# training plan's level 0: 120 chunks, a 7.7 MB f32 partial for 4 -> 32)
+_FULL_ROWS_PER_CHUNK = 4096
+
+
+def _full_chunks(rows):
+    chunks = min(max(1, -(-rows // _FULL_ROWS_PER_CHUNK)), 1024)
+    return chunks, -(-rows // chunks)
+
+
+def zconv_full_wgrad(x, dout, nbr, dout_mask):
+    """KP (csrc/zconv_full.cu).  x [Na, Cin], dout [Na, Cout]; nbr [K, Na]
+    -> dW [K, Cin, Cout] in x's dtype."""
+    if x.device.type == "cpu":
+        return zconv_full_wgrad_plain(x, dout, nbr, dout_mask)
+    name = "zconv_full_wgrad"
+    _check_full(name, x, dout)
+    na, cin = x.shape
+    k = nbr.shape[0]
+    cout = dout.shape[1]
+    if dout.shape[0] != na:
+        raise ValueError(f"{name}: x and dout must have the same rows")
+    _int_map(name, nbr, (k, na), x.device)
+    _flag(name, dout_mask, na, x.device)
+    dw = torch.empty(k, cin, cout, dtype=x.dtype, device=x.device)
+    if na == 0:
+        return dw.zero_()
+    chunks, rpc = _full_chunks(na)
+    partial = torch.empty(chunks, k, cin, cout, dtype=torch.float32,
+                          device=x.device)
+    _cuda.call(name, x.data_ptr(), dout.data_ptr(), nbr.data_ptr(),
+               _ptr(dout_mask), partial.data_ptr(), dw.data_ptr(), na, k,
+               cin, cout, chunks, rpc, _DTYPES[x.dtype])
+    LAUNCHES[name] += 1
+    return dw
+
+
 # ---------------------------------------------------------------------------
 # Autograd ops: the forward kernel, and the backward kernels of the JAX
 # custom VJPs.  Each saves x (not zcat(x) or a gather), as JAX's residuals
@@ -451,6 +563,28 @@ class _ZConvUp(torch.autograd.Function):
         return dx, None, None, None, dw, None
 
 
+class _ZConvFull(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, nbr, w, out_mask):
+        ctx.save_for_backward(x, nbr, w, out_mask)
+        return zconv_full_fwd(x, nbr, w, out_mask)
+
+    @staticmethod
+    def backward(ctx, dout):
+        """dx = the same gather-GEMM with W[::-1]^T over the symmetric map
+        (KO), dW (KP); dx only where the input needs it (the stem's
+        features do not)."""
+        x, nbr, w, m = ctx.saved_tensors
+        dout = dout.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = zconv_full_fwd(dout, nbr, w.flip(0).transpose(1, 2)
+                                .contiguous(), None, src_mask=m)
+        if ctx.needs_input_grad[2]:
+            dw = zconv_full_wgrad(x, dout, nbr, m)
+        return dx, None, dw, None
+
+
 # ---------------------------------------------------------------------------
 # Public ops (JAX signatures)
 # ---------------------------------------------------------------------------
@@ -479,3 +613,15 @@ def zconv_up(x, parent, off_id, nbr8, weights, *, out_mask):
     partner map); weights [8, Cin, Cout]."""
     return _ZConvUp.apply(x, parent, off_id, nbr8, weights.contiguous(),
                           out_mask)
+
+
+def zconv_full(x, nbr, weights, *, out_mask):
+    """K-offset symmetric sparse conv over a source-row map (the general
+    in_channels stem; K = 125 for the k=5 hypercube): x [Na, Cin]; nbr
+    [K, Na], the row of (coord + offset_o) or -1; weights [K, Cin, Cout]
+    in lexicographic (dx, dy, dz) order, dz fastest (the occupancy stem's
+    layout, so parameters interchange)."""
+    k = weights.shape[0]
+    assert nbr.shape[0] == k, (tuple(nbr.shape), tuple(weights.shape))
+    assert k % 2 == 1, "symmetric odd-hypercube maps only (transpose-reuse)"
+    return _ZConvFull.apply(x, nbr, weights.contiguous(), out_mask)

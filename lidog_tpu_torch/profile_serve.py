@@ -1,15 +1,17 @@
 """Where the device time of one full-width serving request goes.
 
-    python -m lidog_tpu_torch.profile_serve [--requests 3]
+    python -m lidog_tpu_torch.profile_serve [--requests 3] [--sortless]
 
-Runs Predictor(MinkUNet34, bf16) on one synthetic 100,000-point scan at
-the serving caps (make_zcaps(98_304), voxel 0.05, grid_half 1024; seeded
-random weights), then traces `--requests` requests with torch.profiler and
-prints, per request: wall ms, device busy ms and idle share, device ms of
-this package's hand-written kernels (the three sparse conv forwards and the
-fused norm) and of everything else; then the top device kernels of the
-plan build alone.  Needs a CUDA card; prints the card's name and power
-limit first.
+Runs Predictor(MinkUNet34, bf16) on one synthetic 100,000-point scan at the
+serving caps (make_zcaps(98_304), voxel 0.05, grid_half 1024; seeded random
+weights; --sortless: Predictor(sortless=True), which feeds the per-point
+voxel cells straight into the plan), then traces `--requests` requests with
+torch.profiler and prints, per request: wall ms, device busy ms and idle
+share, device ms of this package's hand-written kernels (the three sparse
+conv forwards and the fused norm) and of everything else; then the device
+ms and launches of the plain-torch stages alone (voxelize or the raw cells,
+the plan build, the labels) and the top device kernels of the plan build.
+Needs a CUDA card; prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -57,6 +59,9 @@ _GROUPS = (("Conv3Map", "zconv3_fwd"), ("DownMap", "zconv_down_fwd"),
            ("whiten_rows_kernel", "whitening_fwd"),
            ("whiten_finalize_kernel", "whitening_fwd"),
            ("whiten_bwd_kernel", "whitening_bwd"),
+           ("full_fwd_kernel", "zconv_full_fwd"),
+           ("full_wgrad", "zconv_full_wgrad"),
+           ("stem_feat125_kernel", "stem_feat125"),
            ("Memset", "memset (every cudaMemset; KI's zero-fill is one)"))
 
 
@@ -87,12 +92,17 @@ def card_line() -> str:
 def main(argv=None):
     import torch
 
+    from lidog_tpu_torch.core.engine import input_tensor
+    from lidog_tpu_torch.core.voxelize import voxelize_device
     from lidog_tpu_torch.data.synthetic import SyntheticLidarDataset
     from lidog_tpu_torch.models.minkunet import MinkUNet34
     from lidog_tpu_torch.serve import Predictor
+    from lidog_tpu_torch.train.device_pipeline import device_batch_raw
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=3)
+    ap.add_argument("--sortless", action="store_true",
+                    help="profile the sortless Predictor")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: needs a CUDA device")
@@ -102,7 +112,8 @@ def main(argv=None):
     pts = SyntheticLidarDataset(num_scans=1, points_per_scan=100_000,
                                 radius=50.0, seed=0)[0]["points"][None]
     pred = Predictor(model, batch_size=1, voxel_size=0.05,
-                     caps_per_scan=98_304, grid_half=1024)
+                     caps_per_scan=98_304, grid_half=1024,
+                     sortless=args.sortless)
     pts_dev = torch.from_numpy(pts).cuda()
     for _ in range(2):
         pred(pts_dev)
@@ -118,28 +129,45 @@ def main(argv=None):
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.requests
     kernels = _kernel_events(prof)
     busy_ms = sum(us for _, us, _ in kernels) / 1e3 / args.requests
-    print(f"[profile] per request: wall {wall_ms:.3f} ms, device busy "
+    print(f"[profile] {'sortless ' if args.sortless else ''}per request: "
+          f"wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
     print_groups(kernels, args.requests, "request")
+
+    # the plain-torch stages alone: voxelize (K1; sortless: the raw
+    # per-point cells), the plan build (K2-K10) and the labels (K15)
+    stages = {}
+
+    def alone(name, fn):
+        with torch.profiler.profile(activities=acts) as p:
+            out = fn()
+            torch.cuda.synchronize()
+        stages[name] = _kernel_events(p)
+        return out
 
     with torch.no_grad():
         flat = pts_dev.reshape(-1, 3)
         ones = torch.ones(flat.shape[0], dtype=torch.bool, device=flat.device)
         zeros = torch.zeros(flat.shape[0], dtype=torch.int32,
                             device=flat.device)
-        from lidog_tpu_torch.core.voxelize import voxelize_device
-
-        vox = voxelize_device(flat, ones, zeros, pred.voxel_size, pred.cap_in)
-        with torch.profiler.profile(activities=acts) as prof_plan:
-            pred.builder(vox.coords, vox.mask)
-            torch.cuda.synchronize()
-    plan_k = _kernel_events(prof_plan)
-    total = sum(us for _, us, _ in plan_k) / 1e3
-    print(f"[profile] plan build: {total:.3f} ms device in "
-          f"{sum(n for _, _, n in plan_k)} kernel launches; top kernels:")
-    for name, us, n in plan_k[:12]:
+        if args.sortless:
+            raw = alone("raw cells", lambda: device_batch_raw(
+                pts_dev, ones[None], zeros[None], pred.voxel_size))
+            coords, mask, vox = raw["coords"], raw["mask"], None
+        else:
+            vox = alone("voxelize", lambda: voxelize_device(
+                flat, ones, zeros, pred.voxel_size, pred.cap_in))
+            coords, mask = vox.coords, vox.mask
+        plan = alone("plan build", lambda: pred.builder(coords, mask))
+        logits = pred.model(input_tensor(plan, mask[:, None].float()), plan)
+        alone("labels", lambda: pred.labels_of(plan, logits, vox))
+    for name, events in stages.items():
+        print(f"[profile] {name}: "
+              f"{sum(us for _, us, _ in events) / 1e3:.3f} ms device in "
+              f"{sum(n for _, _, n in events)} kernel launches")
+    print("[profile] plan build, top kernels:")
+    for name, us, n in stages["plan build"][:12]:
         print(f"[profile]   {us / 1e3:8.3f} ms  x{n:4d}  {name[:110]}")
-
 
 if __name__ == "__main__":
     main()

@@ -1,24 +1,28 @@
 """Where the device time of one full-width training step goes.
 
     python -m lidog_tpu_torch.profile_train [--steps 3]
-        [--lidog | --robustnet | --ibn]
+        [--lidog | --robustnet | --ibn] [--in-channels N] [--sortless]
 
 Runs the training step of bench.py's shapes (MinkUNet34 bf16 with seeded
 random weights; 4 synthetic scans x 100,000 points, voxel 0.05, the
 per-scan plan caps of bench.py:40-44, grid_half 1024; SoftDICE + Adam lr
-1e-3: voxelize, plan, forward, backward, update), or with --lidog the
-LiDOG step of bench_lidog.py's shapes (MinkUNet34BEV bf16; the same scans
-through the host BEV preprocessing with 167^2 labels at level block8,
-collated to 393,216 rows; plan, forward with the pooled BEV scatter and
-Encoder2D, SoftDICE + DICE, backward, Adam), with --robustnet the
-RobustNet step (MinkUNet34Robust bf16 on the training step's batch;
-SoftDICE + 0.5 IW over its 5 instance-normed taps, the gate on from the
-first step) or with --ibn the IBN step (MinkUNet34IBN bf16, SoftDICE),
-then traces `--steps` steps
-with torch.profiler and prints, per step: wall ms, device busy ms and idle
-share, and the device ms and launches of each hand-written kernel and of
-everything else.  Needs a CUDA card; prints the card's name and power
-limit first.
+1e-3: voxelize, plan, forward, backward, update), or with --lidog the LiDOG
+step of bench_lidog.py's shapes (MinkUNet34BEV bf16; the same scans through
+the host BEV preprocessing with 167^2 labels at level block8, collated to
+393,216 rows; plan, forward with the pooled BEV scatter and Encoder2D,
+SoftDICE + DICE, backward, Adam), with --robustnet the RobustNet step
+(MinkUNet34Robust bf16 on the training step's batch; SoftDICE + 0.5 IW over
+its 5 instance-normed taps, the gate on from the first step) or with --ibn
+the IBN step (MinkUNet34IBN bf16, SoftDICE). --in-channels N (2 to 4) gives
+the model N input channels, the points' (x, y, z) and a remission drawn
+from the seed: the plan then carries the stem's source-row maps (kernel KQ)
+and the stem runs as KO/KP. --sortless feeds the per-point voxel cells
+straight into the plan (device_batch_raw, assume_unique=False) instead of
+voxelizing. Then it traces `--steps` steps with torch.profiler and prints,
+per step: wall ms, device busy ms and idle share, and the device ms and
+launches of each hand-written kernel and of everything else; then those of
+one batch (voxelize; the raw cells with --sortless) and one plan build
+alone. Needs a CUDA card; prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -26,22 +30,27 @@ from __future__ import annotations
 import argparse
 import time
 
-CAPS = dict(caps_real=(92_160, 61_440, 22_528, 9_216, 3_584),
-            caps_aug=(122_880, 77_824, 25_600, 10_752, 4_352),
-            caps_col_dil=(196_608, 93_184, 54_272, 23_552, 9_728))
+# bench.py's per-scan (caps_real, caps_aug, caps_col_dil)
+CAPS = ((92_160, 61_440, 22_528, 9_216, 3_584),
+        (122_880, 77_824, 25_600, 10_752, 4_352),
+        (196_608, 93_184, 54_272, 23_552, 9_728))
 
 
-def _train_step(scans, builder, variant="source"):
+def _train_step(scans, builder, variant="source", in_channels=1,
+                sortless=False):
     """bench.py's step as a closure, with MinkUNet34 or (variant "ibn")
-    MinkUNet34IBN, or (variant "robustnet") the RobustNet step."""
+    MinkUNet34IBN, or (variant "robustnet") the RobustNet step; the
+    builder must match in_channels and sortless."""
     import numpy as np
     import torch
 
+    from lidog_tpu_torch.data.synthetic import point_features
     from lidog_tpu_torch.losses.losses import IWLoss, SoftDICELoss
     from lidog_tpu_torch.models.minkunet import MinkUNet34
     from lidog_tpu_torch.models.minkunet_ibn import MinkUNet34IBN
     from lidog_tpu_torch.models.minkunet_robustnet import MinkUNet34Robust
-    from lidog_tpu_torch.train.device_pipeline import device_batch_from_points
+    from lidog_tpu_torch.train.device_pipeline import (
+        device_batch_from_points, device_batch_raw)
     from lidog_tpu_torch.train.optim import make_optimizer
     from lidog_tpu_torch.train.robustnet_step import make_robustnet_train_step
     from lidog_tpu_torch.train.train_step import TrainState, make_train_step
@@ -50,10 +59,15 @@ def _train_step(scans, builder, variant="source"):
     labels = torch.from_numpy(np.stack([d["sem_labels"] for d in scans])
                               .astype(np.int32)).cuda()
     valid = torch.ones(pts.shape[:2], dtype=torch.bool, device="cuda")
+    feats = None
+    if in_channels != 1:
+        feats = torch.from_numpy(point_features(pts.cpu().numpy(),
+                                                in_channels)).cuda()
     cls = {"source": MinkUNet34, "ibn": MinkUNet34IBN,
            "robustnet": MinkUNet34Robust}[variant]
     model = cls(out_channels=7, compute_dtype=torch.bfloat16,
-                generator=torch.Generator().manual_seed(0))
+                generator=torch.Generator().manual_seed(0),
+                in_channels=in_channels)
     state = TrainState.create(model, make_optimizer("Adam", lr=1e-3))
     crit = SoftDICELoss(ignore_label=-1)
     step = (make_robustnet_train_step(crit, IWLoss(), num_classes=7,
@@ -61,11 +75,17 @@ def _train_step(scans, builder, variant="source"):
             if variant == "robustnet" else make_train_step(crit,
                                                            num_classes=7))
 
+    def make_batch():
+        if sortless:
+            return device_batch_raw(pts, valid, labels, 0.05, feats)
+        return device_batch_from_points(pts, valid, labels, 0.05, 393_216,
+                                        feats)
+
     def full_step():
-        batch = device_batch_from_points(pts, valid, labels, 0.05, 393_216)
+        batch = make_batch()
         step(state, batch, builder(batch["coords"], batch["mask"]))
 
-    return full_step
+    return full_step, make_batch
 
 
 def _lidog_step(scans, builder):
@@ -98,13 +118,13 @@ def _lidog_step(scans, builder):
     def full_step():
         step(state, batch, builder(batch["coords"], batch["mask"]))
 
-    return full_step
+    return full_step, lambda: batch
 
 
 def main(argv=None):
     import torch
 
-    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+    from lidog_tpu_torch.caps import plan_builder
     from lidog_tpu_torch.data.synthetic import SyntheticLidarDataset
     from lidog_tpu_torch.profile_serve import (_kernel_events, card_line,
                                                print_groups)
@@ -118,20 +138,27 @@ def main(argv=None):
                        help="profile the RobustNet step (MinkUNet34Robust)")
     paths.add_argument("--ibn", action="store_true",
                        help="profile the IBN step (MinkUNet34IBN)")
+    ap.add_argument("--in-channels", type=int, default=1,
+                    help="input channels of the model (the general stem)")
+    ap.add_argument("--sortless", action="store_true",
+                    help="sortless input (device_batch_raw)")
     args = ap.parse_args(argv)
+    if args.lidog and (args.in_channels != 1 or args.sortless):
+        ap.error("--lidog takes neither --in-channels nor --sortless")
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA device")
     print(card_line())
     ds = SyntheticLidarDataset(num_scans=4, points_per_scan=100_000,
                                radius=50.0, seed=0)
     scans = [ds[i] for i in range(4)]
-    builder = ZSegPlanBuilder(CAPS["caps_real"], CAPS["caps_aug"],
-                              num_batches=4, grid_half=1024,
-                              caps_col_dil=CAPS["caps_col_dil"])
+    builder = plan_builder(args.in_channels, 4, CAPS,
+                           assume_unique=not args.sortless)
     variant = ("lidog" if args.lidog else "robustnet" if args.robustnet
                else "ibn" if args.ibn else "source")
-    full_step = (_lidog_step(scans, builder) if args.lidog
-                 else _train_step(scans, builder, variant))
+    full_step, make_batch = (
+        _lidog_step(scans, builder) if args.lidog
+        else _train_step(scans, builder, variant, args.in_channels,
+                         args.sortless))
 
     for _ in range(2):
         full_step()
@@ -146,6 +173,10 @@ def main(argv=None):
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
     kernels = _kernel_events(prof)
     busy_ms = sum(us for _, us, _ in kernels) / 1e3 / args.steps
+    if args.in_channels != 1:
+        variant += f" in_channels={args.in_channels}"
+    if args.sortless:
+        variant += " sortless"
     print(f"[profile] {variant} per step: wall "
           f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f}")
@@ -154,6 +185,21 @@ def main(argv=None):
     for name, us, n in kernels[:15]:
         print(f"[profile]   {us / 1e3 / args.steps:8.3f} ms  "
               f"x{n // args.steps:5d}  {name[:110]}")
+    batch = {}
+
+    def batch_alone():
+        batch.update(make_batch())
+
+    for name, fn in (("batch", batch_alone),
+                     ("plan build", lambda: builder(batch["coords"],
+                                                    batch["mask"]))):
+        with torch.profiler.profile(activities=acts) as prof_stage:
+            fn()
+            torch.cuda.synchronize()
+        events = _kernel_events(prof_stage)
+        print(f"[profile] {name} alone: "
+              f"{sum(us for _, us, _ in events) / 1e3:.3f} ms device in "
+              f"{sum(n for _, _, n in events)} kernel launches")
 
 
 if __name__ == "__main__":

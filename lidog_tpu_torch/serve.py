@@ -1,8 +1,10 @@
 """Serving-path predictor: raw points -> per-point semantic labels.
 
-Port of lidog_tpu/serve.py:27-108,155-170 (sorted path): device voxelize
--> zseg plan -> MinkUNet34 forward -> argmax -> the two inverse-map
-gathers back onto the input points.
+Port of lidog_tpu/serve.py:27-108,155-170: device voxelize -> zseg plan
+-> MinkUNet34 forward -> argmax -> the two inverse-map gathers back onto
+the input points.  With sortless=True the per-point voxel cells go
+straight into a dedup-tolerant plan (no sort or unique pass), whose `pos`
+is the per-point inverse map.
 
 Usage:
     pred = Predictor(MinkUNet34(compute_dtype=torch.bfloat16))
@@ -25,6 +27,7 @@ from lidog_tpu_torch.caps import make_zcaps
 from lidog_tpu_torch.core.engine import input_tensor
 from lidog_tpu_torch.core.voxelize import voxelize_device
 from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+from lidog_tpu_torch.train.device_pipeline import device_batch_raw
 from lidog_tpu_torch.utils.device import resolve_device
 
 
@@ -38,35 +41,44 @@ class Predictor:
     def __init__(self, model, batch_size: int = 1, voxel_size: float = 0.05,
                  caps_per_scan: int = 98_304, grid_half: int = 1024,
                  caps: Optional[Tuple[Tuple[int, ...], ...]] = None,
-                 device=None):
+                 device=None, sortless: bool = False):
         self.device = resolve_device(device)
         self.voxel_size = voxel_size
         self.cap_in = caps_per_scan * batch_size
+        self.sortless = sortless
         caps_r, caps_a, caps_d = caps or make_zcaps(caps_per_scan)
         self.builder = ZSegPlanBuilder(caps_r, caps_a, num_batches=batch_size,
                                        grid_half=grid_half,
-                                       caps_col_dil=caps_d)
+                                       caps_col_dil=caps_d,
+                                       assume_unique=not sortless)
         self.model = model.to(self.device).eval()
         self._overflow = None
 
     @torch.no_grad()
     def forward_voxels(self, points, valid=None):
-        """points [B, P, 3] -> (voxelization, plan, logits [N0, C])."""
+        """points [B, P, 3] -> (voxelization, plan, logits [N0, C]); the
+        voxelization is None on the sortless path."""
         pts = torch.as_tensor(np.asarray(points, np.float32)
                               if not torch.is_tensor(points) else points,
                               dtype=torch.float32, device=self.device)
         b, p, _ = pts.shape
         if valid is None:
-            vflat = torch.ones(b * p, dtype=torch.bool, device=self.device)
+            valid = torch.ones(b, p, dtype=torch.bool, device=self.device)
+        valid = torch.as_tensor(valid, device=self.device).reshape(b, p)
+        if self.sortless:
+            vox = None
+            batch = device_batch_raw(
+                pts, valid, torch.zeros(b, p, dtype=torch.int32,
+                                        device=self.device), self.voxel_size)
+            coords, mask = batch["coords"], batch["mask"]
         else:
-            vflat = torch.as_tensor(valid, device=self.device).reshape(b * p)
-        bidx = torch.arange(b, dtype=torch.int32,
-                            device=self.device).repeat_interleave(p)
-        vox = voxelize_device(pts.reshape(b * p, 3), vflat, bidx,
-                              self.voxel_size, self.cap_in)
-        plan = self.builder(vox.coords, vox.mask)
-        feats = vox.mask[:, None].to(torch.float32)
-        logits = self.model(input_tensor(plan, feats), plan)
+            bidx = torch.arange(b, dtype=torch.int32,
+                                device=self.device).repeat_interleave(p)
+            vox = voxelize_device(pts.reshape(b * p, 3), valid.reshape(-1),
+                                  bidx, self.voxel_size, self.cap_in)
+            coords, mask = vox.coords, vox.mask
+        plan = self.builder(coords, mask)
+        logits = self.model(input_tensor(plan, mask[:, None].float()), plan)
         return vox, plan, logits
 
     @torch.no_grad()
@@ -75,18 +87,27 @@ class Predictor:
         per-point class ids (-1 where the point was dropped/invalid)."""
         b, p = points.shape[:2]
         vox, plan, logits = self.forward_voxels(points, valid)
+        self._overflow = plan.overflow
+        return self.labels_of(plan, logits, vox).reshape(b, p)
+
+    @staticmethod
+    def labels_of(plan, logits, vox=None):
+        """Per-input-row class ids (-1 = dropped/invalid) of one forward:
+        the argmax on level-0 real rows, through plan.pos, then (sorted
+        path; vox None on the sortless one) through the voxelizer's
+        inverse map onto the points."""
         vox_pred = torch.argmax(logits, dim=-1).to(torch.int32)
         vox_pred = torch.where(plan.level(0).real, vox_pred, -1)
-        # voxel row -> level-0 aug row -> prediction, then back to points
-        # through the voxelizer's inverse map
-        row_of_vox = plan.pos
-        pred_of_vox = torch.where(row_of_vox >= 0,
-                                  vox_pred[row_of_vox.clamp(min=0).long()], -1)
+        # input row -> level-0 aug row -> prediction; the sorted path's
+        # input rows are voxels, mapped back onto points through the
+        # voxelizer's inverse map
+        row_of_in = plan.pos
+        pred_of_in = torch.where(row_of_in >= 0,
+                                 vox_pred[row_of_in.clamp(min=0).long()], -1)
+        if vox is None:
+            return pred_of_in
         inv = vox.inverse
-        pt_pred = torch.where(inv >= 0, pred_of_vox[inv.clamp(min=0).long()],
-                              -1)
-        self._overflow = plan.overflow
-        return pt_pred.reshape(b, p)
+        return torch.where(inv >= 0, pred_of_in[inv.clamp(min=0).long()], -1)
 
     @property
     def overflow(self):

@@ -571,7 +571,10 @@ def test_variant_registry_and_weights():
     """get_model builds each of the four models from its YAML at full
     width, with the YAML's compute dtype, and its state_dict has exactly
     the keys and shapes of lidog_tpu's flax tree for the same YAML
-    (jax.eval_shape of the init: traced, not compiled)."""
+    (jax.eval_shape of the init: traced, not compiled); so does
+    MinkUNet34 from a YAML set to in_channels 4 (stem kernel [125, 4,
+    32]), whose plan builder (make_plan_builder, lidog_tpu/cli/common.py's
+    rule) emits the stem's source-row maps."""
     import jax
     import jax.numpy as jnp
 
@@ -579,6 +582,7 @@ def test_variant_registry_and_weights():
     from lidog_tpu.core.engine import input_tensor as jax_input
     from lidog_tpu.models.registry import get_model as jax_get_model
     from lidog_tpu.models.registry import precision_dtype as jax_precision
+    from lidog_tpu_torch.caps import make_plan_builder
     from lidog_tpu_torch.config import get_config
     from lidog_tpu_torch.core.engine import input_tensor
     from lidog_tpu_torch.models.registry import get_model
@@ -590,25 +594,34 @@ def test_variant_registry_and_weights():
         jnp.float32))
     assert input_tensor(tplan, tvox.mask[:, None].float()).feats.shape == \
         x.feats.shape
-    for method, name in (("source", "MinkUNet34"), ("ibn", "MinkUNet34IBN"),
-                         ("robustnet", "MinkUNet34Robust"),
-                         ("lidog", "MinkUNet34BEV")):
+    x4 = jax_input(jplan, jnp.ones((tvox.mask.shape[0], 4), jnp.float32))
+    for method, name, cin in (("source", "MinkUNet34", 1),
+                              ("ibn", "MinkUNet34IBN", 1),
+                              ("robustnet", "MinkUNet34Robust", 1),
+                              ("lidog", "MinkUNet34BEV", 1),
+                              ("source", "MinkUNet34", 4)):
         path = f"configs/{method}/single/semantickitti.yaml"
-        config = jax_config(path)
+        config, tconfig = jax_config(path), get_config(path)
         assert config.model.name == name and config.model.in_channels == 1
+        config.model.in_channels = tconfig.model.in_channels = cin
+        assert make_plan_builder(tconfig, 2).stem_feature_map == (cin != 1)
         jm = jax_get_model(config, num_batches=2)
         kw = {"is_train": True} if name == "MinkUNet34BEV" else {}
         shapes = jax.eval_shape(
-            lambda k: jm.init(k, x, jplan, train=False, **kw),
+            lambda k: jm.init(k, x if cin == 1 else x4, jplan, train=False,
+                              **kw),
             jax.random.PRNGKey(0))
         want = {}
         for col in ("params", "batch_stats"):
             _shapes_of(shapes.get(col, {}), "", want)
-        model = get_model(get_config(path), num_batches=2)
+        model = get_model(tconfig, num_batches=2)
         assert type(model).__name__ == name
         got = {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
                for k, v in model.state_dict().items()}
         assert got == want, (name, set(got) ^ set(want))
+        stem = model.conv0 if hasattr(model, "conv0") else \
+            model.backbone.conv0
+        assert tuple(stem.kernel.shape) == (125, cin, 32)
         dt = getattr(model, "compute_dtype", None) or \
             model.backbone.compute_dtype
         assert str(dt) == f"torch.{jnp.dtype(jax_precision(config)).name}"
@@ -706,6 +719,7 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
     counts no launch; a tensor on neither the CPU nor a card raises."""
     import torch
 
+    from lidog_tpu_torch.core import zseg
     from lidog_tpu_torch.losses import losses
     from lidog_tpu_torch.ops import bev, norm, zconv
 
@@ -733,6 +747,21 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
     _, mean_i, var_i, rstd_i, count_i = norm.instance_norm_fwd_plain(x, m,
                                                                      bidx)
     _, s_w, n_w = losses.whitening_fwd_plain(x, m)
+    # the general stem: a 125-offset map over the n rows (KO, KO as dx,
+    # KP) and KQ's sweep over random tables (2 scans, a 4^2 grid of 3
+    # columns each; packed rows of 5 real + 5 aug slabs of 14 words and a
+    # start, bits only in the words around z = 0: 6 and 7)
+    nbr125 = torch.randint(-1, n, (125, n), generator=g, dtype=torch.int32)
+    x4, w4 = x[:, :4].contiguous(), torch.randn(125, 4, 32, generator=g)
+    grid = torch.randint(-1, 3, (2, 16), generator=g)
+    grid = torch.where(grid >= 0, grid + 3 * torch.arange(2)[:, None], -1)
+    packed = torch.zeros(6, 145, dtype=torch.int64)
+    for col in (76, 77, 84):  # words 6, 7 and the start of each aug slab
+        packed[:, col::15] = torch.randint(0, 2**32 if col < 84 else 4,
+                                           (6, 5), generator=g)
+    cq = torch.randint(-2, 2, (n, 4), generator=g, dtype=torch.int32)
+    cq[:, 3] = torch.randint(-3, 3, (n,), generator=g, dtype=torch.int32)
+    kq = (grid.reshape(-1), packed, cq, m, 4, 3, 64, 2, 2)
     cases = [
         (zconv.zconv3_fwd, zconv.zconv3_plain, (x, nbr, zup, zdn, wf, m)),
         (zconv.zconv_down_fwd, zconv.zconv_down_plain, (x, nbr[:8], w8, m)),
@@ -762,29 +791,39 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
          (12 * x, m, True)),
         (losses.whitening_bwd, losses.whitening_bwd_plain,
          (torch.tensor(1.0), x, m, s_w, n_w, False)),
+        (zconv.zconv_full_fwd, zconv.zconv_full_plain, (x4, nbr125, w4, m)),
+        (zconv.zconv_full_fwd, zconv.zconv_full_plain,
+         (x, nbr125, w4.flip(0).transpose(1, 2).contiguous(), None, m)),
+        (zconv.zconv_full_wgrad, zconv.zconv_full_wgrad_plain,
+         (x4, x, nbr125, m)),
+        (zseg.stem_feat125_packed, zseg.stem_feat125_plain, kq),
     ]
     before = {**zconv.LAUNCHES, **norm.LAUNCHES, **bev.LAUNCHES,
-              **losses.LAUNCHES}
+              **losses.LAUNCHES, **zseg.LAUNCHES}
     for wrapper, plain, args in cases:
         copy = [a.clone() if torch.is_tensor(a) else a for a in args]
         out, want = wrapper(*args), plain(*copy)
         out = out if isinstance(out, tuple) else (out,)
         want = want if isinstance(want, tuple) else (want,)
         assert out[0].abs().sum() > 0, wrapper.__name__
+        if wrapper is zseg.stem_feat125_packed:  # some neighbours are found
+            assert (out[0] >= 0).sum() > 0 and (out[1] >= 0).sum() > 0
         for a, b in zip(out, want):
             assert torch.equal(a, b), wrapper.__name__
         meta = [a.to("meta") if torch.is_tensor(a) else a for a in args]
         with pytest.raises(ValueError, match="CUDA"):
             wrapper(*meta)
     assert {**zconv.LAUNCHES, **norm.LAUNCHES, **bev.LAUNCHES,
-            **losses.LAUNCHES} == before
+            **losses.LAUNCHES, **zseg.LAUNCHES} == before
 
 
 def test_port_imports_no_jax():
     """Importing every lidog_tpu_torch module (and chip_smoke.py) leaves
     jax, flax and lidog_tpu out of sys.modules.  bn_act_triton and
     whiten_triton are the modules that need the triton package; each is
-    imported only by its launching functions."""
+    imported only by its launching functions.  The general stem's and the
+    sortless path's modules (core/zseg.py with KQ, ops/zconv.py with
+    KO/KP, caps.py, train/device_pipeline.py, serve.py) are among them."""
     code = r"""
 import importlib, pkgutil, sys
 import lidog_tpu_torch
@@ -797,6 +836,15 @@ assert triton_modules <= set(names)
 for n in names:
     if n not in triton_modules:
         importlib.import_module(n)
+# the general stem's kernels: KO/KP (ops.zconv) and KQ (core.zseg), each
+# with its CUDA source registered for nvcc
+from lidog_tpu_torch.core import zseg
+from lidog_tpu_torch.ops import _cuda, zconv
+assert {"zconv_full", "stem_feat125"} <= set(_cuda.SOURCES)
+for src in ("zconv_full", "stem_feat125"):
+    assert (_cuda.CSRC / (src + ".cu")).exists(), src
+assert {"zconv_full_fwd", "zconv_full_wgrad"} <= set(zconv.LAUNCHES)
+assert set(zseg.LAUNCHES) == {"stem_feat125"}
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "lidog_tpu"))
 assert not bad, bad

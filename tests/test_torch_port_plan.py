@@ -4,10 +4,13 @@ The same numpy voxel coords go through lidog_tpu.core.zseg.ZSegPlanBuilder
 (jitted, XLA:CPU) and lidog_tpu_torch.core.zseg.ZSegPlanBuilder (plain
 PyTorch on the CPU).  Every ZPlan field must be equal bit for bit: per
 level coords, real, valid, zup, zdn; the conv9/down8/parent/off maps and
-the stem occupancy; pos and the overflow counters.  Cases: the shapes of
-tests/test_zseg.py (grid_half 64), the same input with starved capacities
-(every overflow counter path), and the serving shapes of
-tests/test_serve.py (voxelized points, grid_half 32).
+the stem occupancy or source-row maps; pos, rep and the overflow
+counters.  Cases: the shapes of tests/test_zseg.py (grid_half 64), the
+same input with starved capacities (every overflow counter path), the
+serving shapes of tests/test_serve.py (voxelized points, grid_half 32),
+the feature stem (stem_feature_map=True, tests/test_zseg_stem_feat.py's
+input) and sortless input (raw per-point cells with duplicates,
+tests/test_sortless.py's clouds and caps).
 
 Also the LiDOG step's host and device pipeline: the BEV preprocessing and
 collation bitwise, Encoder2D + DICE, and the whole LiDOG train step
@@ -40,6 +43,9 @@ def _assert_plans_equal(jp, tp):
     assert sorted(jp.kmaps) == sorted(tp.kmaps)
     fields += [(k, jp.kmaps[k], tp.kmaps[k]) for k in sorted(jp.kmaps)]
     fields += [("pos", jp.pos, tp.pos), ("overflow", jp.overflow, tp.overflow)]
+    assert (jp.rep is None) == (tp.rep is None)
+    if jp.rep is not None:
+        fields.append(("rep", jp.rep, tp.rep))
     assert len(jp.levels) == len(tp.levels) == 5
     for name, a, b in fields:
         a, b = np_of(a), t_of(b)
@@ -48,7 +54,30 @@ def _assert_plans_equal(jp, tp):
         np.testing.assert_array_equal(a, b, err_msg=name)
 
 
-@pytest.mark.parametrize("case", ["zseg", "zseg_starved", "serve"])
+def _sortless_inputs():
+    """tests/test_sortless.py's two clouds (with in-voxel duplicates) as raw
+    per-point cells: (coords [B*P, 4] int32, mask [B*P]), the per-point
+    labels [B*P] and the points [B, P, 3]."""
+    from tests.test_sortless import B, VOXEL, _cloud
+
+    rng = np.random.RandomState(7)
+    clouds = [_cloud(rng) for _ in range(B)]
+    p = max(len(c[0]) for c in clouds)
+    pts = np.zeros((B, p, 3), np.float32)
+    valid = np.zeros((B, p), bool)
+    labels = np.full((B, p), -1, np.int32)
+    for b, (c, lab) in enumerate(clouds):
+        pts[b, :len(c)], valid[b, :len(c)], labels[b, :len(c)] = c, True, lab
+    vflat = valid.reshape(-1)
+    disc = np.floor(pts.reshape(-1, 3) / np.float32(VOXEL)).astype(np.int32)
+    bidx = np.repeat(np.arange(B, dtype=np.int32), p)
+    coords = np.where(vflat[:, None], np.concatenate([bidx[:, None], disc],
+                                                     1), 0).astype(np.int32)
+    return coords, vflat, labels.reshape(-1), pts
+
+
+@pytest.mark.parametrize("case", ["zseg", "zseg_starved", "serve", "stem125",
+                                  "sortless"])
 def test_plan_bitwise_equal(case, request):
     from tests.conftest import run_isolated
 
@@ -60,16 +89,26 @@ def test_plan_bitwise_equal(case, request):
 
     from lidog_tpu.core.voxelize import voxelize_device
     from lidog_tpu.core.zseg import ZSegPlanBuilder as JaxBuilder
-    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder, stem_feat125_plain
 
-    if case.startswith("zseg"):
+    options = {}
+    if case.startswith("zseg") or case == "stem125":
         from tests.test_zseg import B, CAPS_A, CAPS_R, _build_inputs
 
-        coords, mask, _ = _build_inputs(np.random.RandomState(7))
+        seed = 11 if case == "stem125" else 7  # test_zseg_stem_feat's: 11
+        coords, mask, _ = _build_inputs(np.random.RandomState(seed))
         caps_r, caps_a, grid_half = CAPS_R, CAPS_A, 64
         if case == "zseg_starved":
             caps_r = tuple(c // 2 for c in CAPS_R)
             caps_a = tuple(c // 3 for c in CAPS_A)
+        if case == "stem125":
+            options = dict(stem_feature_map=True)
+    elif case == "sortless":
+        from tests.test_sortless import B, CAPS_A, CAPS_R, GRID_HALF
+
+        coords, mask, _, _ = _sortless_inputs()
+        caps_r, caps_a, grid_half = CAPS_R, CAPS_A, GRID_HALF
+        options = dict(assume_unique=False)
     else:
         B, P = 2, 600
         pts = (np.random.RandomState(0).rand(B, P, 3).astype(np.float32)
@@ -82,15 +121,130 @@ def test_plan_bitwise_equal(case, request):
         caps_a = (2048, 1536, 768, 384, 192)
         grid_half = 32
     jp = jax.jit(JaxBuilder(caps_r, caps_a, num_batches=B,
-                            grid_half=grid_half))(
+                            grid_half=grid_half, **options))(
         jnp.asarray(coords), jnp.asarray(mask))
-    tp = ZSegPlanBuilder(caps_r, caps_a, num_batches=B, grid_half=grid_half)(
-        torch.from_numpy(coords), torch.from_numpy(mask))
+    tbuilder = ZSegPlanBuilder(caps_r, caps_a, num_batches=B,
+                               grid_half=grid_half, **options)
+    tp = tbuilder(torch.from_numpy(coords), torch.from_numpy(mask))
     if case == "zseg_starved":
         assert int(np.asarray(jp.overflow)[1:].sum()) > 0
     else:
         assert int(np.asarray(jp.overflow).sum()) == 0
+    if case == "stem125":  # the feature stem's maps replace the occupancy
+        assert "stem_occ" not in tp.kmaps
+        hits = int((tp.kmaps["stem125"] >= 0).sum())
+        assert hits > int(tp.level(0).real.sum())
+        # stem_inputs: the arguments the builder's level-0 sweep takes
+        args, kwargs = tbuilder.stem_inputs(torch.from_numpy(coords),
+                                            torch.from_numpy(mask))
+        nbr, conv9 = stem_feat125_plain(*args, **kwargs)
+        assert torch.equal(nbr, tp.kmaps["stem125"])
+        assert torch.equal(conv9, tp.kmaps["conv9_l0"])
+    if case == "sortless":  # duplicates went in; every point has a row
+        assert len(np.unique(coords[mask], axis=0)) < int(mask.sum())
+        assert (tp.pos[torch.from_numpy(mask)] >= 0).all()
     _assert_plans_equal(jp, tp)
+
+
+def test_sortless_matches_jax():
+    """The port's sortless path (raw per-point cells, assume_unique=False)
+    against its sorted one (voxelize_device, then the plan), as
+    tests/test_sortless.py holds lidog_tpu's, on that file's clouds: the
+    levels, kmaps and overflow of the two plans; pos (point -> the row of
+    its voxel) and rep (each row's representative point: voxelize_device's
+    rep_idx); canon_labels and input_tensor (labels, and 4-channel point
+    features); one train step of a narrow MinkUNet34 each with the
+    occupancy stem and with in_channels 4 on the feature stem: the loss
+    and confusion -- all equal (atol 0).  lidog_tpu's canon_labels and
+    input_tensor on the converted sortless plan give the same labels and
+    features; Predictor(sortless=True, device="cpu") labels every point as
+    the sorted Predictor does.  test_plan_bitwise_equal[sortless] holds the
+    sortless plan against lidog_tpu's builder."""
+    import jax.numpy as jnp
+    import torch
+
+    from lidog_tpu.core.engine import canon_labels as jax_canon
+    from lidog_tpu.core.engine import input_tensor as jax_input
+    from lidog_tpu_torch.core.engine import canon_labels, input_tensor
+    from lidog_tpu_torch.core.voxelize import voxelize_device
+    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+    from lidog_tpu_torch.data.synthetic import point_features
+    from lidog_tpu_torch.losses.losses import SoftDICELoss
+    from lidog_tpu_torch.models.minkunet import MinkUNet34
+    from lidog_tpu_torch.serve import Predictor
+    from lidog_tpu_torch.train.optim import make_optimizer
+    from lidog_tpu_torch.train.train_step import TrainState, make_train_step
+    from tests.test_sortless import B, CAPS_A, CAPS_R, GRID_HALF, VOXEL
+    from tests.test_torch_port_serve import NARROW, _jax_plan_of
+
+    coords_raw, vflat, labels, pts = _sortless_inputs()
+    n = vflat.shape[0]
+    t = torch.from_numpy
+    vox = voxelize_device(t(pts.reshape(-1, 3)), t(vflat),
+                          torch.arange(B, dtype=torch.int32)
+                          .repeat_interleave(pts.shape[1]), VOXEL,
+                          B * CAPS_R[0])
+    mask_s = vox.mask
+    lab_s = torch.where(mask_s, t(labels)[vox.rep_idx.long()], -1)
+    pf = t(point_features(pts, 4).reshape(n, 4)) * t(vflat)[:, None]
+    feats_s = pf[vox.rep_idx.long()] * mask_s[:, None]
+    for stem in (False, True):
+        kw = dict(num_batches=B, grid_half=GRID_HALF, stem_feature_map=stem)
+        plan_s = ZSegPlanBuilder(CAPS_R, CAPS_A, **kw)(vox.coords, mask_s)
+        plan_r = ZSegPlanBuilder(CAPS_R, CAPS_A, assume_unique=False, **kw)(
+            t(coords_raw), t(vflat))
+        assert plan_s.rep is None and int(plan_s.overflow.sum()) == 0
+        assert torch.equal(plan_s.overflow, plan_r.overflow)
+        for ls, lr in zip(plan_s.levels, plan_r.levels):
+            for f in ("coords", "real", "valid", "zup", "zdn"):
+                assert torch.equal(getattr(ls, f), getattr(lr, f)), f
+        assert sorted(plan_s.kmaps) == sorted(plan_r.kmaps)
+        for k in plan_s.kmaps:
+            assert torch.equal(plan_s.kmaps[k], plan_r.kmaps[k]), k
+        ok = t(vflat) & (vox.inverse >= 0)
+        assert torch.equal(plan_r.pos[ok],
+                           plan_s.pos[vox.inverse[ok].long()])
+        rows = plan_s.pos[mask_s].long()
+        assert torch.equal(plan_r.rep[rows], vox.rep_idx[mask_s])
+        assert (plan_r.rep[~plan_r.level(0).real] == -1).all()
+
+        cs, cr = canon_labels(plan_s, lab_s), canon_labels(plan_r, t(labels))
+        xs, xr = input_tensor(plan_s, feats_s), input_tensor(plan_r, pf)
+        assert torch.equal(cs[0], cr[0]) and torch.equal(cs[1], cr[1])
+        assert torch.equal(xs.feats, xr.feats) and int(cs[1].sum()) > 0
+        jplan = _jax_plan_of(plan_r)
+        jl, jv = jax_canon(jplan, jnp.asarray(labels))
+        assert np.array_equal(np.asarray(jl), cr[0].numpy())
+        assert np.array_equal(np.asarray(jv), cr[1].numpy())
+        jx = jax_input(jplan, jnp.asarray(pf.numpy()))
+        assert np.array_equal(np.asarray(jx.feats), xr.feats.numpy())
+
+        cin = 4 if stem else 1
+        batches = ({"feats": feats_s[:, :cin] if stem else mask_s[:, None]
+                    .float(), "labels": lab_s},
+                   {"feats": pf if stem else t(vflat)[:, None].float(),
+                    "labels": t(labels)})
+        metrics = []
+        for batch, plan in zip(batches, (plan_s, plan_r)):
+            model = MinkUNet34(out_channels=7, in_channels=cin,
+                               generator=torch.Generator().manual_seed(3),
+                               **NARROW)
+            state = TrainState.create(model, make_optimizer("Adam", lr=1e-3),
+                                      device="cpu")
+            step = make_train_step(SoftDICELoss(ignore_label=-1))
+            metrics.append(step(state, batch, plan)[1])
+        assert float(metrics[0]["loss"]) == float(metrics[1]["loss"])
+        assert torch.equal(metrics[0]["confusion"], metrics[1]["confusion"])
+
+    model = MinkUNet34(out_channels=7, **NARROW)
+    kw = dict(batch_size=1, voxel_size=VOXEL, caps_per_scan=CAPS_R[0],
+              grid_half=GRID_HALF, device="cpu",
+              caps=(CAPS_R, CAPS_A, tuple(5 * c for c in CAPS_R)))
+    one = pts[:1]
+    sorted_labels = Predictor(model, **kw)(one)
+    raw_labels = Predictor(model, sortless=True, **kw)(one)
+    assert torch.equal(sorted_labels, raw_labels)
+    assert (raw_labels >= 0).float().mean() > 0.99
 
 
 def test_bev_preprocess_collate_match():

@@ -80,7 +80,8 @@ def _jax_plan_of(tp):
             "coords", "real", "valid", "zup", "zdn")), stride=lv.stride)
             for lv in tp.levels),
         kmaps={k: to_jax(v) for k, v in tp.kmaps.items()},
-        pos=to_jax(tp.pos), overflow=to_jax(tp.overflow))
+        pos=to_jax(tp.pos), overflow=to_jax(tp.overflow),
+        rep=None if tp.rep is None else to_jax(tp.rep))
 
 
 def _jax_plan(pts):
@@ -251,6 +252,75 @@ def test_narrow_backbone_logits(dtype, request):
         assert agree >= 0.99, agree
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zconv_full_matches_jax(dtype, request):
+    """zconv_full (the general stem's 125-offset conv) forward, dx and dW:
+    jax.vjp through lidog_tpu's custom VJP against autograd through the
+    port's op (the plain versions of KO, KO as dx and KP on the CPU), every
+    row compared, on the port's stem125 map of tests/test_zseg_stem_feat.py's
+    input (bitwise equal to lidog_tpu's, test_plan_bitwise_equal[stem125])
+    converted (_jax_plan_of).  Cin 4 -> Cout 32 (the stem) and 32 -> 4.
+    Tolerance (relative to max |JAX|): 1e-5 in f32 (summation order only),
+    1e-2 in bf16 (one rounding after an f32 sum on both sides).  The op
+    test of zconv3/down/up is test_zconv_grads_match_jax; this one sits in
+    the serve file to level the three port files' times."""
+    from tests.conftest import run_isolated
+
+    if run_isolated(request):
+        return
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from lidog_tpu.ops import zconv as jz
+    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+    from lidog_tpu_torch.ops import zconv as tz
+    from tests.test_zseg import B as ZB
+    from tests.test_zseg import CAPS_A as ZCAPS_A
+    from tests.test_zseg import CAPS_R as ZCAPS_R
+    from tests.test_zseg import _build_inputs
+
+    coords, mask, _ = _build_inputs(np.random.RandomState(11))
+    tplan = ZSegPlanBuilder(ZCAPS_R, ZCAPS_A, num_batches=ZB, grid_half=64,
+                            stem_feature_map=True)(
+        torch.from_numpy(coords), torch.from_numpy(mask))
+    plan = _jax_plan_of(tplan)
+    nbr, real = plan.kmaps["stem125"], plan.level(0).real
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    rng = np.random.RandomState(17)
+    n = nbr.shape[1]
+    launches = dict(tz.LAUNCHES)
+
+    def both(a):
+        return jnp.asarray(a, jdt), torch.from_numpy(a).to(tdt)
+
+    for cin, cout in ((4, 32), (32, 4)):
+        x = both(rng.randn(n, cin).astype(np.float32)
+                 * np.asarray(real)[:, None])
+        w = both((rng.randn(125, cin, cout) * 0.2).astype(np.float32))
+        dout = both(rng.randn(n, cout).astype(np.float32))  # not masked
+        out_j, vjp = jax.vjp(
+            lambda a, b: jz.zconv_full(a, nbr, b, out_mask=real,
+                                       num_batches=ZB), x[0], w[0])
+        dx_j, dw_j = vjp(dout[0])
+        xt = x[1].clone().requires_grad_()
+        wt = w[1].clone().requires_grad_()
+        out_t = tz.zconv_full(xt, torch.from_numpy(np.asarray(nbr)), wt,
+                              out_mask=torch.from_numpy(np.asarray(real)))
+        out_t.backward(dout[1])
+        for name, a, b in (("out", out_j, out_t), ("dx", dx_j, xt.grad),
+                           ("dW", dw_j, wt.grad)):
+            assert b.dtype == tdt and tuple(b.shape) == a.shape, (cin, name)
+            err = _rel(a.astype(jnp.float32), b.detach().float())
+            assert err <= tol, (cin, cout, name, err)
+        # ghost and pad rows stay exactly zero
+        assert (out_t[~torch.from_numpy(np.asarray(real))] == 0).all()
+    # the map holds neighbours besides each row itself
+    assert int((np.asarray(nbr) >= 0).sum()) > 2 * int(np.asarray(real).sum())
+    assert tz.LAUNCHES == launches  # CPU tensors: the plain versions
+
+
 def test_predictor_needs_a_device(monkeypatch):
     """Without a card and without device="cpu" the Predictor raises; with
     device="cpu" it serves per-point labels on the plain path."""
@@ -295,12 +365,31 @@ def _batches(seed, nsrc):
     return out
 
 
-@pytest.mark.parametrize("case", ["float32", "bfloat16", "float32-2src"])
+def _voxel_feats(pts, coords, mask, feats):
+    """numpy: the per-point features of each voxel's representative point
+    (the smallest point index in it, voxelize_device's pick), 0 on
+    padding."""
+    b, p = pts.shape[:2]
+    disc = np.floor(pts.reshape(-1, 3) / np.float32(VOXEL)).astype(np.int32)
+    first = {}
+    for i in range(b * p - 1, -1, -1):
+        first[(i // p, *disc[i])] = i
+    out = np.zeros((coords.shape[0], feats.shape[-1]), np.float32)
+    for j in np.nonzero(mask)[0]:
+        out[j] = feats.reshape(b * p, -1)[first[tuple(coords[j])]]
+    return out
+
+
+@pytest.mark.parametrize("case", ["float32", "bfloat16", "float32-2src",
+                                  "cin4"])
 def test_train_step_matches_jax(case, request):
     """From a lidog_tpu TrainState (after one JAX step, so Adam's moments
     and count are not trivial) carried into the port, two steps on each
     side: loss, confusion, every grad, the params after Adam and the
-    batch_stats.  JAX's plans are the port's (_jax_plan_of)."""
+    batch_stats.  JAX's plans are the port's (_jax_plan_of).  The cin4
+    case (f32) trains MinkUNet34 with 4 input channels (each voxel's
+    representative point's x, y, z and a seeded remission) through the
+    general stem: stem_feature_map plans and zconv_full."""
     from tests.conftest import run_isolated
 
     if run_isolated(request):
@@ -320,7 +409,7 @@ def test_train_step_matches_jax(case, request):
     from lidog_tpu.train import make_train_step as jax_train_step
     from lidog_tpu.train.device_pipeline import device_batch_from_points as jdb
     from lidog_tpu.train.train_step import _forward_loss
-    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+    from lidog_tpu_torch.caps import plan_builder
     from lidog_tpu_torch.losses.losses import SoftDICELoss
     from lidog_tpu_torch.models.minkunet import MinkUNet34
     from lidog_tpu_torch.train.device_pipeline import device_batch_from_points
@@ -329,7 +418,10 @@ def test_train_step_matches_jax(case, request):
     from lidog_tpu_torch.utils.from_jax import (load_train_state,
                                                 state_dict_from_flax)
 
-    dtype = case.split("-")[0]
+    from lidog_tpu_torch.data.synthetic import point_features
+
+    dtype = "float32" if case == "cin4" else case.split("-")[0]
+    in_ch = 4 if case == "cin4" else 1
     nsrc = 2 if case.endswith("2src") else 1
     tol_loss, tol_grad, tol_param = TRAIN_TOL[dtype]
     lr, C = 1e-3, 5
@@ -347,16 +439,23 @@ def test_train_step_matches_jax(case, request):
                 x, plan, train)[0]
 
     jm = JaxNarrow(jnp.dtype(dtype))
-    tbuilder = ZSegPlanBuilder(CAPS_R, CAPS_A, num_batches=B,
-                               grid_half=GRID_HALF)
+    tbuilder = plan_builder(in_ch, B, (CAPS_R, CAPS_A, None),
+                            grid_half=GRID_HALF)
     jbatch, jplans, tbatch, tplans = {}, {}, {}, {}
     for s, (pts, lab) in zip(sfx, _batches(TRAIN_SEED, nsrc)):
         jb = jdb(jnp.asarray(pts), jnp.ones((B, P), bool), jnp.asarray(lab),
                  VOXEL, B * CAPS_R[0])
+        pf = point_features(pts, in_ch) if in_ch != 1 else None
         tb = device_batch_from_points(torch.from_numpy(pts),
                                       torch.ones(B, P, dtype=torch.bool),
                                       torch.from_numpy(lab), VOXEL,
-                                      B * CAPS_R[0])
+                                      B * CAPS_R[0], None if pf is None
+                                      else torch.from_numpy(pf))
+        if pf is not None:  # lidog_tpu's batch carries one channel
+            want = _voxel_feats(pts, tb["coords"].numpy(),
+                                tb["mask"].numpy(), pf)
+            np.testing.assert_array_equal(tb["feats"].numpy(), want)
+            jb["feats"] = jnp.asarray(want)
         for k in jb:
             np.testing.assert_array_equal(np.asarray(jb[k]), tb[k].numpy())
             jbatch[k + s], tbatch[k + s] = jb[k], tb[k]
@@ -369,8 +468,7 @@ def test_train_step_matches_jax(case, request):
     # lidog_tpu's own init: the data and weights where lidog_tpu agrees
     # with itself (TRAIN_SEED)
     plan0 = jplans[sfx[0]]
-    x0 = jax_input(plan0, jbatch["mask" + sfx[0]][:, None].astype(
-        jnp.float32))
+    x0 = jax_input(plan0, jbatch["feats" + sfx[0]])
     variables = _with_random_stats(jax.device_get(jax.jit(
         lambda k: jm.init(k, x0, plan0, train=False))(jax.random.PRNGKey(0))))
     tx = jax_optimizer("Adam", lr=lr)
@@ -398,7 +496,7 @@ def test_train_step_matches_jax(case, request):
     jstate, _ = jstep(jstate, jbatch, jplan_arg)  # Adam's moments, count 1
 
     model = MinkUNet34(out_channels=C, compute_dtype=getattr(torch, dtype),
-                       **NARROW)
+                       in_channels=in_ch, **NARROW)
     tstate = TrainState.create(model, make_optimizer("Adam", lr=lr),
                                device="cpu")
     load_train_state(tstate, jax.device_get(jstate))

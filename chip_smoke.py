@@ -24,8 +24,9 @@ no result line):
      labelled, labels in [0, 7), and every kernel counter equal to its
      launches per forward x requests;
   5. cross-check: the same weights through the Predictor on the CPU (plain
-     versions) on a 20,000-point scan: the plan's integer fields bitwise
-     equal to the card's plan, and label agreement >= 99%;
+     versions): on a 20,000-point scan and on phase 4's 100,000-point scan
+     the voxelization and the plan's integer fields bitwise equal to the
+     card's, and on the 20,000-point scan label agreement >= 99%;
   6. full-width training (bench.py's shapes): MinkUNet34 bf16, 4 scans x
      100,000 points, SoftDICE + Adam (lr 1e-3), 1 warm-up and 5 timed
      steps on the same batch; zero overflow, finite losses with the last
@@ -84,7 +85,17 @@ no result line):
      cells -> assume_unique=False plan): its plan equal to the sorted
      one's, its first-step loss equal to the sorted step's (within the
      spread of two sorted runs, which is printed), 5 timed steps as
-     phase 6; requests and steps timed in turns with the sorted path's.
+     phase 6; requests and steps timed in turns with the sorted path's;
+ 18. the plan's sweep kernels KR (stem occupancy + conv9 at level 0), KS
+     (conv9 at levels 1-4), KT (pos3) and KU (the packed y-neighbourhood
+     table) torch.equal to their plain versions on the builder's own
+     inputs: the serving plan of phase 4's scan and the training plan of
+     4 scans at every level each runs at (KU also at the general stem's
+     level-0 width), and the CPU tests' edge voxels with roomy and starved
+     caps (run after phase 15, before phase 4).
+
+Every request and step builds one plan: KT and KU 5 launches, KR 1 (KQ
+in its place on the general stem) and KS 4, counted with the model's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.  Exits non-zero without a card, and
@@ -116,6 +127,12 @@ NUM_CLASSES = 7
 # each of the 7 shortcuts
 PER_FORWARD = {"zconv3_fwd": 46, "zconv_down_fwd": 4, "zconv_up_fwd": 4,
                "bn_act": 62}
+# the plan's sweep kernels per plan build (one plan per request or step):
+# KT and KU at each of the 5 levels, KR at level 0 (the occupancy stem)
+# and KS at levels 1-4
+PER_PLAN = {"pos3_lookup": 5, "build_packed": 5, "stem_conv9_packed": 1,
+            "conv9_packed": 4}
+PER_REQUEST = {**PER_FORWARD, **PER_PLAN}
 # training (bench.py:36-44): 4 scans x 100k points, per-scan plan caps
 TRAIN_BATCH = 4
 TRAIN_STEPS = 5
@@ -130,7 +147,7 @@ ZCAPS_D = (196_608, 93_184, 54_272, 23_552, 9_728)
 PER_STEP = {"zconv3_fwd": 46, "zconv_down_fwd": 8, "zconv_up_fwd": 8,
             "bn_act": 62, "zconv3_bwd_dx": 46, "zconv3_wgrad": 46,
             "zconv_down_wgrad": 4, "zconv_up_wgrad": 4, "bn_train_fwd": 62,
-            "bn_train_bwd": 62}
+            "bn_train_bwd": 62, **PER_PLAN}
 # LiDOG (bench_lidog.py:26-34, 66-121): bound 50 m, BEV labels 167^2, one
 # decoder level (block8); per step the backbone's launches and KI, KJ once
 # per level
@@ -152,11 +169,12 @@ PER_ROBUST_STEP = {**PER_STEP, "bn_act": 60, "bn_train_fwd": 60,
 PER_IBN_STEP = {**PER_STEP, "instance_norm_fwd": 9, "instance_norm_bwd": 9}
 # the general stem (in_channels 4): MinkUNet34's kernels, the stem as KO
 # (its dW as KP; the input features take no grad, so no KO as dx), and KQ
-# once per plan
+# once per plan in KR's place
 IN_CHANNELS = 4
 STEM_R = 2
-PER_CIN_STEP = {**PER_STEP, "zconv_full_fwd": 1, "zconv_full_wgrad": 1,
-                "stem_feat125": 1}
+PER_CIN_STEP = {**{k: v for k, v in PER_STEP.items()
+                   if k != "stem_conv9_packed"},
+                "zconv_full_fwd": 1, "zconv_full_wgrad": 1, "stem_feat125": 1}
 PER_VARIANT_STEP = {"source": PER_STEP, "robustnet": PER_ROBUST_STEP,
                     "ibn": PER_IBN_STEP, "cin4": PER_CIN_STEP}
 
@@ -265,15 +283,16 @@ class Checker:
         return max(tb, to), "bytes" if tb >= to else "operations"
 
     def record(self, name, source, replaces, kfn, pfn, dt, nbyte, ops, shape,
-               mma=True, ulps=None, lfn=None):
+               mma=True, ulps=None, lfn=None, exact=False):
         """kfn/pfn return the output to compare (a tensor, or a tuple whose
         first entry is compared with the stated bound and whose others
         with the same bound each).  mma: the work is a matrix product (its
         operations count against the tensor cores' rate in bf16).  ulps:
         hold every element within that many units in the last place of
-        the dtype at |plain| instead (0: equal).  lfn: one PyTorch call
-        that computes the same function (timed as library_ms, and held
-        equal to the plain version)."""
+        the dtype at |plain| instead (0: equal).  exact (and integer
+        outputs): every output torch.equal to the plain one, dtype
+        included.  lfn: one PyTorch call that computes the same function
+        (timed as library_ms, and held equal to the plain version)."""
         import torch
 
         out_k, out_p = kfn(), pfn()
@@ -281,10 +300,12 @@ class Checker:
         if not isinstance(out_k, tuple):
             out_k, out_p = (out_k,), (out_p,)
         dname = str(dt).split(".")[-1]
-        if not out_p[0].is_floating_point():  # integer maps: equal
+        if exact or not out_p[0].is_floating_point():  # maps: torch.equal
             t = "equal"
-            errs = [int((a != b).sum()) for a, b in zip(out_k, out_p)]
-            err = max(errs)
+            errs = [0 if a.dtype == b.dtype and torch.equal(a, b)
+                    else int((a != b).sum()) if a.shape == b.shape else -1
+                    for a, b in zip(out_k, out_p)]
+            err = max(errs, key=abs)
             ok = err == 0
         elif ulps is None:
             t = self.TOL[dname].get(name, self.TOL_DEFAULT[dname])
@@ -305,7 +326,7 @@ class Checker:
                    float((a.float() - b.float()).abs().max())
                    for a, b in zip(out_k, out_p)),
                "max_rel_err": max(rel_err(a, b) for a, b in zip(out_k, out_p))
-               if out_p[0].is_floating_point() else 0.0,
+               if out_p[0].is_floating_point() and not exact else 0.0,
                "tol_rel": t, "ms": cuda_ms(kfn),
                "plain_ms": cuda_ms(pfn), "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": None}
@@ -640,19 +661,20 @@ def variant_kernel_checks(plan, gen):
     return ck.rows
 
 
-def stem_lookups(args, kwargs):
-    """(grid cells, packed rows) that KQ's rows look up: the bytes its
-    inputs must give, on this run's data."""
+def sweep_lookups(args, kwargs, dxs):
+    """(grid cells, table rows) that a packed-table sweep's rows (KQ, KR,
+    KS; args and kwargs as the builder passes them) look up over the dx
+    offsets `dxs`: the bytes its inputs must give, on this run's data."""
     import torch
 
-    grid, packed, coords, valid, g, ccap, cap_a, r, nb = args
-    gh, lvl = kwargs["grid_half"], kwargs["level"]
+    grid, packed, coords, valid, g, ccap, cap_a = args[:7]
+    nb, gh, lvl = args[-1], kwargs["grid_half"], kwargs["level"]
     n = coords.shape[0]
     b = torch.arange(n, device=coords.device) // (n // nb)
     gx0 = (coords[:, 1] >> lvl) + (gh >> lvl)
     gy0 = (coords[:, 2] >> lvl) + (gh >> lvl)
     cells, slots = [], []
-    for dx in range(-r, r + 1):
+    for dx in dxs:
         ok = valid & (gx0 + dx >= 0) & (gx0 + dx < g)
         flat = ((b * g + gx0 + dx) * g + gy0)[ok]
         cells.append(flat)
@@ -685,7 +707,7 @@ def stem_kernel_checks(dev, gen):
     n = l0.coords.shape[0]
     nbr = plan.kmaps["stem125"]
     k = nbr.shape[0]
-    cells, slots = stem_lookups(args, kwargs)
+    cells, slots = sweep_lookups(args, kwargs, range(-STEM_R, STEM_R + 1))
     aug_bytes = (2 * STEM_R + 1) * (ZWORDS + 1) * 8  # a row's aug slabs
     ck.record("stem_feat125", "lidog_tpu_torch/csrc/stem_feat125.cu",
               "lidog_tpu/core/zseg.py:540 (stem_feat125_packed)",
@@ -734,6 +756,111 @@ def stem_kernel_checks(dev, gen):
     return ck.rows
 
 
+# the plan's sweep kernels (csrc/zseg_sweeps.cu) by their wrapper in
+# core/zseg.py: (launch count, plain version, the lidog_tpu function)
+PLAN_KERNELS = {
+    "pos3_lookup": ("pos3_lookup", "pos3_plain", "lidog_tpu/core/zseg.py:682 "
+                    "(pos3_lookup)"),
+    "_build_packed": ("build_packed", "_build_packed_plain",
+                      "lidog_tpu/core/zseg.py:378 (_build_packed)"),
+    "stem_conv9_packed": ("stem_conv9_packed", "stem_conv9_plain",
+                          "lidog_tpu/core/zseg.py:446 (stem_conv9_packed)"),
+    "conv9_packed": ("conv9_packed", "conv9_plain",
+                     "lidog_tpu/core/zseg.py:631 (conv9_packed)"),
+}
+
+
+def sweep_nbytes(name, args, kwargs):
+    """Bytes that a plan sweep kernel must move on this run's data: each
+    input read once (of the grid and the tables, the cells and rows its
+    rows look up), each output written once."""
+    import torch
+
+    from lidog_tpu_torch.core.bitgrid import ZWORDS
+
+    slab = (ZWORDS + 1) * 8  # an aug slab: words + start, int64
+    if name == "pos3_lookup":
+        aug16, coords, valid = args[:3]
+        cid = kwargs["cid"]
+        rows = int(torch.unique(cid[valid & (cid >= 0)]).numel())
+        return nbytes(coords, valid, cid) + rows * slab + 3 * cid.numel() * 8
+    if name == "_build_packed":
+        real_w, aug16, col_bxy, col_valid = args[:4]
+        r, aug_r, slots = args[7], kwargs["aug_r"], real_w.shape[0]
+        width = max(2 * r + 1, 0) * ZWORDS + (2 * aug_r + 1) * (ZWORDS + 1)
+        return ((nbytes(real_w) if r >= 0 else 0) + slots * slab
+                + nbytes(col_bxy, col_valid) + slots * width * 8)
+    coords, valid = args[2], args[3]
+    n = coords.shape[0]
+    cells, slots9 = sweep_lookups(args, kwargs, (-1, 0, 1))
+    if name == "conv9_packed":
+        return nbytes(coords, valid) + cells * 8 + slots9 * 3 * slab + 9 * n * 4
+    cells, slots = sweep_lookups(args, kwargs, range(-STEM_R, STEM_R + 1))
+    k = (2 * STEM_R + 1) ** 3
+    return (nbytes(coords, valid) + cells * 8
+            + slots * (2 * STEM_R + 1) * ZWORDS * 8 + slots9 * 3 * slab
+            + n * (k * 2 + 9 * 4))
+
+
+def plan_kernel_checks(dev):
+    """Phase 18: KR, KS, KT and KU torch.equal to their plain versions on
+    the inputs the plan builder gives them: the serving plan of phase 4's
+    scan, the training plan of 4 scans (KU also at the general stem's
+    level-0 width), and the edge voxels of the CPU tests (data/synthetic.py
+    plan_edge_voxels, roomy and starved caps); each at every level it runs
+    at."""
+    import torch
+
+    from lidog_tpu_torch.caps import make_zcaps
+    from lidog_tpu_torch.core import zseg
+    from lidog_tpu_torch.core.voxelize import voxelize_device
+    from lidog_tpu_torch.data import synthetic
+
+    ck = Checker(None, dev)
+    src = "lidog_tpu_torch/csrc/zseg_sweeps.cu"
+    flat = torch.from_numpy(scan(POINTS, SEED)[0]).to(dev)
+    vox = voxelize_device(flat, torch.ones(POINTS, dtype=torch.bool,
+                                           device=dev),
+                          torch.zeros(POINTS, dtype=torch.int32, device=dev),
+                          VOXEL, PER_SCAN)
+    tpts, tlabels = train_data()
+    tbatch = train_batch(tpts, tlabels, dev)
+    edge = [torch.from_numpy(a).to(dev) for a in synthetic.plan_edge_voxels()]
+    cases = [("serve", zseg.ZSegPlanBuilder(
+        *make_zcaps(PER_SCAN)[:2], num_batches=1, grid_half=GRID_HALF,
+        caps_col_dil=make_zcaps(PER_SCAN)[2]), vox.coords, vox.mask, None),
+             ("train", train_plan_builder(), tbatch["coords"],
+              tbatch["mask"], None),
+             ("train cin4", train_plan_builder(IN_CHANNELS),
+              tbatch["coords"], tbatch["mask"], (0, "_build_packed"))]
+    for label, caps in (("edges", synthetic.EDGE_CAPS),
+                        ("edges starved", synthetic.EDGE_CAPS_STARVED)):
+        cases.append((label, zseg.ZSegPlanBuilder(
+            *caps, num_batches=2, grid_half=synthetic.EDGE_GRID_HALF),
+            *edge, None))
+    for label, builder, coords, mask, only in cases:
+        for lvl, name, args, kwargs in builder.sweep_inputs(coords, mask):
+            if only is not None and (lvl, name) != only:
+                continue
+            key, plain, replaces = PLAN_KERNELS[name]
+            wrapper, plain = getattr(zseg, name), getattr(zseg, plain)
+            if name == "_build_packed":
+                r, aug_r = args[7], kwargs["aug_r"]
+                shape = (f"{label} L{lvl} {args[0].shape[0]} slots, r {r} "
+                         f"aug_r {aug_r}")
+            else:
+                rows = args[1] if name == "pos3_lookup" else args[2]
+                shape = f"{label} L{lvl} {rows.shape[0]} rows"
+            ck.record(key, src, replaces,
+                      lambda f=wrapper, a=args, k=kwargs: f(*a, **k),
+                      lambda f=plain, a=args, k=kwargs: f(*a, **k),
+                      {"stem_conv9_packed": torch.bfloat16,
+                       "conv9_packed": torch.int32}.get(key, torch.int64),
+                      sweep_nbytes(name, args, kwargs), 0,
+                      shape, mma=False, exact=True)
+    return ck.rows
+
+
 def serve(model, pts, dev):
     """Phase 4: timed requests through the Predictor, each followed by one
     request split into stages (in turns, so that both see the same host);
@@ -771,7 +898,7 @@ def serve(model, pts, dev):
         raise AssertionError(f"only {(lab >= 0).mean():.4f} of points labelled")
     if lab.max() >= NUM_CLASSES or lab.min() < -1:
         raise AssertionError(f"labels outside [0, {NUM_CLASSES})")
-    for k, per in PER_FORWARD.items():
+    for k, per in PER_REQUEST.items():
         if launches[k] != per * REQUESTS:
             raise AssertionError(f"{k}: {launches[k]} launches, expected "
                                  f"{per} x {REQUESTS}")
@@ -864,27 +991,47 @@ def plans_equal(a, b, what):
 
 
 def cross_check(model, dev):
-    """Phase 5: card vs CPU on a smaller scan, same weights and caps."""
+    """Phase 5: card vs CPU, same weights and caps: on the 20,000-point
+    check scan (seed 1) and on phase 4's 100,000-point scan (seed 0) the
+    voxelization (every field) and the plan (through KR-KU on the card,
+    their plain versions on the CPU) bitwise equal; on the check scan the
+    labels agree on >= 99% of points."""
     import torch
 
+    from lidog_tpu_torch.core.voxelize import voxelize_device
     from lidog_tpu_torch.serve import Predictor
 
-    pts = scan(CHECK_POINTS, SEED + 1)
     kw = dict(batch_size=1, voxel_size=VOXEL, caps_per_scan=PER_SCAN,
               grid_half=GRID_HALF)
     gpu = Predictor(model, device=dev, **kw)
     cpu = Predictor(copy.deepcopy(model).cpu(), device="cpu", **kw)
-    _, plan_g, _ = gpu.forward_voxels(pts)
-    _, plan_c, _ = cpu.forward_voxels(pts)
-    plans_equal(plan_g, plan_c, "card vs CPU plan")
-    if not torch.equal(plan_g.pos.cpu(), plan_c.pos):
-        raise AssertionError("card vs CPU plan: pos differs")
+    for points, seed in ((CHECK_POINTS, SEED + 1), (POINTS, SEED)):
+        flat = torch.from_numpy(scan(points, seed)[0])
+        vp = []
+        for pred in (gpu, cpu):
+            d = pred.device
+            vox = voxelize_device(
+                flat.to(d), torch.ones(points, dtype=torch.bool, device=d),
+                torch.zeros(points, dtype=torch.int32, device=d), VOXEL,
+                pred.cap_in)
+            vp.append((vox, pred.builder(vox.coords, vox.mask)))
+        (vox_g, plan_g), (vox_c, plan_c) = vp
+        for f in vox_g._fields:
+            if not torch.equal(getattr(vox_g, f).cpu(), getattr(vox_c, f)):
+                raise AssertionError(f"card vs CPU voxelization of {points} "
+                                     f"points: {f} differs")
+        plans_equal(plan_g, plan_c, f"card vs CPU plan of {points} points")
+        if not torch.equal(plan_g.pos.cpu(), plan_c.pos):
+            raise AssertionError(f"card vs CPU plan of {points} points: pos "
+                                 "differs")
+        print(f"[check] {points} points (seed {seed}): voxels and plan "
+              f"bitwise equal on {len(plan_c.kmaps)} maps", flush=True)
+    pts = scan(CHECK_POINTS, SEED + 1)
     lab_g = gpu(pts).cpu().numpy()
     lab_c = cpu(pts).numpy()
     both = (lab_g >= 0) | (lab_c >= 0)
     agree = float((lab_g == lab_c)[both].mean())
-    print(f"[check] plan bitwise equal on {len(plan_c.kmaps)} maps; label "
-          f"agreement card vs CPU {agree:.5f}", flush=True)
+    print(f"[check] label agreement card vs CPU {agree:.5f}", flush=True)
     if not agree >= 0.99:
         raise AssertionError(f"label agreement {agree} < 0.99")
     return agree
@@ -1336,7 +1483,7 @@ def sortless(dev):
             if kind == "sortless":
                 for k, v in counters().items():
                     serve_launches[k] += v
-    for k, per in PER_FORWARD.items():
+    for k, per in PER_REQUEST.items():
         if serve_launches[k] != per * REQUESTS:
             raise AssertionError(f"{k}: {serve_launches[k]} launches in "
                                  f"sortless serving, expected {per} x "
@@ -1802,6 +1949,8 @@ def main():
     torch.cuda.empty_cache()
     rows += stem_kernel_checks(dev, torch.Generator().manual_seed(SEED + 11))
     torch.cuda.empty_cache()
+    rows += plan_kernel_checks(dev)
+    torch.cuda.empty_cache()
 
     zero_counters()
     stats = serve(model, pts, dev)
@@ -1854,11 +2003,11 @@ def main():
                "ibn": istats["launches"], "cin4": cstats["launches"],
                "sortless_serve": sstats["serve_launches"],
                "sortless": sstats["launches"]}
-    for path, names in (("serve", PER_FORWARD), ("train", PER_STEP),
+    for path, names in (("serve", PER_REQUEST), ("train", PER_STEP),
                         ("lidog", PER_LIDOG_STEP),
                         ("robustnet", PER_ROBUST_STEP),
                         ("ibn", PER_IBN_STEP), ("cin4", PER_CIN_STEP),
-                        ("sortless_serve", PER_FORWARD),
+                        ("sortless_serve", PER_REQUEST),
                         ("sortless", PER_STEP)):
         for k in names:  # every kernel of the path ran in the path's run
             if by_path[path][k] <= 0:

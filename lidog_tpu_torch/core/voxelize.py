@@ -4,8 +4,8 @@
 (one scan on the host, for the BEV preprocessing of data/bev.py; the C++
 twin of the JAX package is not ported).
 
-`voxelize_device` ports lidog_tpu/core/voxelize.py:71-118: floor-divide
-metric points by the voxel size, keep one representative point per voxel
+`voxelize_device` ports lidog_tpu/core/voxelize.py:71-118: quantize
+metric points to voxel cells (`quantize`), keep one representative point per voxel
 (the smallest original index), and emit the voxels in canonical
 (batch, x, y, z) order into fixed-capacity padded arrays.  Outputs are
 bitwise equal to the JAX version.
@@ -53,6 +53,16 @@ def voxelize_np(points: np.ndarray, voxel_size: float) -> VoxelizedNP:
     return VoxelizedNP(disc[voxel_idx], voxel_idx, inverse)
 
 
+def quantize(points, voxel_size: float):
+    """Voxel cells int32 of float32 points [..., 3]: floor(x * (1 / voxel))
+    with the reciprocal taken in float32.  lidog_tpu's callers jit the
+    division with a constant voxel size, which XLA folds into this
+    multiply (x / 0.05 and x * float32(1 / 0.05) floor apart at y = 4.2);
+    voxelize_np and the native voxelizer divide."""
+    inv = float(np.float32(1) / np.float32(voxel_size))
+    return torch.floor(points * inv).to(torch.int32)
+
+
 class VoxelizedDevice(NamedTuple):
     coords: torch.Tensor  # int32 [cap, 4] (batch, x, y, z), canonical order
     mask: torch.Tensor  # bool [cap]
@@ -67,7 +77,7 @@ def voxelize_device(points, valid, batch_idx, voxel_size: float,
     """points float32 [P, 3], valid bool [P], batch_idx int32 [P]."""
     dev = points.device
     p = points.shape[0]
-    disc = torch.floor(points[:, :3] / voxel_size).to(torch.int32)
+    disc = quantize(points[:, :3], voxel_size)
     coords4 = torch.cat([batch_idx[:, None].to(torch.int32), disc], dim=1)
     hi, lo = keys.pack(coords4, valid)
     key = (hi.to(torch.int64) << 31) | lo.to(torch.int64)

@@ -9,8 +9,14 @@ ghost rows at z-gaps that are nonzero gather targets of the column-fused
 conv, ops/zconv.py) in segmented canonical order: scan b owns rows
 [b*capA, (b+1)*capA).  Kernel maps: conv9 (k=3, 9 xy taps), down8 +
 parent/off (k=2 s=2 pair), and the fused 5x5x5 stem occupancy, or for
-in_channels > 1 the stem's 125 source-row maps (`stem125`, K17: kernel KQ,
-csrc/stem_feat125.cu, on the card).  The other sweeps run as plain torch.
+in_channels > 1 the stem's 125 source-row maps (`stem125`).
+
+On the card the sweeps downstream of the column tables are hand-written
+kernels: KU (`_build_packed`, the packed y-neighbourhood table), KR
+(`stem_conv9_packed`), KS (`conv9_packed`) and KT (`pos3_lookup`) in
+csrc/zseg_sweeps.cu, and KQ (`stem_feat125_packed`, csrc/stem_feat125.cu).
+Each wrapper takes its plain version (`*_plain`) for CPU tensors.  The
+column tables themselves (K2-K5, K10) run as plain torch.
 
 What the JAX version shaped around the TPU is not carried over, only its
 results: the 512 B wide-row grid lookup (GRID_ROW_W), the per-scan
@@ -38,7 +44,8 @@ from lidog_tpu_torch.ops import _cuda
 
 NUM_LEVELS = 5
 ZMAX = ZWORDS * 32
-LAUNCHES = {"stem_feat125": 0}
+LAUNCHES = {"stem_feat125": 0, "stem_conv9_packed": 0, "conv9_packed": 0,
+            "pos3_lookup": 0, "build_packed": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,9 +205,11 @@ def _assemble_aug(real_w, col_bxy, col_valid, grid_d, num_batches: int,
     return aug16, counts_b
 
 
-def _build_packed(real_w, aug16, col_bxy, col_valid, num_batches: int,
-                  ccap: int, cap_a: int, r: int, aug_r: int = 1):
-    """Per-slot y-neighbourhood row, built by validated slot shifts:
+def _build_packed_plain(real_w, aug16, col_bxy, col_valid,
+                        num_batches: int, ccap: int, cap_a: int, r: int,
+                        aug_r: int = 1):
+    """Per-slot y-neighbourhood row, built by validated slot shifts (plain
+    version of KU, lidog_tpu/core/zseg.py:378):
     [real words of gy-r..gy+r | (aug words + LOCAL start) of
     gy-aug_r..gy+aug_r].  r < 0 leaves out the real slabs (the conv9 sweep
     of levels > 0); the feature-stem sweep (stem_feat125_packed) passes
@@ -221,6 +230,40 @@ def _build_packed(real_w, aug16, col_bxy, col_valid, num_batches: int,
     slabs = [at_dy(real_w, dy) for dy in range(-r, r + 1)]
     slabs += [at_dy(m_aug, dy) for dy in range(-aug_r, aug_r + 1)]
     return torch.cat(slabs, dim=1)
+
+
+def _build_packed(real_w, aug16, col_bxy, col_valid, num_batches: int,
+                  ccap: int, cap_a: int, r: int, aug_r: int = 1):
+    """KU (csrc/zseg_sweeps.cu) for CUDA tensors, the plain version for CPU
+    tensors; arguments as the plain version's."""
+    if real_w.device.type == "cpu":
+        return _build_packed_plain(real_w, aug16, col_bxy, col_valid,
+                                   num_batches, ccap, cap_a, r, aug_r)
+    name = "build_packed"
+    dev = _require_cuda(name, real_w, aug16, col_bxy, col_valid)
+    slots = num_batches * ccap
+    width = max(2 * r + 1, 0) * ZWORDS + (2 * aug_r + 1) * (ZWORDS + 1)
+    _require(name, (
+        (r >= -1 and 0 <= aug_r <= max(r, 1),
+         f"needs r >= -1 and 0 <= aug_r <= max(r, 1), got {r}, {aug_r}"),
+        (real_w.dtype == torch.int64
+         and tuple(real_w.shape) == (slots, ZWORDS),
+         f"real_w must be int64 [{slots}, {ZWORDS}]"),
+        (aug16.dtype == torch.int64
+         and tuple(aug16.shape) == (slots, ZWORDS + 2),
+         f"aug16 must be int64 [{slots}, {ZWORDS + 2}]"),
+        (col_bxy.dtype == torch.int64 and tuple(col_bxy.shape) == (slots,),
+         f"col_bxy must be int64 [{slots}]"),
+        (col_valid.dtype == torch.bool and tuple(col_valid.shape) == (slots,),
+         f"col_valid must be bool [{slots}]"),
+    ))
+    out = torch.empty(slots, width, dtype=torch.int64, device=dev)
+    if slots:
+        _cuda.call(name, real_w.data_ptr(), aug16.data_ptr(),
+                   col_bxy.data_ptr(), col_valid.data_ptr(), out.data_ptr(),
+                   slots, ccap, cap_a, r, aug_r, width)
+        LAUNCHES[name] += 1
+    return out
 
 
 def _bit_at(words, bz):
@@ -271,10 +314,11 @@ def _globalize(c9, nb, cap_a):
     return torch.where(c9 >= 0, c9 + seg * cap_a, -1).to(torch.int32)
 
 
-def stem_conv9_packed(cid_grid, packed, coords, valid, g: int, ccap: int,
-                      cap_a: int, r: int, nb: int, grid_half: int = 0,
-                      level: int = 0):
-    """Fused stem occupancy + conv9 sweep (lidog_tpu/core/zseg.py:446).
+def stem_conv9_plain(cid_grid, packed, coords, valid, g: int, ccap: int,
+                     cap_a: int, r: int, nb: int, grid_half: int = 0,
+                     level: int = 0):
+    """Fused stem occupancy + conv9 sweep, plain version of KR
+    (lidog_tpu/core/zseg.py:446).
 
     Returns (occ [N, (2r+1)^3] bf16 in (dx, dy, dz) order, dz fastest;
     conv9 [9, N] global rows)."""
@@ -304,10 +348,10 @@ def stem_conv9_packed(cid_grid, packed, coords, valid, g: int, ccap: int,
     return occ, _globalize(torch.stack(ranks, dim=0), nb, cap_a)
 
 
-def conv9_packed(cid_grid, packed, coords, valid, g: int, ccap: int,
-                 cap_a: int, nb: int, grid_half: int = 0, level: int = 0):
+def conv9_plain(cid_grid, packed, coords, valid, g: int, ccap: int,
+                cap_a: int, nb: int, grid_half: int = 0, level: int = 0):
     """conv9 kernel map from the aug-only packed table: 3 fetches per row
-    (lidog_tpu/core/zseg.py:631)."""
+    (plain version of KS, lidog_tpu/core/zseg.py:631)."""
     ranks = []
     for _, bz0, hit, row in _sweep_rows(
             cid_grid, packed, coords, valid, g, ccap, nb, grid_half, level,
@@ -356,6 +400,47 @@ def stem_feat125_plain(cid_grid, packed, coords, valid, g: int, ccap: int,
             _globalize(torch.stack(c9, dim=0), nb, cap_a))
 
 
+def _require_cuda(name, *tensors):
+    """The CUDA device of a kernel's input tensors; ValueError unless all
+    lie contiguous on it."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {dev}")
+    for t in tensors:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous on {dev}")
+    return dev
+
+
+def _require(name, checks):
+    for ok, msg in checks:
+        if not ok:
+            raise ValueError(f"{name}: {msg}")
+
+
+def _require_sweep(name, cid_grid, packed, coords, valid, g, ccap, nb,
+                   min_width):
+    """The checks of a packed-table sweep's inputs (KQ, KR, KS); returns
+    the device and the table's width."""
+    dev = _require_cuda(name, cid_grid, packed, coords, valid)
+    n = coords.shape[0]
+    width = packed.shape[1] if packed.dim() == 2 else 0
+    _require(name, (
+        (n % nb == 0, f"rows {n} are not {nb} equal segments"),
+        (cid_grid.dtype == torch.int64 and tuple(cid_grid.shape)
+         == (nb * g * g,), "cid_grid must be int64 [nb*g*g]"),
+        (packed.dtype == torch.int64 and packed.dim() == 2
+         and packed.shape[0] == nb * ccap and width >= min_width,
+         f"packed must be int64 [nb*ccap, >= {min_width}]"),
+        (coords.dtype == torch.int32 and tuple(coords.shape) == (n, 4),
+         "coords must be int32 [N, 4]"),
+        (valid.dtype == torch.bool and tuple(valid.shape) == (n,),
+         "valid must be bool [N]"),
+        (coords.data_ptr() % 16 == 0, "coords must be 16-byte aligned"),
+    ))
+    return dev, width
+
+
 def stem_feat125_packed(cid_grid, packed, coords, valid, g: int, ccap: int,
                         cap_a: int, r: int, nb: int, grid_half: int = 0,
                         level: int = 0):
@@ -366,32 +451,11 @@ def stem_feat125_packed(cid_grid, packed, coords, valid, g: int, ccap: int,
         return stem_feat125_plain(cid_grid, packed, coords, valid, g, ccap,
                                   cap_a, r, nb, grid_half, level)
     name = "stem_feat125"
-    dev, n = coords.device, coords.shape[0]
-    if coords.device.type != "cuda":
-        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {dev}")
     aug_off = (2 * r + 1) * ZWORDS
-    width = packed.shape[1] if packed.dim() == 2 else 0
-    checks = (
-        (r == STEM_R, f"r must be {STEM_R}, got {r}"),
-        (n % nb == 0, f"rows {n} are not {nb} equal segments"),
-        (cid_grid.dtype == torch.int64 and tuple(cid_grid.shape)
-         == (nb * g * g,), "cid_grid must be int64 [nb*g*g]"),
-        (packed.dtype == torch.int64 and packed.dim() == 2
-         and packed.shape[0] == nb * ccap
-         and width >= aug_off + (2 * r + 1) * (ZWORDS + 1),
-         "packed must be int64 [nb*ccap, W] with aug_r = r slabs"),
-        (coords.dtype == torch.int32 and tuple(coords.shape) == (n, 4),
-         "coords must be int32 [N, 4]"),
-        (valid.dtype == torch.bool and tuple(valid.shape) == (n,),
-         "valid must be bool [N]"),
-        (coords.data_ptr() % 16 == 0, "coords must be 16-byte aligned"),
-    )
-    for ok, msg in checks:
-        if not ok:
-            raise ValueError(f"{name}: {msg}")
-    for t in (cid_grid, packed, coords, valid):
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous on {dev}")
+    dev, width = _require_sweep(name, cid_grid, packed, coords, valid, g,
+                                ccap, nb, aug_off + (2 * r + 1) * (ZWORDS + 1))
+    _require(name, ((r == STEM_R, f"r must be {STEM_R}, got {r}"),))
+    n = coords.shape[0]
     nbr = torch.empty((2 * r + 1) ** 3, n, dtype=torch.int32, device=dev)
     conv9 = torch.empty(9, n, dtype=torch.int32, device=dev)
     if n:
@@ -403,10 +467,57 @@ def stem_feat125_packed(cid_grid, packed, coords, valid, g: int, ccap: int,
     return nbr, conv9
 
 
-def pos3_lookup(aug16, coords, valid, g: int, cap_a: int, grid_half: int,
-                level: int, cid):
+def stem_conv9_packed(cid_grid, packed, coords, valid, g: int, ccap: int,
+                      cap_a: int, r: int, nb: int, grid_half: int = 0,
+                      level: int = 0):
+    """KR (csrc/zseg_sweeps.cu) for CUDA tensors, the plain version for
+    CPU tensors; arguments as the plain version's (the k=5 stem only: r =
+    2 on the card; the table's real slabs, then 3 aug slabs)."""
+    if coords.device.type == "cpu":
+        return stem_conv9_plain(cid_grid, packed, coords, valid, g, ccap,
+                                cap_a, r, nb, grid_half, level)
+    name = "stem_conv9_packed"
+    aug_off = (2 * r + 1) * ZWORDS
+    dev, width = _require_sweep(name, cid_grid, packed, coords, valid, g,
+                                ccap, nb, aug_off + 3 * (ZWORDS + 1))
+    _require(name, ((r == STEM_R, f"r must be {STEM_R}, got {r}"),))
+    n = coords.shape[0]
+    occ = torch.empty(n, (2 * r + 1) ** 3, dtype=torch.bfloat16, device=dev)
+    conv9 = torch.empty(9, n, dtype=torch.int32, device=dev)
+    if n:
+        _cuda.call(name, cid_grid.data_ptr(), packed.data_ptr(),
+                   coords.data_ptr(), valid.data_ptr(), occ.data_ptr(),
+                   conv9.data_ptr(), n, nb, g, ccap, cap_a, grid_half, level,
+                   width, aug_off)
+        LAUNCHES[name] += 1
+    return occ, conv9
+
+
+def conv9_packed(cid_grid, packed, coords, valid, g: int, ccap: int,
+                 cap_a: int, nb: int, grid_half: int = 0, level: int = 0):
+    """KS (csrc/zseg_sweeps.cu) for CUDA tensors, the plain version for
+    CPU tensors; arguments as the plain version's."""
+    if coords.device.type == "cpu":
+        return conv9_plain(cid_grid, packed, coords, valid, g, ccap, cap_a,
+                           nb, grid_half, level)
+    name = "conv9_packed"
+    dev, width = _require_sweep(name, cid_grid, packed, coords, valid, g,
+                                ccap, nb, 3 * (ZWORDS + 1))
+    n = coords.shape[0]
+    conv9 = torch.empty(9, n, dtype=torch.int32, device=dev)
+    if n:
+        _cuda.call(name, cid_grid.data_ptr(), packed.data_ptr(),
+                   coords.data_ptr(), valid.data_ptr(), conv9.data_ptr(), n,
+                   nb, g, ccap, cap_a, grid_half, level, width)
+        LAUNCHES[name] += 1
+    return conv9
+
+
+def pos3_plain(aug16, coords, valid, g: int, cap_a: int, grid_half: int,
+               level: int, cid):
     """Own-column (z-s, z, z+s) aug positions per query row, given each
-    row's column id.  Returns [3, n] int64 (-1 miss)."""
+    row's column id (plain version of KT, lidog_tpu/core/zseg.py:682).
+    Returns [3, n] int64 (-1 miss)."""
     gh = grid_half
     bq = coords[:, 0].long()
     gx0 = (coords[:, 1] >> level) + (gh >> level)
@@ -432,6 +543,37 @@ def pos3_lookup(aug16, coords, valid, g: int, cap_a: int, grid_half: int,
         okr = okz & (idx >= 0) & ((idx - seg_base) < cap_a)
         outs.append(torch.where(okr, idx, -1))
     return torch.stack(outs, dim=0)
+
+
+def pos3_lookup(aug16, coords, valid, g: int, cap_a: int, grid_half: int,
+                level: int, cid):
+    """KT (csrc/zseg_sweeps.cu) for CUDA tensors, the plain version for CPU
+    tensors; arguments as the plain version's."""
+    if coords.device.type == "cpu":
+        return pos3_plain(aug16, coords, valid, g, cap_a, grid_half, level,
+                          cid)
+    name = "pos3_lookup"
+    dev = _require_cuda(name, aug16, coords, valid, cid)
+    n = coords.shape[0]
+    _require(name, (
+        (aug16.dtype == torch.int64 and aug16.dim() == 2
+         and aug16.shape[1] == ZWORDS + 2,
+         f"aug16 must be int64 [slots, {ZWORDS + 2}]"),
+        (coords.dtype == torch.int32 and tuple(coords.shape) == (n, 4),
+         "coords must be int32 [N, 4]"),
+        (valid.dtype == torch.bool and tuple(valid.shape) == (n,),
+         "valid must be bool [N]"),
+        (cid.dtype == torch.int64 and tuple(cid.shape) == (n,),
+         "cid must be int64 [N]"),
+        (coords.data_ptr() % 16 == 0, "coords must be 16-byte aligned"),
+    ))
+    out = torch.empty(3, n, dtype=torch.int64, device=dev)
+    if n:
+        _cuda.call(name, aug16.data_ptr(), coords.data_ptr(),
+                   valid.data_ptr(), cid.data_ptr(), out.data_ptr(), n,
+                   aug16.shape[0], g, cap_a, grid_half, level)
+        LAUNCHES[name] += 1
+    return out
 
 
 def _seg_valid_mask(counts, num_batches: int, seg_cap: int):
@@ -511,15 +653,14 @@ class ZSegPlanBuilder:
             overflow += t.overflow
             levels.append(t.level)
             capA = self.caps_aug[i]
+            args, kwargs = self._packed_args(i, t)
+            args, kwargs = self._sweep_args(i, t, _build_packed(*args,
+                                                                **kwargs))
+            sweep, names = self._sweep(i)
+            maps = sweep(*args, **kwargs)
+            del args  # the packed table
+            kmaps.update(zip(names, maps if i == 0 else (maps,)))
             if i == 0:
-                args, kwargs = self._stem_args(t)
-                if self.stem_feature_map:
-                    kmaps["stem125"], kmaps["conv9_l0"] = stem_feat125_packed(
-                        *args, **kwargs)
-                else:
-                    kmaps["stem_occ"], kmaps["conv9_l0"] = stem_conv9_packed(
-                        *args, **kwargs)
-                del args  # the packed table
                 pos_in = torch.where(mask, t.pos3[1], -1).to(torch.int32)
                 if not self.assume_unique:
                     # the representative input row of each level-0 row:
@@ -535,14 +676,6 @@ class ZSegPlanBuilder:
                     rep_in = torch.where(rep_in[:B * capA] == big, -1,
                                          rep_in[:B * capA])
             else:
-                lv = t.level
-                packed_l = _build_packed(t.real_w, t.aug16, t.col_bxy,
-                                         t.col_valid, B, self.caps_col_dil[i],
-                                         capA, -1)
-                kmaps[f"conv9_l{i}"] = conv9_packed(
-                    t.grid_d, packed_l, lv.coords, lv.valid, t.g,
-                    self.caps_col_dil[i], capA, B, grid_half=self.grid_half,
-                    level=i)
                 # strided pair maps between level i-1 (fine) and i (coarse):
                 # parent per fine row is pos3's dz=0 lookup; down8 is its
                 # transpose (each real fine row is the unique child of its
@@ -566,21 +699,54 @@ class ZSegPlanBuilder:
                      rep=None if self.assume_unique else rep_in,
                      num_batches=B)
 
+    def sweep_inputs(self, coords, mask):
+        """Yield (level, wrapper name, args, kwargs) of each kernel sweep of
+        this builder's plan of (coords, mask), as the builder makes them:
+        per level pos3_lookup (KT), _build_packed (KU), then over that
+        table stem_conv9_packed (KR; stem_feat125_packed, KQ, with
+        stem_feature_map) at level 0, else conv9_packed (KS)."""
+        t = None
+        for i in range(NUM_LEVELS):
+            t = self._level(i, coords, mask, t)
+            yield (i, "pos3_lookup") + t.pos3_inputs
+            args, kwargs = self._packed_args(i, t)
+            yield i, "_build_packed", args, kwargs
+            yield (i, self._sweep(i)[0].__name__) + self._sweep_args(
+                i, t, _build_packed(*args, **kwargs))
+
     def stem_inputs(self, coords, mask):
         """(args, kwargs) of the level-0 stem sweep of this builder's plan
         of (coords, mask): stem_feat125_packed's with stem_feature_map,
         else stem_conv9_packed's."""
-        return self._stem_args(self._level(0, coords, mask, None))
+        for _, name, args, kwargs in self.sweep_inputs(coords, mask):
+            if name.startswith("stem"):
+                return args, kwargs
 
-    def _stem_args(self, t: "_LevelTables"):
-        B, capA, ccap_d = (self.num_batches, self.caps_aug[0],
-                           self.caps_col_dil[0])
-        aug_r = STEM_R if self.stem_feature_map else 1
-        packed_l = _build_packed(t.real_w, t.aug16, t.col_bxy, t.col_valid, B,
-                                 ccap_d, capA, STEM_R, aug_r=aug_r)
-        return ((t.grid_d, packed_l, t.level.coords, t.level.valid, t.g,
-                 ccap_d, capA, STEM_R, B),
-                dict(grid_half=self.grid_half, level=0))
+    def _sweep(self, i: int):
+        """Level i's sweep over its packed table and the kmaps it gives."""
+        if i:
+            return conv9_packed, (f"conv9_l{i}",)
+        if self.stem_feature_map:
+            return stem_feat125_packed, ("stem125", "conv9_l0")
+        return stem_conv9_packed, ("stem_occ", "conv9_l0")
+
+    def _packed_args(self, i: int, t: "_LevelTables"):
+        """(args, kwargs) of level i's packed table (_build_packed): the
+        stem's real and aug slabs at level 0, the aug slabs above."""
+        r, aug_r = -1, 1
+        if i == 0:
+            r, aug_r = STEM_R, STEM_R if self.stem_feature_map else 1
+        return ((t.real_w, t.aug16, t.col_bxy, t.col_valid, self.num_batches,
+                 self.caps_col_dil[i], self.caps_aug[i], r),
+                dict(aug_r=aug_r))
+
+    def _sweep_args(self, i: int, t: "_LevelTables", packed):
+        """(args, kwargs) of level i's sweep over its packed table: the
+        stem's at level 0, conv9_packed's above."""
+        tail = (STEM_R, self.num_batches) if i == 0 else (self.num_batches,)
+        return ((t.grid_d, packed, t.level.coords, t.level.valid, t.g,
+                 self.caps_col_dil[i], self.caps_aug[i]) + tail,
+                dict(grid_half=self.grid_half, level=i))
 
     def _level(self, i: int, coords, mask, prev: Optional["_LevelTables"]
                ) -> "_LevelTables":
@@ -688,8 +854,9 @@ class ZSegPlanBuilder:
         overflow.append(torch.clamp(counts_b - capA, min=0).sum()
                         + vox_drop + col_over_d)
 
-        pos3 = pos3_lookup(aug16, src_coords, src_valid, g, capA, gh, i,
-                           cid=vox_cid)
+        pos3_inputs = ((aug16, src_coords, src_valid, g, capA, gh, i),
+                       dict(cid=vox_cid))
+        pos3 = pos3_lookup(*pos3_inputs[0], **pos3_inputs[1])
         # one packed int per candidate: gxgy << 9 | bz (uint32 wrap
         # kept, as in the JAX version)
         packed0 = ((gxc * g + gyc) << 9) | bz.clamp(0, ZMAX - 1)
@@ -710,13 +877,15 @@ class ZSegPlanBuilder:
             level=ZLevel(coords=coords_a, real=real_a, valid=valid_a,
                          zup=zup, zdn=zdn, stride=s),
             g=g, grid_d=grid_d, real_w=real_w, aug16=aug16, col_bxy=col_bxy,
-            col_valid=col_valid, pos3=pos3, overflow=overflow)
+            col_valid=col_valid, pos3=pos3, pos3_inputs=pos3_inputs,
+            overflow=overflow)
 
 
 class _LevelTables(NamedTuple):
     """One level of the plan build: its rows, the y-dilated column grid
     and tables of its g x g plane, the (z-1, z, z+1) aug rows of each
-    source row (pos3) and the level's overflow terms."""
+    source row (pos3) and the (args, kwargs) they came from, and the
+    level's overflow terms."""
     level: ZLevel
     g: int
     grid_d: torch.Tensor
@@ -725,6 +894,7 @@ class _LevelTables(NamedTuple):
     col_bxy: torch.Tensor
     col_valid: torch.Tensor
     pos3: torch.Tensor
+    pos3_inputs: tuple
     overflow: list
 
 

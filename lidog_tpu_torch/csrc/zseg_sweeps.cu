@@ -1,0 +1,318 @@
+// KR, KS, KT, KU: the zseg plan's query sweeps, everything downstream of
+// the column tables (core/zseg.py: the cell -> column id grid, the real
+// and aug z-bit words per y-dilated column slot, the slots' packed (b, gx,
+// gy) and validity).
+//
+//   KU build_packed       replaces lidog_tpu/core/zseg.py:378 (_build_packed)
+//   KR stem_conv9_packed  replaces lidog_tpu/core/zseg.py:446 (stem_conv9_packed)
+//   KS conv9_packed       replaces lidog_tpu/core/zseg.py:631 (conv9_packed)
+//   KT pos3_lookup        replaces lidog_tpu/core/zseg.py:682 (pos3_lookup)
+//
+// Each output is bitwise equal to the plain version in core/zseg.py: the
+// integer steps are the plain version's one for one (z-bit words are
+// uint32 values, held as int64 in the tables; ranks are __popc counts).
+//
+//   KU: per slot s and output word j: the word of the row dy slots away
+//       (dy = -r..r real slabs of ZWORDS words, then dy = -aug_r..aug_r
+//       aug slabs of ZWORDS words + the LOCAL start row, start - b*cap_a
+//       where the source slot is valid), where every slot pair between s
+//       and s+dy is y-adjacent (same b, gx and gy+1, both valid), else 0.
+//   KR: per level-0 row and dx = -2..2: the column (gx+dx, gy) through the
+//       grid (the row's segment is row / (N / nb); only gx+dx is range
+//       checked), then per dy the 5 z bits around bz from the real slab,
+//       shifted into one window word (lo = bz-2 may be negative: arithmetic
+//       >> 5, & 31 on the two's complement; words outside [0, ZWORDS) read
+//       0; bits outside [0, ZMAX) are 0) -> occ bf16 [N, 125] in (dx, dy,
+//       dz) order; and for |dx|, |dy| <= 1 the aug rank of bz -> conv9.
+//   KS: the conv9 ranks of KR at levels 1-4 from the aug-only table.
+//   KT: per source row: its own column's aug row (segment from coords[:, 0],
+//       gx and gy range checked), the ranks at z-s, z, z+s from one rank
+//       and two bit reads (rank(z+s) = rank(z) + bit(z), rank(z-s) =
+//       rank(z) - bit(z-s)); -1 where the bit is clear, z is outside the
+//       column or the row falls past the segment's cap_a rows.
+//
+// Bound on an H100: bytes.  KU writes its table (723 MB at the training
+// plan's level 0: 786,432 slots x 115 int64); KR writes 134 x 2-4 bytes
+// per row; KS and KT read a grid cell and a table row per (row, dx) and
+// write 9 int32 or 3 int64 per row.
+//
+// Design: KU one thread per output word (stores coalesced; the adjacency
+// of the <= 2 slot pairs between is recomputed from the slots' packed
+// coordinates, which the cache serves).  KR/KS one thread per (row, dx):
+// one grid read, one table row read with __popc ranks; KR stages its
+// occupancy bits for 64 rows in shared memory and stores them as one
+// contiguous span.  KT one thread per row.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int ZWORDS = 14;
+constexpr int ZC = ZWORDS * 16;
+constexpr int ZMAX = ZWORDS * 32;
+constexpr int SLAB = ZWORDS + 1;  // aug slab: words + start
+constexpr int AUG16 = ZWORDS + 2;  // aug16 row: words + start + count
+constexpr int ROWS = 64;           // KR/KS rows per block
+constexpr int STEM_R = 2;
+constexpr int STEM_K = (2 * STEM_R + 1) * (2 * STEM_R + 1) * (2 * STEM_R + 1);
+constexpr uint16_t BF16_ONE = 0x3F80;
+
+// start + rank of bit bz in an aug slab (words, start), or -1 where the
+// row missed, bz is outside [0, ZMAX), the bit is clear or the position
+// is outside [0, cap_a) (core/zseg.py _rank_in_slab, _aug_ranks).
+__device__ __forceinline__ long long slab_rank(const long long* slab, int bz, bool hit,
+                                               int cap_a) {
+  if (!hit || bz < 0 || bz >= ZMAX) return -1;
+  const int wi = bz >> 5, ib = bz & 31;
+  int below = 0;
+  for (int q = 0; q < wi; ++q) below += __popc((unsigned)slab[q]);
+  const unsigned w = (unsigned)slab[wi];
+  if (!((w >> ib) & 1u)) return -1;
+  const long long idx = slab[ZWORDS] + below + __popc(w & ((1u << ib) - 1u));
+  return (idx >= 0 && idx < cap_a) ? idx : -1;
+}
+
+// KR (STEM, DXR = 2) and KS (DXR = 1): block (ROWS, 2*DXR+1), thread (row, dx).
+template <int DXR, bool STEM>
+__global__ void __launch_bounds__(ROWS*(2 * DXR + 1))
+sweep_kernel(const long long* __restrict__ grid, const long long* __restrict__ packed,
+             const int4* __restrict__ coords, const uint8_t* __restrict__ valid,
+             uint16_t* __restrict__ occ, int* __restrict__ conv9, int n, int nb, int g, int ccap,
+             int cap_a, int grid_half, int level, int width, int aug_off) {
+  __shared__ __align__(16) uint16_t tile[STEM ? ROWS * STEM_K : 2];
+  const int i = blockIdx.x * ROWS + threadIdx.x;
+  const int dxi = threadIdx.y;
+  const int dx = dxi - DXR;
+  if (i < n) {
+    const int b = i / (n / nb);
+    const int4 c = coords[i];
+    const int gh = grid_half >> level;
+    const int gx0 = (c.y >> level) + gh;
+    const int gy0 = (c.z >> level) + gh;
+    const int bz0 = (c.w >> level) + ZC;
+    const int gxn = gx0 + dx;
+    long long cid = -1;
+    if (valid[i] && gxn >= 0 && gxn < g) {
+      // gy0 is not range checked (as in the plain version): a level's rows
+      // lie inside its grid; the read is guarded all the same
+      const long long flat = ((long long)b * g + gxn) * g + gy0;
+      if (flat >= 0 && flat < (long long)nb * g * g) {
+        const long long v = grid[flat];
+        cid = v >= 0 ? v - (long long)b * ccap : -1;
+      }
+    }
+    const bool hit = cid >= 0 && cid < ccap;
+    const long long* row = packed + ((long long)b * ccap + (hit ? cid : 0)) * width;
+    if (STEM) {
+      const int lo = bz0 - STEM_R;
+      const int wlo = lo >> 5;  // arithmetic shift
+      const int shl = lo & 31;
+      uint16_t* t = tile + threadIdx.x * STEM_K + dxi * (2 * STEM_R + 1) * (2 * STEM_R + 1);
+#pragma unroll
+      for (int dyi = 0; dyi < 2 * STEM_R + 1; ++dyi) {
+        const long long* slab = row + ZWORDS * dyi;
+        const unsigned w0 = (hit && wlo >= 0 && wlo < ZWORDS) ? (unsigned)slab[wlo] : 0u;
+        const unsigned w1 =
+            (hit && wlo + 1 >= 0 && wlo + 1 < ZWORDS) ? (unsigned)slab[wlo + 1] : 0u;
+        const unsigned win = (w0 >> shl) | (shl == 0 ? 0u : (w1 << (32 - shl)));
+#pragma unroll
+        for (int k = 0; k < 2 * STEM_R + 1; ++k) {
+          const int bz = lo + k;
+          const bool on = hit && bz >= 0 && bz < ZMAX && ((win >> k) & 1u);
+          t[dyi * (2 * STEM_R + 1) + k] = on ? BF16_ONE : 0;
+        }
+      }
+    }
+    if (dx >= -1 && dx <= 1) {
+      const long long seg = (long long)b * cap_a;
+#pragma unroll
+      for (int dyi = 0; dyi < 3; ++dyi) {
+        const long long idx = slab_rank(row + aug_off + SLAB * dyi, bz0, hit, cap_a);
+        conv9[(size_t)((dx + 1) * 3 + dyi) * n + i] = idx >= 0 ? (int)(idx + seg) : -1;
+      }
+    }
+  }
+  if (STEM) {  // the block's rows of occ are one contiguous span
+    __syncthreads();
+    const int r0 = blockIdx.x * ROWS;
+    const int nrows = min(ROWS, n - r0);
+    const int count = nrows * STEM_K;  // bf16 values; r0 * STEM_K is even
+    const int tid = threadIdx.y * ROWS + threadIdx.x;
+    const int nthreads = ROWS * (2 * DXR + 1);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(occ + (size_t)r0 * STEM_K);
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(tile);
+    for (int q = tid; q < count / 2; q += nthreads) dst[q] = src[q];
+    if ((count & 1) && tid == 0) occ[(size_t)r0 * STEM_K + count - 1] = tile[count - 1];
+  }
+}
+
+// KT: one thread per source row.
+__global__ void pos3_kernel(const long long* __restrict__ aug16, long long slots,
+                            const int4* __restrict__ coords, const uint8_t* __restrict__ valid,
+                            const long long* __restrict__ cid, long long* __restrict__ out, int n,
+                            int g, int cap_a, int grid_half, int level) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int4 c = coords[i];
+  const int gh = grid_half >> level;
+  const int gx0 = (c.y >> level) + gh;
+  const int gy0 = (c.z >> level) + gh;
+  const int bz0 = (c.w >> level) + ZC;
+  const bool ok = valid[i] && gx0 >= 0 && gx0 < g && gy0 >= 0 && gy0 < g;
+  const long long cd = ok ? cid[i] : -1;
+  const bool hit = cd >= 0;
+  unsigned w[ZWORDS];
+  long long start = 0;  // a miss reads a zero row
+  const bool in_table = hit && cd < slots;
+#pragma unroll
+  for (int q = 0; q < ZWORDS; ++q) w[q] = in_table ? (unsigned)aug16[cd * AUG16 + q] : 0u;
+  if (in_table) start = aug16[cd * AUG16 + ZWORDS];
+  auto bit_at = [&](int bz) {
+    const int z = min(max(bz, 0), ZMAX - 1);
+    unsigned v = 0;
+#pragma unroll
+    for (int q = 0; q < ZWORDS; ++q) v = (q == (z >> 5)) ? w[q] : v;
+    return (int)((v >> (z & 31)) & 1u);
+  };
+  const int bzc = min(max(bz0, 0), ZMAX - 1);
+  int rank0 = 0;
+#pragma unroll
+  for (int q = 0; q < ZWORDS; ++q) {
+    const unsigned below = q < (bzc >> 5) ? w[q]
+                           : q == (bzc >> 5) ? (w[q] & ((1u << (bzc & 31)) - 1u)) : 0u;
+    rank0 += __popc(below);
+  }
+  const int ex0 = bit_at(bz0), bm1 = bit_at(bz0 - 1), bp1 = bit_at(bz0 + 1);
+  const long long seg_base = (long long)c.x * cap_a;
+  const int rank[3] = {rank0 - bm1, rank0, rank0 + ex0};
+  const int ex[3] = {bm1, ex0, bp1};
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const int bzd = bz0 + d - 1;
+    const long long idx = start + rank[d];
+    const bool okr = hit && bzd >= 0 && bzd < ZMAX && ex[d] == 1 && idx >= 0 &&
+                     (idx - seg_base) < cap_a;
+    out[(size_t)d * n + i] = okr ? idx : -1;
+  }
+}
+
+// y-adjacency of slot u and u+1 (core/zseg.py _y_adjacency).
+__device__ __forceinline__ bool y_adjacent(const long long* bxy, const uint8_t* cvalid,
+                                           long long u, long long slots) {
+  return u >= 0 && u + 1 < slots && cvalid[u] && cvalid[u + 1] && bxy[u + 1] == bxy[u] + 1;
+}
+
+// KU: one thread per output word.
+__global__ void build_packed_kernel(const long long* __restrict__ real_w,
+                                    const long long* __restrict__ aug16,
+                                    const long long* __restrict__ bxy,
+                                    const uint8_t* __restrict__ cvalid, long long* __restrict__ out,
+                                    long long slots, int ccap, int cap_a, int r, int aug_r,
+                                    int width) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= slots * width) return;
+  const long long s = e / width;
+  const int j = (int)(e - s * width);
+  const int nreal = r >= 0 ? (2 * r + 1) * ZWORDS : 0;
+  int dy, q;
+  bool real;
+  if (j < nreal) {
+    real = true;
+    dy = j / ZWORDS - r;
+    q = j % ZWORDS;
+  } else {
+    real = false;
+    dy = (j - nreal) / SLAB - aug_r;
+    q = (j - nreal) % SLAB;
+  }
+  const long long t = s + dy;
+  bool ok = t >= 0 && t < slots;
+  for (int k = 0; ok && k < (dy > 0 ? dy : -dy); ++k)  // the slot pairs between
+    ok = y_adjacent(bxy, cvalid, dy > 0 ? s + k : s + dy + k, slots);
+  long long v = 0;
+  if (ok) {
+    if (real) {
+      v = real_w[t * ZWORDS + q];
+    } else {
+      v = aug16[t * AUG16 + q];
+      if (q == ZWORDS && cvalid[t]) v -= (t / ccap) * cap_a;  // the local start
+    }
+  }
+  out[e] = v;
+}
+
+cudaStream_t as_stream(void* stream) { return reinterpret_cast<cudaStream_t>(stream); }
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+}  // namespace
+
+// Each function returns a cudaError_t (0 = launched).
+
+// KR: occ bf16 [n, 125] (raw bits), conv9 int32 [9, n] from the packed
+// table [nb*ccap, width] with 5 real slabs and 3 aug slabs at aug_off.
+extern "C" int stem_conv9_packed(const void* grid, const void* packed, const void* coords,
+                                 const void* valid, void* occ, void* conv9, int n, int nb, int g,
+                                 int ccap, int cap_a, int grid_half, int level, int width,
+                                 int aug_off, void* stream) {
+  if (n < 0 || nb < 1 || n % nb != 0 || g < 1 || ccap < 1 || cap_a < 1 || level < 0 ||
+      aug_off < (2 * STEM_R + 1) * ZWORDS || width < aug_off + 3 * SLAB || !aligned16(coords) ||
+      reinterpret_cast<uintptr_t>(occ) % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const dim3 block(ROWS, 2 * STEM_R + 1);
+  sweep_kernel<STEM_R, true><<<(n + ROWS - 1) / ROWS, block, 0, as_stream(stream)>>>(
+      static_cast<const long long*>(grid), static_cast<const long long*>(packed),
+      static_cast<const int4*>(coords), static_cast<const uint8_t*>(valid),
+      static_cast<uint16_t*>(occ), static_cast<int*>(conv9), n, nb, g, ccap, cap_a, grid_half,
+      level, width, aug_off);
+  return (int)cudaGetLastError();
+}
+
+// KS: conv9 int32 [9, n] from the aug-only packed table [nb*ccap, width].
+extern "C" int conv9_packed(const void* grid, const void* packed, const void* coords,
+                            const void* valid, void* conv9, int n, int nb, int g, int ccap,
+                            int cap_a, int grid_half, int level, int width, void* stream) {
+  if (n < 0 || nb < 1 || n % nb != 0 || g < 1 || ccap < 1 || cap_a < 1 || level < 0 ||
+      width < 3 * SLAB || !aligned16(coords))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const dim3 block(ROWS, 3);
+  sweep_kernel<1, false><<<(n + ROWS - 1) / ROWS, block, 0, as_stream(stream)>>>(
+      static_cast<const long long*>(grid), static_cast<const long long*>(packed),
+      static_cast<const int4*>(coords), static_cast<const uint8_t*>(valid), nullptr,
+      static_cast<int*>(conv9), n, nb, g, ccap, cap_a, grid_half, level, width, 0);
+  return (int)cudaGetLastError();
+}
+
+// KT: out int64 [3, n] from aug16 [slots, 16] and each row's column id.
+extern "C" int pos3_lookup(const void* aug16, const void* coords, const void* valid,
+                           const void* cid, void* out, int n, int slots, int g, int cap_a,
+                           int grid_half, int level, void* stream) {
+  if (n < 0 || slots < 0 || g < 1 || cap_a < 1 || level < 0 || !aligned16(coords))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  pos3_kernel<<<(n + 255) / 256, 256, 0, as_stream(stream)>>>(
+      static_cast<const long long*>(aug16), slots, static_cast<const int4*>(coords),
+      static_cast<const uint8_t*>(valid), static_cast<const long long*>(cid),
+      static_cast<long long*>(out), n, g, cap_a, grid_half, level);
+  return (int)cudaGetLastError();
+}
+
+// KU: out int64 [slots, width], width = max(2r+1, 0)*14 + (2*aug_r+1)*15.
+extern "C" int build_packed(const void* real_w, const void* aug16, const void* col_bxy,
+                            const void* col_valid, void* out, int slots, int ccap, int cap_a,
+                            int r, int aug_r, int width, void* stream) {
+  if (slots < 0 || ccap < 1 || cap_a < 1 || r < -1 || aug_r < 0 ||
+      width != (r >= 0 ? (2 * r + 1) * ZWORDS : 0) + (2 * aug_r + 1) * SLAB)
+    return (int)cudaErrorInvalidValue;
+  const long long total = (long long)slots * width;
+  if (total == 0) return 0;
+  const long long blocks = (total + 255) / 256;
+  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  build_packed_kernel<<<(unsigned)blocks, 256, 0, as_stream(stream)>>>(
+      static_cast<const long long*>(real_w), static_cast<const long long*>(aug16),
+      static_cast<const long long*>(col_bxy), static_cast<const uint8_t*>(col_valid),
+      static_cast<long long*>(out), slots, ccap, cap_a, r, aug_r, width);
+  return (int)cudaGetLastError();
+}

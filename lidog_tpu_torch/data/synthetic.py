@@ -223,3 +223,49 @@ def point_features(points: np.ndarray, channels: int = 4,
     rem = np.random.RandomState(seed).rand(*lead, 1).astype(np.float32)
     return np.concatenate([points[..., :3].astype(np.float32), rem],
                           axis=-1)[..., :channels]
+
+
+EDGE_GRID_HALF = 64
+EDGE_CAPS = ((512,) * 5, (1024,) * 5)  # per-scan (caps_real, caps_aug)
+EDGE_CAPS_STARVED = ((512,) * 5, (160, 120, 96, 80, 64))
+
+
+def plan_edge_voxels(num_batches: int = 2, seed: int = 0):
+    """Voxel cells that drive the zseg plan's sweeps to their edges, for a
+    plan of grid_half EDGE_GRID_HALF: (coords int32 [num_batches * 512, 4]
+    (batch, x, y, z) unique per scan, mask bool).  Per scan: columns at the
+    grid's x and y edges; z at both ends of the plan's range [-224, 224)
+    (a stem window around them reaches below 0 and past 447 bits); y
+    columns 2 to 7 apart at one x (the y-dilated column slots then run with
+    and without gaps); z-runs and random voxels; a few cells outside the
+    grid or the z range, which the plan drops.  EDGE_CAPS hold it; with
+    EDGE_CAPS_STARVED the augmented rows overflow their caps."""
+    rng = np.random.RandomState(seed)
+    lo, hi = -EDGE_GRID_HALF, EDGE_GRID_HALF - 1
+    zlo, zhi = -224, 223
+    zs = (zlo, zlo + 1, zlo + 3, -1, 0, zhi - 3, zhi - 1, zhi)
+    rows = []
+    for b in range(num_batches):
+        cells = [(x, y, z) for x in (lo, lo + 1, hi - 1, hi)
+                 for y in (lo, hi - 1, hi) for z in zs[b::2]]
+        cells += [(x, y, z) for x in (lo, hi) for y in (lo + 2, hi - 2)
+                  for z in (zlo, zhi)]
+        cells += [(3 + b, y, z) for y in (-20, -14, -9, -5, -3, 4, 8, 10)
+                  for z in (zlo, zlo + 1, -2, -1, 0, zhi)]
+        run = rng.randint(lo, hi + 1, (60, 2))
+        cells += [(x, y, z) for (x, y), z0 in zip(run, rng.choice(zs, 60))
+                  for z in range(int(z0) - 1, int(z0) + 2)]
+        cells += [tuple(c) for c in np.stack([
+            rng.randint(lo, hi + 1, 120), rng.randint(lo, hi + 1, 120),
+            rng.randint(zlo, zhi + 1, 120)], 1)]
+        cells += [(hi + 1, 0, 0), (0, lo - 1, 0), (5, 5, zhi + 1),
+                  (5, 6, zlo - 1)]
+        uniq = np.unique(np.array(cells, np.int32), axis=0)
+        rows.append(np.concatenate(
+            [np.full((len(uniq), 1), b, np.int32), uniq], 1))
+    coords = np.concatenate(rows)
+    cap = num_batches * 512
+    mask = np.zeros(cap, bool)
+    mask[:len(coords)] = True
+    return (np.concatenate([coords, np.zeros((cap - len(coords), 4),
+                                             np.int32)]), mask)

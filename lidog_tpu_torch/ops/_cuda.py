@@ -19,7 +19,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lidog_tpu_torch"
 SOURCES = ("zconv3_fwd", "zconv_down_fwd", "zconv_up_fwd", "zconv3_bwd_dx",
-           "zconv_wgrad", "bev_scatter_max", "zconv_full", "stem_feat125")
+           "zconv_wgrad", "bev_scatter_max", "zconv_full", "stem_feat125",
+           "zseg_sweeps")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,13 +39,19 @@ _ARGTYPES = {
     "zconv_full_fwd": [_P] * 6 + [_I] * 6 + [_P],
     "zconv_full_wgrad": [_P] * 6 + [_I] * 7 + [_P],
     "stem_feat125": [_P] * 6 + [_I] * 9 + [_P],
+    "stem_conv9_packed": [_P] * 6 + [_I] * 9 + [_P],
+    "conv9_packed": [_P] * 5 + [_I] * 8 + [_P],
+    "pos3_lookup": [_P] * 5 + [_I] * 6 + [_P],
+    "build_packed": [_P] * 5 + [_I] * 6 + [_P],
 }
 # the source (library) of each C function that is not named after its own
 _SOURCE_OF = {"zconv3_wgrad": "zconv_wgrad", "zconv_down_wgrad": "zconv_wgrad",
               "zconv_up_wgrad": "zconv_wgrad",
               "bev_scatter_max_fwd": "bev_scatter_max",
               "bev_scatter_max_bwd": "bev_scatter_max",
-              "zconv_full_fwd": "zconv_full", "zconv_full_wgrad": "zconv_full"}
+              "zconv_full_fwd": "zconv_full", "zconv_full_wgrad": "zconv_full",
+              "stem_conv9_packed": "zseg_sweeps", "conv9_packed": "zseg_sweeps",
+              "pos3_lookup": "zseg_sweeps", "build_packed": "zseg_sweeps"}
 
 _libs = {}
 

@@ -62,6 +62,10 @@ _GROUPS = (("Conv3Map", "zconv3_fwd"), ("DownMap", "zconv_down_fwd"),
            ("full_fwd_kernel", "zconv_full_fwd"),
            ("full_wgrad", "zconv_full_wgrad"),
            ("stem_feat125_kernel", "stem_feat125"),
+           ("sweep_kernel<2", "stem_conv9_packed"),
+           ("sweep_kernel<1", "conv9_packed"),
+           ("pos3_kernel", "pos3_lookup"),
+           ("build_packed_kernel", "build_packed"),
            ("Memset", "memset (every cudaMemset; KI's zero-fill is one)"))
 
 

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from lidog_tpu_torch.core.voxelize import voxelize_device
+from lidog_tpu_torch.core.voxelize import quantize, voxelize_device
 
 
 def device_batch_from_points(points, valid, labels, voxel_size: float,
@@ -37,7 +37,7 @@ def device_batch_from_points(points, valid, labels, voxel_size: float,
 def device_batch_raw(points, valid, labels, voxel_size: float,
                      point_feats=None):
     """The sortless path: raw padded points -> a per-point batch, with no
-    sort or unique pass, only the floor divide (lidog_tpu/train/
+    sort or unique pass, only the quantization (lidog_tpu/train/
     device_pipeline.py:41-65).  The coords hold duplicates: feed them to a
     ZSegPlanBuilder(assume_unique=False), whose `rep` map picks each
     voxel's representative point for labels and features as
@@ -48,7 +48,7 @@ def device_batch_raw(points, valid, labels, voxel_size: float,
     b, p, _ = points.shape
     flat = points.reshape(b * p, 3)
     vflat = valid.reshape(b * p)
-    disc = torch.floor(flat / voxel_size).to(torch.int32)
+    disc = quantize(flat, voxel_size)
     batch_idx = torch.arange(b, dtype=torch.int32,
                              device=points.device).repeat_interleave(p)
     coords = torch.cat([batch_idx[:, None], disc], dim=1)

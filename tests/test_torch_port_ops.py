@@ -8,7 +8,10 @@ kernels are held against these plain versions on the card by
 chip_smoke.py.
 
 Tolerances (relative to max |JAX output|, per compared tensor):
-  * voxelize_device: bitwise.
+  * voxelize_device: bitwise; at voxel 0.05 also against lidog_tpu's
+    jitted batch builders (which multiply by the f32 reciprocal).
+  * the plan sweeps' wrappers (KQ-KU) on the CPU: equal to their plain
+    versions.
   * zconv3 / zconv_down / zconv_up forward: 1e-4 in f32 (summation order
     only); 2e-2 in bf16 (both sides round at the same points, lidog_tpu
     ops/zconv.py:205-213 and :445-447, but sum in different orders, so a
@@ -73,6 +76,42 @@ def test_voxelize_bitwise(request):
             assert a.dtype == b.dtype and a.shape == b.shape, f
             np.testing.assert_array_equal(a, b, err_msg=f"{f} cap={cap}")
     assert int(tv.overflow) > 0
+
+
+def test_voxel_quantization_matches_jitted_jax():
+    """At voxel 0.05 the port's voxelize_device, device_batch_from_points
+    and device_batch_raw put each point in the cell that lidog_tpu's
+    jitted device_batch_from_points and device_batch_raw give (XLA folds
+    the constant division into a multiply by the f32 reciprocal: the first
+    two points floor one y cell lower under a true division)."""
+    import jax.numpy as jnp
+    import torch
+
+    from lidog_tpu.train import device_pipeline as jdp
+    from lidog_tpu_torch.core.voxelize import voxelize_device
+    from lidog_tpu_torch.train import device_pipeline as tdp
+
+    pts = np.array([[0.6157845, 4.2, -1.6997496],
+                    [3.1750686, 9.4, -0.4643165], [1, 1, 1]], np.float32)
+    valid, labels = np.ones((1, 3), bool), np.arange(3, dtype=np.int32)[None]
+    jargs = (jnp.asarray(pts[None]), jnp.asarray(valid), jnp.asarray(labels))
+    targs = (torch.from_numpy(pts[None]), torch.from_numpy(valid),
+             torch.from_numpy(labels))
+    want = np.array([[0, 12, 84, -34], [0, 20, 20, 20], [0, 63, 188, -10]],
+                    np.int32)  # canonical order
+    jb = jdp.device_batch_from_points(*jargs, 0.05, 8)
+    tb = tdp.device_batch_from_points(*targs, 0.05, 8)
+    tv = voxelize_device(torch.from_numpy(pts), torch.ones(3, dtype=torch.bool),
+                         torch.zeros(3, dtype=torch.int32), 0.05, 8)
+    np.testing.assert_array_equal(np.asarray(jb["coords"])[:3], want)
+    for k in ("coords", "labels", "mask"):
+        np.testing.assert_array_equal(np.asarray(jb[k]), tb[k].numpy(), k)
+    np.testing.assert_array_equal(tv.coords.numpy(), tb["coords"].numpy())
+    jr = jdp.device_batch_raw(*jargs, 0.05)
+    tr = tdp.device_batch_raw(*targs, 0.05)
+    np.testing.assert_array_equal(np.asarray(jr["coords"])[[0, 2, 1]], want)
+    for k in ("coords", "labels", "mask"):
+        np.testing.assert_array_equal(np.asarray(jr[k]), tr[k].numpy(), k)
 
 
 def _zseg_plan():
@@ -716,7 +755,8 @@ def test_optimizer_matches_optax(name, scheduler, wd):
 
 def test_kernel_wrappers_take_plain_versions_on_cpu():
     """Each kernel wrapper takes its plain version for a CPU tensor and
-    counts no launch; a tensor on neither the CPU nor a card raises."""
+    counts no launch; a tensor on neither the CPU nor a card raises.  The
+    plan sweeps' wrappers (KQ-KU) are among them."""
     import torch
 
     from lidog_tpu_torch.core import zseg
@@ -762,6 +802,17 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
     cq = torch.randint(-2, 2, (n, 4), generator=g, dtype=torch.int32)
     cq[:, 3] = torch.randint(-3, 3, (n,), generator=g, dtype=torch.int32)
     kq = (grid.reshape(-1), packed, cq, m, 4, 3, 64, 2, 2)
+    # KT, KU, KR (level 0) and KS (level 1) on the plan sweeps' own inputs
+    # of the edge voxels (data/synthetic.py plan_edge_voxels)
+    from lidog_tpu_torch.data import synthetic
+
+    ec, em = synthetic.plan_edge_voxels()
+    sweeps = {}
+    for _, name, a, kw in zseg.ZSegPlanBuilder(
+            *synthetic.EDGE_CAPS, num_batches=2,
+            grid_half=synthetic.EDGE_GRID_HALF).sweep_inputs(
+                torch.from_numpy(ec), torch.from_numpy(em)):
+        sweeps.setdefault(name, tuple(a) + tuple(kw.values()))
     cases = [
         (zconv.zconv3_fwd, zconv.zconv3_plain, (x, nbr, zup, zdn, wf, m)),
         (zconv.zconv_down_fwd, zconv.zconv_down_plain, (x, nbr[:8], w8, m)),
@@ -797,6 +848,12 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
         (zconv.zconv_full_wgrad, zconv.zconv_full_wgrad_plain,
          (x4, x, nbr125, m)),
         (zseg.stem_feat125_packed, zseg.stem_feat125_plain, kq),
+        (zseg.pos3_lookup, zseg.pos3_plain, sweeps["pos3_lookup"]),
+        (zseg._build_packed, zseg._build_packed_plain,
+         sweeps["_build_packed"]),
+        (zseg.stem_conv9_packed, zseg.stem_conv9_plain,
+         sweeps["stem_conv9_packed"]),
+        (zseg.conv9_packed, zseg.conv9_plain, sweeps["conv9_packed"]),
     ]
     before = {**zconv.LAUNCHES, **norm.LAUNCHES, **bev.LAUNCHES,
               **losses.LAUNCHES, **zseg.LAUNCHES}
@@ -806,8 +863,9 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
         out = out if isinstance(out, tuple) else (out,)
         want = want if isinstance(want, tuple) else (want,)
         assert out[0].abs().sum() > 0, wrapper.__name__
-        if wrapper is zseg.stem_feat125_packed:  # some neighbours are found
-            assert (out[0] >= 0).sum() > 0 and (out[1] >= 0).sum() > 0
+        if wrapper.__module__ == zseg.__name__:  # some neighbours are found
+            assert all((o > 0 if o.is_floating_point() else o >= 0).any()
+                       for o in out)
         for a, b in zip(out, want):
             assert torch.equal(a, b), wrapper.__name__
         meta = [a.to("meta") if torch.is_tensor(a) else a for a in args]
@@ -822,7 +880,7 @@ def test_port_imports_no_jax():
     jax, flax and lidog_tpu out of sys.modules.  bn_act_triton and
     whiten_triton are the modules that need the triton package; each is
     imported only by its launching functions.  The general stem's and the
-    sortless path's modules (core/zseg.py with KQ, ops/zconv.py with
+    sortless path's modules (core/zseg.py with KQ-KU, ops/zconv.py with
     KO/KP, caps.py, train/device_pipeline.py, serve.py) are among them."""
     code = r"""
 import importlib, pkgutil, sys
@@ -840,11 +898,15 @@ for n in names:
 # with its CUDA source registered for nvcc
 from lidog_tpu_torch.core import zseg
 from lidog_tpu_torch.ops import _cuda, zconv
-assert {"zconv_full", "stem_feat125"} <= set(_cuda.SOURCES)
-for src in ("zconv_full", "stem_feat125"):
+assert {"zconv_full", "stem_feat125", "zseg_sweeps"} <= set(_cuda.SOURCES)
+for src in ("zconv_full", "stem_feat125", "zseg_sweeps"):
     assert (_cuda.CSRC / (src + ".cu")).exists(), src
 assert {"zconv_full_fwd", "zconv_full_wgrad"} <= set(zconv.LAUNCHES)
-assert set(zseg.LAUNCHES) == {"stem_feat125"}
+assert set(zseg.LAUNCHES) == {"stem_feat125", "stem_conv9_packed",
+                              "conv9_packed", "pos3_lookup", "build_packed"}
+for fn in zseg.LAUNCHES:  # each launch count names a C function of its source
+    assert _cuda._SOURCE_OF.get(fn, fn) in _cuda.SOURCES, fn
+    assert fn in _cuda._ARGTYPES, fn
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "lidog_tpu"))
 assert not bad, bad

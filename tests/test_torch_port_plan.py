@@ -9,8 +9,11 @@ counters.  Cases: the shapes of tests/test_zseg.py (grid_half 64), the
 same input with starved capacities (every overflow counter path), the
 serving shapes of tests/test_serve.py (voxelized points, grid_half 32),
 the feature stem (stem_feature_map=True, tests/test_zseg_stem_feat.py's
-input) and sortless input (raw per-point cells with duplicates,
-tests/test_sortless.py's clouds and caps).
+input), sortless input (raw per-point cells with duplicates,
+tests/test_sortless.py's clouds and caps), and voxels at the sweeps'
+edges (data/synthetic.py plan_edge_voxels: the grid's x and y edges, z
+at both ends of the plan's range, y columns with and without gaps
+between their dilated slots), roomy and with starved caps.
 
 Also the LiDOG step's host and device pipeline: the BEV preprocessing and
 collation bitwise, Encoder2D + DICE, and the whole LiDOG train step
@@ -77,7 +80,7 @@ def _sortless_inputs():
 
 
 @pytest.mark.parametrize("case", ["zseg", "zseg_starved", "serve", "stem125",
-                                  "sortless"])
+                                  "sortless", "edges", "edges_starved"])
 def test_plan_bitwise_equal(case, request):
     from tests.conftest import run_isolated
 
@@ -109,6 +112,13 @@ def test_plan_bitwise_equal(case, request):
         coords, mask, _, _ = _sortless_inputs()
         caps_r, caps_a, grid_half = CAPS_R, CAPS_A, GRID_HALF
         options = dict(assume_unique=False)
+    elif case.startswith("edges"):
+        from lidog_tpu_torch.data import synthetic
+
+        B, grid_half = 2, synthetic.EDGE_GRID_HALF
+        coords, mask = synthetic.plan_edge_voxels(B)
+        caps_r, caps_a = (synthetic.EDGE_CAPS_STARVED if case.endswith(
+            "starved") else synthetic.EDGE_CAPS)
     else:
         B, P = 2, 600
         pts = (np.random.RandomState(0).rand(B, P, 3).astype(np.float32)
@@ -126,7 +136,7 @@ def test_plan_bitwise_equal(case, request):
     tbuilder = ZSegPlanBuilder(caps_r, caps_a, num_batches=B,
                                grid_half=grid_half, **options)
     tp = tbuilder(torch.from_numpy(coords), torch.from_numpy(mask))
-    if case == "zseg_starved":
+    if case.endswith("starved"):
         assert int(np.asarray(jp.overflow)[1:].sum()) > 0
     else:
         assert int(np.asarray(jp.overflow).sum()) == 0
@@ -140,6 +150,10 @@ def test_plan_bitwise_equal(case, request):
         nbr, conv9 = stem_feat125_plain(*args, **kwargs)
         assert torch.equal(nbr, tp.kmaps["stem125"])
         assert torch.equal(conv9, tp.kmaps["conv9_l0"])
+    if case.startswith("edges"):  # the stem window leaves [0, ZMAX) at z
+        bz = coords[mask, 3] + 224  # ends, and x/y reach the grid's edges
+        assert (bz < 2).any() and (bz >= 446).any()
+        assert (np.abs(coords[mask, 1:3] + 0.5) > grid_half - 1).any()
     if case == "sortless":  # duplicates went in; every point has a row
         assert len(np.unique(coords[mask], axis=0)) < int(mask.sum())
         assert (tp.pos[torch.from_numpy(mask)] >= 0).all()

@@ -26,7 +26,8 @@ no result line):
   5. cross-check: the same weights through the Predictor on the CPU (plain
      versions): on a 20,000-point scan and on phase 4's 100,000-point scan
      the voxelization and the plan's integer fields bitwise equal to the
-     card's, and on the 20,000-point scan label agreement >= 99%;
+     card's, as the sortless training batch's plan (pos and rep too), and
+     on the 20,000-point scan label agreement >= 99%;
   6. full-width training (bench.py's shapes): MinkUNet34 bf16, 4 scans x
      100,000 points, SoftDICE + Adam (lr 1e-3), 1 warm-up and 5 timed
      steps on the same batch; zero overflow, finite losses with the last
@@ -92,10 +93,20 @@ no result line):
      inputs: the serving plan of phase 4's scan and the training plan of
      4 scans at every level each runs at (KU also at the general stem's
      level-0 width), and the CPU tests' edge voxels with roomy and starved
-     caps (run after phase 15, before phase 4).
+     caps (run after phase 15, before phase 4);
+ 19. the plan's column-table kernels KV (the y-dilated column grid and
+     slot stamps), KW (the real z-bit words), KX (the aug words and
+     per-scan starts) and KY (the aug rows and the level's maps)
+     torch.equal to their plain versions, overflow terms included, on the
+     builder's own inputs (table_inputs) at every level: the serving plan,
+     the training plan, its sortless and general-stem plans, and the edge
+     voxels with roomy, starved and column-starved caps and as sortless
+     input (run after phase 18).
 
-Every request and step builds one plan: KT and KU 5 launches, KR 1 (KQ
-in its place on the general stem) and KS 4, counted with the model's.
+Every request and step builds one plan: KV, KW, KX, KY, KT and KU 5
+calls each, KR 1 (KQ in its place on the general stem) and KS 4, counted
+with the model's launches.  On the card the plan runs no plain torch: only
+these kernels and the fills of its own buffers.
 
 The line before the last is a JSON object with one entry per kernel; the
 last is {"ok": true, "device": {...}}.  Exits non-zero without a card, and
@@ -127,11 +138,12 @@ NUM_CLASSES = 7
 # each of the 7 shortcuts
 PER_FORWARD = {"zconv3_fwd": 46, "zconv_down_fwd": 4, "zconv_up_fwd": 4,
                "bn_act": 62}
-# the plan's sweep kernels per plan build (one plan per request or step):
-# KT and KU at each of the 5 levels, KR at level 0 (the occupancy stem)
-# and KS at levels 1-4
+# the plan's kernels per plan build (one plan per request or step): the
+# column tables KV, KW, KX, KY and the sweeps KT and KU at each of the 5
+# levels, KR at level 0 (the occupancy stem) and KS at levels 1-4
 PER_PLAN = {"pos3_lookup": 5, "build_packed": 5, "stem_conv9_packed": 1,
-            "conv9_packed": 4}
+            "conv9_packed": 4, "column_grid": 5, "real_words": 5,
+            "assemble_aug": 5, "emit_rows": 5}
 PER_REQUEST = {**PER_FORWARD, **PER_PLAN}
 # training (bench.py:36-44): 4 scans x 100k points, per-scan plan caps
 TRAIN_BATCH = 4
@@ -861,6 +873,164 @@ def plan_kernel_checks(dev):
     return ck.rows
 
 
+# the plan's column-table kernels (csrc/zseg_tables.cu) by their wrapper
+# in core/zseg.py: the lidog_tpu functions each replaces
+TABLE_KERNELS = {
+    "column_grid": "lidog_tpu/core/zseg.py:271 (_column_grid), :288 "
+                   "(_grid_from_has), :300 (_dilate_y), :106, :129 "
+                   "(_grid_lookup, K3, inlined), __call__:863-914",
+    "real_words": "lidog_tpu/core/zseg.py:916-979 (__call__), :234 "
+                  "(_zpair_words)",
+    "assemble_aug": "lidog_tpu/core/zseg.py:335 (_assemble_aug)",
+    "emit_rows": "lidog_tpu/core/zseg.py:1004-1026, 1049-1100 (__call__), "
+                 ":735-770",
+}
+
+
+def grid_hits(grid, b, gx, gy, ok, g):
+    """(cells looked up, of them hits) of grid lookups (b, gx, gy) where
+    ok: what a column-table kernel reads of a grid on this run's data."""
+    flat = ((b * g + gx) * g + gy)[ok]
+    return int(flat.numel()), int((grid[flat] >= 0).sum())
+
+
+def table_nbytes(name, args, kwargs):
+    """Bytes that a column-table kernel must move on this run's data: each
+    input read once (of a grid, the cells its rows look up, and of a
+    table, the rows they hit), each output written once."""
+    from lidog_tpu_torch.core.bitgrid import ZWORDS
+
+    words = ZWORDS * 8  # a row of real words, int64
+    if name == "column_grid":
+        coords, valid, nb, gh, lvl, ccap = args[:6]
+        g = (2 * gh) >> lvl
+        return (nbytes(coords, valid) + nb * g * g * 8 + coords.shape[0] * 8
+                + nb * ccap * 9)
+    if name == "real_words":
+        lvl, nb, ccap, gh = args
+        out = nb * ccap * words
+        if lvl == 0:
+            return nbytes(kwargs["coords"], kwargs["valid"],
+                          kwargs["vox_cid"]) + out
+        cb, cv = kwargs["col_bxy"], kwargs["col_valid"]
+        f_g = (2 * gh) >> (lvl - 1)
+        b, gx, gy = cb >> 24, (cb >> 12) & 4095, cb & 4095
+        cells = rows = 0
+        for cx in (0, 1):
+            for cy in (0, 1):
+                gxf, gyf = 2 * gx + cx, 2 * gy + cy
+                c, h = grid_hits(kwargs["fine_grid"], b, gxf, gyf,
+                                 cv & (gxf < f_g) & (gyf < f_g), f_g)
+                cells, rows = cells + c, rows + h
+        return nbytes(cb, cv) + cells * 8 + rows * words + out
+    if name == "assemble_aug":
+        real_w, cb, cv, grid, nb, g, ccap = args[:7]
+        b, gx, gy = cb >> 24, (cb >> 12) & 4095, cb & 4095
+        cells = 0
+        for dx in (-1, 1):
+            ok = cv & (gx + dx >= 0) & (gx + dx < g)
+            cells += grid_hits(grid, b, (gx + dx).clamp(0, g - 1), gy, ok,
+                               g)[0]
+        return (nbytes(real_w, cb, cv) + cells * 8 + nb * ccap * (ZWORDS + 2)
+                * 8 + nb * 8)
+    pos3, coords, valid, counts_b, nb, cap_a, gh, lvl = args
+    n, n_a = coords.shape[0], nb * cap_a
+    out = n_a * (16 + 4) + n * 4  # coords, 4 flags; pos or parent
+    if lvl:
+        out += n * 4 + 8 * n_a * 4  # off, down8
+    elif kwargs.get("rep"):
+        out += n_a * 4
+    return nbytes(pos3, coords, valid, counts_b) + out
+
+
+def table_shape(name, args):
+    """A column-table call's size: source rows in, slots or rows out."""
+    if name == "column_grid":
+        return f"{args[0].shape[0]} rows -> {args[2] * args[5]} slots"
+    if name == "real_words":
+        return f"{args[1] * args[2]} slots"
+    if name == "assemble_aug":
+        return f"{args[0].shape[0]} slots"
+    return f"{args[1].shape[0]} rows -> {args[4] * args[5]} aug rows"
+
+
+def table_call(fn, args, kwargs):
+    """fn(*args, **kwargs) on a zeroed copy of its overflow vector (where
+    it takes one); returns its outputs and that vector."""
+    import torch
+
+    def run():
+        kw = dict(kwargs)
+        if "overflow" in kw:
+            kw["overflow"] = torch.zeros_like(kw["overflow"])
+        out = fn(*args, **kw)
+        out = out if isinstance(out, tuple) else (out,)
+        return out + ((kw["overflow"],) if "overflow" in kw else ())
+    return run
+
+
+def table_kernel_checks(dev):
+    """Phase 19: KV, KW, KX and KY torch.equal to their plain versions on
+    the inputs the plan builder gives them (table_inputs), overflow terms
+    included: the serving plan of phase 4's scan, the training plan of 4
+    scans, its sortless plan (device_batch_raw), the general stem's plan,
+    and the edge voxels of the CPU tests with roomy, starved and
+    column-starved caps, and as sortless input (also with caps_real below
+    its voxels); each at every level."""
+    import torch
+
+    from lidog_tpu_torch.caps import make_zcaps
+    from lidog_tpu_torch.core import zseg
+    from lidog_tpu_torch.core.voxelize import voxelize_device
+    from lidog_tpu_torch.data import synthetic as syn
+
+    ck = Checker(None, dev)
+    src = "lidog_tpu_torch/csrc/zseg_tables.cu"
+    flat = torch.from_numpy(scan(POINTS, SEED)[0]).to(dev)
+    vox = voxelize_device(flat, torch.ones(POINTS, dtype=torch.bool,
+                                           device=dev),
+                          torch.zeros(POINTS, dtype=torch.int32, device=dev),
+                          VOXEL, PER_SCAN)
+    tpts, tlabels = train_data()
+    tbatch = train_batch(tpts, tlabels, dev)
+    raw = train_batch(tpts, tlabels, dev, sortless=True)
+    edge = [torch.from_numpy(a).to(dev) for a in syn.plan_edge_voxels()]
+    edge_raw = [torch.from_numpy(a).to(dev)
+                for a in syn.plan_edge_voxels_sortless()]
+    zc = make_zcaps(PER_SCAN)
+    cases = [("serve", zseg.ZSegPlanBuilder(
+        *zc[:2], num_batches=1, grid_half=GRID_HALF, caps_col_dil=zc[2]),
+        vox.coords, vox.mask),
+             ("train", train_plan_builder(), tbatch["coords"], tbatch["mask"]),
+             ("train sortless", train_plan_builder(assume_unique=False),
+              raw["coords"], raw["mask"]),
+             ("train cin4", train_plan_builder(IN_CHANNELS),
+              tbatch["coords"], tbatch["mask"])]
+    edge_kw = dict(num_batches=2, grid_half=syn.EDGE_GRID_HALF)
+    for label, caps, opts, rows in (
+            ("edges", syn.EDGE_CAPS, {}, edge),
+            ("edges starved", syn.EDGE_CAPS_STARVED, {}, edge),
+            ("edges col starved", syn.EDGE_CAPS,
+             dict(caps_col_dil=syn.EDGE_COL_DIL_STARVED), edge),
+            ("edges sortless", syn.EDGE_CAPS, dict(assume_unique=False),
+             edge_raw),
+            ("edges sortless starved", ((256,) * 5, syn.EDGE_CAPS[1]),
+             dict(assume_unique=False), edge_raw)):
+        cases.append((label, zseg.ZSegPlanBuilder(*caps, **edge_kw, **opts),
+                      *rows))
+    for label, builder, coords, mask in cases:
+        for lvl, name, args, kwargs in builder.table_inputs(coords, mask):
+            wrapper = getattr(zseg, name)
+            plain = getattr(zseg, name + "_plain")
+            ck.record(name, src, TABLE_KERNELS[name],
+                      table_call(wrapper, args, kwargs),
+                      table_call(plain, args, kwargs), torch.int64,
+                      table_nbytes(name, args, kwargs), 0,
+                      f"{label} L{lvl} {table_shape(name, args)}",
+                      mma=False, exact=True)
+    return ck.rows
+
+
 def serve(model, pts, dev):
     """Phase 4: timed requests through the Predictor, each followed by one
     request split into stages (in turns, so that both see the same host);
@@ -993,9 +1163,10 @@ def plans_equal(a, b, what):
 def cross_check(model, dev):
     """Phase 5: card vs CPU, same weights and caps: on the 20,000-point
     check scan (seed 1) and on phase 4's 100,000-point scan (seed 0) the
-    voxelization (every field) and the plan (through KR-KU on the card,
-    their plain versions on the CPU) bitwise equal; on the check scan the
-    labels agree on >= 99% of points."""
+    voxelization (every field) and the plan (through KR-KY on the card,
+    their plain versions on the CPU) bitwise equal, and the sortless
+    training batch's plan (pos and rep included) too; on the check scan
+    the labels agree on >= 99% of points."""
     import torch
 
     from lidog_tpu_torch.core.voxelize import voxelize_device
@@ -1026,6 +1197,22 @@ def cross_check(model, dev):
                                  "differs")
         print(f"[check] {points} points (seed {seed}): voxels and plan "
               f"bitwise equal on {len(plan_c.kmaps)} maps", flush=True)
+    # the sortless training batch (raw per-point cells, duplicates kept):
+    # its assume_unique=False plan on the card (KV-KY) and on the CPU
+    tpts, tlabels = train_data()
+    raw = train_batch(tpts, tlabels, dev, sortless=True)
+    builder = train_plan_builder(assume_unique=False)
+    plan_g = builder(raw["coords"], raw["mask"])
+    plan_c = builder(raw["coords"].cpu(), raw["mask"].cpu())
+    plans_equal(plan_g, plan_c, "card vs CPU sortless training plan")
+    for f in ("pos", "rep"):
+        if not torch.equal(getattr(plan_g, f).cpu(), getattr(plan_c, f)):
+            raise AssertionError(f"card vs CPU sortless training plan: {f} "
+                                 "differs")
+    print(f"[check] sortless training batch ({raw['coords'].shape[0]} raw "
+          f"cells): plan, pos and rep bitwise equal on "
+          f"{len(plan_c.kmaps)} maps", flush=True)
+    del raw, plan_g, plan_c
     pts = scan(CHECK_POINTS, SEED + 1)
     lab_g = gpu(pts).cpu().numpy()
     lab_c = cpu(pts).numpy()
@@ -1950,6 +2137,8 @@ def main():
     rows += stem_kernel_checks(dev, torch.Generator().manual_seed(SEED + 11))
     torch.cuda.empty_cache()
     rows += plan_kernel_checks(dev)
+    torch.cuda.empty_cache()
+    rows += table_kernel_checks(dev)
     torch.cuda.empty_cache()
 
     zero_counters()

@@ -11,12 +11,17 @@ conv, ops/zconv.py) in segmented canonical order: scan b owns rows
 parent/off (k=2 s=2 pair), and the fused 5x5x5 stem occupancy, or for
 in_channels > 1 the stem's 125 source-row maps (`stem125`).
 
-On the card the sweeps downstream of the column tables are hand-written
-kernels: KU (`_build_packed`, the packed y-neighbourhood table), KR
-(`stem_conv9_packed`), KS (`conv9_packed`) and KT (`pos3_lookup`) in
-csrc/zseg_sweeps.cu, and KQ (`stem_feat125_packed`, csrc/stem_feat125.cu).
-Each wrapper takes its plain version (`*_plain`) for CPU tensors.  The
-column tables themselves (K2-K5, K10) run as plain torch.
+On the card the whole build runs as hand-written kernels.  Per level the
+column tables (csrc/zseg_tables.cu): KV (`column_grid`, the y-dilated
+column grid and slot stamps), KW (`real_words`, the real z-bit words), KX
+(`assemble_aug`, the aug words and per-scan starts) and KY (`emit_rows`,
+the level's rows and maps); then the sweeps downstream of them: KT
+(`pos3_lookup`), KU (`_build_packed`, the packed y-neighbourhood table), KR
+(`stem_conv9_packed`) and KS (`conv9_packed`) in csrc/zseg_sweeps.cu, and
+KQ (`stem_feat125_packed`, csrc/stem_feat125.cu).  Each wrapper takes its
+plain version (`*_plain`) for CPU tensors; on CUDA tensors the builder
+launches only these kernels and the fills of its own buffers, with no
+host sync (the overflow terms are summed on the device).
 
 What the JAX version shaped around the TPU is not carried over, only its
 results: the 512 B wide-row grid lookup (GRID_ROW_W), the per-scan
@@ -45,7 +50,8 @@ from lidog_tpu_torch.ops import _cuda
 NUM_LEVELS = 5
 ZMAX = ZWORDS * 32
 LAUNCHES = {"stem_feat125": 0, "stem_conv9_packed": 0, "conv9_packed": 0,
-            "pos3_lookup": 0, "build_packed": 0}
+            "pos3_lookup": 0, "build_packed": 0, "column_grid": 0,
+            "real_words": 0, "assemble_aug": 0, "emit_rows": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,13 +183,129 @@ def _shift_dn(x, adj):
     return pv * adn[:, None].to(x.dtype)
 
 
-def _assemble_aug(real_w, col_bxy, col_valid, grid_d, num_batches: int,
-                  g: int, ccap: int, cap_a: int):
-    """Ghost/aug words per dilated slot: 2 x-neighbour fetches + y shifts.
+def column_grid_plain(coords, valid, num_batches: int, grid_half: int,
+                      level: int, ccap: int, r: int, *, overflow,
+                      cap_real: int = -1):
+    """The y-dilated column set of a level's source rows (plain version of
+    KV: lidog_tpu/core/zseg.py:271-300 and __call__:863-914).
+
+    coords int32 [N, 4] (raw, or a finer level's rows: only coords >> level
+    is read), valid bool [N]; the level's cells g x g, g = 2*grid_half >>
+    level, dilated along gy by +-r.  Returns (grid_d int64 [B*g*g] GLOBAL
+    segmented column id or -1, vox_cid int64 [N] each row's column or -1,
+    col_bxy int64 [B*ccap] packed (b, gx, gy) of each slot (0 where empty),
+    col_valid bool [B*ccap]).  Adds the rows lost to the column cap and the
+    columns past it to overflow[1 + level], and with cap_real >= 0 (unique
+    level-0 input) the real voxels past cap_real per scan to
+    overflow[0]."""
+    B, dev = num_batches, coords.device
+    g = (2 * grid_half) >> level
+    b_, gx, gy, bz, inb = _cell_of(coords, grid_half, level)
+    b_, gx, gy = b_.long(), gx.long(), gy.long()
+    ok = valid & inb
+    gxc = gx.clamp(0, g - 1)
+    gyc = gy.clamp(0, g - 1)
+    bsafe = torch.where(ok, b_, 0)
+    if cap_real >= 0:
+        # overflow[0]: level-0 real voxels beyond caps_real[0]
+        nreal_b = torch.zeros(B + 1, dtype=torch.long, device=dev)
+        nreal_b.index_add_(0, torch.where(ok, b_, B), torch.ones_like(b_))
+        overflow[0] += torch.clamp(nreal_b[:B] - cap_real, min=0).sum().to(
+            torch.int32)
+    cells = B * g * g
+    has = torch.zeros(cells + 1, dtype=torch.int8, device=dev)
+    has[torch.where(ok, (bsafe * g + gxc) * g + gyc, cells)] = 1
+    has_d = _dilate_y(has[:cells].reshape(B, g * g), g, r)
+    grid_d, col_over_d = _grid_from_has(has_d, B, ccap)
+    # one lookup per voxel: an occupied column's whole +-r y-window
+    # is dilated and contiguous, so slot of (gx, gy+dy) is cid + dy
+    vox_cid = _grid_lookup(grid_d, bsafe, gxc, gyc, ok, g)
+    sink = B * ccap
+    col_bxy = torch.full((sink + 1,), -1, dtype=torch.long, device=dev)
+    pack0 = _pack_bxy(bsafe, gxc, gyc)
+    seg0 = bsafe * ccap
+    for dy in range(-r, r + 1):
+        gyn = gyc + dy
+        okn = (ok & (gyn >= 0) & (gyn < g) & (vox_cid >= 0)
+               & (vox_cid + dy >= seg0) & (vox_cid + dy < seg0 + ccap))
+        col_bxy[torch.where(okn, vox_cid + dy, sink)] = pack0 + dy
+    col_bxy = col_bxy[:sink]
+    col_valid = col_bxy >= 0
+    col_bxy = col_bxy.clamp(min=0)
+    vox_drop = (ok & (vox_cid < 0)).sum()
+    overflow[1 + level] += (vox_drop + col_over_d).to(torch.int32)
+    return grid_d, vox_cid, col_bxy, col_valid
+
+
+def real_words_plain(level: int, num_batches: int, ccap: int, grid_half: int,
+                     *, overflow, coords=None, valid=None, vox_cid=None,
+                     unique: bool = True, cap_real: int = 0, col_bxy=None,
+                     col_valid=None, fine_grid=None, fine_real=None):
+    """The real z-bit words of each column slot (plain version of KW,
+    lidog_tpu/core/zseg.py:916-979, _zpair_words:234): int64 [B*ccap,
+    ZWORDS] holding uint32 values.
+
+    Level 0 stamps the source rows (coords, valid, their vox_cid): unique
+    input scatter-adds the bits; sortless input (unique=False) sets them
+    idempotently and adds the deduped voxels past cap_real per scan to
+    overflow[0].  Levels 1-4 OR the 4 child columns of each slot (col_bxy,
+    col_valid) in the finer level's tables (fine_grid, fine_real) and
+    coarsen the words one z level."""
+    B, dev = num_batches, (coords if level == 0 else col_bxy).device
+    sink = B * ccap
+    if level == 0:
+        _, _, _, bz, inb = _cell_of(coords, grid_half, 0)
+        bz = bz.long()
+        ok = valid & inb
+        if unique:
+            # scatter-add voxel bits: unique (b, x, y, z) => add == OR
+            word = (bz >> 5).clamp(0, ZWORDS - 1)
+            bit = torch.where(ok, 1 << (bz & 31), 0)
+            cslot = torch.where(vox_cid >= 0, vox_cid, sink)
+            real_w = torch.zeros(sink + 1, ZWORDS, dtype=torch.long,
+                                 device=dev)
+            real_w.index_put_((cslot, word), bit, accumulate=True)
+            return real_w[:sink] & U32
+        # sortless input: an idempotent per-z byte stamp, then 32 bytes
+        # -> one word, one bit position at a time (no int64 copy of the
+        # whole stamp)
+        cslot = torch.where(ok & (vox_cid >= 0), vox_cid, sink)
+        zbytes = torch.zeros(sink + 1, ZMAX, dtype=torch.int8, device=dev)
+        zbytes[cslot, bz.clamp(0, ZMAX - 1)] = 1
+        zbytes = zbytes[:sink].reshape(sink, ZWORDS, 32)
+        real_w = torch.zeros(sink, ZWORDS, dtype=torch.long, device=dev)
+        for k in range(32):
+            real_w |= zbytes[:, :, k].long() << k
+        # overflow[0] on the deduped voxel count
+        nreal_b = popcount32(real_w).sum(-1).reshape(B, ccap).sum(1)
+        overflow[0] += torch.clamp(nreal_b - cap_real, min=0).sum().to(
+            torch.int32)
+        return real_w
+    # coarse real words from the fine table: 4 child column fetches +
+    # pairwise z OR
+    f_g = (2 * grid_half) >> (level - 1)
+    bC, gxC, gyC = _unpack_bxy(col_bxy)
+    acc = torch.zeros(sink, ZWORDS, dtype=torch.long, device=dev)
+    for cx in (0, 1):
+        for cy in (0, 1):
+            gxf = 2 * gxC + cx
+            gyf = 2 * gyC + cy
+            okf = col_valid & (gxf < f_g) & (gyf < f_g)
+            cidf = _grid_lookup(fine_grid, bC, gxf.clamp(0, f_g - 1),
+                                gyf.clamp(0, f_g - 1), okf, f_g)
+            acc = acc | _rows_or_miss(fine_real, cidf)
+    return _zpair_words(acc)
+
+
+def assemble_aug_plain(real_w, col_bxy, col_valid, grid_d, num_batches: int,
+                       g: int, ccap: int, cap_a: int, *, level: int,
+                       overflow):
+    """Ghost/aug words per dilated slot: 2 x-neighbour fetches + y shifts
+    (plain version of KX, lidog_tpu/core/zseg.py:335).
 
     ghost = zdil(own) & ~own & OR(3x3 neighbourhood real words).  Returns
     (aug16 [B*ccap, ZWORDS+2] = words + GLOBAL start + count, aug rows per
-    scan [B])."""
+    scan [B]); adds the rows past cap_a to overflow[1 + level]."""
     b, gx, gy = _unpack_bxy(col_bxy)
     own = real_w
     adj = _y_adjacency(col_bxy, col_valid)
@@ -202,6 +324,8 @@ def _assemble_aug(real_w, col_bxy, col_valid, grid_d, num_batches: int,
     seg = torch.arange(num_batches, device=aug.device)[:, None] * cap_a
     start = (_cumsum_excl_axis1(popc2) + seg).reshape(-1)
     aug16 = torch.cat([aug, start[:, None], popc[:, None]], dim=1)
+    overflow[1 + level] += torch.clamp(counts_b - cap_a, min=0).sum().to(
+        torch.int32)
     return aug16, counts_b
 
 
@@ -418,12 +542,24 @@ def _require(name, checks):
             raise ValueError(f"{name}: {msg}")
 
 
+def _require_rows(name, coords, valid):
+    n = coords.shape[0]
+    _require(name, (
+        (coords.dtype == torch.int32 and tuple(coords.shape) == (n, 4),
+         "coords must be int32 [N, 4]"),
+        (valid.dtype == torch.bool and tuple(valid.shape) == (n,),
+         "valid must be bool [N]"),
+        (coords.data_ptr() % 16 == 0, "coords must be 16-byte aligned"),
+    ))
+    return n
+
+
 def _require_sweep(name, cid_grid, packed, coords, valid, g, ccap, nb,
                    min_width):
     """The checks of a packed-table sweep's inputs (KQ, KR, KS); returns
     the device and the table's width."""
     dev = _require_cuda(name, cid_grid, packed, coords, valid)
-    n = coords.shape[0]
+    n = _require_rows(name, coords, valid)
     width = packed.shape[1] if packed.dim() == 2 else 0
     _require(name, (
         (n % nb == 0, f"rows {n} are not {nb} equal segments"),
@@ -432,11 +568,6 @@ def _require_sweep(name, cid_grid, packed, coords, valid, g, ccap, nb,
         (packed.dtype == torch.int64 and packed.dim() == 2
          and packed.shape[0] == nb * ccap and width >= min_width,
          f"packed must be int64 [nb*ccap, >= {min_width}]"),
-        (coords.dtype == torch.int32 and tuple(coords.shape) == (n, 4),
-         "coords must be int32 [N, 4]"),
-        (valid.dtype == torch.bool and tuple(valid.shape) == (n,),
-         "valid must be bool [N]"),
-        (coords.data_ptr() % 16 == 0, "coords must be 16-byte aligned"),
     ))
     return dev, width
 
@@ -554,18 +685,13 @@ def pos3_lookup(aug16, coords, valid, g: int, cap_a: int, grid_half: int,
                           cid)
     name = "pos3_lookup"
     dev = _require_cuda(name, aug16, coords, valid, cid)
-    n = coords.shape[0]
+    n = _require_rows(name, coords, valid)
     _require(name, (
         (aug16.dtype == torch.int64 and aug16.dim() == 2
          and aug16.shape[1] == ZWORDS + 2,
          f"aug16 must be int64 [slots, {ZWORDS + 2}]"),
-        (coords.dtype == torch.int32 and tuple(coords.shape) == (n, 4),
-         "coords must be int32 [N, 4]"),
-        (valid.dtype == torch.bool and tuple(valid.shape) == (n,),
-         "valid must be bool [N]"),
         (cid.dtype == torch.int64 and tuple(cid.shape) == (n,),
          "cid must be int64 [N]"),
-        (coords.data_ptr() % 16 == 0, "coords must be 16-byte aligned"),
     ))
     out = torch.empty(3, n, dtype=torch.int64, device=dev)
     if n:
@@ -574,6 +700,210 @@ def pos3_lookup(aug16, coords, valid, g: int, cap_a: int, grid_half: int,
                    aug16.shape[0], g, cap_a, grid_half, level)
         LAUNCHES[name] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Column-table kernels KV-KY (csrc/zseg_tables.cu): each wrapper takes its
+# plain version for CPU tensors, launches its kernel for CUDA tensors (one
+# count per call; the kernel's steps run in order on the current stream)
+# and raises on any other device.  Overflow terms are added on the device
+# into the plan's int32 overflow vector.
+# ---------------------------------------------------------------------------
+
+_CHUNK = 256  # KX's slots per block (csrc/zseg_tables.cu THREADS)
+_REP_NONE = 2**31 - 1  # KY's rep of a row no input row maps to, before -1
+
+
+def _require_overflow(name, overflow, dev):
+    _require(name, ((overflow.device == dev and overflow.dtype == torch.int32
+                     and tuple(overflow.shape) == (1 + NUM_LEVELS,),
+                     f"overflow must be int32 [{1 + NUM_LEVELS}] on {dev}"),))
+
+
+def _require_slots(name, col_bxy, col_valid, slots):
+    _require(name, (
+        (col_bxy.dtype == torch.int64 and tuple(col_bxy.shape) == (slots,),
+         f"col_bxy must be int64 [{slots}]"),
+        (col_valid.dtype == torch.bool and tuple(col_valid.shape) == (slots,),
+         f"col_valid must be bool [{slots}]"),
+    ))
+
+
+def _require_level(name, num_batches, g, level, *caps):
+    _require(name, (
+        (0 <= level < NUM_LEVELS, f"level must lie in [0, {NUM_LEVELS})"),
+        (num_batches >= 1 and g >= 1 and all(c >= 1 for c in caps),
+         "needs num_batches, g and the caps >= 1"),
+        (num_batches * g * g < 2**31
+         and all(num_batches * c * (ZWORDS + 2) < 2**31 for c in caps),
+         "grid or tables too large for int32 sizes"),
+    ))
+
+
+def column_grid(coords, valid, num_batches: int, grid_half: int, level: int,
+                ccap: int, r: int, *, overflow, cap_real: int = -1):
+    """KV (csrc/zseg_tables.cu) for CUDA tensors, the plain version for CPU
+    tensors; arguments as the plain version's."""
+    if coords.device.type == "cpu":
+        return column_grid_plain(coords, valid, num_batches, grid_half, level,
+                                 ccap, r, overflow=overflow,
+                                 cap_real=cap_real)
+    name = "column_grid"
+    dev = _require_cuda(name, coords, valid)
+    n = _require_rows(name, coords, valid)
+    g = (2 * grid_half) >> level
+    _require_level(name, num_batches, g, level, ccap)
+    _require_overflow(name, overflow, dev)
+    _require(name, ((0 <= r and 2 * r + 1 <= g, f"bad radius {r}"),
+                    (g <= 32768, "g must be <= 32768 (a row in shared "
+                     "memory)")))
+    slots, rows = num_batches * ccap, num_batches * g
+    grid_d = torch.empty(rows * g, dtype=torch.int64, device=dev)
+    vox_cid = torch.empty(n, dtype=torch.int64, device=dev)
+    col_bxy = torch.zeros(slots, dtype=torch.int64, device=dev)
+    col_valid = torch.zeros(slots, dtype=torch.bool, device=dev)
+    has = torch.zeros(rows * g, dtype=torch.int8, device=dev)  # scratch
+    row_tab = torch.empty(2, rows, dtype=torch.int64, device=dev)  # scratch
+    nreal = (torch.zeros(num_batches, dtype=torch.int64, device=dev)
+             if cap_real >= 0 else None)  # scratch
+    _cuda.call(name, coords.data_ptr(), valid.data_ptr(), grid_d.data_ptr(),
+               vox_cid.data_ptr(), col_bxy.data_ptr(), col_valid.data_ptr(),
+               has.data_ptr(), row_tab.data_ptr(),
+               None if nreal is None else nreal.data_ptr(),
+               overflow.data_ptr(), n, num_batches, grid_half, level, ccap, r,
+               cap_real)
+    LAUNCHES[name] += 1
+    return grid_d, vox_cid, col_bxy, col_valid
+
+
+def real_words(level: int, num_batches: int, ccap: int, grid_half: int, *,
+               overflow, coords=None, valid=None, vox_cid=None,
+               unique: bool = True, cap_real: int = 0, col_bxy=None,
+               col_valid=None, fine_grid=None, fine_real=None):
+    """KW (csrc/zseg_tables.cu) for CUDA tensors, the plain version for CPU
+    tensors; arguments as the plain version's."""
+    tables = ((coords, valid, vox_cid) if level == 0
+              else (col_bxy, col_valid, fine_grid, fine_real))
+    kw = dict(overflow=overflow, coords=coords, valid=valid, vox_cid=vox_cid,
+              unique=unique, cap_real=cap_real, col_bxy=col_bxy,
+              col_valid=col_valid, fine_grid=fine_grid, fine_real=fine_real)
+    if tables[0].device.type == "cpu":
+        return real_words_plain(level, num_batches, ccap, grid_half, **kw)
+    name = "real_words"
+    dev = _require_cuda(name, *tables)
+    _require_level(name, num_batches, (2 * grid_half) >> level, level, ccap)
+    _require_overflow(name, overflow, dev)
+    slots = num_batches * ccap
+    n, fine_slots = 0, 0
+    if level == 0:
+        n = _require_rows(name, coords, valid)
+        _require(name, ((vox_cid.dtype == torch.int64
+                         and tuple(vox_cid.shape) == (n,),
+                         "vox_cid must be int64 [N]"),))
+    else:
+        _require_slots(name, col_bxy, col_valid, slots)
+        f_g = (2 * grid_half) >> (level - 1)
+        fine_slots = fine_real.shape[0] if fine_real.dim() == 2 else 0
+        _require(name, (
+            (fine_grid.dtype == torch.int64
+             and tuple(fine_grid.shape) == (num_batches * f_g * f_g,),
+             "fine_grid must be int64 [B*g_fine^2]"),
+            (fine_real.dtype == torch.int64 and fine_real.dim() == 2
+             and fine_real.shape[1] == ZWORDS,
+             f"fine_real must be int64 [slots, {ZWORDS}]"),
+        ))
+    real_w = (torch.zeros if level == 0 else torch.empty)(
+        slots, ZWORDS, dtype=torch.int64, device=dev)
+    nreal = (torch.zeros(num_batches, dtype=torch.int64, device=dev)
+             if level == 0 and not unique else None)  # scratch
+    ptr = [t.data_ptr() if t is not None else None
+           for t in (coords, valid, vox_cid, col_bxy, col_valid, fine_grid,
+                     fine_real, real_w, nreal)]
+    _cuda.call(name, *ptr, overflow.data_ptr(), n, fine_slots, num_batches,
+               ccap, grid_half, level, int(unique), cap_real)
+    LAUNCHES[name] += 1
+    return real_w
+
+
+def assemble_aug(real_w, col_bxy, col_valid, grid_d, num_batches: int,
+                 g: int, ccap: int, cap_a: int, *, level: int, overflow):
+    """KX (csrc/zseg_tables.cu) for CUDA tensors, the plain version for CPU
+    tensors; arguments as the plain version's."""
+    if real_w.device.type == "cpu":
+        return assemble_aug_plain(real_w, col_bxy, col_valid, grid_d,
+                                  num_batches, g, ccap, cap_a, level=level,
+                                  overflow=overflow)
+    name = "assemble_aug"
+    dev = _require_cuda(name, real_w, col_bxy, col_valid, grid_d)
+    slots = num_batches * ccap
+    _require_level(name, num_batches, g, level, ccap, cap_a)
+    _require_overflow(name, overflow, dev)
+    _require_slots(name, col_bxy, col_valid, slots)
+    _require(name, (
+        (real_w.dtype == torch.int64
+         and tuple(real_w.shape) == (slots, ZWORDS),
+         f"real_w must be int64 [{slots}, {ZWORDS}]"),
+        (grid_d.dtype == torch.int64
+         and tuple(grid_d.shape) == (num_batches * g * g,),
+         "grid_d must be int64 [B*g*g]"),
+    ))
+    nchunks = -(-ccap // _CHUNK)
+    aug16 = torch.empty(slots, ZWORDS + 2, dtype=torch.int64, device=dev)
+    counts_b = torch.empty(num_batches, dtype=torch.int64, device=dev)
+    yor3 = torch.empty(slots, ZWORDS, dtype=torch.int32, device=dev)
+    chunks = torch.empty(num_batches * nchunks, dtype=torch.int64, device=dev)
+    _cuda.call(name, real_w.data_ptr(), col_bxy.data_ptr(),
+               col_valid.data_ptr(), grid_d.data_ptr(), aug16.data_ptr(),
+               counts_b.data_ptr(), yor3.data_ptr(), chunks.data_ptr(),
+               overflow.data_ptr(), num_batches, g, ccap, cap_a, level)
+    LAUNCHES[name] += 1
+    return aug16, counts_b
+
+
+def emit_rows(pos3, coords, valid, counts_b, num_batches: int, cap_a: int,
+              grid_half: int, level: int, rep: bool = False):
+    """KY (csrc/zseg_tables.cu) for CUDA tensors, the plain version for CPU
+    tensors; arguments as the plain version's."""
+    if coords.device.type == "cpu":
+        return emit_rows_plain(pos3, coords, valid, counts_b, num_batches,
+                               cap_a, grid_half, level, rep)
+    name = "emit_rows"
+    dev = _require_cuda(name, pos3, coords, valid, counts_b)
+    n = _require_rows(name, coords, valid)
+    _require_level(name, num_batches, (2 * grid_half) >> level, level, cap_a)
+    _require(name, (
+        (pos3.dtype == torch.int64 and tuple(pos3.shape) == (3, n),
+         "pos3 must be int64 [3, N]"),
+        (counts_b.dtype == torch.int64
+         and tuple(counts_b.shape) == (num_batches,),
+         "counts_b must be int64 [B]"),
+        (not rep or level == 0, "rep is a level-0 output"),
+    ))
+    n_a = num_batches * cap_a
+    coords_a = torch.empty(n_a, 4, dtype=torch.int32, device=dev)
+    real_a = torch.zeros(n_a, dtype=torch.bool, device=dev)
+    valid_a, zup, zdn = (torch.empty(n_a, dtype=torch.bool, device=dev)
+                         for _ in range(3))
+    packed_a = torch.zeros(n_a, dtype=torch.int64, device=dev)  # scratch
+    pos = torch.empty(n, dtype=torch.int32, device=dev)
+    off = map8 = None
+    if level:
+        off = torch.empty(n, dtype=torch.int32, device=dev)
+        map8 = torch.full((8, n_a), -1, dtype=torch.int32, device=dev)
+    elif rep:
+        map8 = torch.full((n_a,), _REP_NONE, dtype=torch.int32, device=dev)
+    _cuda.call(name, pos3.data_ptr(), coords.data_ptr(), valid.data_ptr(),
+               counts_b.data_ptr(), coords_a.data_ptr(), real_a.data_ptr(),
+               valid_a.data_ptr(), zup.data_ptr(), zdn.data_ptr(),
+               packed_a.data_ptr(), pos.data_ptr(),
+               None if off is None else off.data_ptr(),
+               None if map8 is None else map8.data_ptr(), n, num_batches,
+               cap_a, grid_half, level, int(rep))
+    LAUNCHES[name] += 1
+    rows = (coords_a, real_a, valid_a, zup, zdn, pos)
+    if level:
+        return rows + (off, map8)
+    return rows + ((map8,) if rep else ())
 
 
 def _seg_valid_mask(counts, num_batches: int, seg_cap: int):
@@ -603,6 +933,74 @@ def _z_adjacency(coords, valid, stride: int):
     adj = same_col & zplus & valid[1:] & valid[:-1]
     f = adj.new_zeros(1)
     return torch.cat([adj, f]), torch.cat([f, adj])
+
+
+def emit_rows_plain(pos3, coords, valid, counts_b, num_batches: int,
+                    cap_a: int, grid_half: int, level: int,
+                    rep: bool = False):
+    """A level's augmented rows from its source rows' (z-1, z, z+1) aug
+    positions (plain version of KY, lidog_tpu/core/zseg.py:1004-1026,
+    1049-1100, 735-770): each candidate scattered as one packed
+    gxgy << 9 | bz and decoded per row.
+
+    pos3 int64 [3, N] (KT's), coords/valid the source rows, counts_b int64
+    [B] the aug rows per scan.  Returns (coords int32 [B*cap_a, 4], real,
+    valid, zup, zdn bool [B*cap_a]) and, at level 0, pos int32 [N] (+ rep
+    int32 [B*cap_a], the smallest input row of each row, with rep=True),
+    above it the pair maps to the finer level whose rows are the sources:
+    parent, off int32 [N] and down8 int32 [8, B*cap_a]."""
+    B, gh, i = num_batches, grid_half, level
+    dev = coords.device
+    g = (2 * gh) >> i
+    n_a = B * cap_a
+    _, gx, gy, bz, _ = _cell_of(coords, gh, i)
+    gxc = gx.long().clamp(0, g - 1)
+    gyc = gy.long().clamp(0, g - 1)
+    # one packed int per candidate: gxgy << 9 | bz (uint32 wrap kept, as
+    # in the JAX version)
+    packed0 = ((gxc * g + gyc) << 9) | bz.long().clamp(0, ZMAX - 1)
+    cand_p = torch.cat([packed0 - 1, packed0, packed0 + 1]) & U32
+    packed_a = _scatter_rows(pos3.reshape(-1), cand_p, n_a)
+    gxgy = packed_a >> 9
+    ax = (torch.div(gxgy, g, rounding_mode="floor") - (gh >> i)) << i
+    ay = ((gxgy % g) - (gh >> i)) << i
+    az = ((packed_a & 511) - ZC) << i
+    ab = torch.arange(n_a, device=dev) // cap_a
+    coords_a = torch.stack([ab, ax, ay, az], dim=1).to(torch.int32)
+    real_a = _scatter_flag(pos3[1], valid, n_a)
+    valid_a = _seg_valid_mask(counts_b, B, cap_a)
+    coords_a = torch.where(valid_a[:, None], coords_a, 0)
+    real_a = real_a & valid_a
+    zup, zdn = _z_adjacency(coords_a, valid_a, 1 << i)
+    rows = (coords_a, real_a, valid_a, zup, zdn)
+    if i == 0:
+        pos_in = torch.where(valid, pos3[1], -1).to(torch.int32)
+        if not rep:
+            return rows + (pos_in,)
+        # the representative input row of each level-0 row: the minimum
+        # input index (voxelize_device's pick)
+        big = 2**31 - 1
+        pslot = torch.where(pos_in >= 0, pos_in.long(), n_a)
+        rep_in = torch.full((n_a + 1,), big, dtype=torch.int32, device=dev)
+        rep_in.scatter_reduce_(
+            0, pslot, torch.arange(pos_in.shape[0], dtype=torch.int32,
+                                   device=dev), reduce="amin")
+        rep_in = torch.where(rep_in[:n_a] == big, -1, rep_in[:n_a])
+        return rows + (pos_in, rep_in)
+    # strided pair maps between level i-1 (fine, the sources) and i
+    # (coarse): parent per fine row is pos3's dz=0 lookup; down8 is its
+    # transpose (each real fine row is the unique child of its parent at
+    # its offset)
+    pxyz = (coords[:, 1:4] >> i) << i
+    parent = pos3[1]
+    d = (coords[:, 1:4] - pxyz) >> (i - 1)
+    offv = d[:, 0] * 4 + d[:, 1] * 2 + d[:, 2]
+    down8 = torch.full((8, n_a + 1), -1, dtype=torch.int32, device=dev)
+    pslot = torch.where(parent >= 0, parent, n_a)
+    down8[offv.clamp(0, 7).long(), pslot] = torch.arange(
+        parent.shape[0], dtype=torch.int32, device=dev)
+    return rows + (parent.to(torch.int32), offv.to(torch.int32),
+                   down8[:, :n_a].contiguous())
 
 
 STEM_R = 2  # the k=5 stem's radius (125 occupancy columns)
@@ -643,16 +1041,15 @@ class ZSegPlanBuilder:
         self.caps_col_dil = tuple(int(c) for c in caps_col_dil)
 
     def __call__(self, coords, mask) -> ZPlan:
-        B, dev = self.num_batches, coords.device
+        B = self.num_batches
+        overflow = torch.zeros(1 + NUM_LEVELS, dtype=torch.int32,
+                               device=coords.device)
         kmaps: Dict[str, torch.Tensor] = {}
-        overflow = []
         levels = []
         t = None  # the previous level's tables
         for i in range(NUM_LEVELS):
-            t = self._level(i, coords, mask, t)
-            overflow += t.overflow
+            t = self._level(i, coords, mask, t, overflow)
             levels.append(t.level)
-            capA = self.caps_aug[i]
             args, kwargs = self._packed_args(i, t)
             args, kwargs = self._sweep_args(i, t, _build_packed(*args,
                                                                 **kwargs))
@@ -661,43 +1058,28 @@ class ZSegPlanBuilder:
             del args  # the packed table
             kmaps.update(zip(names, maps if i == 0 else (maps,)))
             if i == 0:
-                pos_in = torch.where(mask, t.pos3[1], -1).to(torch.int32)
-                if not self.assume_unique:
-                    # the representative input row of each level-0 row:
-                    # the minimum input index (voxelize_device's pick)
-                    big = 2**31 - 1
-                    pslot = torch.where(pos_in >= 0, pos_in.long(), B * capA)
-                    rep_in = torch.full((B * capA + 1,), big,
-                                        dtype=torch.int32, device=dev)
-                    rep_in.scatter_reduce_(
-                        0, pslot, torch.arange(pos_in.shape[0],
-                                               dtype=torch.int32, device=dev),
-                        reduce="amin")
-                    rep_in = torch.where(rep_in[:B * capA] == big, -1,
-                                         rep_in[:B * capA])
+                pos_in = t.extra[0]
+                rep_in = None if self.assume_unique else t.extra[1]
             else:
-                # strided pair maps between level i-1 (fine) and i (coarse):
-                # parent per fine row is pos3's dz=0 lookup; down8 is its
-                # transpose (each real fine row is the unique child of its
-                # parent at its offset)
-                fine = levels[i - 1]
-                pxyz = (fine.coords[:, 1:4] >> i) << i
-                parent = t.pos3[1]
-                d = (fine.coords[:, 1:4] - pxyz) >> (i - 1)
-                offv = d[:, 0] * 4 + d[:, 1] * 2 + d[:, 2]
-                kmaps[f"parent_l{i-1}"] = parent.to(torch.int32)
-                kmaps[f"off_l{i-1}"] = offv.to(torch.int32)
-                down8 = torch.full((8, B * capA + 1), -1, dtype=torch.int32,
-                                   device=dev)
-                pslot = torch.where(parent >= 0, parent, B * capA)
-                down8[offv.clamp(0, 7).long(), pslot] = torch.arange(
-                    parent.shape[0], dtype=torch.int32, device=dev)
-                kmaps[f"down8_l{i-1}"] = down8[:, :B * capA].contiguous()
-
+                kmaps[f"parent_l{i-1}"], kmaps[f"off_l{i-1}"], \
+                    kmaps[f"down8_l{i-1}"] = t.extra
         return ZPlan(levels=tuple(levels), kmaps=kmaps, pos=pos_in,
-                     overflow=torch.stack(overflow).to(torch.int32),
-                     rep=None if self.assume_unique else rep_in,
-                     num_batches=B)
+                     overflow=overflow, rep=rep_in, num_batches=B)
+
+    def table_inputs(self, coords, mask):
+        """Yield (level, wrapper name, args, kwargs) of each column-table
+        call of this builder's plan of (coords, mask), as the builder
+        makes them: per level column_grid (KV), real_words (KW),
+        assemble_aug (KX) and emit_rows (KY).  Each `overflow` argument is
+        a copy of the plan's running overflow vector at that call."""
+        overflow = torch.zeros(1 + NUM_LEVELS, dtype=torch.int32,
+                               device=coords.device)
+        t = None
+        for i in range(NUM_LEVELS):
+            calls = []
+            t = self._level(i, coords, mask, t, overflow, calls)
+            for name, args, kwargs in calls:
+                yield i, name, args, kwargs
 
     def sweep_inputs(self, coords, mask):
         """Yield (level, wrapper name, args, kwargs) of each kernel sweep of
@@ -705,9 +1087,11 @@ class ZSegPlanBuilder:
         per level pos3_lookup (KT), _build_packed (KU), then over that
         table stem_conv9_packed (KR; stem_feat125_packed, KQ, with
         stem_feature_map) at level 0, else conv9_packed (KS)."""
+        overflow = torch.zeros(1 + NUM_LEVELS, dtype=torch.int32,
+                               device=coords.device)
         t = None
         for i in range(NUM_LEVELS):
-            t = self._level(i, coords, mask, t)
+            t = self._level(i, coords, mask, t, overflow)
             yield (i, "pos3_lookup") + t.pos3_inputs
             args, kwargs = self._packed_args(i, t)
             yield i, "_build_packed", args, kwargs
@@ -748,144 +1132,63 @@ class ZSegPlanBuilder:
                  self.caps_col_dil[i], self.caps_aug[i]) + tail,
                 dict(grid_half=self.grid_half, level=i))
 
-    def _level(self, i: int, coords, mask, prev: Optional["_LevelTables"]
-               ) -> "_LevelTables":
+    def _level(self, i: int, coords, mask, prev: Optional["_LevelTables"],
+               overflow, calls: Optional[list] = None) -> "_LevelTables":
         """Level i's rows and column tables: from the input (coords, mask)
-        at level 0, else from the previous level's tables."""
+        at level 0, else from the previous level's rows (only coords >> i
+        is read) and tables; adds the level's overflow terms to
+        `overflow`.  With `calls`, appends (name, args, kwargs) of each
+        column-table call to it."""
         B, gh = self.num_batches, self.grid_half
-        dev = coords.device
-        overflow = []
         capA = self.caps_aug[i]
         ccap_d = self.caps_col_dil[i]
-        rpack = STEM_R if i == 0 else 1
-        s = 1 << i
         g = (2 * gh) >> i
+
+        def table(fn, *args, **kwargs):
+            if calls is not None:
+                kw = {k: v.clone() if k == "overflow" else v
+                      for k, v in kwargs.items()}
+                calls.append((fn.__name__, args, kw))
+            return fn(*args, **kwargs)
+
         if i == 0:
             src_coords, src_valid = coords, mask
         else:
-            pc, pr = prev.level.coords, prev.level.real
-            src_coords = torch.cat([pc[:, :1], (pc[:, 1:4] >> i) << i],
-                                   dim=1)
-            src_valid = pr
-
-        # the y-dilated column set of this level's real plane
-        b_, gx, gy, bz, inb = _cell_of(src_coords, gh, i)
-        b_, gx, gy, bz = b_.long(), gx.long(), gy.long(), bz.long()
-        ok = src_valid & inb
-        gxc = gx.clamp(0, g - 1)
-        gyc = gy.clamp(0, g - 1)
-        bsafe = torch.where(ok, b_, 0)
-        if i == 0 and self.assume_unique:
-            # overflow[0]: level-0 real voxels beyond caps_real[0]
-            nreal_b = torch.zeros(B + 1, dtype=torch.long, device=dev)
-            nreal_b.index_add_(0, torch.where(ok, b_, B),
-                               torch.ones_like(b_))
-            overflow.append(
-                torch.clamp(nreal_b[:B] - self.caps_real[0], min=0).sum())
-        cells = B * g * g
-        has = torch.zeros(cells + 1, dtype=torch.int8, device=dev)
-        has[torch.where(ok, (bsafe * g + gxc) * g + gyc, cells)] = 1
-        has_d = _dilate_y(has[:cells].reshape(B, g * g), g, rpack)
-        grid_d, col_over_d = _grid_from_has(has_d, B, ccap_d)
-        # one lookup per voxel: an occupied column's whole +-r y-window
-        # is dilated and contiguous, so slot of (gx, gy+dy) is cid + dy
-        vox_cid = _grid_lookup(grid_d, bsafe, gxc, gyc, ok, g)
-        sink = B * ccap_d
-        col_bxy = torch.full((sink + 1,), -1, dtype=torch.long,
-                             device=dev)
-        pack0 = _pack_bxy(bsafe, gxc, gyc)
-        seg0 = bsafe * ccap_d
-        for dy in range(-rpack, rpack + 1):
-            gyn = gyc + dy
-            okn = (ok & (gyn >= 0) & (gyn < g) & (vox_cid >= 0)
-                   & (vox_cid + dy >= seg0)
-                   & (vox_cid + dy < seg0 + ccap_d))
-            col_bxy[torch.where(okn, vox_cid + dy, sink)] = pack0 + dy
-        col_bxy = col_bxy[:sink]
-        col_valid = col_bxy >= 0
-        col_bxy = col_bxy.clamp(min=0)
-
-        if i == 0 and self.assume_unique:
-            # scatter-add voxel bits: unique (b, x, y, z) => add == OR
-            word = (bz >> 5).clamp(0, ZWORDS - 1)
-            bit = torch.where(ok, 1 << (bz & 31), 0)
-            cslot = torch.where(vox_cid >= 0, vox_cid, sink)
-            real_w = torch.zeros(sink + 1, ZWORDS, dtype=torch.long,
-                                 device=dev)
-            real_w.index_put_((cslot, word), bit, accumulate=True)
-            real_w = real_w[:sink] & U32
-        elif i == 0:
-            # sortless input: an idempotent per-z byte stamp, then 32
-            # bytes -> one word, one bit position at a time (no int64
-            # copy of the whole stamp)
-            cslot = torch.where(ok & (vox_cid >= 0), vox_cid, sink)
-            zbytes = torch.zeros(sink + 1, ZMAX, dtype=torch.int8,
-                                 device=dev)
-            zbytes[cslot, bz.clamp(0, ZMAX - 1)] = 1
-            zbytes = zbytes[:sink].reshape(sink, ZWORDS, 32)
-            real_w = torch.zeros(sink, ZWORDS, dtype=torch.long,
-                                 device=dev)
-            for k in range(32):
-                real_w |= zbytes[:, :, k].long() << k
-            # overflow[0] on the deduped voxel count
-            nreal_b = popcount32(real_w).sum(-1).reshape(B, ccap_d).sum(1)
-            overflow.append(
-                torch.clamp(nreal_b - self.caps_real[0], min=0).sum())
+            src_coords, src_valid = prev.level.coords, prev.level.real
+        cap_real = (self.caps_real[0] if i == 0 and self.assume_unique
+                    else -1)
+        grid_d, vox_cid, col_bxy, col_valid = table(
+            column_grid, src_coords, src_valid, B, gh, i, ccap_d,
+            STEM_R if i == 0 else 1, overflow=overflow, cap_real=cap_real)
+        if i == 0:
+            real_w = table(real_words, 0, B, ccap_d, gh, overflow=overflow,
+                           coords=src_coords, valid=src_valid,
+                           vox_cid=vox_cid, unique=self.assume_unique,
+                           cap_real=self.caps_real[0])
         else:
-            # coarse real words from the fine table: 4 child column
-            # fetches + pairwise z OR
-            f_grid, f_real, f_g = prev.grid_d, prev.real_w, prev.g
-            bC, gxC, gyC = _unpack_bxy(col_bxy)
-            acc = torch.zeros(sink, ZWORDS, dtype=torch.long, device=dev)
-            for cx in (0, 1):
-                for cy in (0, 1):
-                    gxf = 2 * gxC + cx
-                    gyf = 2 * gyC + cy
-                    okf = col_valid & (gxf < f_g) & (gyf < f_g)
-                    cidf = _grid_lookup(
-                        f_grid, bC, gxf.clamp(0, f_g - 1),
-                        gyf.clamp(0, f_g - 1), okf, f_g)
-                    acc = acc | _rows_or_miss(f_real, cidf)
-            real_w = _zpair_words(acc)
-
-        aug16, counts_b = _assemble_aug(real_w, col_bxy, col_valid,
-                                        grid_d, B, g, ccap_d, capA)
-        vox_drop = (ok & (vox_cid < 0)).sum()
-        overflow.append(torch.clamp(counts_b - capA, min=0).sum()
-                        + vox_drop + col_over_d)
-
+            real_w = table(real_words, i, B, ccap_d, gh, overflow=overflow,
+                           col_bxy=col_bxy, col_valid=col_valid,
+                           fine_grid=prev.grid_d, fine_real=prev.real_w)
+        aug16, counts_b = table(assemble_aug, real_w, col_bxy, col_valid,
+                                grid_d, B, g, ccap_d, capA, level=i,
+                                overflow=overflow)
         pos3_inputs = ((aug16, src_coords, src_valid, g, capA, gh, i),
                        dict(cid=vox_cid))
         pos3 = pos3_lookup(*pos3_inputs[0], **pos3_inputs[1])
-        # one packed int per candidate: gxgy << 9 | bz (uint32 wrap
-        # kept, as in the JAX version)
-        packed0 = ((gxc * g + gyc) << 9) | bz.clamp(0, ZMAX - 1)
-        cand_p = torch.cat([packed0 - 1, packed0, packed0 + 1]) & U32
-        packed_a = _scatter_rows(pos3.reshape(-1), cand_p, B * capA)
-        gxgy = packed_a >> 9
-        ax = (torch.div(gxgy, g, rounding_mode="floor") - (gh >> i)) << i
-        ay = ((gxgy % g) - (gh >> i)) << i
-        az = ((packed_a & 511) - ZC) << i
-        ab = torch.arange(B * capA, device=dev) // capA
-        coords_a = torch.stack([ab, ax, ay, az], dim=1).to(torch.int32)
-        real_a = _scatter_flag(pos3[1], src_valid, B * capA)
-        valid_a = _seg_valid_mask(counts_b, B, capA)
-        coords_a = torch.where(valid_a[:, None], coords_a, 0)
-        real_a = real_a & valid_a
-        zup, zdn = _z_adjacency(coords_a, valid_a, s)
+        rows = table(emit_rows, pos3, src_coords, src_valid, counts_b, B,
+                     capA, gh, i, rep=i == 0 and not self.assume_unique)
         return _LevelTables(
-            level=ZLevel(coords=coords_a, real=real_a, valid=valid_a,
-                         zup=zup, zdn=zdn, stride=s),
-            g=g, grid_d=grid_d, real_w=real_w, aug16=aug16, col_bxy=col_bxy,
-            col_valid=col_valid, pos3=pos3, pos3_inputs=pos3_inputs,
-            overflow=overflow)
+            level=ZLevel(*rows[:5], stride=1 << i), g=g, grid_d=grid_d,
+            real_w=real_w, aug16=aug16, col_bxy=col_bxy, col_valid=col_valid,
+            pos3_inputs=pos3_inputs, extra=rows[5:])
 
 
 class _LevelTables(NamedTuple):
     """One level of the plan build: its rows, the y-dilated column grid
-    and tables of its g x g plane, the (z-1, z, z+1) aug rows of each
-    source row (pos3) and the (args, kwargs) they came from, and the
-    level's overflow terms."""
+    and tables of its g x g plane, the (args, kwargs) of its pos3 lookup,
+    and its further maps (emit_rows' outputs after the level's rows: pos
+    [and rep] at level 0, parent, off and down8 to the finer level
+    above)."""
     level: ZLevel
     g: int
     grid_d: torch.Tensor
@@ -893,9 +1196,8 @@ class _LevelTables(NamedTuple):
     aug16: torch.Tensor
     col_bxy: torch.Tensor
     col_valid: torch.Tensor
-    pos3: torch.Tensor
     pos3_inputs: tuple
-    overflow: list
+    extra: tuple
 
 
 def input_tensor_z(plan: ZPlan, feats) -> SparseTensor:

@@ -228,6 +228,10 @@ def point_features(points: np.ndarray, channels: int = 4,
 EDGE_GRID_HALF = 64
 EDGE_CAPS = ((512,) * 5, (1024,) * 5)  # per-scan (caps_real, caps_aug)
 EDGE_CAPS_STARVED = ((512,) * 5, (160, 120, 96, 80, 64))
+# y-dilated column caps below what the edge voxels need (~940, 540, 430,
+# 220, 64 per scan at levels 0-4): columns past the cap and their voxels
+# are dropped and counted (caps_col_dil of ZSegPlanBuilder, with EDGE_CAPS)
+EDGE_COL_DIL_STARVED = (640, 256, 200, 100, 40)
 
 
 def plan_edge_voxels(num_batches: int = 2, seed: int = 0):
@@ -269,3 +273,19 @@ def plan_edge_voxels(num_batches: int = 2, seed: int = 0):
     mask[:len(coords)] = True
     return (np.concatenate([coords, np.zeros((cap - len(coords), 4),
                                              np.int32)]), mask)
+
+
+def plan_edge_voxels_sortless(num_batches: int = 2, seed: int = 0):
+    """plan_edge_voxels as sortless input (raw per-point cells for a plan
+    with assume_unique=False): each voxel repeated 1-3 times, all rows
+    shuffled with the seed; (coords int32 [num_batches * 1536, 4], mask
+    bool), pad rows at the end."""
+    coords, mask = plan_edge_voxels(num_batches, seed)
+    rng = np.random.RandomState(seed + 1)
+    rows = np.repeat(coords[mask], rng.randint(1, 4, int(mask.sum())), 0)
+    rows = rows[rng.permutation(len(rows))]
+    cap = num_batches * 512 * 3
+    out_mask = np.zeros(cap, bool)
+    out_mask[:len(rows)] = True
+    return (np.concatenate([rows, np.zeros((cap - len(rows), 4), np.int32)]),
+            out_mask)

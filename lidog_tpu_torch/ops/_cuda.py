@@ -20,7 +20,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lidog_tpu_torch"
 SOURCES = ("zconv3_fwd", "zconv_down_fwd", "zconv_up_fwd", "zconv3_bwd_dx",
            "zconv_wgrad", "bev_scatter_max", "zconv_full", "stem_feat125",
-           "zseg_sweeps")
+           "zseg_sweeps", "zseg_tables")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,6 +43,10 @@ _ARGTYPES = {
     "conv9_packed": [_P] * 5 + [_I] * 8 + [_P],
     "pos3_lookup": [_P] * 5 + [_I] * 6 + [_P],
     "build_packed": [_P] * 5 + [_I] * 6 + [_P],
+    "column_grid": [_P] * 10 + [_I] * 7 + [_P],
+    "real_words": [_P] * 10 + [_I] * 8 + [_P],
+    "assemble_aug": [_P] * 9 + [_I] * 5 + [_P],
+    "emit_rows": [_P] * 13 + [_I] * 6 + [_P],
 }
 # the source (library) of each C function that is not named after its own
 _SOURCE_OF = {"zconv3_wgrad": "zconv_wgrad", "zconv_down_wgrad": "zconv_wgrad",
@@ -51,7 +55,9 @@ _SOURCE_OF = {"zconv3_wgrad": "zconv_wgrad", "zconv_down_wgrad": "zconv_wgrad",
               "bev_scatter_max_bwd": "bev_scatter_max",
               "zconv_full_fwd": "zconv_full", "zconv_full_wgrad": "zconv_full",
               "stem_conv9_packed": "zseg_sweeps", "conv9_packed": "zseg_sweeps",
-              "pos3_lookup": "zseg_sweeps", "build_packed": "zseg_sweeps"}
+              "pos3_lookup": "zseg_sweeps", "build_packed": "zseg_sweeps",
+              "column_grid": "zseg_tables", "real_words": "zseg_tables",
+              "assemble_aug": "zseg_tables", "emit_rows": "zseg_tables"}
 
 _libs = {}
 

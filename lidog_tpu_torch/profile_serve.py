@@ -9,8 +9,9 @@ voxel cells straight into the plan), then traces `--requests` requests with
 torch.profiler and prints, per request: wall ms, device busy ms and idle
 share, device ms of this package's hand-written kernels (the three sparse
 conv forwards and the fused norm) and of everything else; then the device
-ms and launches of the plain-torch stages alone (voxelize or the raw cells,
-the plan build, the labels) and the top device kernels of the plan build.
+ms and launches of the stages alone (voxelize or the raw cells and the
+labels, plain torch; the plan build, the port's kernels) and the top device
+kernels and kernel groups of the plan build.
 Needs a CUDA card; prints the card's name and power limit first.
 """
 
@@ -66,6 +67,17 @@ _GROUPS = (("Conv3Map", "zconv3_fwd"), ("DownMap", "zconv_down_fwd"),
            ("sweep_kernel<1", "conv9_packed"),
            ("pos3_kernel", "pos3_lookup"),
            ("build_packed_kernel", "build_packed"),
+           ("has_kernel", "column_grid"), ("dilate_kernel", "column_grid"),
+           ("row_scan_kernel", "column_grid"), ("grid_kernel", "column_grid"),
+           ("stamp_kernel", "column_grid"), ("real_bits_kernel", "real_words"),
+           ("real_over_kernel", "real_words"),
+           ("coarsen_kernel", "real_words"), ("yor3_kernel", "assemble_aug"),
+           ("aug_kernel", "assemble_aug"),
+           ("chunk_scan_kernel", "assemble_aug"),
+           ("start_kernel", "assemble_aug"),
+           ("scatter_rows_kernel", "emit_rows"),
+           ("decode_kernel", "emit_rows"),
+           ("FillFunctor", "fill (torch.zeros / full of new buffers)"),
            ("Memset", "memset (every cudaMemset; KI's zero-fill is one)"))
 
 
@@ -138,8 +150,9 @@ def main(argv=None):
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
     print_groups(kernels, args.requests, "request")
 
-    # the plain-torch stages alone: voxelize (K1; sortless: the raw
-    # per-point cells), the plan build (K2-K10) and the labels (K15)
+    # the stages alone: voxelize (K1, plain torch; sortless: the raw
+    # per-point cells), the plan build (kernels KQ-KY) and the labels
+    # (K15, plain torch)
     stages = {}
 
     def alone(name, fn):
@@ -172,6 +185,7 @@ def main(argv=None):
     print("[profile] plan build, top kernels:")
     for name, us, n in stages["plan build"][:12]:
         print(f"[profile]   {us / 1e3:8.3f} ms  x{n:4d}  {name[:110]}")
+    print_groups(stages["plan build"], 1, "plan")
 
 if __name__ == "__main__":
     main()

@@ -22,7 +22,7 @@ voxelizing. Then it traces `--steps` steps with torch.profiler and prints,
 per step: wall ms, device busy ms and idle share, and the device ms and
 launches of each hand-written kernel and of everything else; then those of
 one batch (voxelize; the raw cells with --sortless) and one plan build
-alone. Needs a CUDA card; prints the card's name and power limit first.
+alone, with the plan build's kernel groups. Needs a CUDA card; prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -200,6 +200,7 @@ def main(argv=None):
         print(f"[profile] {name} alone: "
               f"{sum(us for _, us, _ in events) / 1e3:.3f} ms device in "
               f"{sum(n for _, _, n in events)} kernel launches")
+    print_groups(events, 1, "plan")  # the plan build's kernel groups
 
 
 if __name__ == "__main__":

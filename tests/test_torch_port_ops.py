@@ -756,7 +756,8 @@ def test_optimizer_matches_optax(name, scheduler, wd):
 def test_kernel_wrappers_take_plain_versions_on_cpu():
     """Each kernel wrapper takes its plain version for a CPU tensor and
     counts no launch; a tensor on neither the CPU nor a card raises.  The
-    plan sweeps' wrappers (KQ-KU) are among them."""
+    plan sweeps' wrappers (KQ-KU) and the column tables' (KV-KY, with the
+    overflow terms they add in place) are among them."""
     import torch
 
     from lidog_tpu_torch.core import zseg
@@ -813,6 +814,15 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
             grid_half=synthetic.EDGE_GRID_HALF).sweep_inputs(
                 torch.from_numpy(ec), torch.from_numpy(em)):
         sweeps.setdefault(name, tuple(a) + tuple(kw.values()))
+    # KV, KW, KX and KY on their own inputs of the edge voxels with starved
+    # column caps (KV adds a nonzero overflow term): level 0, and KW's
+    # coarsening and KY's pair maps at level 1
+    tables = [(name, a, kw) for lvl, name, a, kw in zseg.ZSegPlanBuilder(
+        *synthetic.EDGE_CAPS, num_batches=2,
+        grid_half=synthetic.EDGE_GRID_HALF,
+        caps_col_dil=synthetic.EDGE_COL_DIL_STARVED).table_inputs(
+            torch.from_numpy(ec), torch.from_numpy(em))
+        if lvl == 0 or (lvl == 1 and name in ("real_words", "emit_rows"))]
     cases = [
         (zconv.zconv3_fwd, zconv.zconv3_plain, (x, nbr, zup, zdn, wf, m)),
         (zconv.zconv_down_fwd, zconv.zconv_down_plain, (x, nbr[:8], w8, m)),
@@ -855,11 +865,20 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
          sweeps["stem_conv9_packed"]),
         (zseg.conv9_packed, zseg.conv9_plain, sweeps["conv9_packed"]),
     ]
+    cases += [(getattr(zseg, name), getattr(zseg, name + "_plain"), a, kw)
+              for name, a, kw in tables]
+    assert tables[0][0] == "column_grid" and len(tables) == 6
+
+    def clone(v):
+        return v.clone() if torch.is_tensor(v) else v
+
     before = {**zconv.LAUNCHES, **norm.LAUNCHES, **bev.LAUNCHES,
               **losses.LAUNCHES, **zseg.LAUNCHES}
-    for wrapper, plain, args in cases:
-        copy = [a.clone() if torch.is_tensor(a) else a for a in args]
-        out, want = wrapper(*args), plain(*copy)
+    for wrapper, plain, args, *kw in cases:
+        kw = kw[0] if kw else {}
+        copy = [clone(a) for a in args]
+        kcopy = {k: clone(v) for k, v in kw.items()}
+        out, want = wrapper(*args, **kw), plain(*copy, **kcopy)
         out = out if isinstance(out, tuple) else (out,)
         want = want if isinstance(want, tuple) else (want,)
         assert out[0].abs().sum() > 0, wrapper.__name__
@@ -867,10 +886,16 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
             assert all((o > 0 if o.is_floating_point() else o >= 0).any()
                        for o in out)
         for a, b in zip(out, want):
-            assert torch.equal(a, b), wrapper.__name__
+            assert a.dtype == b.dtype and torch.equal(a, b), wrapper.__name__
+        # what a wrapper adds in place (the plan's overflow vector)
+        for a, b in zip([*args, *kw.values()], [*copy, *kcopy.values()]):
+            assert not torch.is_tensor(a) or torch.equal(a, b)
         meta = [a.to("meta") if torch.is_tensor(a) else a for a in args]
+        kmeta = {k: v.to("meta") if torch.is_tensor(v) else v
+                 for k, v in kw.items()}
         with pytest.raises(ValueError, match="CUDA"):
-            wrapper(*meta)
+            wrapper(*meta, **kmeta)
+    assert int(tables[0][2]["overflow"][1]) > 0  # KV's dropped columns
     assert {**zconv.LAUNCHES, **norm.LAUNCHES, **bev.LAUNCHES,
             **losses.LAUNCHES, **zseg.LAUNCHES} == before
 
@@ -880,7 +905,7 @@ def test_port_imports_no_jax():
     jax, flax and lidog_tpu out of sys.modules.  bn_act_triton and
     whiten_triton are the modules that need the triton package; each is
     imported only by its launching functions.  The general stem's and the
-    sortless path's modules (core/zseg.py with KQ-KU, ops/zconv.py with
+    sortless path's modules (core/zseg.py with KQ-KY, ops/zconv.py with
     KO/KP, caps.py, train/device_pipeline.py, serve.py) are among them."""
     code = r"""
 import importlib, pkgutil, sys
@@ -894,16 +919,19 @@ assert triton_modules <= set(names)
 for n in names:
     if n not in triton_modules:
         importlib.import_module(n)
-# the general stem's kernels: KO/KP (ops.zconv) and KQ (core.zseg), each
-# with its CUDA source registered for nvcc
+# the general stem's kernels KO/KP (ops.zconv) and the plan's KQ-KY
+# (core.zseg), each with its CUDA source registered for nvcc
 from lidog_tpu_torch.core import zseg
 from lidog_tpu_torch.ops import _cuda, zconv
-assert {"zconv_full", "stem_feat125", "zseg_sweeps"} <= set(_cuda.SOURCES)
-for src in ("zconv_full", "stem_feat125", "zseg_sweeps"):
+assert {"zconv_full", "stem_feat125", "zseg_sweeps",
+        "zseg_tables"} <= set(_cuda.SOURCES)
+for src in ("zconv_full", "stem_feat125", "zseg_sweeps", "zseg_tables"):
     assert (_cuda.CSRC / (src + ".cu")).exists(), src
 assert {"zconv_full_fwd", "zconv_full_wgrad"} <= set(zconv.LAUNCHES)
 assert set(zseg.LAUNCHES) == {"stem_feat125", "stem_conv9_packed",
-                              "conv9_packed", "pos3_lookup", "build_packed"}
+                              "conv9_packed", "pos3_lookup", "build_packed",
+                              "column_grid", "real_words", "assemble_aug",
+                              "emit_rows"}
 for fn in zseg.LAUNCHES:  # each launch count names a C function of its source
     assert _cuda._SOURCE_OF.get(fn, fn) in _cuda.SOURCES, fn
     assert fn in _cuda._ARGTYPES, fn

@@ -13,7 +13,9 @@ input), sortless input (raw per-point cells with duplicates,
 tests/test_sortless.py's clouds and caps), and voxels at the sweeps'
 edges (data/synthetic.py plan_edge_voxels: the grid's x and y edges, z
 at both ends of the plan's range, y columns with and without gaps
-between their dilated slots), roomy and with starved caps.
+between their dilated slots), roomy, with starved row caps, with starved
+y-dilated column caps (columns and their voxels dropped past the cap),
+and as sortless input (each edge voxel 1-3 times, shuffled).
 
 Also the LiDOG step's host and device pipeline: the BEV preprocessing and
 collation bitwise, Encoder2D + DICE, and the whole LiDOG train step
@@ -80,7 +82,8 @@ def _sortless_inputs():
 
 
 @pytest.mark.parametrize("case", ["zseg", "zseg_starved", "serve", "stem125",
-                                  "sortless", "edges", "edges_starved"])
+                                  "sortless", "edges", "edges_starved",
+                                  "edges_col_starved", "edges_sortless"])
 def test_plan_bitwise_equal(case, request):
     from tests.conftest import run_isolated
 
@@ -117,8 +120,13 @@ def test_plan_bitwise_equal(case, request):
 
         B, grid_half = 2, synthetic.EDGE_GRID_HALF
         coords, mask = synthetic.plan_edge_voxels(B)
-        caps_r, caps_a = (synthetic.EDGE_CAPS_STARVED if case.endswith(
-            "starved") else synthetic.EDGE_CAPS)
+        caps_r, caps_a = (synthetic.EDGE_CAPS_STARVED
+                          if case == "edges_starved" else synthetic.EDGE_CAPS)
+        if case == "edges_col_starved":  # columns past the dilated caps
+            options = dict(caps_col_dil=synthetic.EDGE_COL_DIL_STARVED)
+        if case == "edges_sortless":  # each voxel 1-3 times, shuffled
+            coords, mask = synthetic.plan_edge_voxels_sortless(B)
+            options = dict(assume_unique=False)
     else:
         B, P = 2, 600
         pts = (np.random.RandomState(0).rand(B, P, 3).astype(np.float32)
@@ -157,6 +165,14 @@ def test_plan_bitwise_equal(case, request):
     if case == "sortless":  # duplicates went in; every point has a row
         assert len(np.unique(coords[mask], axis=0)) < int(mask.sum())
         assert (tp.pos[torch.from_numpy(mask)] >= 0).all()
+    if case == "edges_sortless":  # every point inside the grid has a row
+        assert len(np.unique(coords[mask], axis=0)) < int(mask.sum())
+        inside = mask & (np.abs(coords[:, 1:3] + 0.5).max(1) < grid_half)
+        inside &= np.abs(coords[:, 3] + 0.5) < 224
+        assert (tp.pos[torch.from_numpy(inside)] >= 0).all()
+        assert (tp.pos[torch.from_numpy(mask & ~inside)] == -1).all()
+    if case == "edges_col_starved":  # the column caps drop voxels at L0
+        assert int(np.asarray(jp.overflow)[1]) > 0
     _assert_plans_equal(jp, tp)
 
 

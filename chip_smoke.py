@@ -103,7 +103,31 @@ no result line):
      voxels with roomy, starved and column-starved caps and as sortless
      input (run after phase 18).
 
-Every request and step builds one plan: KV, KW, KX, KY, KT and KU 5
+ 20. the generic plan's kernels against their plain versions: LA (the
+     gather-GEMM, csrc/sparse_conv.cu; forward and dIn) and LB (dW) at the
+     generic training plan's conv3 L0 32->32 and 128->96, conv3 L3
+     512->256, down L0->L1 32->32 and up L1->L0 96->96, the stem (K 125,
+     1 -> 32: KO / KP) in bf16 and f32 within phase 3's bounds, and LA at
+     P2's shape (27 taps, 393,216 rows, 96 -> 96, bf16); the voxelizer LC
+     (csrc/voxelize.cu) torch.equal to its plain version on phase 4's
+     scan, on the training batch and at a capacity below its voxel count
+     (overflow > 0); the label gather LD (csrc/label_gather.cu) torch.equal
+     to its plain version, sorted and sortless (run after phase 19);
+ 21. the generic plan: build_unet_plan on the card bitwise equal to the
+     CPU's on the 20,000-point scan (levels, perm, every kmap, overflow),
+     and the f32 forward of phase 4's weights on the UNetPlan equal to the
+     ZPlan forward row by row, aligned by coordinate, within rtol = atol =
+     2e-3 (run after phase 5);
+ 22. full-width training on the generic plan (bench.py's batch, pooled
+     caps make_caps(4); MinkUNet34 bf16, SoftDICE + Adam 1e-3, no plan
+     given: the step builds the batch's UNetPlan, plain torch): 2 warm-up
+     and 5 timed steps in turns with the ZPlan step, finite losses falling,
+     confusion totals equal to the supervised voxels, counters LA 108, LB
+     54, KO 1, KP 1 per step; one eval step; the plan build's device ms and
+     launches; then phase 7's card-vs-CPU check of the generic step.
+
+Every request and voxelized training batch runs LC once and every request
+LD once.  Every request and step builds one plan: KV, KW, KX, KY, KT and KU 5
 calls each, KR 1 (KQ in its place on the general stem) and KS 4, counted
 with the model's launches.  On the card the plan runs no plain torch: only
 these kernels and the fills of its own buffers.
@@ -144,7 +168,11 @@ PER_FORWARD = {"zconv3_fwd": 46, "zconv_down_fwd": 4, "zconv_up_fwd": 4,
 PER_PLAN = {"pos3_lookup": 5, "build_packed": 5, "stem_conv9_packed": 1,
             "conv9_packed": 4, "column_grid": 5, "real_words": 5,
             "assemble_aug": 5, "emit_rows": 5}
-PER_REQUEST = {**PER_FORWARD, **PER_PLAN}
+# the voxelizer LC once per request or voxelized batch, and the label
+# gather LD once per request (the sortless path has no voxelizer)
+PER_SORTLESS_REQUEST = {**PER_FORWARD, **PER_PLAN, "label_gather": 1}
+PER_REQUEST = {**PER_SORTLESS_REQUEST, "voxelize": 1}
+VOXELIZED = {"voxelize": 1}
 # training (bench.py:36-44): 4 scans x 100k points, per-scan plan caps
 TRAIN_BATCH = 4
 TRAIN_STEPS = 5
@@ -187,8 +215,23 @@ STEM_R = 2
 PER_CIN_STEP = {**{k: v for k, v in PER_STEP.items()
                    if k != "stem_conv9_packed"},
                 "zconv_full_fwd": 1, "zconv_full_wgrad": 1, "stem_feat125": 1}
-PER_VARIANT_STEP = {"source": PER_STEP, "robustnet": PER_ROBUST_STEP,
-                    "ibn": PER_IBN_STEP, "cin4": PER_CIN_STEP}
+# the generic UNetPlan path (phases 20-22): MinkUNet34 with no plan given,
+# so the step builds the batch's UNetPlan (plain torch) at the pooled caps
+# of bench.py's 4 scans (caps.make_caps(4)); every conv is LA, its dIn LA
+# over the transpose map and its dW LB (23 blocks x 2 k=3 convs, 4 down,
+# 4 up: 54 of each), but the stem (K 125, 1 -> 32), which is KO and KP,
+# its input taking no grad
+GENERIC_CAPS = (524_288, 288_768, 157_696, 63_488, 26_624)
+CHECK_PER_SCAN = 65_536  # the generic cross-check's make_caps(1, .)
+GENERIC_WARMUP = 2
+PER_GENERIC_STEP = {"sparse_conv_fwd": 108, "sparse_conv_wgrad": 54,
+                    "zconv_full_fwd": 1, "zconv_full_wgrad": 1,
+                    "bn_act": 62, "bn_train_fwd": 62, "bn_train_bwd": 62,
+                    **VOXELIZED}
+PER_VARIANT_STEP = {"source": {**PER_STEP, **VOXELIZED},
+                    "robustnet": {**PER_ROBUST_STEP, **VOXELIZED},
+                    "ibn": {**PER_IBN_STEP, **VOXELIZED},
+                    "cin4": {**PER_CIN_STEP, **VOXELIZED}}
 
 
 def card_line():
@@ -216,12 +259,13 @@ def cuda_ms(fn, iters=10):
 
 
 def _launch_tables():
-    from lidog_tpu_torch.core import zseg
+    from lidog_tpu_torch.core import voxelize, zseg
     from lidog_tpu_torch.losses import losses
-    from lidog_tpu_torch.ops import bev, norm, zconv
+    from lidog_tpu_torch.ops import bev, labels, norm, sparse_conv, zconv
 
     return (zconv.LAUNCHES, norm.LAUNCHES, bev.LAUNCHES, losses.LAUNCHES,
-            zseg.LAUNCHES)
+            zseg.LAUNCHES, sparse_conv.LAUNCHES, voxelize.LAUNCHES,
+            labels.LAUNCHES)
 
 
 def counters():
@@ -705,7 +749,7 @@ def stem_kernel_checks(dev, gen):
 
     from lidog_tpu_torch.core import zseg
     from lidog_tpu_torch.core.bitgrid import ZWORDS
-    from lidog_tpu_torch.ops import zconv
+    from lidog_tpu_torch.ops import sparse_conv as sc
 
     pts, labels = train_data()
     batch = train_batch(pts, labels, dev)
@@ -744,25 +788,26 @@ def stem_kernel_checks(dev, gen):
         shape = f"L0 {n} rows K {k} {cin}->{cout}"
         ck.record("zconv_full_fwd", src,
                   "lidog_tpu/ops/zconv.py:342 (_zfull_core)",
-                  lambda: zconv.zconv_full_fwd(x, nbr, w, l0.real),
-                  lambda: zconv.zconv_full_plain(x, nbr, w, l0.real),
+                  lambda: sc.zconv_full_fwd(x, nbr, w, l0.real),
+                  lambda: sc.sparse_conv_plain(x, nbr, w, l0.real),
                   dt, nbytes(nbr, x, w, l0.real) + n * cout * esz,
                   2 * cin * cout * hits, shape)
         dout = ck.feats(n, cout, ones, dt)
         wt = w.flip(0).transpose(1, 2).contiguous()
         ck.record("zconv_full_fwd", src,
                   "lidog_tpu/ops/zconv.py:373 (_zfull_bwd dx)",
-                  lambda: zconv.zconv_full_fwd(dout, nbr, wt, None,
+                  lambda: sc.zconv_full_fwd(dout, nbr, wt, None,
+                                            src_mask=l0.real),
+                  lambda: sc.sparse_conv_plain(dout, nbr, wt, None,
                                                src_mask=l0.real),
-                  lambda: zconv.zconv_full_plain(dout, nbr, wt, None,
-                                                 src_mask=l0.real),
                   dt, nbytes(nbr, dout, wt, l0.real) + n * cin * esz,
                   2 * cin * cout * hits_dx,
                   f"bwd dx L0 {n} rows K {k} {cout}->{cin}")
         ck.record("zconv_full_wgrad", src,
                   "lidog_tpu/ops/zconv.py:373 (_zfull_bwd dW)",
-                  lambda: zconv.zconv_full_wgrad(x, dout, nbr, l0.real),
-                  lambda: zconv.zconv_full_wgrad_plain(x, dout, nbr, l0.real),
+                  lambda: sc.zconv_full_wgrad(x, dout, nbr, l0.real),
+                  lambda: sc.sparse_conv_wgrad_plain(x, dout, nbr, l0.real,
+                                                     reverse=True),
                   dt, nbytes(x, dout, nbr, l0.real) + k * cin * cout * esz,
                   2 * cin * cout * hits_dw, shape)
     return ck.rows
@@ -1267,15 +1312,15 @@ def train_data():
 
 
 def variant_model(variant, dtype, generator):
-    """The model of a training path at full width: "source" MinkUNet34,
-    "ibn" MinkUNet34IBN, "robustnet" MinkUNet34Robust, "cin4" MinkUNet34
-    with IN_CHANNELS input channels (the general stem)."""
+    """The model of a training path at full width: "source" and "generic"
+    MinkUNet34, "ibn" MinkUNet34IBN, "robustnet" MinkUNet34Robust, "cin4"
+    MinkUNet34 with IN_CHANNELS input channels (the general stem)."""
     from lidog_tpu_torch.models.minkunet import MinkUNet34
     from lidog_tpu_torch.models.minkunet_ibn import MinkUNet34IBN
     from lidog_tpu_torch.models.minkunet_robustnet import MinkUNet34Robust
 
     cls = {"source": MinkUNet34, "ibn": MinkUNet34IBN, "cin4": MinkUNet34,
-           "robustnet": MinkUNet34Robust}[variant]
+           "robustnet": MinkUNet34Robust, "generic": MinkUNet34}[variant]
     return cls(out_channels=NUM_CLASSES, compute_dtype=dtype,
                generator=generator, in_channels=in_channels_of(variant))
 
@@ -1294,8 +1339,10 @@ def features_of(variant, points):
     return None if cin == 1 else point_features(points, cin, SEED)
 
 
-def variant_step(variant, cov_stat_epoch=0, whitening=None):
-    """The train step of a path: make_train_step (source, IBN), or the
+def variant_step(variant, cov_stat_epoch=0, whitening=None, caps=None):
+    """The train step of a path: make_train_step (source, IBN; generic:
+    with no plan given it builds the batch's UNetPlan at `caps`, by
+    default GENERIC_CAPS), or the
     RobustNet step with IW (or the given whitening loss) and its gate on
     from epoch cov_stat_epoch."""
     from lidog_tpu_torch.losses.losses import IWLoss, SoftDICELoss
@@ -1307,6 +1354,9 @@ def variant_step(variant, cov_stat_epoch=0, whitening=None):
         return make_robustnet_train_step(
             crit, whitening or IWLoss(), num_classes=NUM_CLASSES,
             cov_stat_epoch=cov_stat_epoch)
+    if variant == "generic":
+        return make_train_step(crit, num_classes=NUM_CLASSES,
+                               caps=caps or GENERIC_CAPS)
     return make_train_step(crit, num_classes=NUM_CLASSES)
 
 
@@ -1474,13 +1524,16 @@ def train_cross_check(dev, variant="source"):
     same model's.
 
     The general stem (phase 16, variant "cin4"; 4 input channels, plans
-    with the stem's source-row maps): also the card's stem125 map equal to
-    the CPU's, the stem's output within 1e-4 of the CPU's (relative to its
-    max), and the stem kernel's grad by the L2 rule above."""
+    with the stem's source-row maps) and the generic plan (phase 22,
+    variant "generic": no plan given, the step builds the UNetPlan at
+    make_caps(1, CHECK_PER_SCAN)): also the card's stem map equal to the CPU's,
+    the stem's output within 1e-4 of the CPU's (relative to its max), and
+    the stem kernel's grad by the L2 rule above."""
     import numpy as np
     import torch
 
-    from lidog_tpu_torch.caps import make_zcaps, plan_builder
+    from lidog_tpu_torch.caps import make_caps, make_zcaps, plan_builder
+    from lidog_tpu_torch.core.plan import build_unet_plan
     from lidog_tpu_torch.data.synthetic import SyntheticLidarDataset
     from lidog_tpu_torch.losses.losses import IWLoss
     from lidog_tpu_torch.train.optim import make_optimizer
@@ -1492,6 +1545,10 @@ def train_cross_check(dev, variant="source"):
     pts = scan0["points"][None]
     labels = scan0["sem_labels"][None].astype(np.int32)
     caps_r, caps_a, caps_d = make_zcaps(PER_SCAN)
+    # the generic plan at pooled caps that fit the check scan's 19,976
+    # voxels (the CPU's plain gathers run over every row of a level)
+    generic_caps = make_caps(1, CHECK_PER_SCAN)
+    cap_in = generic_caps[0] if variant == "generic" else caps_r[0]
     cpu_model = variant_model(variant, torch.float32,
                               torch.Generator().manual_seed(SEED + 3))
     pert_model = copy.deepcopy(cpu_model)
@@ -1514,10 +1571,15 @@ def train_cross_check(dev, variant="source"):
         state = TrainState.create(model, make_optimizer("Adam", lr=lr),
                                   device=d)
         batch = train_batch(pts, labels, d, features_of(variant, pts),
-                            cap_in=caps_r[0])
-        plan = plan_builder(in_channels_of(variant), 1,
-                            (caps_r, caps_a, caps_d), grid_half=GRID_HALF)(
-            batch["coords"], batch["mask"])
+                            cap_in=cap_in)
+        if variant == "generic":  # the plan the step builds itself
+            plan = build_unet_plan(batch["coords"], batch["mask"],
+                                   generic_caps)
+        else:
+            plan = plan_builder(in_channels_of(variant), 1,
+                                (caps_r, caps_a, caps_d),
+                                grid_half=GRID_HALF)(batch["coords"],
+                                                     batch["mask"])
         if int(plan.overflow.sum()) != 0:
             raise AssertionError(f"check plan overflow {plan.overflow}")
         probe = AuxProbe(IWLoss())
@@ -1527,11 +1589,13 @@ def train_cross_check(dev, variant="source"):
         hook = stem.register_forward_hook(
             lambda mod, args, res: stem_out.append(res.feats.detach().cpu()))
         t0 = time.perf_counter()
-        _, metrics = variant_step(variant, cov, probe)(state, batch, plan)
+        _, metrics = variant_step(variant, cov, probe, generic_caps)(
+            state, batch, None if variant == "generic" else plan)
         hook.remove()
+        stem_map = next(plan.kmaps[k] for k in ("stem125", "stem", "conv9_l0")
+                        if k in plan.kmaps)
         out[where] = {
-            "stem_map": plan.kmaps.get("stem125", plan.kmaps["conv9_l0"])
-            .cpu(), "stem_out": stem_out[0],
+            "stem_map": stem_map.cpu(), "stem_out": stem_out[0],
             "loss": float(metrics["loss"]),
             "aux_loss": float(metrics.get("aux_loss", 0.0)),
             "aux_grads": probe.grads,
@@ -1581,12 +1645,12 @@ def train_cross_check(dev, variant="source"):
               "grad_l2_worst": 10 * floor["grad_l2_worst"] + 1e-6,
               "update_sign_flips": 10 * floor["update_sign_flips"] + 1e-4,
               "param_lr": 2.0}
-    if variant == "cin4":
+    if variant in ("cin4", "generic"):
         bounds.update({"stem_out": 1e-4,
                        "stem_grad_l2": 10 * floor["stem_grad_l2"] + 1e-6})
         if not compare(out["cuda"], out["cpu"])["stem_map_equal"]:
-            raise AssertionError("cin4 cross-check: the card's stem125 map "
-                                 "differs from the CPU's")
+            raise AssertionError(f"{variant} cross-check: the card's stem "
+                                 "map differs from the CPU's")
     for gate in [""] + (["_gate_off"] if variant == "robustnet" else []):
         got = compare(out["cuda" + gate], out["cpu" + gate])
         print(f"[{variant}-check{gate}] card vs CPU, f32 full width, "
@@ -1670,7 +1734,7 @@ def sortless(dev):
             if kind == "sortless":
                 for k, v in counters().items():
                     serve_launches[k] += v
-    for k, per in PER_REQUEST.items():
+    for k, per in PER_SORTLESS_REQUEST.items():
         if serve_launches[k] != per * REQUESTS:
             raise AssertionError(f"{k}: {serve_launches[k]} launches in "
                                  f"sortless serving, expected {per} x "
@@ -2070,6 +2134,384 @@ def bev_cross_check(dev):
             "loss": out["cpu"]["loss"]}
 
 
+def generic_batch_plan(dev):
+    """The training batch of 4 scans at the generic caps (its input
+    capacity GENERIC_CAPS[0]) and its UNetPlan, overflow 0."""
+    from lidog_tpu_torch.core.plan import build_unet_plan
+
+    pts, labels = train_data()
+    batch = train_batch(pts, labels, dev, cap_in=GENERIC_CAPS[0])
+    plan = build_unet_plan(batch["coords"], batch["mask"], GENERIC_CAPS)
+    overflow = plan.overflow.cpu().tolist()
+    if sum(overflow) != 0:
+        raise AssertionError(f"generic training plan overflow {overflow}")
+    return batch, plan
+
+
+def map_hits(nbr, mask):
+    """Entries of a [K, N] map that read a row: >= 0, and where a mask is
+    given, onto a row it keeps (the work a data-dependent gather does)."""
+    hit = nbr >= 0
+    if mask is not None:
+        hit = hit & mask[nbr.clamp(min=0).long()]
+    return int(hit.sum())
+
+
+def generic_kernel_checks(dev, gen):
+    """Phase 20, LA and LB (and the stem's KO / KP): each against its plain
+    version at shapes of the generic training plan (phase 22's), in bf16
+    and f32: the forward (out_mask the level's mask), dIn over the
+    transpose map (W[::-1]^T, or W^T over the partner map; the output mask
+    as source mask) and dW; plus LA at P2's shape (27 taps, N 393,216,
+    96 -> 96, bf16: benchmarks/micro/micro_gather.py:155-246).  Bounds:
+    operations 2 x (map entries that read a row) x Cin x Cout, bytes each
+    operand once."""
+    import torch
+
+    from lidog_tpu_torch.ops import sparse_conv as sc
+
+    _, plan = generic_batch_plan(dev)
+    ck = Checker(gen, dev)
+    src = "lidog_tpu_torch/csrc/sparse_conv.cu"
+    rep_f = "lidog_tpu/ops/sparse_conv.py:107 _conv_core (_gemm_scan:78)"
+    rep_b = "lidog_tpu/ops/sparse_conv.py:121 _conv_core_bwd"
+    cases = (("conv3_l0", 0, 0, 32, 32, None), ("conv3_l0", 0, 0, 128, 96, None),
+             ("conv3_l3", 3, 3, 512, 256, None),
+             ("down_l0", 0, 1, 32, 32, "up_l0"),
+             ("up_l0", 1, 0, 96, 96, "down_l0"), ("stem", 0, 0, 1, 32, None))
+    for dt in (torch.bfloat16, torch.float32):
+        es = torch.tensor([], dtype=dt).element_size()
+        for name, li, lo, cin, cout, partner in cases:
+            nbr = plan.kmaps[name]
+            m_in, m_out = plan.level(li).mask, plan.level(lo).mask
+            x = ck.feats(m_in.shape[0], cin, m_in, dt)
+            w = ck.weights(dt, nbr.shape[0], cin, cout)
+            dout = ck.feats(m_out.shape[0], cout, m_out, dt)
+            rev = partner is None
+            tmap = nbr if rev else plan.kmaps[partner]
+            wt = (w.flip(0) if rev else w).transpose(1, 2).contiguous()
+            stem = name == "stem"
+            k_src = "lidog_tpu_torch/csrc/zconv_full.cu" if stem else src
+            shape = (f"{name} {nbr.shape[1]} rows K {nbr.shape[0]} "
+                     f"{cin}->{cout}")
+            out_b = nbr.shape[1] * cout * es
+            hits = map_hits(nbr, None)
+            ck.record("zconv_full_fwd" if stem else "sparse_conv_fwd", k_src,
+                      rep_f, lambda: sc.sparse_conv_fwd(x, nbr, w, m_out),
+                      lambda: sc.sparse_conv_plain(x, nbr, w, m_out), dt,
+                      nbytes(x, nbr, w, m_out) + out_b,
+                      2 * hits * cin * cout, shape)
+            t_hits = map_hits(tmap, m_out)
+            if not stem:  # the stem's input takes no grad
+                ck.record("sparse_conv_fwd", src, rep_b,
+                          lambda: sc.sparse_conv_fwd(dout, tmap, wt, None,
+                                                     m_out),
+                          lambda: sc.sparse_conv_plain(dout, tmap, wt, None,
+                                                       m_out), dt,
+                          nbytes(dout, tmap, wt, m_out) + x.numel() * es,
+                          2 * t_hits * cin * cout, "dIn " + shape)
+            ck.record("zconv_full_wgrad" if stem else "sparse_conv_wgrad",
+                      k_src, rep_b,
+                      lambda: sc.sparse_conv_wgrad(x, dout, tmap, m_out,
+                                                   reverse=rev),
+                      lambda: sc.sparse_conv_wgrad_plain(x, dout, tmap, m_out,
+                                                         reverse=rev), dt,
+                      nbytes(x, dout, tmap, m_out) + w.numel() * 4,
+                      2 * t_hits * cin * cout, "dW " + shape)
+    # P2's shape: 27 taps over 393,216 output rows, 96 -> 96, bf16
+    dt = torch.bfloat16
+    m0 = plan.level(0).mask
+    nbr = plan.kmaps["conv3_l0"][:, :393_216].contiguous()
+    mo = m0[:393_216].contiguous()
+    x = ck.feats(m0.shape[0], 96, m0, dt)
+    w = ck.weights(dt, 27, 96, 96)
+    ck.record("sparse_conv_fwd", src,
+              "benchmarks/micro/micro_gather.py:246 q3_windowed_vs_xla (P2; "
+              "P3 micro_gather2.py:93,198)",
+              lambda: sc.sparse_conv_fwd(x, nbr, w, mo),
+              lambda: sc.sparse_conv_plain(x, nbr, w, mo), dt,
+              nbytes(x, nbr, w, mo) + 393_216 * 96 * 2,
+              2 * map_hits(nbr, None) * 96 * 96,
+              "P2 conv3_l0 393216 rows K 27 96->96")
+    return ck.rows
+
+
+def pipeline_kernel_checks(dev, gen):
+    """Phase 20, LC and LD against their plain versions, torch.equal on
+    every output: the voxelizer on phase 4's scan (1 x 100,000 points at
+    the serving capacity), on the training batch (4 x 100,000 points at
+    the training capacity) and on the same batch at a capacity below its
+    voxel count (overflow > 0); the label gather on phase 4's scan, sorted
+    (plan.pos, then the voxelizer's inverse map) and sortless (plan.pos
+    per point), with seeded bf16 logits."""
+    import numpy as np
+    import torch
+
+    from lidog_tpu_torch.core.voxelize import (quantize, voxelize_cells,
+                                               voxelize_plain)
+    from lidog_tpu_torch.models.minkunet import MinkUNet34
+    from lidog_tpu_torch.ops.labels import label_gather, labels_plain
+    from lidog_tpu_torch.serve import Predictor
+
+    ck = Checker(gen, dev)
+    src = "lidog_tpu_torch/csrc/voxelize.cu"
+    rep = "lidog_tpu/core/voxelize.py:81 voxelize_device"
+    tpts, _ = train_data()
+    single = scan(POINTS, SEED)[0]
+    cases = (("serve 1 x 100000 points", single, 1, PER_SCAN),
+             ("train 4 x 100000 points", tpts.reshape(-1, 3), TRAIN_BATCH,
+              TRAIN_CAP_IN),
+             ("train 4 x 100000 points, overflow", tpts.reshape(-1, 3),
+              TRAIN_BATCH, TRAIN_CAP_IN // 2))
+    for shape, pts, b, cap in cases:
+        flat = torch.from_numpy(np.ascontiguousarray(pts)).to(dev)
+        disc = quantize(flat, VOXEL)
+        valid = torch.ones(flat.shape[0], dtype=torch.bool, device=dev)
+        bidx = torch.arange(b, dtype=torch.int32, device=dev) \
+            .repeat_interleave(flat.shape[0] // b)
+        want = voxelize_plain(disc, valid, bidx, cap)
+        if "overflow" in shape and not int(want.overflow) > 0:
+            raise AssertionError(f"voxelizer check {shape}: no overflow")
+        ck.record("voxelize", src, rep,
+                  lambda: voxelize_cells(disc, valid, bidx, cap),
+                  lambda: voxelize_plain(disc, valid, bidx, cap),
+                  torch.int32, nbytes(disc, valid, bidx, *want), 0,
+                  f"{shape} cap {cap} ({int(want.num_voxels)} voxels)",
+                  mma=False, exact=True)
+    model = MinkUNet34(out_channels=NUM_CLASSES, compute_dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(SEED))
+    kw = dict(batch_size=1, voxel_size=VOXEL, caps_per_scan=PER_SCAN,
+              grid_half=GRID_HALF, device=dev)
+    pts_dev = torch.from_numpy(scan(POINTS, SEED)).to(dev)
+    for sortless in (False, True):
+        vox, plan, logits = Predictor(model, sortless=sortless,
+                                      **kw).forward_voxels(pts_dev)
+        logits = torch.randn(logits.shape, generator=gen).to(dev, logits.dtype)
+        real, pos = plan.level(0).real, plan.pos
+        inv = None if vox is None else vox.inverse
+        n_out = pos.shape[0] if inv is None else inv.shape[0]
+        labelled = map_hits(pos[None], real)
+        ck.record("label_gather", "lidog_tpu_torch/csrc/label_gather.cu",
+                  "lidog_tpu/serve.py:92-105 (argmax + pos/inverse gathers)",
+                  lambda: label_gather(logits, real, pos, inv),
+                  lambda: labels_plain(logits, real, pos, inv), torch.int32,
+                  nbytes(pos, *([] if inv is None else [inv]))
+                  + labelled * (logits.shape[1] * 2 + 1) + n_out * 4, 0,
+                  f"{'sortless' if sortless else 'sorted'} {n_out} points",
+                  mma=False, exact=True)
+    return ck.rows
+
+
+def generic_plan_checks(model, dev):
+    """Phase 21: (1) build_unet_plan on the card and on the CPU bitwise
+    equal (levels, perm, every kmap, overflow) on the voxels of the
+    20,000-point check scan at make_caps(1, 98,304); (2) phase 4's
+    MinkUNet34 weights in f32 on phase 4's scan: the forward on the
+    generic UNetPlan at make_caps(1) (LA throughout, the stem KO) against
+    the forward on the ZPlan, row by row aligned by coordinate, within
+    rtol = atol = 2e-3 (tests/test_zseg_model.py:51-73), and zero on the
+    padding rows."""
+    import torch
+
+    from lidog_tpu_torch.caps import make_caps
+    from lidog_tpu_torch.core import keys
+    from lidog_tpu_torch.core.engine import input_tensor
+    from lidog_tpu_torch.core.plan import build_unet_plan
+    from lidog_tpu_torch.core.voxelize import voxelize_device
+    from lidog_tpu_torch.models.minkunet import MinkUNet34
+    from lidog_tpu_torch.serve import Predictor
+
+    caps = make_caps(1, PER_SCAN)
+    kw = dict(batch_size=1, voxel_size=VOXEL, caps_per_scan=PER_SCAN,
+              grid_half=GRID_HALF)
+    flat = torch.from_numpy(scan(CHECK_POINTS, SEED + 1)[0])
+    plans = []
+    for d in (dev, torch.device("cpu")):
+        vox = voxelize_device(
+            flat.to(d), torch.ones(CHECK_POINTS, dtype=torch.bool, device=d),
+            torch.zeros(CHECK_POINTS, dtype=torch.int32, device=d), VOXEL,
+            PER_SCAN)
+        plans.append(build_unet_plan(vox.coords, vox.mask, caps))
+    gp, cp = plans
+    for i, (a, b) in enumerate(zip(gp.levels, cp.levels)):
+        for f in ("coords", "mask", "hi", "lo"):
+            if not torch.equal(getattr(a, f).cpu(), getattr(b, f)):
+                raise AssertionError(f"card vs CPU UNetPlan: level {i} {f}")
+    if sorted(gp.kmaps) != sorted(cp.kmaps):
+        raise AssertionError("card vs CPU UNetPlan: kmap names differ")
+    for k in cp.kmaps:
+        if not torch.equal(gp.kmaps[k].cpu(), cp.kmaps[k]):
+            raise AssertionError(f"card vs CPU UNetPlan: kmap {k} differs")
+    for f in ("perm", "overflow"):
+        if not torch.equal(getattr(gp, f).cpu(), getattr(cp, f)):
+            raise AssertionError(f"card vs CPU UNetPlan: {f} differs")
+    if int(cp.overflow.sum()):
+        raise AssertionError(f"check UNetPlan overflow {cp.overflow}")
+    print(f"[generic] {CHECK_POINTS} points: UNetPlan card == CPU bitwise "
+          f"({len(cp.kmaps)} maps, {int(cp.level(0).mask.sum())} voxels)",
+          flush=True)
+    del plans, gp, cp
+
+    f32 = MinkUNet34(out_channels=NUM_CLASSES, compute_dtype=torch.float32)
+    f32.load_state_dict(model.state_dict())
+    pred = Predictor(f32, device=dev, **kw)
+    # the UNetPlan at lidog_tpu's default pooled caps of one scan,
+    # make_caps(1): its 80,044 voxels overflow make_caps(1, 98,304)'s level
+    # 1; the voxels padded to its 131,072 input rows
+    ucaps = make_caps(1)
+    with torch.no_grad():
+        vox, zplan, lz = pred.forward_voxels(
+            torch.from_numpy(scan(POINTS, SEED)).to(dev))
+        coords = torch.zeros(ucaps[0], 4, dtype=torch.int32, device=dev)
+        mask = torch.zeros(ucaps[0], dtype=torch.bool, device=dev)
+        coords[:PER_SCAN], mask[:PER_SCAN] = vox.coords, vox.mask
+        uplan = build_unet_plan(coords, mask, ucaps)
+        lu = pred.model(input_tensor(uplan, mask[:, None].float()), uplan)
+    if int(zplan.overflow.sum()) or int(uplan.overflow.sum()):
+        raise AssertionError(f"phase 21 overflow: ZPlan {zplan.overflow}, "
+                             f"UNetPlan {uplan.overflow}")
+    zl, ul = zplan.level(0), uplan.level(0)
+    uk = keys.combined(ul.hi, ul.lo)  # sorted; padding rows last
+    zk = keys.combined(*keys.pack(zl.coords, zl.real))[zl.real]
+    row = torch.searchsorted(uk, zk)
+    n_u = int(ul.mask.sum())
+    if n_u != zk.numel() or not torch.equal(uk[row], zk):
+        raise AssertionError(f"generic vs ZPlan voxels: {n_u} vs "
+                             f"{zk.numel()}")
+    a, b = lu[row], lz[zl.real]
+    err = float(((a - b).abs() - 2e-3 * b.abs()).max())
+    print(f"[generic] f32 forward UNetPlan vs ZPlan on {n_u} voxels: max "
+          f"|diff| {float((a - b).abs().max()):.3e}, max |logit| "
+          f"{float(b.abs().max()):.3e}, excess over rtol=atol=2e-3 {err:.3e}",
+          flush=True)
+    if not err <= 2e-3 or bool((lu[~ul.mask] != 0).any()):
+        raise AssertionError(f"generic vs ZPlan forward: excess {err}")
+    return {"voxels": n_u, "max_abs_diff": float((a - b).abs().max()),
+            "max_abs_logit": float(b.abs().max())}
+
+
+def profile_device(fn):
+    """(device ms, kernel launches, [(kernel, device us, launches)] by
+    device time) of fn() under torch.profiler."""
+    import torch
+
+    from lidog_tpu_torch.profile_serve import _kernel_events
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = _kernel_events(prof)
+    return (sum(us for _, us, _ in events) / 1e3,
+            sum(n for _, _, n in events), events)
+
+
+def generic_train(dev):
+    """Phase 22: full-width bf16 training of MinkUNet34 on the generic
+    plan (bench.py's batch, GENERIC_CAPS; SoftDICE + Adam 1e-3): the
+    ZPlan step and the generic step (no plan given: the step builds the
+    batch's UNetPlan) from the same seeded weights, GENERIC_WARMUP
+    warm-up steps each, then TRAIN_STEPS of each in turns (the generic
+    counters = launches x steps); finite losses, the last below the first,
+    confusion totals equal to the supervised voxels; one generic eval
+    step; the plan build's device ms and launches alone (profiler)."""
+    import torch
+
+    from lidog_tpu_torch.core.plan import build_unet_plan
+    from lidog_tpu_torch.losses.losses import SoftDICELoss
+    from lidog_tpu_torch.train.optim import make_optimizer
+    from lidog_tpu_torch.train.train_step import TrainState, make_eval_step
+
+    pts, labels = train_data()
+    batch, plan = generic_batch_plan(dev)
+    supervised = int(((batch["labels"] >= 0) & batch["mask"]).sum())
+    real_rows = [int(l.mask.sum()) for l in plan.levels]
+    # the plan build's bytes: its input read once, every tensor of the
+    # plan written once
+    plan_bytes = nbytes(batch["coords"], batch["mask"], plan.perm,
+                        plan.overflow, *plan.kmaps.values(),
+                        *[getattr(lv, f) for lv in plan.levels
+                          for f in ("coords", "mask", "hi", "lo")])
+    del plan
+    builder = train_plan_builder()
+    steps = {"zplan": variant_step("source"), "generic": variant_step(
+        "generic")}
+    states = {k: TrainState.create(
+        variant_model("source", torch.bfloat16,
+                      torch.Generator().manual_seed(SEED)),
+        make_optimizer("Adam", lr=1e-3), device=dev) for k in steps}
+
+    def run_step(kind):
+        if kind == "generic":
+            b = train_batch(pts, labels, dev, cap_in=GENERIC_CAPS[0])
+            _, metrics = steps[kind](states[kind], b)
+        else:
+            b = train_batch(pts, labels, dev)
+            _, metrics = steps[kind](states[kind], b,
+                                     builder(b["coords"], b["mask"]))
+        return metrics
+
+    losses = {"zplan": [], "generic": []}
+    for kind in ("zplan", *["generic"] * GENERIC_WARMUP):
+        losses[kind].append(float(run_step(kind)["loss"]))
+    torch.cuda.synchronize()
+    ms = {"zplan": [], "generic": []}
+    launches = dict.fromkeys(counters(), 0)
+    peak = 0.0
+    for i in range(TRAIN_STEPS):
+        for kind in in_turns(("zplan", "generic"), i):
+            zero_counters()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = run_step(kind)
+            torch.cuda.synchronize()
+            ms[kind].append((time.perf_counter() - t0) * 1e3)
+            losses[kind].append(float(metrics["loss"]))
+            total = int(metrics["confusion"].sum())
+            if kind == "generic":
+                peak = max(peak, torch.cuda.max_memory_allocated() / 1e9)
+                for k, v in counters().items():
+                    launches[k] += v
+                if total != supervised:
+                    raise AssertionError(f"generic confusion total {total} "
+                                         f"!= {supervised} supervised voxels")
+    print(f"[generic] losses {losses} step ms {ms}", flush=True)
+    for kind, seq in losses.items():
+        if not all(math.isfinite(v) for v in seq) or not seq[-1] < seq[0]:
+            raise AssertionError(f"{kind} losses {seq}: not finite or not "
+                                 "falling")
+    for k, per in PER_GENERIC_STEP.items():
+        if launches[k] != per * TRAIN_STEPS:
+            raise AssertionError(f"{k}: {launches[k]} launches in generic "
+                                 f"training, expected {per} x {TRAIN_STEPS}")
+    ev = make_eval_step(SoftDICELoss(ignore_label=-1), NUM_CLASSES,
+                        caps=GENERIC_CAPS)(states["generic"], batch)
+    evals = {"eval_loss": float(ev["loss"]),
+             "eval_confusion_total": int(ev["confusion"].sum())}
+    print(f"[generic] eval step: {evals}", flush=True)
+    if not math.isfinite(evals["eval_loss"]) \
+            or evals["eval_confusion_total"] != supervised:
+        raise AssertionError(f"generic eval step {evals}")
+    plan_ms, plan_launches, top = profile_device(lambda: build_unet_plan(
+        batch["coords"], batch["mask"], GENERIC_CAPS))
+    print(f"[generic] build_unet_plan alone: {plan_ms:.3f} ms device in "
+          f"{plan_launches} launches (plain torch; byte bound "
+          f"{plan_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); top kernels "
+          f"{[(name[:60], round(us / 1e3, 3), n) for name, us, n in top[:6]]}",
+          flush=True)
+    p50 = {k: statistics.median(v) for k, v in ms.items()}
+    return {"p50_ms": p50["generic"], "zplan_p50_ms": p50["zplan"],
+            "scans_per_s": TRAIN_BATCH / p50["generic"] * 1e3,
+            "step_ms": ms, "losses": losses, **evals, "launches": launches,
+            "supervised_voxels": supervised, "real_rows_per_level": real_rows,
+            "plan_build_device_ms": plan_ms,
+            "plan_build_launches": plan_launches,
+            "plan_build_bound_ms": plan_bytes / HBM_BYTES_PER_S * 1e3,
+            "peak_mem_gb": peak}
+
+
 def main():
     import torch
 
@@ -2140,12 +2582,20 @@ def main():
     torch.cuda.empty_cache()
     rows += table_kernel_checks(dev)
     torch.cuda.empty_cache()
+    # phase 20: the generic sparse conv LA/LB, the voxelizer LC and the
+    # label gather LD against their plain versions
+    rows += generic_kernel_checks(dev, torch.Generator().manual_seed(SEED + 12))
+    torch.cuda.empty_cache()
+    rows += pipeline_kernel_checks(dev,
+                                   torch.Generator().manual_seed(SEED + 13))
+    torch.cuda.empty_cache()
 
     zero_counters()
     stats = serve(model, pts, dev)
     print(f"[serve] p50 {stats['p50_ms']:.3f} ms per 100k-point request on "
           f"{card}; stages {stats['stages_ms']}", flush=True)
     agree = cross_check(model, dev)
+    gplan_check = generic_plan_checks(model, dev)  # phase 21
     del model
     torch.cuda.empty_cache()
 
@@ -2186,18 +2636,30 @@ def main():
           f"points ({sstats['scans_per_s']:.3f} scans/s; sorted in turns: "
           f"{sstats['sorted_p50_ms']:.3f} ms), peak "
           f"{sstats['peak_mem_gb']:.2f} GB on {card}", flush=True)
+    torch.cuda.empty_cache()
+    zero_counters()
+    gstats = generic_train(dev)  # phase 22
+    print(f"[generic] p50 {gstats['p50_ms']:.3f} ms per step of "
+          f"{TRAIN_BATCH} x {POINTS} points ({gstats['scans_per_s']:.3f} "
+          f"scans/s; the ZPlan step in turns: {gstats['zplan_p50_ms']:.3f} "
+          f"ms), peak {gstats['peak_mem_gb']:.2f} GB on {card}", flush=True)
+    torch.cuda.empty_cache()
+    gcheck = train_cross_check(dev, "generic")
 
     by_path = {"serve": stats["launches"], "train": tstats["launches"],
                "lidog": lstats["launches"], "robustnet": rstats["launches"],
                "ibn": istats["launches"], "cin4": cstats["launches"],
                "sortless_serve": sstats["serve_launches"],
-               "sortless": sstats["launches"]}
-    for path, names in (("serve", PER_REQUEST), ("train", PER_STEP),
+               "sortless": sstats["launches"], "generic": gstats["launches"]}
+    for path, names in (("serve", PER_REQUEST),
+                        ("train", PER_VARIANT_STEP["source"]),
                         ("lidog", PER_LIDOG_STEP),
-                        ("robustnet", PER_ROBUST_STEP),
-                        ("ibn", PER_IBN_STEP), ("cin4", PER_CIN_STEP),
-                        ("sortless_serve", PER_REQUEST),
-                        ("sortless", PER_STEP)):
+                        ("robustnet", PER_VARIANT_STEP["robustnet"]),
+                        ("ibn", PER_VARIANT_STEP["ibn"]),
+                        ("cin4", PER_VARIANT_STEP["cin4"]),
+                        ("sortless_serve", PER_SORTLESS_REQUEST),
+                        ("sortless", PER_STEP),
+                        ("generic", PER_GENERIC_STEP)):
         for k in names:  # every kernel of the path ran in the path's run
             if by_path[path][k] <= 0:
                 raise AssertionError(f"{k} never launched on the {path} path")
@@ -2213,7 +2675,9 @@ def main():
                "lidog": lstats, "bev_check_vs_cpu": bcheck,
                "robustnet": rstats, "ibn": istats,
                "robustnet_check_vs_cpu": rcheck, "cin4": cstats,
-               "cin4_check_vs_cpu": ccheck, "sortless": sstats}
+               "cin4_check_vs_cpu": ccheck, "sortless": sstats,
+               "generic_plan_check": gplan_check, "generic": gstats,
+               "generic_check_vs_cpu": gcheck}
     print("[summary] " + json.dumps(summary), flush=True)
     print(f"[total] {summary['total_s']:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches",

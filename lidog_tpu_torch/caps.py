@@ -1,15 +1,17 @@
-"""Per-level plan capacities for the zseg engine, and the plan builder
-of a config.
+"""Per-level plan capacities (the zseg engine's, and the generic
+UNetPlan's pooled ones), and the plan builder of a config.
 
-Own copy of lidog_tpu/cli/common.py:20-57 (`_rup`, `make_zcaps` and the
-ZSEG_* tables) and of its builder rule (:60-92), so the port imports
-nothing of the JAX package.
+Own copy of lidog_tpu/cli/common.py:20-57 (`_rup`, `make_caps`,
+`make_zcaps`, LEVEL_SHRINK and the ZSEG_* tables) and of its builder
+rule (:60-92), so the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
 
+# the pooled per-level shrink of the voxel count (generic UNetPlan caps)
+LEVEL_SHRINK = (1.0, 0.55, 0.3, 0.12, 0.05)
 # per-level shrink of the voxel count, ghost-row factor and y-dilated
 # column slots per real voxel (measured ring-scan ratios + headroom; see
 # the JAX module for their derivation)
@@ -20,6 +22,14 @@ ZSEG_COL_DIL = (2.7, 1.85, 2.8, 3.0, 3.0)
 
 def _rup(x, m=2048):
     return int(-(-x // m) * m)
+
+
+def make_caps(batch_size: int, per_scan: int = 131072):
+    """Per-level pooled voxel capacities of build_unet_plan (core/plan.py)
+    for batch_size scans of per_scan voxels: make_caps(4) = (524288,
+    288768, 157696, 63488, 26624)."""
+    base = batch_size * per_scan
+    return tuple(_rup(base * f) for f in LEVEL_SHRINK)
 
 
 def make_zcaps(per_scan: int = 131072):

@@ -5,14 +5,17 @@
 twin of the JAX package is not ported).
 
 `voxelize_device` ports lidog_tpu/core/voxelize.py:71-118: quantize
-metric points to voxel cells (`quantize`), keep one representative point per voxel
-(the smallest original index), and emit the voxels in canonical
+metric points to voxel cells (`quantize`), keep one representative point
+per voxel (the smallest original index), and emit the voxels in canonical
 (batch, x, y, z) order into fixed-capacity padded arrays.  Outputs are
-bitwise equal to the JAX version.
+bitwise equal to the JAX version.  After quantization it is kernel LC
+(K1, csrc/voxelize.cu: a stable LSD radix sort of the packed key and a
+first-flag compaction) through the wrapper `voxelize_cells`, which takes
+its plain version `voxelize_plain` for CPU tensors.
 
-The JAX version lexsorts (index, lo, hi); here one stable sort of the
-combined 62-bit key (hi << 31 | lo) gives the same permutation: ties keep
-input order, i.e. the smallest index first.
+The JAX version lexsorts (index, lo, hi); the plain version's one stable
+sort of the combined 62-bit key (hi << 31 | lo) gives the same
+permutation: ties keep input order, i.e. the smallest index first.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from lidog_tpu_torch.core import keys
+from lidog_tpu_torch.ops import _cuda
 
 
 class VoxelizedNP(NamedTuple):
@@ -72,16 +76,20 @@ class VoxelizedDevice(NamedTuple):
     overflow: torch.Tensor  # int32 scalar, voxels dropped to capacity
 
 
-def voxelize_device(points, valid, batch_idx, voxel_size: float,
-                    capacity: int) -> VoxelizedDevice:
-    """points float32 [P, 3], valid bool [P], batch_idx int32 [P]."""
-    dev = points.device
-    p = points.shape[0]
-    disc = quantize(points[:, :3], voxel_size)
+LAUNCHES = {"voxelize": 0}
+# csrc/voxelize.cu: keys per block, radix buckets, passes
+_TILE, _RADIX, _NPASS = 4096, 2048, 6
+
+
+def voxelize_plain(disc, valid, batch_idx, capacity: int) -> VoxelizedDevice:
+    """The voxelization of cells disc int32 [P, 3] with valid bool [P] and
+    batch_idx int32 [P]: the plain version of LC (sort, first flags,
+    cumsum slots, scatters)."""
+    dev = disc.device
+    p = disc.shape[0]
     coords4 = torch.cat([batch_idx[:, None].to(torch.int32), disc], dim=1)
     hi, lo = keys.pack(coords4, valid)
-    key = (hi.to(torch.int64) << 31) | lo.to(torch.int64)
-    order = torch.sort(key, stable=True).indices
+    order = keys.sort_by_key(hi, lo)
     hi_s, lo_s = hi[order], lo[order]
     valid_s = hi_s != keys.INVALID_KEY
     prev_ne = torch.ones(p, dtype=torch.bool, device=dev)
@@ -108,3 +116,56 @@ def voxelize_device(points, valid, batch_idx, voxel_size: float,
     overflow = torch.clamp(num_voxels - capacity, min=0)
     return VoxelizedDevice(coords_out, mask, rep_out[:capacity], inverse,
                            num_voxels, overflow)
+
+
+def voxelize_cells(disc, valid, batch_idx, capacity: int) -> VoxelizedDevice:
+    """LC (csrc/voxelize.cu) for CUDA tensors, voxelize_plain for CPU
+    tensors; arguments as voxelize_plain's.  One call launches the key
+    build, six radix passes and two compaction kernels in order."""
+    if disc.device.type == "cpu":
+        return voxelize_plain(disc, valid, batch_idx, capacity)
+    name = "voxelize"
+    dev = disc.device
+    p = disc.shape[0]
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {dev}")
+    for t, dt, shape, what in ((disc, torch.int32, (p, 3), "disc int32 [P, 3]"),
+                               (valid, torch.bool, (p,), "valid bool [P]"),
+                               (batch_idx, torch.int32, (p,),
+                                "batch_idx int32 [P]")):
+        if t.dtype != dt or tuple(t.shape) != shape or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous on {dev}")
+    if capacity <= 0:
+        raise ValueError(f"{name}: capacity must be positive")
+    coords = torch.empty(capacity, 4, dtype=torch.int32, device=dev)
+    mask = torch.empty(capacity, dtype=torch.bool, device=dev)
+    rep = torch.empty(capacity, dtype=torch.int32, device=dev)
+    inverse = torch.empty(p, dtype=torch.int32, device=dev)
+    num = torch.empty((), dtype=torch.int32, device=dev)
+    overflow = torch.empty((), dtype=torch.int32, device=dev)
+    if p == 0:
+        for t in (coords, mask, rep, num, overflow):
+            t.zero_()
+        return VoxelizedDevice(coords, mask, rep, inverse, num, overflow)
+    nblocks = -(-p // _TILE)
+    sort_keys = torch.empty(2, p, dtype=torch.int64, device=dev)
+    idx = torch.empty(2, p, dtype=torch.int32, device=dev)
+    counts = torch.zeros(_NPASS * (nblocks + 1) * _RADIX, dtype=torch.int32,
+                         device=dev)  # per-tile counts, then the totals
+    block_count = torch.empty(nblocks, dtype=torch.int32, device=dev)
+    _cuda.call(name, disc.data_ptr(), valid.data_ptr(), batch_idx.data_ptr(),
+               sort_keys.data_ptr(), idx.data_ptr(), counts.data_ptr(),
+               block_count.data_ptr(), coords.data_ptr(), mask.data_ptr(),
+               rep.data_ptr(), inverse.data_ptr(), num.data_ptr(),
+               overflow.data_ptr(), p, capacity)
+    LAUNCHES[name] += 1
+    return VoxelizedDevice(coords, mask, rep, inverse, num, overflow)
+
+
+def voxelize_device(points, valid, batch_idx, voxel_size: float,
+                    capacity: int) -> VoxelizedDevice:
+    """points float32 [P, 3], valid bool [P], batch_idx int32 [P]."""
+    disc = quantize(points[:, :3], voxel_size)
+    return voxelize_cells(disc, valid.contiguous(),
+                          batch_idx.to(torch.int32).contiguous(), capacity)

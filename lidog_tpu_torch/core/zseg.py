@@ -1015,7 +1015,7 @@ class ZSegPlanBuilder:
     caps_col_dil: per-scan y-dilated column capacities (default: the safe
     (2r+1) x caps_real bound).
     stem_feature_map: emit the stem's source-row maps kmaps["stem125"]
-    (in_channels > 1, ops/zconv.py zconv_full) instead of the occupancy
+    (in_channels > 1, ops/sparse_conv.py) instead of the occupancy
     matrix kmaps["stem_occ"] (constant input features).
     assume_unique=False: sortless input, raw per-point voxel cells with
     duplicates.  The column tables dedup them: the level-0 bits are

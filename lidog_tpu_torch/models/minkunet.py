@@ -1,9 +1,11 @@
-"""MinkUNet34 (sparse 3D U-Net) on the zseg engine, eval and train mode.
+"""MinkUNet34 (sparse 3D U-Net) on either plan, eval and train mode.
 
-Port of lidog_tpu/models/minkunet.py:46-389: the stem (the occupancy GEMM
-for one constant input channel, or for in_channels > 1 the 125-offset
-gather-GEMM zconv_full over the plan's stem125 map), the z-fused convs
-(ops/zconv.py, autograd ops with the JAX custom backward), 1x1 convs, and
+Port of lidog_tpu/models/minkunet.py:46-389.  On the zseg ZPlan: the
+stem (the occupancy GEMM for one constant input channel, or for
+in_channels > 1 the 125-offset gather-GEMM ops/sparse_conv.py
+`sparse_conv` over the plan's stem125 map) and the z-fused convs
+(ops/zconv.py, autograd ops with the JAX custom backward).  On the
+generic UNetPlan (core/plan.py) every conv is `sparse_conv`.  Both: 1x1 convs and
 masked BatchNorm fused with ReLU and the residual add (ops/norm.py).
 `module.train()` normalises with the batch moments and updates the running
 stats; `module.eval()` takes the running stats.
@@ -38,16 +40,21 @@ var 1.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
 
+from lidog_tpu_torch.core.plan import UNetPlan
 from lidog_tpu_torch.core.sparse import SparseTensor, cat
 from lidog_tpu_torch.core.zseg import ZPlan
 from lidog_tpu_torch.ops.norm import MaskedBatchNorm, MaskedInstanceNorm
-from lidog_tpu_torch.ops.sparse_conv import sparse_conv_1x1
-from lidog_tpu_torch.ops.zconv import zconv3, zconv_down, zconv_full, zconv_up
+from lidog_tpu_torch.ops.sparse_conv import sparse_conv, sparse_conv_1x1
+from lidog_tpu_torch.ops.zconv import zconv3, zconv_down, zconv_up
+
+
+# either plan: the zseg engine's or the generic gather engine's
+Plan = Union[ZPlan, UNetPlan]
 
 
 def _kernel(shape, generator):
@@ -58,10 +65,12 @@ def _kernel(shape, generator):
 
 
 class SparseConv(nn.Module):
-    """A sparse conv bound to a kernel map of the plan: the stem ('stem':
-    zconv_full over kmaps["stem125"] where the plan has it, else the
-    occupancy GEMM), k=3 ('conv3_l{i}'), down ('down_l{i}') or up
-    ('up_l{i}')."""
+    """A sparse conv bound to a kernel map of the plan: the stem ('stem'),
+    k=3 ('conv3_l{i}'), down ('down_l{i}') or up ('up_l{i}').  On a ZPlan
+    the stem is sparse_conv over kmaps["stem125"] where the plan has it,
+    else the occupancy GEMM, and the others the z-fused convs; on a
+    UNetPlan each is the gather-GEMM sparse_conv over kmaps[kmap], with
+    the same parameters."""
 
     def __init__(self, in_channels: int, out_channels: int, kmap: str,
                  in_level: int, out_level: int, generator):
@@ -70,13 +79,16 @@ class SparseConv(nn.Module):
         k = {"stem": 125, "conv3": 27}.get(kmap.split("_")[0], 8)
         self.kernel = _kernel((k, in_channels, out_channels), generator)
 
-    def forward(self, x: SparseTensor, plan: ZPlan) -> SparseTensor:
+    def forward(self, x: SparseTensor, plan: Plan) -> SparseTensor:
         out_l = plan.level(self.out_level)
         w = self.kernel.to(x.feats.dtype)
+        if isinstance(plan, UNetPlan):
+            return self._gather_conv(x, plan, out_l, w)
         m = out_l.real
         if self.kmap == "stem" and "stem125" in plan.kmaps:
             # in_channels > 1: the gather-GEMM over source-row maps
-            feats = zconv_full(x.feats, plan.kmaps["stem125"], w, out_mask=m)
+            feats = sparse_conv(x.feats, plan.kmaps["stem125"], w,
+                                out_mask=m)
         elif self.kmap == "stem":
             # constant-1 input features: out = occupancy [N, 125] @ W[:, 0]
             occ = plan.kmaps["stem_occ"].to(x.feats.dtype)
@@ -101,6 +113,21 @@ class SparseConv(nn.Module):
             raise ValueError(f"unknown kmap {self.kmap!r}")
         return SparseTensor(coords=out_l.coords, feats=feats, mask=m,
                             stride=out_l.stride)
+
+    def _gather_conv(self, x, plan, out_l, w):
+        """The generic plan: the gather-GEMM over kmaps[self.kmap], with
+        the down <-> up partner map as the transpose map of the even
+        kernels (lidog_tpu/models/minkunet.py:111-130)."""
+        if self.kmap.startswith("down_"):
+            nbr_t = plan.kmaps["up_" + self.kmap[5:]]
+        elif self.kmap.startswith("up_"):
+            nbr_t = plan.kmaps["down_" + self.kmap[3:]]
+        else:
+            nbr_t = None  # symmetric odd kernel
+        feats = sparse_conv(x.feats, plan.kmaps[self.kmap], w, nbr_t=nbr_t,
+                            out_mask=out_l.mask)
+        return SparseTensor(coords=out_l.coords, feats=feats,
+                            mask=out_l.mask, stride=out_l.stride)
 
 
 class SparseConv1x1(nn.Module):
@@ -169,7 +196,7 @@ class BasicBlock(nn.Module):
         else:
             self.shortcut_conv = None
 
-    def forward(self, x: SparseTensor, plan: ZPlan) -> SparseTensor:
+    def forward(self, x: SparseTensor, plan: Plan) -> SparseTensor:
         y = self.norm1(self.conv1(x, plan))
         y = self.conv2(y, plan)
         r = x
@@ -251,7 +278,7 @@ class MinkUNetBackbone(nn.Module):
         self.final = SparseConv1x1(ch, out_channels, g, use_bias=True)
         self.layers = tuple(layers)
 
-    def forward(self, x: SparseTensor, plan: ZPlan):
+    def forward(self, x: SparseTensor, plan: Plan):
         x = x.with_feats(x.feats.to(self.compute_dtype))
         out = self.norm0(self.conv0(x, plan))
         skips = [out]
@@ -284,5 +311,5 @@ class MinkUNet34(nn.Module):
             init_dim=init_dim, planes=planes, layers=layers,
             generator=generator, in_channels=in_channels)
 
-    def forward(self, x: SparseTensor, plan: ZPlan) -> torch.Tensor:
+    def forward(self, x: SparseTensor, plan: Plan) -> torch.Tensor:
         return self.backbone(x, plan)[0]

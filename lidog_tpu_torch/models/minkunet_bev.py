@@ -21,9 +21,8 @@ import torch
 from torch import nn
 
 from lidog_tpu_torch.core.sparse import SparseTensor
-from lidog_tpu_torch.core.zseg import ZPlan
 from lidog_tpu_torch.models.conv2d import Encoder2D
-from lidog_tpu_torch.models.minkunet import MinkUNetBackbone
+from lidog_tpu_torch.models.minkunet import MinkUNetBackbone, Plan
 from lidog_tpu_torch.ops.bev import bev_scatter_pooled, pooled_size
 
 TAP_LEVEL = {"bottle": 3, "block6": 2, "block7": 1, "block8": 0}
@@ -74,7 +73,7 @@ class MinkUNet34BEV(nn.Module):
                 binary_seg=binary_seg, compute_dtype=compute_dtype,
                 generator=g))
 
-    def forward(self, x: SparseTensor, plan: ZPlan, is_train: bool = False):
+    def forward(self, x: SparseTensor, plan: Plan, is_train: bool = False):
         logits, taps = self.backbone(x, plan)
         bev_logits = {}
         if not is_train:

@@ -20,10 +20,10 @@ import torch
 from torch import nn
 
 from lidog_tpu_torch.core.sparse import SparseTensor
-from lidog_tpu_torch.core.zseg import ZPlan
-from lidog_tpu_torch.models.minkunet import (BasicBlock, NormReLU, SparseConv,
-                                             SparseConv1x1, add_decoder,
-                                             run_blocks, run_decoder)
+from lidog_tpu_torch.models.minkunet import (BasicBlock, NormReLU, Plan,
+                                             SparseConv, SparseConv1x1,
+                                             add_decoder, run_blocks,
+                                             run_decoder)
 
 
 class IBNBlock(nn.Module):
@@ -45,7 +45,7 @@ class IBNBlock(nn.Module):
         else:
             self.shortcut_conv = None
 
-    def forward(self, x: SparseTensor, plan: ZPlan) -> SparseTensor:
+    def forward(self, x: SparseTensor, plan: Plan) -> SparseTensor:
         y = self.conv2(self.norm1(self.conv1(x, plan)), plan)
         r = x
         if self.shortcut_conv is not None:
@@ -85,7 +85,7 @@ class MinkUNet34IBN(nn.Module):
         ch = add_decoder(self, ch, skip_ch, planes, layers, g)
         self.final = SparseConv1x1(ch, out_channels, g, use_bias=True)
 
-    def forward(self, x: SparseTensor, plan: ZPlan, is_seg: bool = True):
+    def forward(self, x: SparseTensor, plan: Plan, is_seg: bool = True):
         x = x.with_feats(x.feats.to(self.compute_dtype))
         enc = self.norm0(self.conv0(x, plan))
         skips = [enc]

@@ -27,10 +27,10 @@ import torch
 from torch import nn
 
 from lidog_tpu_torch.core.sparse import SparseTensor
-from lidog_tpu_torch.core.zseg import ZPlan
-from lidog_tpu_torch.models.minkunet import (BasicBlock, NormReLU, SparseConv,
-                                             SparseConv1x1, add_decoder,
-                                             run_blocks, run_decoder)
+from lidog_tpu_torch.models.minkunet import (BasicBlock, NormReLU, Plan,
+                                             SparseConv, SparseConv1x1,
+                                             add_decoder, run_blocks,
+                                             run_decoder)
 from lidog_tpu_torch.ops.norm import MaskedInstanceNorm
 
 
@@ -53,7 +53,7 @@ class RobustBlock(nn.Module):
             self.shortcut_conv = None
         self.in_out = MaskedInstanceNorm()
 
-    def forward(self, x: SparseTensor, plan: ZPlan) -> SparseTensor:
+    def forward(self, x: SparseTensor, plan: Plan) -> SparseTensor:
         y = self.conv2(self.norm1(self.conv1(x, plan)), plan)
         r = x
         if self.shortcut_conv is not None:
@@ -102,7 +102,7 @@ class MinkUNet34Robust(nn.Module):
         ch = add_decoder(self, ch, skip_ch, planes, layers, g)
         self.final = SparseConv1x1(ch, out_channels, g, use_bias=True)
 
-    def forward(self, x: SparseTensor, plan: ZPlan, is_seg: bool = True):
+    def forward(self, x: SparseTensor, plan: Plan, is_seg: bool = True):
         x = x.with_feats(x.feats.to(self.compute_dtype))
         out = self.conv0(x, plan)
         in0 = self.in0(out.feats, out.mask, out.coords[:, 0])

@@ -3,7 +3,7 @@
 Each source is compiled by `nvcc` for sm_90a into its own shared library
 with a plain C interface under build/lidog_tpu_torch/ of the checkout, at
 first use, and loaded with ctypes.  `build()` starts one nvcc per source,
-all at once.  A library is rebuilt when its source or the shared header is
+all at once.  A library is rebuilt when its source or a shared header is
 newer.  Nothing here runs at import time.
 """
 
@@ -20,7 +20,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lidog_tpu_torch"
 SOURCES = ("zconv3_fwd", "zconv_down_fwd", "zconv_up_fwd", "zconv3_bwd_dx",
            "zconv_wgrad", "bev_scatter_max", "zconv_full", "stem_feat125",
-           "zseg_sweeps", "zseg_tables")
+           "zseg_sweeps", "zseg_tables", "sparse_conv", "voxelize",
+           "label_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,6 +48,10 @@ _ARGTYPES = {
     "real_words": [_P] * 10 + [_I] * 8 + [_P],
     "assemble_aug": [_P] * 9 + [_I] * 5 + [_P],
     "emit_rows": [_P] * 13 + [_I] * 6 + [_P],
+    "sparse_conv_fwd": [_P] * 6 + [_I] * 6 + [_P],
+    "sparse_conv_wgrad": [_P] * 6 + [_I] * 9 + [_P],
+    "voxelize": [_P] * 13 + [_I] * 2 + [_P],
+    "label_gather": [_P] * 5 + [_I] * 5 + [_P],
 }
 # the source (library) of each C function that is not named after its own
 _SOURCE_OF = {"zconv3_wgrad": "zconv_wgrad", "zconv_down_wgrad": "zconv_wgrad",
@@ -57,7 +62,9 @@ _SOURCE_OF = {"zconv3_wgrad": "zconv_wgrad", "zconv_down_wgrad": "zconv_wgrad",
               "stem_conv9_packed": "zseg_sweeps", "conv9_packed": "zseg_sweeps",
               "pos3_lookup": "zseg_sweeps", "build_packed": "zseg_sweeps",
               "column_grid": "zseg_tables", "real_words": "zseg_tables",
-              "assemble_aug": "zseg_tables", "emit_rows": "zseg_tables"}
+              "assemble_aug": "zseg_tables", "emit_rows": "zseg_tables",
+              "sparse_conv_fwd": "sparse_conv",
+              "sparse_conv_wgrad": "sparse_conv"}
 
 _libs = {}
 
@@ -78,8 +85,8 @@ def _stale(name: str) -> bool:
     lib = _lib_path(name)
     if not lib.exists():
         return True
-    newest = max((CSRC / f"{name}.cu").stat().st_mtime,
-                 (CSRC / "gather_gemm.cuh").stat().st_mtime)
+    newest = max(p.stat().st_mtime
+                 for p in [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")])
     return lib.stat().st_mtime < newest
 
 

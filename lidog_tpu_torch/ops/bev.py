@@ -26,9 +26,9 @@ from __future__ import annotations
 import torch
 
 from lidog_tpu_torch.ops import _cuda
+from lidog_tpu_torch.ops._wrap import DTYPES
 
 LAUNCHES = {"bev_scatter_max": 0, "bev_scatter_max_bwd": 0}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def pooled_size(grid: int, window: int, stride: int, pad: int) -> int:
@@ -103,7 +103,7 @@ def _check(name, feats, coords, mask, grids=()):
     if feats.device.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
                          f"{feats.device}")
-    if feats.dtype not in _DTYPES or feats.dim() != 2 \
+    if feats.dtype not in DTYPES or feats.dim() != 2 \
             or not feats.is_contiguous():
         raise ValueError(f"{name}: feats must be a contiguous float32 or "
                          f"bfloat16 [N, C] tensor")
@@ -140,7 +140,7 @@ def bev_scatter_max(feats, coords, mask, nb, grid, out_hw, window, stride,
                       device=feats.device)
     _cuda.call("bev_scatter_max_fwd", feats.data_ptr(), coords.data_ptr(),
                mask.data_ptr(), out.data_ptr(), n, c, nb, grid, out_hw, window,
-               stride, pad, _DTYPES[feats.dtype])
+               stride, pad, DTYPES[feats.dtype])
     LAUNCHES[name] += 1
     return out
 
@@ -162,7 +162,7 @@ def bev_scatter_max_bwd(feats, coords, mask, out, dout, nb, grid, out_hw,
     _cuda.call("bev_scatter_max_bwd", feats.data_ptr(), coords.data_ptr(),
                mask.data_ptr(), out.data_ptr(), dout.data_ptr(),
                dfeats.data_ptr(), n, c, nb, grid, out_hw, window, stride, pad,
-               _DTYPES[feats.dtype])
+               DTYPES[feats.dtype])
     LAUNCHES[name] += 1
     return dfeats
 

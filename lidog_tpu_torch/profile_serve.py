@@ -9,8 +9,8 @@ voxel cells straight into the plan), then traces `--requests` requests with
 torch.profiler and prints, per request: wall ms, device busy ms and idle
 share, device ms of this package's hand-written kernels (the three sparse
 conv forwards and the fused norm) and of everything else; then the device
-ms and launches of the stages alone (voxelize or the raw cells and the
-labels, plain torch; the plan build, the port's kernels) and the top device
+ms and launches of the stages alone (voxelize, or the raw cells, the
+plan build and the labels) and the top device
 kernels and kernel groups of the plan build.
 Needs a CUDA card; prints the card's name and power limit first.
 """
@@ -46,7 +46,9 @@ _GROUPS = (("Conv3Map", "zconv3_fwd"), ("DownMap", "zconv_down_fwd"),
            ("UpMap", "zconv_up_fwd"), ("bn_act_kernel", "bn_act"),
            ("Conv3DxMap", "zconv3_bwd_dx"), ("Conv3WMap", "zconv3_wgrad"),
            ("DownWMap", "zconv_down_wgrad"), ("UpWMap", "zconv_up_wgrad"),
-           ("wgrad_sum_kernel", "zconv wgrad sum pass (KF)"),
+           ("wgrad_sum_kernel", "wgrad sum pass (KF, LB)"),
+           ("NbrMap", "sparse_conv_fwd"), ("TransposeWMap", "sparse_conv_wgrad"),
+           ("vox_", "voxelize"), ("label_gather_kernel", "label_gather"),
            ("bn_stats_kernel", "bn_train_fwd"),
            ("bn_train_finalize_kernel", "bn_train_fwd"),
            ("bn_bwd_", "bn_train_bwd"),
@@ -150,9 +152,9 @@ def main(argv=None):
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
     print_groups(kernels, args.requests, "request")
 
-    # the stages alone: voxelize (K1, plain torch; sortless: the raw
-    # per-point cells), the plan build (kernels KQ-KY) and the labels
-    # (K15, plain torch)
+    # the stages alone: voxelize (K1: quantize, then kernel LC; sortless:
+    # the raw per-point cells), the plan build (kernels KQ-KY) and the
+    # labels (K15: kernel LD)
     stages = {}
 
     def alone(name, fn):

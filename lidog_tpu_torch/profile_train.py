@@ -1,7 +1,8 @@
 """Where the device time of one full-width training step goes.
 
     python -m lidog_tpu_torch.profile_train [--steps 3]
-        [--lidog | --robustnet | --ibn] [--in-channels N] [--sortless]
+        [--lidog | --robustnet | --ibn | --generic] [--in-channels N]
+        [--sortless]
 
 Runs the training step of bench.py's shapes (MinkUNet34 bf16 with seeded
 random weights; 4 synthetic scans x 100,000 points, voxel 0.05, the
@@ -18,7 +19,10 @@ the model N input channels, the points' (x, y, z) and a remission drawn
 from the seed: the plan then carries the stem's source-row maps (kernel KQ)
 and the stem runs as KO/KP. --sortless feeds the per-point voxel cells
 straight into the plan (device_batch_raw, assume_unique=False) instead of
-voxelizing. Then it traces `--steps` steps with torch.profiler and prints,
+voxelizing. --generic runs the step on the generic plan: the batch at the
+pooled caps make_caps(4) (524,288 input rows), no plan given, so the step
+builds the batch's UNetPlan (plain torch) and every conv is LA / LB (the
+stem KO / KP). Then it traces `--steps` steps with torch.profiler and prints,
 per step: wall ms, device busy ms and idle share, and the device ms and
 launches of each hand-written kernel and of everything else; then those of
 one batch (voxelize; the raw cells with --sortless) and one plan build
@@ -39,11 +43,14 @@ CAPS = ((92_160, 61_440, 22_528, 9_216, 3_584),
 def _train_step(scans, builder, variant="source", in_channels=1,
                 sortless=False):
     """bench.py's step as a closure, with MinkUNet34 or (variant "ibn")
-    MinkUNet34IBN, or (variant "robustnet") the RobustNet step; the
-    builder must match in_channels and sortless."""
+    MinkUNet34IBN, or (variant "robustnet") the RobustNet step, or
+    (variant "generic") MinkUNet34 on the generic plan; the builder must
+    match in_channels and sortless (generic: it is not called by the
+    step)."""
     import numpy as np
     import torch
 
+    from lidog_tpu_torch.caps import make_caps
     from lidog_tpu_torch.data.synthetic import point_features
     from lidog_tpu_torch.losses.losses import IWLoss, SoftDICELoss
     from lidog_tpu_torch.models.minkunet import MinkUNet34
@@ -63,27 +70,34 @@ def _train_step(scans, builder, variant="source", in_channels=1,
     if in_channels != 1:
         feats = torch.from_numpy(point_features(pts.cpu().numpy(),
                                                 in_channels)).cuda()
-    cls = {"source": MinkUNet34, "ibn": MinkUNet34IBN,
+    cls = {"source": MinkUNet34, "ibn": MinkUNet34IBN, "generic": MinkUNet34,
            "robustnet": MinkUNet34Robust}[variant]
     model = cls(out_channels=7, compute_dtype=torch.bfloat16,
                 generator=torch.Generator().manual_seed(0),
                 in_channels=in_channels)
     state = TrainState.create(model, make_optimizer("Adam", lr=1e-3))
     crit = SoftDICELoss(ignore_label=-1)
+    generic = variant == "generic"
+    caps = make_caps(len(scans)) if generic else None
     step = (make_robustnet_train_step(crit, IWLoss(), num_classes=7,
                                       cov_stat_epoch=0)
             if variant == "robustnet" else make_train_step(crit,
-                                                           num_classes=7))
+                                                           num_classes=7,
+                                                           caps=caps))
 
     def make_batch():
         if sortless:
             return device_batch_raw(pts, valid, labels, 0.05, feats)
-        return device_batch_from_points(pts, valid, labels, 0.05, 393_216,
+        return device_batch_from_points(pts, valid, labels, 0.05,
+                                        caps[0] if generic else 393_216,
                                         feats)
 
     def full_step():
         batch = make_batch()
-        step(state, batch, builder(batch["coords"], batch["mask"]))
+        if generic:
+            step(state, batch)  # builds the batch's UNetPlan itself
+        else:
+            step(state, batch, builder(batch["coords"], batch["mask"]))
 
     return full_step, make_batch
 
@@ -124,7 +138,8 @@ def _lidog_step(scans, builder):
 def main(argv=None):
     import torch
 
-    from lidog_tpu_torch.caps import plan_builder
+    from lidog_tpu_torch.caps import make_caps, plan_builder
+    from lidog_tpu_torch.core.plan import build_unet_plan
     from lidog_tpu_torch.data.synthetic import SyntheticLidarDataset
     from lidog_tpu_torch.profile_serve import (_kernel_events, card_line,
                                                print_groups)
@@ -138,13 +153,17 @@ def main(argv=None):
                        help="profile the RobustNet step (MinkUNet34Robust)")
     paths.add_argument("--ibn", action="store_true",
                        help="profile the IBN step (MinkUNet34IBN)")
+    paths.add_argument("--generic", action="store_true",
+                       help="profile the step on the generic UNetPlan")
     ap.add_argument("--in-channels", type=int, default=1,
                     help="input channels of the model (the general stem)")
     ap.add_argument("--sortless", action="store_true",
                     help="sortless input (device_batch_raw)")
     args = ap.parse_args(argv)
-    if args.lidog and (args.in_channels != 1 or args.sortless):
-        ap.error("--lidog takes neither --in-channels nor --sortless")
+    if (args.lidog or args.generic) and (args.in_channels != 1
+                                         or args.sortless):
+        ap.error("--lidog and --generic take neither --in-channels nor "
+                 "--sortless")
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA device")
     print(card_line())
@@ -154,7 +173,11 @@ def main(argv=None):
     builder = plan_builder(args.in_channels, 4, CAPS,
                            assume_unique=not args.sortless)
     variant = ("lidog" if args.lidog else "robustnet" if args.robustnet
-               else "ibn" if args.ibn else "source")
+               else "ibn" if args.ibn else "generic" if args.generic
+               else "source")
+    if args.generic:  # the plan build the generic step makes
+        def builder(coords, mask):
+            return build_unet_plan(coords, mask, make_caps(4))
     full_step, make_batch = (
         _lidog_step(scans, builder) if args.lidog
         else _train_step(scans, builder, variant, args.in_channels,

@@ -2,9 +2,10 @@
 
 Port of lidog_tpu/serve.py:27-108,155-170: device voxelize -> zseg plan
 -> MinkUNet34 forward -> argmax -> the two inverse-map gathers back onto
-the input points.  With sortless=True the per-point voxel cells go
-straight into a dedup-tolerant plan (no sort or unique pass), whose `pos`
-is the per-point inverse map.
+the input points (one kernel on the card: LD, ops/labels.py
+`label_gather`).  With
+sortless=True the per-point voxel cells go straight into a dedup-tolerant
+plan (no sort or unique pass), whose `pos` is the per-point inverse map.
 
 Usage:
     pred = Predictor(MinkUNet34(compute_dtype=torch.bfloat16))
@@ -27,6 +28,7 @@ from lidog_tpu_torch.caps import make_zcaps
 from lidog_tpu_torch.core.engine import input_tensor
 from lidog_tpu_torch.core.voxelize import voxelize_device
 from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+from lidog_tpu_torch.ops.labels import label_gather
 from lidog_tpu_torch.train.device_pipeline import device_batch_raw
 from lidog_tpu_torch.utils.device import resolve_device
 
@@ -95,19 +97,9 @@ class Predictor:
         """Per-input-row class ids (-1 = dropped/invalid) of one forward:
         the argmax on level-0 real rows, through plan.pos, then (sorted
         path; vox None on the sortless one) through the voxelizer's
-        inverse map onto the points."""
-        vox_pred = torch.argmax(logits, dim=-1).to(torch.int32)
-        vox_pred = torch.where(plan.level(0).real, vox_pred, -1)
-        # input row -> level-0 aug row -> prediction; the sorted path's
-        # input rows are voxels, mapped back onto points through the
-        # voxelizer's inverse map
-        row_of_in = plan.pos
-        pred_of_in = torch.where(row_of_in >= 0,
-                                 vox_pred[row_of_in.clamp(min=0).long()], -1)
-        if vox is None:
-            return pred_of_in
-        inv = vox.inverse
-        return torch.where(inv >= 0, pred_of_in[inv.clamp(min=0).long()], -1)
+        inverse map onto the points (label_gather)."""
+        return label_gather(logits, plan.level(0).real, plan.pos,
+                            None if vox is None else vox.inverse)
 
     @property
     def overflow(self):

@@ -31,6 +31,12 @@ Tolerances (relative to max |JAX output|, per compared tensor):
   * IW / IRW loss and grad: 1e-5 (f32; sums in another order).
   * The four models' parameter trees from their YAMLs: keys, shapes and
     dtypes equal.
+  * keys.merge_lookup / lookup: bitwise (int32 rows, -1 for a miss).
+  * sparse_conv (the generic plan's K21) forward, dIn and dW through
+    autograd vs jax.grad of lidog_tpu's: 1e-5 in f32 (summation order
+    only: lidog_tpu sums offset groups of ~128 / Cin, the port offset by
+    offset); 1e-2 in bf16 (both round once from f32 at the same points,
+    so a value may land one bf16 step apart).
   * Adam / SGD vs optax over 3 steps: 1e-6 of max |param| (f32; torch
     divides by sqrt(nu) / sqrt(1 - b2^t) where optax takes sqrt(nu / (1 -
     b2^t)), and the schedules are taken in f64 here, f32 there).
@@ -112,6 +118,109 @@ def test_voxel_quantization_matches_jitted_jax():
     np.testing.assert_array_equal(np.asarray(jr["coords"])[[0, 2, 1]], want)
     for k in ("coords", "labels", "mask"):
         np.testing.assert_array_equal(np.asarray(jr[k]), tr[k].numpy(), k)
+
+
+@pytest.mark.parametrize("fn", ["merge_lookup", "lookup"])
+def test_lookups_match_jax(fn):
+    """keys.merge_lookup and keys.lookup against lidog_tpu's on a lex-sorted
+    table with duplicate hi words, misses on both sides of the table and
+    INVALID_KEY queries: bitwise int32 results."""
+    import jax.numpy as jnp
+    import torch
+
+    from lidog_tpu.core import keys as jk
+    from lidog_tpu_torch.core import keys as tk
+
+    rng = np.random.RandomState(7)
+    th = rng.randint(0, 60, 300).astype(np.int32)
+    tl = rng.randint(0, 6, 300).astype(np.int32)
+    order = np.lexsort((tl, th))
+    th, tl = th[order], tl[order]
+    qh = rng.randint(-2, 63, 500).astype(np.int32)
+    ql = rng.randint(0, 7, 500).astype(np.int32)
+    qh[:9] = ql[:9] = jk.INVALID_KEY
+    want = np.asarray(getattr(jk, fn)(*map(jnp.asarray, (th, tl, qh, ql))))
+    got = getattr(tk, fn)(*map(torch.from_numpy, (th, tl, qh, ql)))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(want, got.numpy())
+    assert (want >= 0).sum() > 100 and (want < 0).sum() > 100
+
+
+def _unet_plan(caps=(768, 512, 256, 128, 64), seed=5):
+    """The port's UNetPlan of seeded voxels in 2 scans (bitwise equal to
+    lidog_tpu's builder: test_unet_plan_bitwise_equal)."""
+    import torch
+
+    from lidog_tpu_torch.core.plan import build_unet_plan
+
+    rng = np.random.RandomState(seed)
+    n = caps[0]
+    coords = np.concatenate([rng.randint(0, 2, (n, 1)),
+                             rng.randint(-8, 8, (n, 3))], 1).astype(np.int32)
+    mask = rng.rand(n) < 0.85
+    return build_unet_plan(torch.from_numpy(coords), torch.from_numpy(mask),
+                           caps)
+
+
+# (kmap, input level, output level, Cin, Cout, the transpose partner map)
+SPARSE_CONV_CASES = {"conv3": ("conv3_l1", 1, 1, 8, 16, None),
+                     "stem": ("stem", 0, 0, 1, 8, None),
+                     "down": ("down_l0", 0, 1, 8, 16, "up_l0"),
+                     "up": ("up_l1", 2, 1, 16, 8, "down_l1")}
+
+
+@pytest.mark.parametrize("kind", list(SPARSE_CONV_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sparse_conv_matches_jax(dtype, kind):
+    """sparse_conv's forward, and dIn and dW through autograd, against
+    jax.value_and_grad of lidog_tpu's sparse_conv on the maps of one
+    UNetPlan: the k=3 and k=5 (stem) symmetric maps, and the down and up
+    maps with their partner as nbr_t (the offset reversal of the
+    backward).  The stem's input takes no grad (feats without
+    requires_grad), as in the model."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from lidog_tpu.ops.sparse_conv import sparse_conv as jax_conv
+    from lidog_tpu_torch.ops.sparse_conv import sparse_conv
+
+    name, li, lo, cin, cout, partner = SPARSE_CONV_CASES[kind]
+    tol = {"float32": 1e-5, "bfloat16": 1e-2}[dtype]
+    plan = _unet_plan()
+    nbr = plan.kmaps[name]
+    nbr_t = None if partner is None else plan.kmaps[partner]
+    m_in, m_out = plan.level(li).mask.numpy(), plan.level(lo).mask
+    rng = np.random.RandomState(11)
+    x = (rng.randn(m_in.shape[0], cin) * m_in[:, None]).astype(np.float32)
+    w = (rng.randn(nbr.shape[0], cin, cout) * 0.2).astype(np.float32)
+    g = rng.randn(nbr.shape[1], cout).astype(np.float32)
+    jd = jnp.dtype(dtype)
+
+    def loss(x, w):
+        out = jax_conv(x.astype(jd), jnp.asarray(nbr.numpy()), w.astype(jd),
+                       nbr_t=None if nbr_t is None
+                       else jnp.asarray(nbr_t.numpy()),
+                       out_mask=jnp.asarray(m_out.numpy()))
+        return (out.astype(jnp.float32) * g).sum(), out
+
+    (_, jout), (jdx, jdw) = jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(jnp.asarray(x), jnp.asarray(w))
+    td = getattr(torch, dtype)
+    xt = torch.from_numpy(x).requires_grad_(kind != "stem")
+    wt = torch.from_numpy(w).requires_grad_()
+    out = sparse_conv(xt.to(td), nbr, wt.to(td), nbr_t=nbr_t, out_mask=m_out)
+    (out.float() * torch.from_numpy(g)).sum().backward()
+    assert out.dtype == td and _rel(jout, out.detach().float()) <= tol
+    assert (out[~m_out] == 0).all()
+    assert _rel(jdw, wt.grad) <= tol
+    if kind == "stem":
+        assert xt.grad is None
+    else:
+        assert _rel(jdx, xt.grad) <= tol
+    with pytest.raises(ValueError, match="nbr_t"):
+        sparse_conv(xt.to(td), plan.kmaps["down_l0"],
+                    torch.zeros(8, cin, cout, dtype=td))
 
 
 def _zseg_plan():
@@ -756,13 +865,18 @@ def test_optimizer_matches_optax(name, scheduler, wd):
 def test_kernel_wrappers_take_plain_versions_on_cpu():
     """Each kernel wrapper takes its plain version for a CPU tensor and
     counts no launch; a tensor on neither the CPU nor a card raises.  The
-    plan sweeps' wrappers (KQ-KU) and the column tables' (KV-KY, with the
-    overflow terms they add in place) are among them."""
+    plan sweeps' wrappers (KQ-KU), the column tables' (KV-KY, with the
+    overflow terms they add in place), the generic sparse conv's (LA,
+    LB, and KO/KP for the convs LA/LB do not take: a 125-offset stem at
+    4 or 32 channels), the voxelizer's (LC) and the label gather's (LD)
+    are among them."""
+    import functools
+
     import torch
 
-    from lidog_tpu_torch.core import zseg
+    from lidog_tpu_torch.core import voxelize, zseg
     from lidog_tpu_torch.losses import losses
-    from lidog_tpu_torch.ops import bev, norm, zconv
+    from lidog_tpu_torch.ops import bev, labels, norm, sparse_conv, zconv
 
     g = torch.Generator().manual_seed(0)
     n = 6
@@ -852,10 +966,12 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
          (12 * x, m, True)),
         (losses.whitening_bwd, losses.whitening_bwd_plain,
          (torch.tensor(1.0), x, m, s_w, n_w, False)),
-        (zconv.zconv_full_fwd, zconv.zconv_full_plain, (x4, nbr125, w4, m)),
-        (zconv.zconv_full_fwd, zconv.zconv_full_plain,
+        (sparse_conv.zconv_full_fwd, sparse_conv.sparse_conv_plain,
+         (x4, nbr125, w4, m)),
+        (sparse_conv.zconv_full_fwd, sparse_conv.sparse_conv_plain,
          (x, nbr125, w4.flip(0).transpose(1, 2).contiguous(), None, m)),
-        (zconv.zconv_full_wgrad, zconv.zconv_full_wgrad_plain,
+        (sparse_conv.zconv_full_wgrad,
+         functools.partial(sparse_conv.sparse_conv_wgrad_plain, reverse=True),
          (x4, x, nbr125, m)),
         (zseg.stem_feat125_packed, zseg.stem_feat125_plain, kq),
         (zseg.pos3_lookup, zseg.pos3_plain, sweeps["pos3_lookup"]),
@@ -868,12 +984,47 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
     cases += [(getattr(zseg, name), getattr(zseg, name + "_plain"), a, kw)
               for name, a, kw in tables]
     assert tables[0][0] == "column_grid" and len(tables) == 6
+    # the generic plan's sparse conv LA (also as dIn), LB over a symmetric
+    # 27-tap map and an 8-tap partner map; the voxelizer LC (duplicate
+    # cells, an invalid point, a capacity that drops voxels); the label
+    # gather LD, sorted and sortless
+    nbr27 = torch.randint(-1, n, (27, n), generator=g, dtype=torch.int32)
+    w27 = torch.randn(27, 32, 32, generator=g)
+    w125 = torch.randn(125, 32, 32, generator=g)
+    disc = torch.randint(-2, 2, (3 * n, 3), generator=g, dtype=torch.int32)
+    vvalid = torch.rand(3 * n, generator=g) > 0.1
+    vbatch = torch.randint(0, 2, (3 * n,), generator=g, dtype=torch.int32)
+    logits = torch.randn(n, 7, generator=g)
+    pos = torch.randint(-1, n, (n,), generator=g, dtype=torch.int32)
+    inv_pt = torch.randint(-1, n, (3 * n,), generator=g, dtype=torch.int32)
+    cases += [
+        (sparse_conv.sparse_conv_fwd, sparse_conv.sparse_conv_plain,
+         (x, nbr27, w27, m)),
+        (sparse_conv.sparse_conv_fwd, sparse_conv.sparse_conv_plain,
+         (x, nbr27, w27.flip(0).transpose(1, 2).contiguous(), None, m)),
+        (sparse_conv.sparse_conv_wgrad, sparse_conv.sparse_conv_wgrad_plain,
+         (x, x, nbr27, m), {"reverse": True}),
+        (sparse_conv.sparse_conv_wgrad, sparse_conv.sparse_conv_wgrad_plain,
+         (x, x, nbr[:8], m), {"reverse": False}),
+        (sparse_conv.sparse_conv_fwd, sparse_conv.sparse_conv_plain,
+         (x, nbr125, w125, m)),
+        (sparse_conv.sparse_conv_wgrad, sparse_conv.sparse_conv_wgrad_plain,
+         (x, x, nbr125, m), {"reverse": True}),
+        (voxelize.voxelize_cells, voxelize.voxelize_plain,
+         (disc, vvalid, vbatch, 2 * n)),
+        (voxelize.voxelize_cells, voxelize.voxelize_plain,
+         (disc, vvalid, vbatch, 3)),
+        (labels.label_gather, labels.labels_plain, (logits, m, pos, inv_pt)),
+        (labels.label_gather, labels.labels_plain, (logits, m, pos)),
+    ]
 
     def clone(v):
         return v.clone() if torch.is_tensor(v) else v
 
-    before = {**zconv.LAUNCHES, **norm.LAUNCHES, **bev.LAUNCHES,
-              **losses.LAUNCHES, **zseg.LAUNCHES}
+    counters = (zconv.LAUNCHES, norm.LAUNCHES, bev.LAUNCHES,
+                losses.LAUNCHES, zseg.LAUNCHES, sparse_conv.LAUNCHES,
+                voxelize.LAUNCHES, labels.LAUNCHES)
+    before = {k: v for t in counters for k, v in t.items()}
     for wrapper, plain, args, *kw in cases:
         kw = kw[0] if kw else {}
         copy = [clone(a) for a in args]
@@ -895,18 +1046,37 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
                  for k, v in kw.items()}
         with pytest.raises(ValueError, match="CUDA"):
             wrapper(*meta, **kmeta)
+    # LA / LB take K 27 or 8 at widths in multiples of 32, KO / KP every
+    # other conv: the 125-offset stem at 32 channels as well as at 4
+    on_meta = {k: v.to("meta") for k, v in (
+        ("x", x), ("x4", x4), ("m", m), ("nbr27", nbr27),
+        ("nbr125", nbr125), ("w27", w27), ("w125", w125), ("w4", w4))}
+    for k_map, w_k, xm, kernel in (("nbr27", "w27", "x", "sparse_conv"),
+                                   ("nbr125", "w125", "x", "zconv_full"),
+                                   ("nbr125", "w4", "x4", "zconv_full")):
+        with pytest.raises(ValueError, match=kernel + "_fwd: .*CUDA"):
+            sparse_conv.sparse_conv_fwd(on_meta[xm], on_meta[k_map], on_meta[w_k],
+                                        on_meta["m"])
+        with pytest.raises(ValueError, match=kernel + "_wgrad: .*CUDA"):
+            sparse_conv.sparse_conv_wgrad(on_meta[xm], on_meta["x"], on_meta[k_map],
+                                          on_meta["m"], reverse=True)
+    with pytest.raises(ValueError, match="symmetric"):
+        sparse_conv.sparse_conv_wgrad(on_meta["x4"], on_meta["x"], on_meta["nbr125"],
+                                      on_meta["m"], reverse=False)
     assert int(tables[0][2]["overflow"][1]) > 0  # KV's dropped columns
-    assert {**zconv.LAUNCHES, **norm.LAUNCHES, **bev.LAUNCHES,
-            **losses.LAUNCHES, **zseg.LAUNCHES} == before
+    assert int(voxelize.voxelize_plain(disc, vvalid, vbatch, 3).overflow) > 0
+    assert {k: v for t in counters for k, v in t.items()} == before
 
 
 def test_port_imports_no_jax():
     """Importing every lidog_tpu_torch module (and chip_smoke.py) leaves
     jax, flax and lidog_tpu out of sys.modules.  bn_act_triton and
     whiten_triton are the modules that need the triton package; each is
-    imported only by its launching functions.  The general stem's and the
-    sortless path's modules (core/zseg.py with KQ-KY, ops/zconv.py with
-    KO/KP, caps.py, train/device_pipeline.py, serve.py) are among them."""
+    imported only by its launching functions.  Each kernel's ctypes
+    signature matches its C function's parameters.  The general stem's and
+    the sortless path's modules (core/zseg.py with KQ-KY, ops/sparse_conv.py
+    with KO/KP, caps.py, train/device_pipeline.py, serve.py) are among
+    them."""
     code = r"""
 import importlib, pkgutil, sys
 import lidog_tpu_torch
@@ -919,15 +1089,31 @@ assert triton_modules <= set(names)
 for n in names:
     if n not in triton_modules:
         importlib.import_module(n)
-# the general stem's kernels KO/KP (ops.zconv) and the plan's KQ-KY
+# the general stem's kernels KO/KP (ops.sparse_conv) and the plan's KQ-KY
 # (core.zseg), each with its CUDA source registered for nvcc
 from lidog_tpu_torch.core import zseg
-from lidog_tpu_torch.ops import _cuda, zconv
+from lidog_tpu_torch.ops import _cuda, sparse_conv
 assert {"zconv_full", "stem_feat125", "zseg_sweeps",
         "zseg_tables"} <= set(_cuda.SOURCES)
 for src in ("zconv_full", "stem_feat125", "zseg_sweeps", "zseg_tables"):
     assert (_cuda.CSRC / (src + ".cu")).exists(), src
-assert {"zconv_full_fwd", "zconv_full_wgrad"} <= set(zconv.LAUNCHES)
+assert {"zconv_full_fwd", "zconv_full_wgrad"} <= set(sparse_conv.LAUNCHES)
+# the generic plan's LA/LB, the voxelizer LC and the label gather LD
+from lidog_tpu_torch.core import voxelize
+from lidog_tpu_torch.ops import labels
+for src in ("sparse_conv", "voxelize", "label_gather"):
+    assert src in _cuda.SOURCES and (_cuda.CSRC / (src + ".cu")).exists()
+for fn in (*sparse_conv.LAUNCHES, *voxelize.LAUNCHES, *labels.LAUNCHES):
+    assert _cuda._SOURCE_OF.get(fn, fn) in _cuda.SOURCES, fn
+    assert fn in _cuda._ARGTYPES, fn
+# each ctypes signature matches its C function's: a pointer (void*) or an
+# int per parameter, then the stream
+import re
+for fn, argtypes in _cuda._ARGTYPES.items():
+    src = (_cuda.CSRC / (_cuda._SOURCE_OF.get(fn, fn) + ".cu")).read_text()
+    m = re.search(r'extern "C" int ' + fn + r"\((.*?)\)\s*\{", src, re.S)
+    kinds = ["*" in p for p in m.group(1).split(",")]
+    assert kinds == [a is _cuda._P for a in argtypes], fn
 assert set(zseg.LAUNCHES) == {"stem_feat125", "stem_conv9_packed",
                               "conv9_packed", "pos3_lookup", "build_packed",
                               "column_grid", "real_words", "assemble_aug",

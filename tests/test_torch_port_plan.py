@@ -17,6 +17,11 @@ between their dilated slots), roomy, with starved row caps, with starved
 y-dilated column caps (columns and their voxels dropped past the cap),
 and as sortless input (each edge voxel 1-3 times, shuffled).
 
+The generic UNetPlan (core/plan.py build_unet_plan) vs lidog_tpu's
+core/plan.py, bitwise too: per level coords, mask and the sorted keys,
+perm, every kernel map and the overflow counters, with roomy and with
+starved coarse caps.
+
 Also the LiDOG step's host and device pipeline: the BEV preprocessing and
 collation bitwise, Encoder2D + DICE, and the whole LiDOG train step
 against lidog_tpu's; the full-width Predictor and the IBN train step
@@ -174,6 +179,66 @@ def test_plan_bitwise_equal(case, request):
     if case == "edges_col_starved":  # the column caps drop voxels at L0
         assert int(np.asarray(jp.overflow)[1]) > 0
     _assert_plans_equal(jp, tp)
+
+
+@pytest.mark.parametrize("case", ["roomy", "starved"])
+def test_unet_plan_bitwise_equal(case):
+    """build_unet_plan on the same seeded rows (2 scans, duplicate
+    cells, masked rows, coordinates on both sides of 0 so that the coarse
+    levels floor negative coordinates) against lidog_tpu's jitted
+    builder: every field equal; the starved caps drop voxels at levels 1-4
+    (overflow > 0).  Also core/engine.py's UNetPlan branches
+    (input_to_canon_map, canon_labels, input_tensor) against lidog_tpu's
+    on the two plans."""
+    import jax.numpy as jnp
+    import torch
+
+    from lidog_tpu.core.plan import build_unet_plan as jax_build
+    from lidog_tpu_torch.core.plan import build_unet_plan
+
+    rng = np.random.RandomState(13)
+    n = 640
+    coords = np.concatenate([rng.randint(0, 2, (n, 1)),
+                             rng.randint(-12, 12, (n, 3))],
+                            1).astype(np.int32)
+    mask = rng.rand(n) < 0.9
+    caps = {"roomy": (n, 640, 384, 192, 64),
+            "starved": (n, 400, 120, 24, 3)}[case]
+    jp = jax_build(jnp.asarray(coords), jnp.asarray(mask), caps)
+    tp = build_unet_plan(torch.from_numpy(coords), torch.from_numpy(mask),
+                         caps)
+    for i, (a, b) in enumerate(zip(jp.levels, tp.levels)):
+        assert a.stride == b.stride
+        for f in ("coords", "mask", "hi", "lo"):
+            want = np.asarray(getattr(a, f))
+            got = getattr(b, f).numpy()
+            assert want.dtype == got.dtype, (i, f)
+            np.testing.assert_array_equal(want, got, err_msg=f"L{i} {f}")
+    np.testing.assert_array_equal(np.asarray(jp.perm), tp.perm.numpy())
+    assert sorted(jp.kmaps) == sorted(tp.kmaps)
+    for k in jp.kmaps:
+        assert tp.kmaps[k].dtype == torch.int32, k
+        np.testing.assert_array_equal(np.asarray(jp.kmaps[k]),
+                                      tp.kmaps[k].numpy(), err_msg=k)
+    np.testing.assert_array_equal(np.asarray(jp.overflow),
+                                  tp.overflow.numpy())
+    ov = tp.overflow.numpy()
+    assert (ov[1:] > 0).all() if case == "starved" else not ov.any()
+    # the engine's UNetPlan branches: input rows <-> level-0 rows
+    from lidog_tpu.core import engine as jax_engine
+    from lidog_tpu_torch.core import engine
+
+    labels = rng.randint(-1, 5, n).astype(np.int32)
+    feats = rng.randn(n, 3).astype(np.float32)
+    np.testing.assert_array_equal(
+        np.asarray(jax_engine.input_to_canon_map(jp)),
+        engine.input_to_canon_map(tp).numpy())
+    for want, got in zip(jax_engine.canon_labels(jp, jnp.asarray(labels)),
+                         engine.canon_labels(tp, torch.from_numpy(labels))):
+        np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    np.testing.assert_array_equal(
+        np.asarray(jax_engine.input_tensor(jp, jnp.asarray(feats)).feats),
+        engine.input_tensor(tp, torch.from_numpy(feats)).feats.numpy())
 
 
 def test_sortless_matches_jax():

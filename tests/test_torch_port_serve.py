@@ -38,6 +38,9 @@ import pytest
 B, P, VOXEL, GRID_HALF = 2, 600, 0.5, 32
 CAPS_R = (1024, 1024, 512, 256, 128)
 CAPS_A = (2048, 1536, 768, 384, 192)
+# the generic UNetPlan's pooled caps for B scans (caps[0] = the batch's
+# B * CAPS_R[0] input rows; no level overflows on these points)
+CAPS_G = (2048, 2048, 1024, 512, 256)
 NARROW = dict(init_dim=8, planes=(8, 8, 16, 16, 16, 16, 8, 8),
               layers=(1,) * 8)
 
@@ -82,6 +85,22 @@ def _jax_plan_of(tp):
         kmaps={k: to_jax(v) for k, v in tp.kmaps.items()},
         pos=to_jax(tp.pos), overflow=to_jax(tp.overflow),
         rep=None if tp.rep is None else to_jax(tp.rep))
+
+
+def _jax_unet_plan_of(tp):
+    """The port's UNetPlan as a lidog_tpu UNetPlan (bitwise equal to
+    lidog_tpu's builder: test_unet_plan_bitwise_equal)."""
+    import jax.numpy as jnp
+
+    from lidog_tpu.core.plan import LevelPlan, UNetPlan
+
+    return UNetPlan(
+        levels=tuple(LevelPlan(*(jnp.asarray(getattr(lv, f).numpy()) for f in (
+            "coords", "mask", "hi", "lo")), stride=lv.stride)
+            for lv in tp.levels),
+        perm=jnp.asarray(tp.perm.numpy()),
+        kmaps={k: jnp.asarray(v.numpy()) for k, v in tp.kmaps.items()},
+        overflow=jnp.asarray(tp.overflow.numpy()))
 
 
 def _jax_plan(pts):
@@ -252,11 +271,69 @@ def test_narrow_backbone_logits(dtype, request):
         assert agree >= 0.99, agree
 
 
+@pytest.mark.parametrize("variant", ["minkunet34", "robustnet", "ibn",
+                                     "bev"])
+def test_generic_forward_matches_zplan(variant):
+    """The same narrow model (seeded weights, randomized running
+    statistics, eval mode, f32) on the generic UNetPlan (every conv the
+    gather-GEMM sparse_conv) and on the ZPlan (the z-fused convs) of the
+    same voxels: the logits of each voxel, aligned by coordinate, within
+    rtol = atol = 2e-3 (lidog_tpu's rule, tests/test_zseg_model.py:51-73),
+    and zero on the generic plan's padding rows.  MinkUNet34Robust,
+    MinkUNet34IBN and MinkUNet34BEV share the backbone and run on either
+    plan unchanged; the BEV model's head (the pooled scatter of block8's
+    features, Encoder2D) gives the same BEV logits on both."""
+    import torch
+
+    from lidog_tpu_torch.core.engine import input_tensor
+    from lidog_tpu_torch.core.plan import build_unet_plan
+    from lidog_tpu_torch.models.minkunet import MinkUNet34
+    from lidog_tpu_torch.models.minkunet_bev import MinkUNet34BEV
+    from lidog_tpu_torch.models.minkunet_ibn import MinkUNet34IBN
+    from lidog_tpu_torch.models.minkunet_robustnet import MinkUNet34Robust
+
+    vox, zplan = _torch_plan(_points(2))
+    uplan = build_unet_plan(vox.coords, vox.mask, CAPS_G)
+    assert int(uplan.overflow.sum()) == 0
+    model = {"minkunet34": MinkUNet34, "robustnet": MinkUNet34Robust,
+             "ibn": MinkUNet34IBN,
+             "bev": lambda **kw: MinkUNet34BEV(
+                 num_batches=B, voxel_size=VOXEL, bound_2d=10.0, **kw)}[
+        variant](out_channels=5, **NARROW)
+    g = torch.Generator().manual_seed(3)
+    for name, buf in model.named_buffers():
+        buf.copy_(torch.rand(buf.shape, generator=g) + 0.5 if "var" in name
+                  else torch.randn(buf.shape, generator=g) * 0.1)
+    model.eval()
+    out = {}
+    with torch.no_grad():
+        for p in (zplan, uplan):
+            x = input_tensor(p, vox.mask[:, None].float())
+            out[id(p)] = (model(x, p, is_train=True) if variant == "bev"
+                          else (model(x, p), {}))
+    (lz, bz), (lu, bu) = out[id(zplan)], out[id(uplan)]
+    lz, lu = lz.numpy(), lu.numpy()
+    zl, ul = zplan.level(0), uplan.level(0)
+    row = {tuple(c): j for j, c in enumerate(zl.coords.numpy().tolist())
+           if zl.real[j]}
+    um = ul.mask.numpy()
+    idx = np.array([row[tuple(c)] for c in ul.coords.numpy()[um].tolist()])
+    assert len(idx) == int(zl.real.sum()) > 500
+    np.testing.assert_allclose(lu[um], lz[idx], rtol=2e-3, atol=2e-3)
+    assert (lu[~um] == 0).all() and np.abs(lu[um]).max() > 0.1
+    assert sorted(bz) == sorted(bu) == (["block8"] if variant == "bev"
+                                        else [])
+    for k in bz:
+        np.testing.assert_allclose(bu[k].numpy(), bz[k].numpy(), rtol=2e-3,
+                                   atol=2e-3)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_zconv_full_matches_jax(dtype, request):
     """zconv_full (the general stem's 125-offset conv) forward, dx and dW:
     jax.vjp through lidog_tpu's custom VJP against autograd through the
-    port's op (the plain versions of KO, KO as dx and KP on the CPU), every
+    port's op for it, ops/sparse_conv.py `sparse_conv` over the symmetric
+    map (the plain versions of KO, KO as dx and KP on the CPU), every
     row compared, on the port's stem125 map of tests/test_zseg_stem_feat.py's
     input (bitwise equal to lidog_tpu's, test_plan_bitwise_equal[stem125])
     converted (_jax_plan_of).  Cin 4 -> Cout 32 (the stem) and 32 -> 4.
@@ -274,7 +351,7 @@ def test_zconv_full_matches_jax(dtype, request):
 
     from lidog_tpu.ops import zconv as jz
     from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
-    from lidog_tpu_torch.ops import zconv as tz
+    from lidog_tpu_torch.ops import sparse_conv as tsc
     from tests.test_zseg import B as ZB
     from tests.test_zseg import CAPS_A as ZCAPS_A
     from tests.test_zseg import CAPS_R as ZCAPS_R
@@ -290,7 +367,7 @@ def test_zconv_full_matches_jax(dtype, request):
     tol = 1e-5 if dtype == "float32" else 1e-2
     rng = np.random.RandomState(17)
     n = nbr.shape[1]
-    launches = dict(tz.LAUNCHES)
+    launches = dict(tsc.LAUNCHES)
 
     def both(a):
         return jnp.asarray(a, jdt), torch.from_numpy(a).to(tdt)
@@ -306,8 +383,8 @@ def test_zconv_full_matches_jax(dtype, request):
         dx_j, dw_j = vjp(dout[0])
         xt = x[1].clone().requires_grad_()
         wt = w[1].clone().requires_grad_()
-        out_t = tz.zconv_full(xt, torch.from_numpy(np.asarray(nbr)), wt,
-                              out_mask=torch.from_numpy(np.asarray(real)))
+        out_t = tsc.sparse_conv(xt, torch.from_numpy(np.asarray(nbr)), wt,
+                                out_mask=torch.from_numpy(np.asarray(real)))
         out_t.backward(dout[1])
         for name, a, b in (("out", out_j, out_t), ("dx", dx_j, xt.grad),
                            ("dW", dw_j, wt.grad)):
@@ -318,7 +395,7 @@ def test_zconv_full_matches_jax(dtype, request):
         assert (out_t[~torch.from_numpy(np.asarray(real))] == 0).all()
     # the map holds neighbours besides each row itself
     assert int((np.asarray(nbr) >= 0).sum()) > 2 * int(np.asarray(real).sum())
-    assert tz.LAUNCHES == launches  # CPU tensors: the plain versions
+    assert tsc.LAUNCHES == launches  # CPU tensors: the plain versions
 
 
 def test_predictor_needs_a_device(monkeypatch):
@@ -381,7 +458,7 @@ def _voxel_feats(pts, coords, mask, feats):
 
 
 @pytest.mark.parametrize("case", ["float32", "bfloat16", "float32-2src",
-                                  "cin4"])
+                                  "cin4", "generic"])
 def test_train_step_matches_jax(case, request):
     """From a lidog_tpu TrainState (after one JAX step, so Adam's moments
     and count are not trivial) carried into the port, two steps on each
@@ -389,7 +466,10 @@ def test_train_step_matches_jax(case, request):
     batch_stats.  JAX's plans are the port's (_jax_plan_of).  The cin4
     case (f32) trains MinkUNet34 with 4 input channels (each voxel's
     representative point's x, y, z and a seeded remission) through the
-    general stem: stem_feature_map plans and zconv_full."""
+    general stem: stem_feature_map plans and sparse_conv.  The generic
+    case (f32) gives both steps no plans: each builds the batch's UNetPlan
+    at CAPS_G (lidog_tpu in-graph) and every conv is the gather-GEMM
+    sparse_conv."""
     from tests.conftest import run_isolated
 
     if run_isolated(request):
@@ -420,7 +500,10 @@ def test_train_step_matches_jax(case, request):
 
     from lidog_tpu_torch.data.synthetic import point_features
 
-    dtype = "float32" if case == "cin4" else case.split("-")[0]
+    from lidog_tpu_torch.core.plan import build_unet_plan
+
+    generic = case == "generic"
+    dtype = "float32" if case in ("cin4", "generic") else case.split("-")[0]
     in_ch = 4 if case == "cin4" else 1
     nsrc = 2 if case.endswith("2src") else 1
     tol_loss, tol_grad, tol_param = TRAIN_TOL[dtype]
@@ -459,11 +542,16 @@ def test_train_step_matches_jax(case, request):
         for k in jb:
             np.testing.assert_array_equal(np.asarray(jb[k]), tb[k].numpy())
             jbatch[k + s], tbatch[k + s] = jb[k], tb[k]
-        tplans[s] = tbuilder(tb["coords"], tb["mask"])
-        jplans[s] = _jax_plan_of(tplans[s])
+        if generic:  # for lidog_tpu's init only: the steps take none
+            jplans[s] = _jax_unet_plan_of(build_unet_plan(
+                tb["coords"], tb["mask"], CAPS_G))
+        else:
+            tplans[s] = tbuilder(tb["coords"], tb["mask"])
+            jplans[s] = _jax_plan_of(tplans[s])
         assert int(np.asarray(jplans[s].overflow).sum()) == 0
-    jplan_arg = jplans if nsrc > 1 else jplans[""]
-    tplan_arg = tplans if nsrc > 1 else tplans[""]
+    jplan_arg = None if generic else jplans if nsrc > 1 else jplans[""]
+    tplan_arg = None if generic else tplans if nsrc > 1 else tplans[""]
+    caps = CAPS_G if generic else CAPS_R
 
     # lidog_tpu's own init: the data and weights where lidog_tpu agrees
     # with itself (TRAIN_SEED)
@@ -473,7 +561,7 @@ def test_train_step_matches_jax(case, request):
         lambda k: jm.init(k, x0, plan0, train=False))(jax.random.PRNGKey(0))))
     tx = jax_optimizer("Adam", lr=lr)
     crit = JaxDice(ignore_label=-1)
-    jstep = jax.jit(jax_train_step(jm, tx, crit, CAPS_R, num_classes=C,
+    jstep = jax.jit(jax_train_step(jm, tx, crit, caps, num_classes=C,
                                    source_weights=weights,
                                    num_sources=nsrc))
 
@@ -501,7 +589,8 @@ def test_train_step_matches_jax(case, request):
                                device="cpu")
     load_train_state(tstate, jax.device_get(jstate))
     tstep = make_train_step(SoftDICELoss(ignore_label=-1), num_classes=C,
-                            source_weights=weights, num_sources=nsrc)
+                            source_weights=weights, num_sources=nsrc,
+                            caps=CAPS_G if generic else None)
 
     def leaf(tree, key):
         for part in key.split("."):

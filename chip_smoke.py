@@ -125,6 +125,11 @@ no result line):
      confusion totals equal to the supervised voxels, counters LA 108, LB
      54, KO 1, KP 1 per step; one eval step; the plan build's device ms and
      launches; then phase 7's card-vs-CPU check of the generic step.
+ 23. the gather and DMA probes (python -m lidog_tpu_torch.probes all) at
+     lidog_tpu's probe shapes: every correct= / ok= check true, each of
+     LE-LH (csrc/window_gather.cu, csrc/window_copy.cu) and LA launched;
+     then LE, LF and LG torch.equal to their plain versions at every probe
+     shape (and in bf16 at P1's and f32 at t1's), LH bitwise equal at P5's.
 
 Every request and voxelized training batch runs LC once and every request
 LD once.  Every request and step builds one plan: KV, KW, KX, KY, KT and KU 5
@@ -228,6 +233,10 @@ PER_GENERIC_STEP = {"sparse_conv_fwd": 108, "sparse_conv_wgrad": 54,
                     "zconv_full_fwd": 1, "zconv_full_wgrad": 1,
                     "bn_act": 62, "bn_train_fwd": 62, "bn_train_bwd": 62,
                     **VOXELIZED}
+# the probes (phase 23): the kernels that one run of the three probe mains
+# launches (their counts follow the probes' timing loops)
+PROBE_KERNELS = ("window_row_gather", "window_lane_gather", "window_copy",
+                 "lane_gather_sum", "sparse_conv_fwd")
 PER_VARIANT_STEP = {"source": {**PER_STEP, **VOXELIZED},
                     "robustnet": {**PER_ROBUST_STEP, **VOXELIZED},
                     "ibn": {**PER_IBN_STEP, **VOXELIZED},
@@ -261,11 +270,12 @@ def cuda_ms(fn, iters=10):
 def _launch_tables():
     from lidog_tpu_torch.core import voxelize, zseg
     from lidog_tpu_torch.losses import losses
-    from lidog_tpu_torch.ops import bev, labels, norm, sparse_conv, zconv
+    from lidog_tpu_torch.ops import (bev, gather, labels, norm, sparse_conv,
+                                     zconv)
 
     return (zconv.LAUNCHES, norm.LAUNCHES, bev.LAUNCHES, losses.LAUNCHES,
             zseg.LAUNCHES, sparse_conv.LAUNCHES, voxelize.LAUNCHES,
-            labels.LAUNCHES)
+            labels.LAUNCHES, gather.LAUNCHES)
 
 
 def counters():
@@ -2247,6 +2257,7 @@ def pipeline_kernel_checks(dev, gen):
     import numpy as np
     import torch
 
+    from lidog_tpu_torch.core import keys
     from lidog_tpu_torch.core.voxelize import (quantize, voxelize_cells,
                                                voxelize_plain)
     from lidog_tpu_torch.models.minkunet import MinkUNet34
@@ -2278,6 +2289,20 @@ def pipeline_kernel_checks(dev, gen):
                   torch.int32, nbytes(disc, valid, bidx, *want), 0,
                   f"{shape} cap {cap} ({int(want.num_voxels)} voxels)",
                   mma=False, exact=True)
+        # the library call: torch.unique over the packed keys (the sorted
+        # voxels and each point's voxel; it syncs to the host for its
+        # output size)
+        packed = keys.combined(*keys.pack(
+            torch.cat([bidx[:, None], disc], dim=1), valid))
+        uniq, _ = torch.unique(packed, sorted=True, return_inverse=True)
+        if int(((uniq >> 31) != keys.INVALID_KEY).sum()) \
+                != int(want.num_voxels):
+            raise AssertionError(f"torch.unique: {uniq.numel()} voxels, "
+                                 f"LC's plain version {int(want.num_voxels)}")
+        ck.rows[-1]["library_ms"] = cuda_ms(lambda: torch.unique(
+            packed, sorted=True, return_inverse=True))
+        print(f"[kernel] voxelize {shape}: library (torch.unique) "
+              f"{ck.rows[-1]['library_ms']:.4f} ms", flush=True)
     model = MinkUNet34(out_channels=NUM_CLASSES, compute_dtype=torch.bfloat16,
                        generator=torch.Generator().manual_seed(SEED))
     kw = dict(batch_size=1, voxel_size=VOXEL, caps_per_scan=PER_SCAN,
@@ -2395,14 +2420,14 @@ def profile_device(fn):
     device time) of fn() under torch.profiler."""
     import torch
 
-    from lidog_tpu_torch.profile_serve import _kernel_events
+    from lidog_tpu_torch.profile_serve import kernel_events
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    events = _kernel_events(prof)
+    events = kernel_events(prof)
     return (sum(us for _, us, _ in events) / 1e3,
             sum(n for _, _, n in events), events)
 
@@ -2510,6 +2535,118 @@ def generic_train(dev):
             "plan_build_launches": plan_launches,
             "plan_build_bound_ms": plan_bytes / HBM_BYTES_PER_S * 1e3,
             "peak_mem_gb": peak}
+
+
+def probes(dev):
+    """Phase 23: the three probe mains on the card at the JAX scripts'
+    shapes; raises unless every check is true; returns their numbers and
+    the kernels' launches in the run."""
+    from lidog_tpu_torch.probes import (micro_bisect, micro_gather,
+                                        micro_lanegather)
+
+    zero_counters()
+    t0 = time.perf_counter()
+    out = {"gather": micro_gather.main(dev), "bisect": micro_bisect.main(dev),
+           "lanegather": micro_lanegather.main(dev)}
+    launches = counters()
+    failed = [f"{p}: {k}" for p, r in out.items()
+              for k, ok in r["checks"].items() if not ok]
+    if failed:
+        raise AssertionError(f"probe checks failed: {failed}")
+    return {**out, "s": time.perf_counter() - t0, "launches": launches}
+
+
+def probe_kernel_checks(dev, gen):
+    """Phase 23, LE-LH against their plain versions, torch.equal: LE at
+    P1's window (2048 x 96, 512 rows; f32 and bf16) and P4's sublane
+    cases (W 256, 1024, 4096 at 128 columns, T = W); LF at P1's
+    transposed window (f32 and bf16) and P4's lane cases (W 256, 2048);
+    LG at t1's shape (65,536 x 96, tiles of 512 at min(512 t, N - 2048);
+    bf16 and f32); LH at P5's (96 x 8192, 64 chunks).  Library calls:
+    index_select (LE, LG with the prebuilt row index), gather (LF).
+    Bounds: the bytes the function must move on this run's data: the
+    distinct window rows (LE, LG) or elements (LF, LH) that the index
+    names, read once, the index once and the output once."""
+    import torch
+
+    from lidog_tpu_torch.ops import gather as g
+
+    ck = Checker(gen, dev)
+    src = "lidog_tpu_torch/csrc/window_gather.cu"
+    f32, bf = torch.float32, torch.bfloat16
+
+    def rand(shape, dt):
+        return torch.randn(*shape, generator=gen).to(dev, dt)
+
+    def index(high, n):
+        return torch.randint(0, high, (n,), generator=gen,
+                             dtype=torch.int32).to(dev)
+
+    def distinct(t):
+        return int(torch.unique(t).numel())
+
+    p1 = ("benchmarks/micro/micro_gather.py:83,110 q2_pallas_vmem_gather:71 "
+          "(P1 a, b); micro_bisect.py:73 gather_case:54 (P4 sublane)")
+    for w, t, c, dt, case in ((2048, 512, 96, f32, "P1"),
+                              (2048, 512, 96, bf, "P1"),
+                              (256, 256, 128, f32, "t2"),
+                              (1024, 1024, 128, f32, "t3a"),
+                              (4096, 4096, 128, f32, "t3b")):
+        win, idx = rand((w, c), dt), index(w, t)
+        i64 = idx.long()
+        ck.record("window_row_gather", src, p1,
+                  lambda: g.window_row_gather(win, idx),
+                  lambda: g.window_row_gather_plain(win, idx), dt,
+                  (distinct(idx) + t) * c * win.element_size()
+                  + nbytes(idx), 0,
+                  f"{case} win [{w}, {c}] {t} rows", mma=False, exact=True,
+                  lfn=lambda: torch.index_select(win, 0, i64))
+    p1c = ("benchmarks/micro/micro_gather.py:135 q2_pallas_vmem_gather:71 "
+           "(P1 c); micro_bisect.py:87 gather_case:54 (P4 lane)")
+    for c, w, t, dt, case in ((96, 2048, 512, f32, "P1"),
+                              (96, 2048, 512, bf, "P1"),
+                              (128, 256, 256, f32, "t4"),
+                              (128, 2048, 2048, f32, "t4b")):
+        win, idx = rand((c, w), dt), index(w, t)
+        i64 = idx.long()[None].expand(c, -1)
+        ck.record("window_lane_gather", src, p1c,
+                  lambda: g.window_lane_gather(win, idx),
+                  lambda: g.window_lane_gather_plain(win, idx), dt,
+                  c * (distinct(idx) + t) * win.element_size()
+                  + nbytes(idx), 0,
+                  f"{case} win [{c}, {w}] {t} lanes", mma=False, exact=True,
+                  lfn=lambda: torch.gather(win, 1, i64))
+    n, c, tile, wn = 65_536, 96, 512, 2048
+    ws = torch.clamp(torch.arange(n // tile, dtype=torch.int32) * tile,
+                     max=n - wn).to(dev)
+    rows = g.window_rows(ws, tile)
+    read = distinct(rows[(rows >= 0) & (rows < n)])
+    for dt in (bf, f32):
+        feats = rand((n, c), dt)
+        ck.record("window_copy", "lidog_tpu_torch/csrc/window_copy.cu",
+                  "benchmarks/micro/micro_bisect.py:46 t1_dma:23 (P4)",
+                  lambda: g.window_copy(feats, ws, tile),
+                  lambda: g.window_copy_plain(feats, ws, tile), dt,
+                  (read + rows.numel()) * c * feats.element_size()
+                  + nbytes(ws),
+                  0, f"t1 feats [{n}, {c}] tiles of {tile}, window {wn}",
+                  mma=False, exact=True,
+                  lfn=lambda: torch.index_select(feats, 0, rows))
+    c, reps = 96, 64
+    win = rand((c, 128 * reps), f32)
+    idx = torch.randint(0, 128, (c, 128 * reps), generator=gen,
+                        dtype=torch.int32).to(dev)
+    # the window elements the index names: chunk base + lane
+    chunk = torch.arange(c * 128 * reps, device=dev).view(c, -1) // 128
+    read = distinct(chunk * 128 + idx)
+    ck.record("lane_gather_sum", src,
+              "benchmarks/micro_lanegather.py:48 main:29 (P5)",
+              lambda: g.lane_gather_sum(win, idx),
+              lambda: g.lane_gather_sum_plain(win, idx), f32,
+              (read + c * 128) * 4 + nbytes(idx), 0,
+              f"P5 win [{c}, {128 * reps}] {reps} chunks", mma=False,
+              exact=True)
+    return ck.rows
 
 
 def main():
@@ -2645,12 +2782,19 @@ def main():
           f"ms), peak {gstats['peak_mem_gb']:.2f} GB on {card}", flush=True)
     torch.cuda.empty_cache()
     gcheck = train_cross_check(dev, "generic")
+    torch.cuda.empty_cache()
+    pstats = probes(dev)  # phase 23
+    print(f"[probes] all checks true in {pstats['s']:.1f} s on {card}; "
+          f"launches {pstats['launches']}", flush=True)
+    torch.cuda.empty_cache()
+    rows += probe_kernel_checks(dev, torch.Generator().manual_seed(SEED + 14))
 
     by_path = {"serve": stats["launches"], "train": tstats["launches"],
                "lidog": lstats["launches"], "robustnet": rstats["launches"],
                "ibn": istats["launches"], "cin4": cstats["launches"],
                "sortless_serve": sstats["serve_launches"],
-               "sortless": sstats["launches"], "generic": gstats["launches"]}
+               "sortless": sstats["launches"], "generic": gstats["launches"],
+               "probes": pstats["launches"]}
     for path, names in (("serve", PER_REQUEST),
                         ("train", PER_VARIANT_STEP["source"]),
                         ("lidog", PER_LIDOG_STEP),
@@ -2659,7 +2803,8 @@ def main():
                         ("cin4", PER_VARIANT_STEP["cin4"]),
                         ("sortless_serve", PER_SORTLESS_REQUEST),
                         ("sortless", PER_STEP),
-                        ("generic", PER_GENERIC_STEP)):
+                        ("generic", PER_GENERIC_STEP),
+                        ("probes", PROBE_KERNELS)):
         for k in names:  # every kernel of the path ran in the path's run
             if by_path[path][k] <= 0:
                 raise AssertionError(f"{k} never launched on the {path} path")
@@ -2677,7 +2822,8 @@ def main():
                "robustnet_check_vs_cpu": rcheck, "cin4": cstats,
                "cin4_check_vs_cpu": ccheck, "sortless": sstats,
                "generic_plan_check": gplan_check, "generic": gstats,
-               "generic_check_vs_cpu": gcheck}
+               "generic_check_vs_cpu": gcheck,
+               "probes": {k: v for k, v in pstats.items() if k != "launches"}}
     print("[summary] " + json.dumps(summary), flush=True)
     print(f"[total] {summary['total_s']:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches",

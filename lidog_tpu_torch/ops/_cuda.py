@@ -21,7 +21,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lidog_tpu_torch"
 SOURCES = ("zconv3_fwd", "zconv_down_fwd", "zconv_up_fwd", "zconv3_bwd_dx",
            "zconv_wgrad", "bev_scatter_max", "zconv_full", "stem_feat125",
            "zseg_sweeps", "zseg_tables", "sparse_conv", "voxelize",
-           "label_gather")
+           "label_gather", "window_gather", "window_copy")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -52,6 +52,10 @@ _ARGTYPES = {
     "sparse_conv_wgrad": [_P] * 6 + [_I] * 9 + [_P],
     "voxelize": [_P] * 13 + [_I] * 2 + [_P],
     "label_gather": [_P] * 5 + [_I] * 5 + [_P],
+    "window_row_gather": [_P] * 3 + [_I] * 3 + [_P],
+    "window_lane_gather": [_P] * 3 + [_I] * 4 + [_P],
+    "lane_gather_sum": [_P] * 3 + [_I] * 2 + [_P],
+    "window_copy": [_P] * 3 + [_I] * 4 + [_P],
 }
 # the source (library) of each C function that is not named after its own
 _SOURCE_OF = {"zconv3_wgrad": "zconv_wgrad", "zconv_down_wgrad": "zconv_wgrad",
@@ -64,7 +68,10 @@ _SOURCE_OF = {"zconv3_wgrad": "zconv_wgrad", "zconv_down_wgrad": "zconv_wgrad",
               "column_grid": "zseg_tables", "real_words": "zseg_tables",
               "assemble_aug": "zseg_tables", "emit_rows": "zseg_tables",
               "sparse_conv_fwd": "sparse_conv",
-              "sparse_conv_wgrad": "sparse_conv"}
+              "sparse_conv_wgrad": "sparse_conv",
+              "window_row_gather": "window_gather",
+              "window_lane_gather": "window_gather",
+              "lane_gather_sum": "window_gather"}
 
 _libs = {}
 
@@ -145,5 +152,9 @@ def call(name: str, *args) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     lib = library(_SOURCE_OF.get(name, name))
     err = getattr(lib, name)(*args, stream)
+    if err == 1:  # cudaErrorInvalidValue
+        raise RuntimeError(f"{name}: CUDA error 1 (invalid value): the entry "
+                           "point refused these shapes or sizes (its limits "
+                           "are stated in its source)")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")

@@ -22,11 +22,23 @@ def masked(out, mask):
     return out if mask is None else out * mask[:, None].to(out.dtype)
 
 
+def on_card(name, *tensors):
+    """Raise unless every tensor lies on the first one's CUDA device,
+    contiguous and 16-byte aligned."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {dev}")
+    for t in tensors:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous on {dev}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be 16-byte aligned")
+
+
 def check(name, x, w):
     """x [N, Cin] and w [..., Cout] for a tensor-core kernel: CUDA, one of
     DTYPES, widths in multiples of 32, contiguous and 16-byte aligned."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {x.device}")
+    on_card(name, x, w)
     if x.dtype not in DTYPES or w.dtype != x.dtype:
         raise ValueError(f"{name}: x and w must share float32 or bfloat16, "
                          f"got {x.dtype} and {w.dtype}")
@@ -34,10 +46,6 @@ def check(name, x, w):
     if cin % 32 or cout % 32:
         raise ValueError(f"{name}: widths must be multiples of 32, got "
                          f"{cin} -> {cout}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError(f"{name}: x and w must be contiguous")
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError(f"{name}: x and w must be 16-byte aligned")
 
 
 def int_map(name, t, shape, device):

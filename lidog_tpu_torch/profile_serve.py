@@ -30,7 +30,7 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _kernel_events(prof):
+def kernel_events(prof):
     """(name, self device us, count) of the device-side events."""
     out = []
     for e in prof.key_averages():
@@ -145,7 +145,7 @@ def main(argv=None):
             pred(pts_dev)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.requests
-    kernels = _kernel_events(prof)
+    kernels = kernel_events(prof)
     busy_ms = sum(us for _, us, _ in kernels) / 1e3 / args.requests
     print(f"[profile] {'sortless ' if args.sortless else ''}per request: "
           f"wall {wall_ms:.3f} ms, device busy "
@@ -161,7 +161,7 @@ def main(argv=None):
         with torch.profiler.profile(activities=acts) as p:
             out = fn()
             torch.cuda.synchronize()
-        stages[name] = _kernel_events(p)
+        stages[name] = kernel_events(p)
         return out
 
     with torch.no_grad():

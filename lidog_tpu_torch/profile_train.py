@@ -141,7 +141,7 @@ def main(argv=None):
     from lidog_tpu_torch.caps import make_caps, plan_builder
     from lidog_tpu_torch.core.plan import build_unet_plan
     from lidog_tpu_torch.data.synthetic import SyntheticLidarDataset
-    from lidog_tpu_torch.profile_serve import (_kernel_events, card_line,
+    from lidog_tpu_torch.profile_serve import (card_line, kernel_events,
                                                print_groups)
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -194,7 +194,7 @@ def main(argv=None):
             full_step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
-    kernels = _kernel_events(prof)
+    kernels = kernel_events(prof)
     busy_ms = sum(us for _, us, _ in kernels) / 1e3 / args.steps
     if args.in_channels != 1:
         variant += f" in_channels={args.in_channels}"
@@ -219,7 +219,7 @@ def main(argv=None):
         with torch.profiler.profile(activities=acts) as prof_stage:
             fn()
             torch.cuda.synchronize()
-        events = _kernel_events(prof_stage)
+        events = kernel_events(prof_stage)
         print(f"[profile] {name} alone: "
               f"{sum(us for _, us, _ in events) / 1e3:.3f} ms device in "
               f"{sum(n for _, _, n in events)} kernel launches")

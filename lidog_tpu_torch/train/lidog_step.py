@@ -14,19 +14,20 @@
     the points that the BEV label image selected.
 
 State, optimizer and plans as in train/train_step.py: the caller builds a
-ZPlan per source (core/zseg.py ZSegPlanBuilder).
+ZPlan per source (core/zseg.py ZSegPlanBuilder), or, given none, the step
+builds each source's UNetPlan at `caps`, as lidog_tpu's step does.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from lidog_tpu_torch.core.engine import (canon_labels, input_tensor,
                                          input_to_canon_map)
 from lidog_tpu_torch.metrics.metrics import confusion_matrix, iou_from_confusion
-from lidog_tpu_torch.train.train_step import TrainState
+from lidog_tpu_torch.train.train_step import TrainState, _plan_of
 
 
 def select_3d_miou(preds_c, labels_c, plan, sel_img, num_classes: int):
@@ -74,26 +75,29 @@ def make_lidog_train_step(sem_criterion: Callable, bev_criterion: Callable,
                           num_classes: int = 7,
                           source_weights: Sequence[float] = (0.5, 0.5),
                           num_sources: int = 1, warmup_epochs: int = 0,
-                          steps_per_epoch: int = 1):
-    """train_step(state, batch, plans) -> (state, metrics).
+                          steps_per_epoch: int = 1,
+                          caps: Optional[Sequence[int]] = None):
+    """train_step(state, batch, plans=None) -> (state, metrics).
 
     batch: data/bev.py collate_bev's arrays as tensors (coords, feats,
     labels, mask, bev_labels_{level}, bev_selected_idx_{level}), suffixed
-    "0", "1" for two sources; plans: the batch's ZPlan, or {suffix:
-    ZPlan}.  The model is a MinkUNet34BEV."""
+    "0", "1" for two sources; plans: the batch's plan (a ZPlan or a
+    UNetPlan), or {suffix: plan}, or None: the step builds each source's
+    UNetPlan at the pooled per-level `caps`.  The model is a
+    MinkUNet34BEV."""
     w = tuple(source_weights)
+    caps = None if caps is None else tuple(caps)
 
-    def train_step(state: TrainState, batch, plans):
+    def train_step(state: TrainState, batch, plans=None):
         model = state.model.train()
         state.optimizer.zero_grad()
         epoch = state.step // max(steps_per_epoch, 1)
         gate = float(epoch >= warmup_epochs)
         cm = 0
         if num_sources == 1:
-            plan = plans[""] if isinstance(plans, dict) else plans
             sem, bev, cm, proj = _lidog_forward(
                 model, batch, sem_criterion, bev_criterion, decoder_levels,
-                num_classes, plan)
+                num_classes, _plan_of(plans, batch, caps))
             total = gate * (w[0] * sem + w[1] * bev) + (1 - gate) * bev
             aux = {"sem_loss": sem.detach(), "bev_loss": bev.detach(), **proj}
         else:
@@ -101,7 +105,8 @@ def make_lidog_train_step(sem_criterion: Callable, bev_criterion: Callable,
             for s in range(num_sources):
                 sem, bev, cm_s, proj = _lidog_forward(
                     model, batch, sem_criterion, bev_criterion,
-                    decoder_levels, num_classes, plans[str(s)], suffix=str(s))
+                    decoder_levels, num_classes,
+                    _plan_of(plans, batch, caps, str(s)), suffix=str(s))
                 total = total + w[s] * (gate * sem + bev)
                 cm = cm + cm_s
                 sems.append(sem.detach())

@@ -12,17 +12,18 @@
   * metrics: loss, the 3D confusion matrix and aux_loss.
 
 State, optimizer and plans as in train/train_step.py: the caller builds a
-ZPlan per source (core/zseg.py ZSegPlanBuilder).  The model is a
+ZPlan per source (core/zseg.py ZSegPlanBuilder), or, given none, the step
+builds each source's UNetPlan at `caps`.  The model is a
 MinkUNet34Robust.  IBN trains through train_step.make_train_step.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 from lidog_tpu_torch.core.engine import canon_labels, input_tensor
 from lidog_tpu_torch.metrics.metrics import confusion_matrix
-from lidog_tpu_torch.train.train_step import TrainState
+from lidog_tpu_torch.train.train_step import TrainState, _plan_of
 
 
 def robust_forward(model, batch, criterion, whitening_loss, num_classes,
@@ -42,11 +43,14 @@ def make_robustnet_train_step(criterion: Callable, whitening_loss: Callable,
                               source_weights: Sequence[float] = (0.5, 0.5),
                               num_sources: int = 1, cov_stat_epoch: int = 5,
                               aux_weight: float = 0.5,
-                              steps_per_epoch: int = 1):
-    """train_step(state, batch, plans) -> (state, {"loss", "confusion",
-    "aux_loss"}).  batch and plans as in train_step.make_train_step."""
+                              steps_per_epoch: int = 1,
+                              caps: Optional[Sequence[int]] = None):
+    """train_step(state, batch, plans=None) -> (state, {"loss",
+    "confusion", "aux_loss"}).  batch, plans and caps as in
+    train_step.make_train_step."""
+    caps = None if caps is None else tuple(caps)
 
-    def train_step(state: TrainState, batch, plans):
+    def train_step(state: TrainState, batch, plans=None):
         model = state.model.train()
         state.optimizer.zero_grad()
         epoch = state.step // max(steps_per_epoch, 1)
@@ -55,10 +59,10 @@ def make_robustnet_train_step(criterion: Callable, whitening_loss: Callable,
                                                  range(num_sources)]
         total, aux_total, cm = 0.0, 0.0, 0
         for s, suf in enumerate(suffixes):
-            plan = plans[suf] if isinstance(plans, dict) else plans
             sem, aux, cm_s = robust_forward(model, batch, criterion,
                                             whitening_loss, num_classes,
-                                            plan, suf)
+                                            _plan_of(plans, batch, caps, suf),
+                                            suf)
             total = total + (1.0 if num_sources == 1
                              else source_weights[s]) * sem
             aux_total = aux_total + aux

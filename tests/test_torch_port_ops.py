@@ -868,15 +868,17 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
     plan sweeps' wrappers (KQ-KU), the column tables' (KV-KY, with the
     overflow terms they add in place), the generic sparse conv's (LA,
     LB, and KO/KP for the convs LA/LB do not take: a 125-offset stem at
-    4 or 32 channels), the voxelizer's (LC) and the label gather's (LD)
-    are among them."""
+    4 or 32 channels), the voxelizer's (LC), the label gather's (LD) and
+    the probes' window gathers (LE-LH, with indices and copied rows
+    outside the window) are among them."""
     import functools
 
     import torch
 
     from lidog_tpu_torch.core import voxelize, zseg
     from lidog_tpu_torch.losses import losses
-    from lidog_tpu_torch.ops import bev, labels, norm, sparse_conv, zconv
+    from lidog_tpu_torch.ops import (bev, gather, labels, norm, sparse_conv,
+                                     zconv)
 
     g = torch.Generator().manual_seed(0)
     n = 6
@@ -1017,13 +1019,29 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
         (labels.label_gather, labels.labels_plain, (logits, m, pos, inv_pt)),
         (labels.label_gather, labels.labels_plain, (logits, m, pos)),
     ]
+    # LE-LH: window rows / lanes at indices in [-1, W], windows of 4 rows
+    # starting before, inside and past x's rows, 2 chunks of 128 lanes
+    idx_w = torch.randint(-1, n + 1, (9,), generator=g, dtype=torch.int32)
+    idx_l = torch.randint(-1, 33, (9,), generator=g, dtype=torch.int32)
+    ws = torch.tensor([-2, 0, 3, 5], dtype=torch.int32)
+    win_h = torch.randn(3, 256, generator=g)
+    idx_h = torch.randint(-1, 129, (3, 256), generator=g, dtype=torch.int32)
+    cases += [
+        (gather.window_row_gather, gather.window_row_gather_plain,
+         (x, idx_w)),
+        (gather.window_lane_gather, gather.window_lane_gather_plain,
+         (x, idx_l)),
+        (gather.window_copy, gather.window_copy_plain, (x, ws, 4)),
+        (gather.lane_gather_sum, gather.lane_gather_sum_plain,
+         (win_h, idx_h)),
+    ]
 
     def clone(v):
         return v.clone() if torch.is_tensor(v) else v
 
     counters = (zconv.LAUNCHES, norm.LAUNCHES, bev.LAUNCHES,
                 losses.LAUNCHES, zseg.LAUNCHES, sparse_conv.LAUNCHES,
-                voxelize.LAUNCHES, labels.LAUNCHES)
+                voxelize.LAUNCHES, labels.LAUNCHES, gather.LAUNCHES)
     before = {k: v for t in counters for k, v in t.items()}
     for wrapper, plain, args, *kw in cases:
         kw = kw[0] if kw else {}
@@ -1076,7 +1094,7 @@ def test_port_imports_no_jax():
     signature matches its C function's parameters.  The general stem's and
     the sortless path's modules (core/zseg.py with KQ-KY, ops/sparse_conv.py
     with KO/KP, caps.py, train/device_pipeline.py, serve.py) are among
-    them."""
+    them, and the probes' window gathers (ops/gather.py, LE-LH)."""
     code = r"""
 import importlib, pkgutil, sys
 import lidog_tpu_torch
@@ -1103,7 +1121,12 @@ from lidog_tpu_torch.core import voxelize
 from lidog_tpu_torch.ops import labels
 for src in ("sparse_conv", "voxelize", "label_gather"):
     assert src in _cuda.SOURCES and (_cuda.CSRC / (src + ".cu")).exists()
-for fn in (*sparse_conv.LAUNCHES, *voxelize.LAUNCHES, *labels.LAUNCHES):
+# the probes' LE-LH
+from lidog_tpu_torch.ops import gather
+for src in ("window_gather", "window_copy"):
+    assert src in _cuda.SOURCES and (_cuda.CSRC / (src + ".cu")).exists()
+for fn in (*sparse_conv.LAUNCHES, *voxelize.LAUNCHES, *labels.LAUNCHES,
+           *gather.LAUNCHES):
     assert _cuda._SOURCE_OF.get(fn, fn) in _cuda.SOURCES, fn
     assert fn in _cuda._ARGTYPES, fn
 # each ctypes signature matches its C function's: a pointer (void*) or an
@@ -1131,3 +1154,203 @@ print(len(names))
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert int(r.stdout.strip()) > 10
+
+
+# the Pallas probes P1, P4 and P5, restated from their scripts (which keep
+# them as closures) for interpret mode, and the port's plain version of
+# each: (case, shape)
+PROBE_CASES = ("P1a", "P1b", "P1c", "P4t1", "P4sublane", "P4lane", "P5")
+
+
+def _probe_pallas(case):
+    """(lidog_tpu's Pallas kernel of the probe, run in interpret mode on
+    JAX's CPU, as numpy; the port's plain version on the same seeded numpy
+    inputs, as numpy)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    from lidog_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(0)
+    vmem = pl.BlockSpec(memory_space=pltpu.VMEM)
+    if case.startswith("P1"):
+        W, T, C = 2048, 512, 96
+        win = np.asarray(rng.standard_normal((W, C)), np.float32)
+        idx = rng.integers(0, W, T, dtype=np.int32)
+        twin, tidx = torch.from_numpy(win), torch.from_numpy(idx)
+        if case == "P1a":
+            # benchmarks/micro/micro_gather.py:77-80 (kernel), :83 (call)
+            def kernel(idx_ref, win_ref, out_ref):
+                idx = idx_ref[:]  # [T]
+                g = jnp.take(win_ref[:], idx, axis=0)  # dynamic VMEM gather?
+                out_ref[:] = g
+
+            specs = [pl.BlockSpec(memory_space=pltpu.SMEM), vmem]
+        elif case == "P1b":
+            # micro_gather.py:104-106 (kernel2), :110 (call)
+            def kernel(idx_ref, win_ref, out_ref):
+                idx = idx_ref[:]
+                out_ref[:] = jnp.take(win_ref[:], idx, axis=0)
+
+            specs = [vmem, vmem]
+        else:
+            # micro_gather.py:128-131 (kernel3), :135 (call): the window
+            # transposed
+            def kernel(idx_ref, win_ref, out_ref):
+                idx = idx_ref[:]  # [T]
+                idx2 = jnp.broadcast_to(idx[None, :], (C, T))
+                out_ref[:] = jnp.take_along_axis(win_ref[:], idx2, axis=1)
+
+            win = win.T.copy()
+            out = pl.pallas_call(
+                kernel, out_shape=jax.ShapeDtypeStruct((C, T), jnp.float32),
+                in_specs=[vmem, vmem], out_specs=vmem, interpret=True)(
+                    jnp.asarray(idx), jnp.asarray(win))
+            return (np.asarray(out), gather.window_lane_gather(
+                torch.from_numpy(win), tidx).numpy())
+        out = pl.pallas_call(
+            kernel, out_shape=jax.ShapeDtypeStruct((T, C), jnp.float32),
+            in_specs=specs, out_specs=vmem, interpret=True)(
+                jnp.asarray(idx), jnp.asarray(win))
+        return np.asarray(out), gather.window_row_gather(twin, tidx).numpy()
+    if case == "P4t1":
+        # benchmarks/micro/micro_bisect.py:24-32 (kernel), :34-42 (grid
+        # spec), :46 (call), at N 4,096 so that tiles 4-7 clip to N - WIN
+        N, C, TILE, WIN = 4096, 96, 512, 2048
+
+        def kernel(ws_ref, feats_hbm, out_ref, win_buf, sem):
+            t = pl.program_id(0)
+            cp = pltpu.make_async_copy(feats_hbm.at[pl.ds(ws_ref[t], WIN)],
+                                       win_buf, sem)
+            cp.start()
+            cp.wait()
+            out_ref[:] = win_buf[:TILE]
+
+        grid_spec = pltpu.PrefetchScalarGridSpec(
+            num_scalar_prefetch=1,
+            grid=(N // TILE,),
+            in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
+            out_specs=pl.BlockSpec((TILE, C), lambda t, ws: (t, 0),
+                                   memory_space=pltpu.VMEM),
+            scratch_shapes=[pltpu.VMEM((WIN, C), jnp.bfloat16),
+                            pltpu.SemaphoreType.DMA(())],
+        )
+        feats = jnp.asarray(rng.standard_normal((N, C)), jnp.bfloat16)
+        ws = np.minimum(np.arange(N // TILE) * TILE, N - WIN).astype(np.int32)
+        assert (ws[4:] == N - WIN).all()
+        out = pl.pallas_call(
+            kernel, out_shape=jax.ShapeDtypeStruct((N, C), jnp.bfloat16),
+            grid_spec=grid_spec, interpret=True)(jnp.asarray(ws), feats)
+        tfeats = torch.from_numpy(np.asarray(feats, np.float32)).to(
+            torch.bfloat16)
+        got = gather.window_copy(tfeats, torch.from_numpy(ws), TILE)
+        return np.asarray(out, np.float32), got.float().numpy()
+    if case in ("P4sublane", "P4lane"):
+        # micro_bisect.py:55-66 (kernel), :71-77 (call): t2 and t4, W 256
+        W = T = 256
+        C = 128
+        lane = case == "P4lane"
+
+        def kernel(idx_ref, win_ref, out_ref):
+            idx = idx_ref[:]  # [W] int32 in VMEM
+            if lane:
+                g = jnp.take_along_axis(
+                    win_ref[:], jnp.broadcast_to(idx[None, :], (C, W)), axis=1
+                )
+                out_ref[:] = g[:, :T]
+            else:
+                g = jnp.take_along_axis(
+                    win_ref[:], jnp.broadcast_to(idx[:, None], (W, C)), axis=0
+                )
+                out_ref[:] = g[:T]
+
+        win = np.asarray(rng.standard_normal((C, W) if lane else (W, C)),
+                         np.float32)
+        idx = rng.integers(0, W, W, dtype=np.int32)
+        out = pl.pallas_call(
+            kernel, out_shape=jax.ShapeDtypeStruct(
+                (C, T) if lane else (T, C), jnp.float32),
+            in_specs=[vmem, vmem], out_specs=vmem, interpret=True)(
+                jnp.asarray(idx), jnp.asarray(win))
+        fn = gather.window_lane_gather if lane else gather.window_row_gather
+        return np.asarray(out), fn(torch.from_numpy(win),
+                                   torch.from_numpy(idx[:T])).numpy()
+    # P5: benchmarks/micro_lanegather.py:32-40 (kernel), :48 (call), at
+    # REPS 4
+    C, REPS = 96, 4
+
+    def kernel(idx_ref, win_ref, o_ref):
+        # win_ref: [C, 128*REPS] viewed as REPS chunks; gather within each.
+        acc = jnp.zeros((C, 128), jnp.float32)
+        for r in range(REPS):
+            chunk = win_ref[:, r * 128:(r + 1) * 128]
+            idx = idx_ref[:, r * 128:(r + 1) * 128]
+            g = jnp.take_along_axis(chunk, idx, axis=1)
+            acc = acc + g
+        o_ref[:] = acc
+
+    win = np.asarray(rng.standard_normal((C, 128 * REPS)), np.float32)
+    idx = rng.integers(0, 128, (C, 128 * REPS), dtype=np.int32)
+    out = pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct((C, 128), jnp.float32),
+        in_specs=[vmem, vmem], out_specs=vmem, interpret=True)(
+            jnp.asarray(idx), jnp.asarray(win))
+    return np.asarray(out), gather.lane_gather_sum(
+        torch.from_numpy(win), torch.from_numpy(idx)).numpy()
+
+
+@pytest.mark.parametrize("case", PROBE_CASES)
+def test_probe_kernels_match_pallas(case):
+    """Each Pallas probe kernel (P1 a/b/c: micro_gather.py
+    q2_pallas_vmem_gather; P4 t1 and gather_case: micro_bisect.py; P5:
+    micro_lanegather.py), run through pl.pallas_call in interpret mode on
+    JAX's CPU, against the port's plain version (ops/gather.py: LE, LF,
+    LG, LH take it for CPU tensors) on the same seeded numpy inputs:
+    exactly equal (copies, and P5's f32 sums in the same chunk order)."""
+    from lidog_tpu_torch.ops import gather
+
+    before = dict(gather.LAUNCHES)
+    want, got = _probe_pallas(case)
+    assert want.shape == got.shape and want.dtype == got.dtype, case
+    np.testing.assert_array_equal(got, want)
+    assert gather.LAUNCHES == before  # the CPU path launches nothing
+
+
+@pytest.mark.parametrize("probe", ["gather", "bisect", "lanegather"])
+def test_probe_entry_points_cpu(probe, capsys, monkeypatch):
+    """The probe mains with device="cpu" at small shapes print ok=True /
+    correct=True on every check line and return every check true (the
+    lane-gather probe through `python -m lidog_tpu_torch.probes
+    lanegather --device cpu`, at its own shape); without a card and
+    without a device they raise."""
+    import torch
+
+    from lidog_tpu_torch.probes import (__main__ as cli, micro_bisect,
+                                        micro_gather, micro_lanegather)
+
+    if probe == "gather":
+        out = micro_gather.main(
+            "cpu", q1=dict(n_rows=4096, n_q=512, iters=1),
+            q2=dict(iters=1), q3=dict(N=8192, iters=1))
+        checks = ("ok=", 4)
+    elif probe == "bisect":
+        out = micro_bisect.main("cpu", t1=dict(N=4096), iters=1)
+        checks = ("correct=", 6)
+    else:
+        assert cli.main(["lanegather", "--device", "cpu"]) == 0
+        out = micro_lanegather.main("cpu", REPS=4, iters=1)
+        checks = ("correct=", 2)
+    text = capsys.readouterr().out
+    assert text.startswith("device: cpu")
+    lines = [ln for ln in text.splitlines() if checks[0] in ln]
+    assert len(lines) == checks[1], lines
+    assert all(f"{checks[0]}True" in ln for ln in lines), lines
+    assert out["checks"] and all(out["checks"].values()), out["checks"]
+    main = {"gather": micro_gather, "bisect": micro_bisect,
+            "lanegather": micro_lanegather}[probe].main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main()

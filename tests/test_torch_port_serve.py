@@ -755,6 +755,145 @@ def test_lidog_step_needs_a_device(monkeypatch):
     assert np.isfinite(float(ev["loss"])) and state.step == 3
 
 
+def _lidog_step_matches_jax(case, generic=False):
+    """Two LiDOG steps (narrow MinkUNet34BEV, f32) on each side from a
+    carried-over lidog_tpu TrainState, compared as
+    test_train_step_matches_jax compares them, plus the sem and bev losses
+    and proj_iou (test_lidog_step_matches_jax, in the plan file).  JAX's
+    plans are the port's (_jax_plan_of), or, generic, neither step is
+    given a plan: each builds the batch's UNetPlan at CAPS_G."""
+    import flax.linen as fnn
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from lidog_tpu.losses import DICELoss as JaxDICE
+    from lidog_tpu.losses import SoftDICELoss as JaxSoftDICE
+    from lidog_tpu.models.conv2d import Encoder2D as JaxEncoder
+    from lidog_tpu.models.minkunet import MinkUNetBackbone
+    from lidog_tpu.ops.bev import bev_scatter_pooled as jax_bev
+    from lidog_tpu.train import TrainState as JaxState
+    from lidog_tpu.train import make_optimizer as jax_optimizer
+    from lidog_tpu.train.lidog_step import make_lidog_train_step as jax_step
+    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+    from lidog_tpu_torch.losses.losses import DICELoss, SoftDICELoss
+    from lidog_tpu_torch.models.minkunet_bev import MinkUNet34BEV
+    from lidog_tpu_torch.train.lidog_step import make_lidog_train_step
+    from lidog_tpu_torch.train.optim import make_optimizer
+    from lidog_tpu_torch.train.train_step import TrainState
+    from lidog_tpu_torch.utils.from_jax import (load_train_state,
+                                                state_dict_from_flax)
+    nsrc = 2 if "2src" in case else 1
+    warmup = 2 if case.endswith("warmup") else 0
+    tol_loss, tol_grad, tol_param = TRAIN_TOL["float32"]
+    lr, C = 1e-3, 5
+    sfx = [""] if nsrc == 1 else [str(s) for s in range(nsrc)]
+    weights = (0.5, 0.5)
+
+    class JaxNarrowBEV(fnn.Module):
+        """lidog_tpu's MinkUNet34BEV with the narrow backbone."""
+
+        @fnn.compact
+        def __call__(self, x, plan, train=True, is_train=False):
+            logits, taps = MinkUNetBackbone(out_channels=C, name="backbone",
+                                            **NARROW)(x, plan, train)
+            if not is_train:
+                return logits, {}
+            t = taps["block8"]
+            bev = jax_bev(t.coords, t.feats, t.mask, num_batches=B,
+                          voxel_size=VOXEL, bound=BOUND_2D,
+                          segmented_rows=type(plan).__name__ == "ZPlan")
+            return logits, {"block8": JaxEncoder(
+                n_classes=C, name="encoder2d_block8")(bev, train)}
+
+    jm = JaxNarrowBEV()
+    tbuilder = ZSegPlanBuilder(CAPS_R, CAPS_A, num_batches=B,
+                               grid_half=GRID_HALF)
+    jbatch, jplans, tbatch, tplans = {}, {}, {}, {}
+    for s, nb in zip(sfx, _lidog_batches(LIDOG_SEED, nsrc)):
+        for k, v in nb.items():
+            jbatch[k + s], tbatch[k + s] = jnp.asarray(v), torch.from_numpy(v)
+        if not generic:
+            tplans[s] = tbuilder(tbatch["coords" + s], tbatch["mask" + s])
+            jplans[s] = _jax_plan_of(tplans[s])
+            assert int(tplans[s].overflow.sum()) == 0
+    jplan_arg = None if generic else jplans if nsrc > 1 else jplans[""]
+    tplan_arg = None if generic else tplans if nsrc > 1 else tplans[""]
+
+    model = MinkUNet34BEV(out_channels=C, num_batches=B, voxel_size=VOXEL,
+                          bound_2d=BOUND_2D, **NARROW)
+    variables = _flax_variables_of(model)
+    tx = jax_optimizer("Adam", lr=lr)
+    crit, bcrit = JaxSoftDICE(ignore_label=-1), JaxDICE(ignore_label=-1)
+    jstep = jax.jit(jax_step(jm, tx, crit, bcrit,
+                             CAPS_G if generic else CAPS_R, num_classes=C,
+                             source_weights=weights, num_sources=nsrc,
+                             warmup_epochs=warmup, steps_per_epoch=1))
+
+    jstate = JaxState.create(variables, tx)
+    jstate, _ = jstep(jstate, jbatch, jplan_arg)  # Adam's moments, count 1
+
+    tstate = TrainState.create(model, make_optimizer("Adam", lr=lr),
+                               device="cpu")
+    load_train_state(tstate, jax.device_get(jstate))
+    tstep = make_lidog_train_step(SoftDICELoss(ignore_label=-1),
+                                  DICELoss(ignore_label=-1), num_classes=C,
+                                  source_weights=weights, num_sources=nsrc,
+                                  warmup_epochs=warmup, steps_per_epoch=1,
+                                  caps=CAPS_G if generic else None)
+
+    def leaf(tree, key):
+        for part in key.split("."):
+            tree = tree[part]
+        return np.asarray(tree, np.float32)
+
+    def adam_mu(state):
+        return [p for p in jax.device_get(state.opt_state)
+                if hasattr(p, "mu")][0].mu
+
+    gates = []
+    for step in range(2):
+        if step:
+            # as in test_train_step_matches_jax: the second step starts
+            # from JAX's params
+            model.load_state_dict(state_dict_from_flax(
+                {"params": jax.device_get(jstate.params)}), strict=False)
+        gates.append(float(int(jstate.step) >= warmup))
+        mu_before = adam_mu(jstate)
+        jstate, jm_out = jstep(jstate, jbatch, jplan_arg)
+        tstate, tm_out = tstep(tstate, tbatch, tplan_arg)
+        for k in jm_out:
+            if k == "confusion":
+                continue
+            lj, lt = float(jm_out[k]), float(tm_out[k])
+            assert np.isfinite(lt) and abs(lj - lt) <= tol_loss * abs(lj), \
+                (step, k, lj, lt)
+        assert sorted(jm_out) == sorted(tm_out)
+        assert [k for k in tm_out if k.startswith("proj_iou")]
+        cm_t = tm_out["confusion"].numpy()
+        np.testing.assert_array_equal(np.asarray(jm_out["confusion"]), cm_t)
+        jvars = jax.device_get({"params": jstate.params,
+                                "batch_stats": jstate.batch_stats})
+        mu = adam_mu(jstate)
+        named = dict(model.named_parameters())
+        assert any(k.startswith("encoder2d_block8.") for k in named)
+        for name, p in named.items():
+            # JAX's grad, from its Adam moment: mu = 0.9 mu_before + 0.1 g
+            # (f32 rounding of mu, times 10: ~1e-6 of max |g|)
+            g = (leaf(mu, name) - 0.9 * leaf(mu_before, name)) / 0.1
+            assert _rel(g, p.grad.numpy()) <= tol_grad, (step, name)
+            m = np.abs(leaf(mu, name))
+            sure = m >= 1e-3 * m.max()
+            d = np.abs(leaf(jvars["params"], name) - p.detach().numpy())
+            assert (d[sure] <= tol_param * lr).all(), (step, name, d.max())
+            assert (d <= 2 * lr).all(), (step, name, d.max())
+        for name, buf in model.named_buffers():
+            assert _rel(leaf(jvars["batch_stats"], name),
+                        buf.numpy()) <= tol_grad, (step, name)
+    assert gates == ([0.0, 1.0] if warmup else [1.0, 1.0])
+    assert tstate.step == int(jstate.step) == 3
+
+
 def _flax_variables_of(model):
     """The port model's state as a flax {'params', 'batch_stats'} tree."""
     variables = {"params": {}, "batch_stats": {}}
@@ -768,12 +907,13 @@ def _flax_variables_of(model):
     return variables
 
 
-def _variant_step_matches_jax(variant, case, monkeypatch):
+def _variant_step_matches_jax(variant, case, monkeypatch, generic=False):
     """Two steps of the RobustNet or IBN step (narrow, f32) from a
     carried-over lidog_tpu TrainState, compared as
     test_lidog_step_matches_jax compares them.  lidog_tpu's models take
     their widths from module constants, narrowed here with monkeypatch (in
-    the isolated process)."""
+    the isolated process).  generic (RobustNet): neither step is given a
+    plan; each builds the batch's UNetPlan at CAPS_G."""
     import jax
     import jax.numpy as jnp
     import torch
@@ -822,11 +962,12 @@ def _variant_step_matches_jax(variant, case, monkeypatch):
                                       B * CAPS_R[0])
         for k, v in tb.items():
             jbatch[k + s], tbatch[k + s] = jnp.asarray(v.numpy()), v
-        tplans[s] = tbuilder(tb["coords"], tb["mask"])
-        jplans[s] = _jax_plan_of(tplans[s])
-        assert int(tplans[s].overflow.sum()) == 0
-    jplan_arg = jplans if nsrc > 1 else jplans[""]
-    tplan_arg = tplans if nsrc > 1 else tplans[""]
+        if not generic:
+            tplans[s] = tbuilder(tb["coords"], tb["mask"])
+            jplans[s] = _jax_plan_of(tplans[s])
+            assert int(tplans[s].overflow.sum()) == 0
+    jplan_arg = None if generic else jplans if nsrc > 1 else jplans[""]
+    tplan_arg = None if generic else tplans if nsrc > 1 else tplans[""]
 
     tx = jax_optimizer("Adam", lr=lr)
     crit = JaxSoftDICE(ignore_label=-1)
@@ -834,12 +975,14 @@ def _variant_step_matches_jax(variant, case, monkeypatch):
     if variant == "robustnet":
         model = MinkUNet34Robust(out_channels=C, **NARROW)
         jstep = jax_robust_step(
-            jrob.MinkUNet34Robust(out_channels=C), tx, crit, JaxIW(), CAPS_R,
-            num_classes=C, source_weights=weights, num_sources=nsrc,
-            cov_stat_epoch=cov, steps_per_epoch=1)
+            jrob.MinkUNet34Robust(out_channels=C), tx, crit, JaxIW(),
+            CAPS_G if generic else CAPS_R, num_classes=C,
+            source_weights=weights, num_sources=nsrc, cov_stat_epoch=cov,
+            steps_per_epoch=1)
         tstep = make_robustnet_train_step(
             tcrit, IWLoss(), num_classes=C, source_weights=weights,
-            num_sources=nsrc, cov_stat_epoch=cov, steps_per_epoch=1)
+            num_sources=nsrc, cov_stat_epoch=cov, steps_per_epoch=1,
+            caps=CAPS_G if generic else None)
     else:
         model = MinkUNet34IBN(out_channels=C, **NARROW)
         jstep = jax_train_step(jibn.MinkUNet34IBN(out_channels=C), tx, crit,
@@ -961,3 +1104,24 @@ def test_robustnet_step_needs_a_device(monkeypatch):
     assert int(metrics["confusion"].sum()) == supervised
     assert {**norm.LAUNCHES, **losses.LAUNCHES} == before
     assert state.step == 3
+
+
+@pytest.mark.parametrize("variant", ["lidog", "robustnet"])
+def test_lidog_and_robustnet_steps_build_their_plan(variant, request,
+                                                    monkeypatch):
+    """The LiDOG and RobustNet steps given no plan (make_lidog_train_step
+    / make_robustnet_train_step with caps=CAPS_G, train_step(state,
+    batch)): each builds the batch's UNetPlan, as lidog_tpu's steps do
+    when called the same way, and two steps match lidog_tpu's, compared
+    as test_lidog_step_matches_jax and test_robustnet_step_matches_jax
+    compare them (loss and the aux metrics, confusion, grads, params after
+    Adam and batch_stats; f32, one source, the gate on)."""
+    from tests.conftest import run_isolated
+
+    if run_isolated(request):
+        return
+    if variant == "lidog":
+        _lidog_step_matches_jax("float32", generic=True)
+    else:
+        _variant_step_matches_jax("robustnet", "float32", monkeypatch,
+                                  generic=True)

@@ -519,6 +519,18 @@ def backward_kernel_checks(plan, gen):
     ones0 = torch.ones(na0, dtype=torch.bool, device=dev)
     ones1 = torch.ones(na1, dtype=torch.bool, device=dev)
     wgrad_src = "lidog_tpu_torch/csrc/zconv_wgrad.cu"
+    zw_src = "lidog_tpu_torch/csrc/zconv3_wgrad.cu"
+    zw_rep = "lidog_tpu/ops/zconv.py:268 (_zconv3_bwd dW)"
+
+    def record_zw(x, dout, nbr9, zup, zdn, real, nnz9, shape):
+        cin, cout = x.shape[1], dout.shape[1]
+        record("zconv3_wgrad", zw_src, zw_rep,
+               lambda: zconv.zconv3_wgrad(x, dout, nbr9, zup, zdn, real),
+               lambda: zconv.zconv3_wgrad_plain(x, dout, nbr9, zup, zdn,
+                                                real),
+               x.dtype, nbytes(x, dout, nbr9, zup, zdn, real)
+               + 27 * cin * cout * x.element_size(), 2 * cin * cout * nnz9,
+               shape)
 
     # KE / KF(zconv3): block8_0.conv1 (L0 128 -> 96), block8 conv2 (L0 96 ->
     # 96) and block1 (L1 32 -> 32)
@@ -543,14 +555,29 @@ def backward_kernel_checks(plan, gen):
                                                  wf, L.real),
                dt, nbytes(dout, nbr9, L.zup, L.zdn, wf, L.real)
                + n * cin * esz, 2 * cin * cout * nnz9, shape)
-        record("zconv3_wgrad", wgrad_src,
-               "lidog_tpu/ops/zconv.py:268 (_zconv3_bwd dW)",
-               lambda: zconv.zconv3_wgrad(x, dout, nbr9, L.zup, L.zdn,
-                                          L.real),
-               lambda: zconv.zconv3_wgrad_plain(x, dout, nbr9, L.zup, L.zdn,
-                                                L.real),
-               dt, nbytes(x, dout, nbr9, L.zup, L.zdn, L.real)
-               + 27 * cin * cout * esz, 2 * cin * cout * nnz9, shape)
+        record_zw(x, dout, nbr9, L.zup, L.zdn, L.real, nnz9, shape)
+
+    # KF (zconv3) where its tiling changes: L1 128 -> 96 (block7_0.conv1:
+    # 12 warps a block), L4 256 -> 256 (block4, 12 launches a step: two
+    # Cin slabs, eight Cout slabs), and L2 cut to a row count that is no
+    # multiple of the 64-row step (halo rows and z flags at the level's
+    # end; its maps' rows past the cut read as misses on both sides)
+    for lvl, cin, cout, dt, cut in ((1, 128, 96, bf, 0), (4, 256, 256, bf, 0),
+                                    (2, 64, 64, bf, 37), (2, 64, 64, f32, 37)):
+        L = plan.level(lvl)
+        n = L.coords.shape[0] - cut
+        nbr9 = plan.kmaps[f"conv9_l{lvl}"][:, :n].contiguous()
+        zup, zdn, real = (t[:n].contiguous() for t in (L.zup, L.zdn, L.real))
+        src = nbr9.clamp(min=0).long()
+        hit = (nbr9 >= 0) & (nbr9 < n)
+        taps = hit.long() * (1 + zdn.long()[src.clamp(max=n - 1)]
+                             + zup.long()[src.clamp(max=n - 1)])
+        taps[4] = L.valid[:n].long() * (1 + zdn.long() + zup.long())
+        nnz9 = int((taps * real.long()).sum())
+        x = feats(n, cin, real, dt)
+        dout = feats(n, cout, torch.ones(n, dtype=torch.bool, device=dev), dt)
+        record_zw(x, dout, nbr9, zup, zdn, real, nnz9,
+                  f"L{lvl} {n} rows {cin}->{cout}")
 
     # the strided pair L0 <-> L1: conv1 (down 32 -> 32) and convtr7 (up
     # 96 -> 96); dx through the partner forward kernel, dW through KF
@@ -889,7 +916,7 @@ def plan_kernel_checks(dev):
     vox = voxelize_device(flat, torch.ones(POINTS, dtype=torch.bool,
                                            device=dev),
                           torch.zeros(POINTS, dtype=torch.int32, device=dev),
-                          VOXEL, PER_SCAN)
+                          VOXEL, PER_SCAN, batch_size=1)
     tpts, tlabels = train_data()
     tbatch = train_batch(tpts, tlabels, dev)
     edge = [torch.from_numpy(a).to(dev) for a in synthetic.plan_edge_voxels()]
@@ -1045,7 +1072,7 @@ def table_kernel_checks(dev):
     vox = voxelize_device(flat, torch.ones(POINTS, dtype=torch.bool,
                                            device=dev),
                           torch.zeros(POINTS, dtype=torch.int32, device=dev),
-                          VOXEL, PER_SCAN)
+                          VOXEL, PER_SCAN, batch_size=1)
     tpts, tlabels = train_data()
     tbatch = train_batch(tpts, tlabels, dev)
     raw = train_batch(tpts, tlabels, dev, sortless=True)
@@ -1171,7 +1198,7 @@ def stage_split(pred, pts_dev):
         bidx = torch.zeros(flat.shape[0], dtype=torch.int32,
                            device=flat.device)
         vox = voxelize_device(flat, valid, bidx, pred.voxel_size,
-                              pred.cap_in)
+                              pred.cap_in, batch_size=1)
         ev[1].record()
         plan = pred.builder(vox.coords, vox.mask)
         ev[2].record()
@@ -1239,7 +1266,7 @@ def cross_check(model, dev):
             vox = voxelize_device(
                 flat.to(d), torch.ones(points, dtype=torch.bool, device=d),
                 torch.zeros(points, dtype=torch.int32, device=d), VOXEL,
-                pred.cap_in)
+                pred.cap_in, batch_size=1)
             vp.append((vox, pred.builder(vox.coords, vox.mask)))
         (vox_g, plan_g), (vox_c, plan_c) = vp
         for f in vox_g._fields:
@@ -2251,9 +2278,11 @@ def pipeline_kernel_checks(dev, gen):
     every output: the voxelizer on phase 4's scan (1 x 100,000 points at
     the serving capacity), on the training batch (4 x 100,000 points at
     the training capacity) and on the same batch at a capacity below its
-    voxel count (overflow > 0); the label gather on phase 4's scan, sorted
-    (plan.pos, then the voxelizer's inverse map) and sortless (plan.pos
-    per point), with seeded bf16 logits."""
+    voxel count (overflow > 0), with every 7th point invalid, and with
+    cells at the ends of the 13-bit range; a valid point at batch id B
+    gives overflow -1 (the batch-size contract); the label gather on phase
+    4's scan, sorted (plan.pos, then the voxelizer's inverse map) and
+    sortless (plan.pos per point), with seeded bf16 logits."""
     import numpy as np
     import torch
 
@@ -2269,22 +2298,43 @@ def pipeline_kernel_checks(dev, gen):
     rep = "lidog_tpu/core/voxelize.py:81 voxelize_device"
     tpts, _ = train_data()
     single = scan(POINTS, SEED)[0]
-    cases = (("serve 1 x 100000 points", single, 1, PER_SCAN),
-             ("train 4 x 100000 points", tpts.reshape(-1, 3), TRAIN_BATCH,
-              TRAIN_CAP_IN),
-             ("train 4 x 100000 points, overflow", tpts.reshape(-1, 3),
-              TRAIN_BATCH, TRAIN_CAP_IN // 2))
-    for shape, pts, b, cap in cases:
+
+    def cells(pts, b):
         flat = torch.from_numpy(np.ascontiguousarray(pts)).to(dev)
-        disc = quantize(flat, VOXEL)
-        valid = torch.ones(flat.shape[0], dtype=torch.bool, device=dev)
-        bidx = torch.arange(b, dtype=torch.int32, device=dev) \
-            .repeat_interleave(flat.shape[0] // b)
+        return (quantize(flat, VOXEL),
+                torch.ones(flat.shape[0], dtype=torch.bool, device=dev),
+                torch.arange(b, dtype=torch.int32, device=dev)
+                .repeat_interleave(flat.shape[0] // b))
+
+    serve_cells = cells(single, 1)
+    train_cells = cells(tpts.reshape(-1, 3), TRAIN_BATCH)
+    # every 7th point invalid; then also cells at and beyond the ends of
+    # the 13-bit range (-4096, 4095 kept; -4097, 4096 invalid) on every
+    # 5th point
+    invalid = [t.clone() for t in train_cells]
+    invalid[1][::7] = False
+    edge = [t.clone() for t in invalid]
+    ends = torch.tensor([-4096, 4095, -4097, 4096], dtype=torch.int32,
+                        device=dev)
+    for a in range(3):
+        n_a = edge[0][a::5, a].shape[0]
+        edge[0][a::5, a] = ends[torch.arange(n_a, device=dev) % 4]
+    cases = (("serve 1 x 100000 points", serve_cells, 1, PER_SCAN),
+             ("train 4 x 100000 points", train_cells, TRAIN_BATCH,
+              TRAIN_CAP_IN),
+             ("train 4 x 100000 points, overflow", train_cells, TRAIN_BATCH,
+              TRAIN_CAP_IN // 2),
+             ("train 4 x 100000 points, every 7th invalid", invalid,
+              TRAIN_BATCH, TRAIN_CAP_IN),
+             ("train 4 x 100000 points, cells at +-4096, every 7th invalid",
+              edge, TRAIN_BATCH, TRAIN_CAP_IN))
+    for shape, (disc, valid, bidx), b, cap in cases:
         want = voxelize_plain(disc, valid, bidx, cap)
         if "overflow" in shape and not int(want.overflow) > 0:
             raise AssertionError(f"voxelizer check {shape}: no overflow")
         ck.record("voxelize", src, rep,
-                  lambda: voxelize_cells(disc, valid, bidx, cap),
+                  lambda: voxelize_cells(disc, valid, bidx, cap,
+                                         batch_size=b),
                   lambda: voxelize_plain(disc, valid, bidx, cap),
                   torch.int32, nbytes(disc, valid, bidx, *want), 0,
                   f"{shape} cap {cap} ({int(want.num_voxels)} voxels)",
@@ -2303,6 +2353,17 @@ def pipeline_kernel_checks(dev, gen):
             packed, sorted=True, return_inverse=True))
         print(f"[kernel] voxelize {shape}: library (torch.unique) "
               f"{ck.rows[-1]['library_ms']:.4f} ms", flush=True)
+    # the batch-size contract: a valid point at batch id B sets overflow to
+    # -1 on the card (the CPU raises)
+    broken = [t.clone() for t in train_cells]
+    broken[2][-1] = TRAIN_BATCH
+    flagged = int(voxelize_cells(*broken, TRAIN_CAP_IN,
+                                 batch_size=TRAIN_BATCH).overflow)
+    if flagged != -1:
+        raise AssertionError(f"voxelizer: a valid point at batch id "
+                             f"{TRAIN_BATCH} gave overflow {flagged}, not -1")
+    print("[kernel] voxelize: a batch id at batch_size sets overflow -1",
+          flush=True)
     model = MinkUNet34(out_channels=NUM_CLASSES, compute_dtype=torch.bfloat16,
                        generator=torch.Generator().manual_seed(SEED))
     kw = dict(batch_size=1, voxel_size=VOXEL, caps_per_scan=PER_SCAN,
@@ -2355,7 +2416,7 @@ def generic_plan_checks(model, dev):
         vox = voxelize_device(
             flat.to(d), torch.ones(CHECK_POINTS, dtype=torch.bool, device=d),
             torch.zeros(CHECK_POINTS, dtype=torch.int32, device=d), VOXEL,
-            PER_SCAN)
+            PER_SCAN, batch_size=1)
         plans.append(build_unet_plan(vox.coords, vox.mask, caps))
     gp, cp = plans
     for i, (a, b) in enumerate(zip(gp.levels, cp.levels)):
@@ -2698,7 +2759,7 @@ def main():
     vox = voxelize_device(flat, torch.ones(POINTS, dtype=torch.bool,
                                            device=dev),
                           torch.zeros(POINTS, dtype=torch.int32, device=dev),
-                          VOXEL, probe.cap_in)
+                          VOXEL, probe.cap_in, batch_size=1)
     plan = probe.builder(vox.coords, vox.mask)
     rows = kernel_checks(plan, torch.Generator().manual_seed(SEED + 7))
     del probe, vox, plan

@@ -9,9 +9,10 @@ metric points to voxel cells (`quantize`), keep one representative point
 per voxel (the smallest original index), and emit the voxels in canonical
 (batch, x, y, z) order into fixed-capacity padded arrays.  Outputs are
 bitwise equal to the JAX version.  After quantization it is kernel LC
-(K1, csrc/voxelize.cu: a stable LSD radix sort of the packed key and a
-first-flag compaction) through the wrapper `voxelize_cells`, which takes
-its plain version `voxelize_plain` for CPU tensors.
+(K1, csrc/voxelize.cu: a stable LSD radix sort of the packed key's live
+bits, Onesweep passes with a decoupled look-back, and a first-flag
+compaction) through the wrapper `voxelize_cells`, which takes its plain
+version `voxelize_plain` for CPU tensors.
 
 The JAX version lexsorts (index, lo, hi); the plain version's one stable
 sort of the combined 62-bit key (hi << 31 | lo) gives the same
@@ -77,8 +78,38 @@ class VoxelizedDevice(NamedTuple):
 
 
 LAUNCHES = {"voxelize": 0}
-# csrc/voxelize.cu: keys per block, radix buckets, passes
-_TILE, _RADIX, _NPASS = 4096, 2048, 6
+# csrc/voxelize.cu: keys per tile, bits per LSD pass, radix digits
+_TILE, _RADIX_BITS = 4096, 9
+_RADIX = 1 << _RADIX_BITS
+MAX_BATCH = 1 << 17  # keys.pack's batch field
+
+
+class VoxelPasses(NamedTuple):
+    """LC's pass plan for P points, which csrc/voxelize.cu runs."""
+    passes: int  # stable LSD passes of _RADIX_BITS bits
+    invalid_key: int  # the sort key of an invalid point
+    tiles: int  # 4,096-key tiles
+    work_ints: int  # the int32 work area: digit totals, tile counters, the
+    #                 contract flag, look-back words
+
+
+def _check_batch_size(batch_size) -> None:
+    if not 1 <= batch_size <= MAX_BATCH:
+        raise ValueError(f"voxelize: batch_size must lie in [1, 2^17], "
+                         f"got {batch_size}")
+
+
+def voxelize_passes(p: int, batch_size: int) -> VoxelPasses:
+    """A valid point's sort key is c = hi * 2^26 + lo (keys.pack's words;
+    39 bits of coordinates above the batch id).  With batch ids in [0, B)
+    an invalid point sorts at B << 39, after every valid key, so the key
+    has 39 + bit_length(B) live bits: 5 passes up to B = 63, 7 at most."""
+    _check_batch_size(batch_size)
+    inv = batch_size << 39
+    passes = -(-inv.bit_length() // _RADIX_BITS)
+    tiles = -(-p // _TILE)
+    work = passes * _RADIX + passes + 2 + passes * tiles * _RADIX + tiles
+    return VoxelPasses(passes, inv, tiles, work)
 
 
 def voxelize_plain(disc, valid, batch_idx, capacity: int) -> VoxelizedDevice:
@@ -118,17 +149,31 @@ def voxelize_plain(disc, valid, batch_idx, capacity: int) -> VoxelizedDevice:
                            num_voxels, overflow)
 
 
-def voxelize_cells(disc, valid, batch_idx, capacity: int) -> VoxelizedDevice:
+def voxelize_cells(disc, valid, batch_idx, capacity: int, *,
+                   batch_size=None) -> VoxelizedDevice:
     """LC (csrc/voxelize.cu) for CUDA tensors, voxelize_plain for CPU
-    tensors; arguments as voxelize_plain's.  One call launches the key
-    build, six radix passes and two compaction kernels in order."""
+    tensors; arguments as voxelize_plain's.  batch_size B states that the
+    batch id of every valid point lies below B (a negative one marks the
+    point invalid, as keys.pack does); the key then has 39 + bit_length(B)
+    live bits, which the sort's passes cover (voxelize_passes).  The kernel
+    needs B; on the CPU it may be left out.  A valid point whose batch id
+    is B or more breaks the contract: the CPU raises, and the kernel, which
+    cannot sort such a key, sets overflow to -1.  One call launches a
+    memset, the key kernel, the passes and the compaction in order."""
     if disc.device.type == "cpu":
+        if batch_size is not None:
+            _check_batch_size(batch_size)
+            if bool((valid & (batch_idx >= batch_size)).any()):
+                raise ValueError(f"voxelize: a valid point's batch id is "
+                                 f"not below batch_size {batch_size}")
         return voxelize_plain(disc, valid, batch_idx, capacity)
     name = "voxelize"
     dev = disc.device
     p = disc.shape[0]
     if dev.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got {dev}")
+    if batch_size is None:
+        raise ValueError(f"{name}: the kernel needs batch_size")
     for t, dt, shape, what in ((disc, torch.int32, (p, 3), "disc int32 [P, 3]"),
                                (valid, torch.bool, (p,), "valid bool [P]"),
                                (batch_idx, torch.int32, (p,),
@@ -138,34 +183,36 @@ def voxelize_cells(disc, valid, batch_idx, capacity: int) -> VoxelizedDevice:
             raise ValueError(f"{name}: {what} must be contiguous on {dev}")
     if capacity <= 0:
         raise ValueError(f"{name}: capacity must be positive")
+    plan = voxelize_passes(p, batch_size)
     coords = torch.empty(capacity, 4, dtype=torch.int32, device=dev)
     mask = torch.empty(capacity, dtype=torch.bool, device=dev)
     rep = torch.empty(capacity, dtype=torch.int32, device=dev)
     inverse = torch.empty(p, dtype=torch.int32, device=dev)
-    num = torch.empty((), dtype=torch.int32, device=dev)
-    overflow = torch.empty((), dtype=torch.int32, device=dev)
+    stats = torch.empty(2, dtype=torch.int32, device=dev)
+    num, overflow = stats[0], stats[1]
     if p == 0:
-        for t in (coords, mask, rep, num, overflow):
+        for t in (coords, mask, rep, stats):
             t.zero_()
         return VoxelizedDevice(coords, mask, rep, inverse, num, overflow)
-    nblocks = -(-p // _TILE)
-    sort_keys = torch.empty(2, p, dtype=torch.int64, device=dev)
-    idx = torch.empty(2, p, dtype=torch.int32, device=dev)
-    counts = torch.zeros(_NPASS * (nblocks + 1) * _RADIX, dtype=torch.int32,
-                         device=dev)  # per-tile counts, then the totals
-    block_count = torch.empty(nblocks, dtype=torch.int32, device=dev)
+    # one scratch allocation: the work area (16-byte aligned), the [2, P]
+    # u64 key and [2, P] int32 index ping-pong buffers
+    work = -(-plan.work_ints // 4) * 4
+    scratch = torch.empty(work + 6 * p, dtype=torch.int32, device=dev)
+    base = scratch.data_ptr()
     _cuda.call(name, disc.data_ptr(), valid.data_ptr(), batch_idx.data_ptr(),
-               sort_keys.data_ptr(), idx.data_ptr(), counts.data_ptr(),
-               block_count.data_ptr(), coords.data_ptr(), mask.data_ptr(),
-               rep.data_ptr(), inverse.data_ptr(), num.data_ptr(),
-               overflow.data_ptr(), p, capacity)
+               base + 4 * work, base + 4 * work + 16 * p, base,
+               coords.data_ptr(), mask.data_ptr(), rep.data_ptr(),
+               inverse.data_ptr(), num.data_ptr(), overflow.data_ptr(), p,
+               capacity, plan.passes, plan.invalid_key, work)
     LAUNCHES[name] += 1
     return VoxelizedDevice(coords, mask, rep, inverse, num, overflow)
 
 
 def voxelize_device(points, valid, batch_idx, voxel_size: float,
-                    capacity: int) -> VoxelizedDevice:
-    """points float32 [P, 3], valid bool [P], batch_idx int32 [P]."""
+                    capacity: int, *, batch_size=None) -> VoxelizedDevice:
+    """points float32 [P, 3], valid bool [P], batch_idx int32 [P] below
+    batch_size (needed on the card: see voxelize_cells)."""
     disc = quantize(points[:, :3], voxel_size)
     return voxelize_cells(disc, valid.contiguous(),
-                          batch_idx.to(torch.int32).contiguous(), capacity)
+                          batch_idx.to(torch.int32).contiguous(), capacity,
+                          batch_size=batch_size)

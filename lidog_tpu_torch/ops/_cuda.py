@@ -19,20 +19,21 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lidog_tpu_torch"
 SOURCES = ("zconv3_fwd", "zconv_down_fwd", "zconv_up_fwd", "zconv3_bwd_dx",
-           "zconv_wgrad", "bev_scatter_max", "zconv_full", "stem_feat125",
-           "zseg_sweeps", "zseg_tables", "sparse_conv", "voxelize",
-           "label_gather", "window_gather", "window_copy")
+           "zconv3_wgrad", "zconv_wgrad", "bev_scatter_max", "zconv_full",
+           "stem_feat125", "zseg_sweeps", "zseg_tables", "sparse_conv",
+           "voxelize", "label_gather", "window_gather", "window_copy")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# C signatures: every pointer and the stream are void*, sizes are int.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures: every pointer and the stream are void*, sizes are int (a
+# 64-bit key is long long).
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "zconv3_fwd": [_P] * 7 + [_I] * 4 + [_P],
     "zconv_down_fwd": [_P] * 6 + [_I] * 5 + [_P],
     "zconv_up_fwd": [_P] * 7 + [_I] * 5 + [_P],
     "zconv3_bwd_dx": [_P] * 7 + [_I] * 4 + [_P],
-    "zconv3_wgrad": [_P] * 8 + [_I] * 6 + [_P],
+    "zconv3_wgrad": [_P] * 8 + [_I] * 8 + [_P],
     "zconv_down_wgrad": [_P] * 7 + [_I] * 7 + [_P],
     "zconv_up_wgrad": [_P] * 7 + [_I] * 7 + [_P],
     "bev_scatter_max_fwd": [_P] * 4 + [_I] * 9 + [_P],
@@ -50,7 +51,7 @@ _ARGTYPES = {
     "emit_rows": [_P] * 13 + [_I] * 6 + [_P],
     "sparse_conv_fwd": [_P] * 6 + [_I] * 6 + [_P],
     "sparse_conv_wgrad": [_P] * 6 + [_I] * 9 + [_P],
-    "voxelize": [_P] * 13 + [_I] * 2 + [_P],
+    "voxelize": [_P] * 12 + [_I] * 3 + [_L, _I, _P],
     "label_gather": [_P] * 5 + [_I] * 5 + [_P],
     "window_row_gather": [_P] * 3 + [_I] * 3 + [_P],
     "window_lane_gather": [_P] * 3 + [_I] * 4 + [_P],
@@ -58,7 +59,7 @@ _ARGTYPES = {
     "window_copy": [_P] * 3 + [_I] * 4 + [_P],
 }
 # the source (library) of each C function that is not named after its own
-_SOURCE_OF = {"zconv3_wgrad": "zconv_wgrad", "zconv_down_wgrad": "zconv_wgrad",
+_SOURCE_OF = {"zconv_down_wgrad": "zconv_wgrad",
               "zconv_up_wgrad": "zconv_wgrad",
               "bev_scatter_max_fwd": "bev_scatter_max",
               "bev_scatter_max_bwd": "bev_scatter_max",

@@ -13,10 +13,10 @@ there).
 Each kernel has a plain PyTorch version (`*_plain`) and a hand-written CUDA
 kernel (csrc/, see each source's note):
 
-  KA zconv3_fwd      KE zconv3_bwd_dx     KF zconv3_wgrad
+  KA zconv3_fwd      KE zconv3_bwd_dx     KF zconv3_wgrad (zconv3_wgrad.cu)
   KB zconv_down_fwd  (also zconv_up's dx, with transposed weights)
   KC zconv_up_fwd    (also zconv_down's dx, with transposed weights)
-  KF zconv_down_wgrad, zconv_up_wgrad
+  KF zconv_down_wgrad, zconv_up_wgrad (zconv_wgrad.cu over wgrad.cuh)
 
 The kernel wrapper (named after the C function) takes the plain version
 for a tensor on the CPU and launches the kernel for a CUDA tensor, raising
@@ -39,11 +39,14 @@ about 1e-2 relative.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from lidog_tpu_torch.ops import _cuda
 from lidog_tpu_torch.ops._wrap import (DTYPES, check, flag, gather_rows,
-                                       int_map, masked, ptr, wgrad_chunks)
+                                       int_map, masked, on_card, ptr,
+                                       wgrad_chunks)
 
 LAUNCHES = {"zconv3_fwd": 0, "zconv_down_fwd": 0, "zconv_up_fwd": 0,
             "zconv3_bwd_dx": 0, "zconv3_wgrad": 0, "zconv_down_wgrad": 0,
@@ -286,20 +289,114 @@ def _wgrad(name, k, x, dout, dout_mask, rows, maps, sizes):
     return dw
 
 
+# csrc/zconv3_wgrad.cu: warps per block at most (an SM's registers hold 12
+# such warps); an H100's SMs and shared memory (bytes) per SM
+ZW_MAX_WARPS, SMS, SM_SMEM = 12, 132, 233_472
+ZW_SLABS = (128, 96, 64, 32)
+
+
+def zw_rows(dtype) -> int:
+    """Level rows per step of csrc/zconv3_wgrad.cu: 128 in bf16, 64 in
+    f32."""
+    return 128 if torch.finfo(dtype).bits == 16 else 64
+
+
+class ZWSplit(NamedTuple):
+    """The tiling of KF's zconv3 kernel (csrc/zconv3_wgrad.cu)."""
+    bm: int  # Cin columns of a block
+    bn: int  # Cout columns of a block
+    ks: int  # warps sharing each 32 x 32 tile, each on rows / ks rows of
+    #          every step (bf16: on every ks-th of its 32-row lists)
+    chunks: int  # blocks per (xy offset, slab pair); chunk c takes the
+    #              steps c, c + chunks, ...
+    rows: int  # level rows per step (zw_rows)
+    steps: int  # steps covering the level's rows
+    rows_per_chunk: int  # at most ceil(steps / chunks) steps
+    halo: int  # window rows on each side of a step (the z taps)
+    partial: tuple  # the f32 partial sums [chunks * ks, 27, Cin, Cout]
+
+
+def zw_smem(bm: int, bn: int, dtype) -> int:
+    """Shared memory of one block (csrc/zconv3_wgrad.cu smem_bytes): the
+    3-stage ring of x windows (a 1024-byte aligned box of 64-byte rows per
+    64 bytes of the Cin slab) and G rows (16 bytes of row pad), 32 bytes
+    of barriers, 8 map slices, the mask words, and the step's tap bytes
+    and row lists."""
+    esz, rk = torch.finfo(dtype).bits // 8, zw_rows(dtype)
+    xbox = -(-(rk + 2) * 64 // 1024) * 1024
+    return (3 * (bm * esz // 64 * xbox + rk * (bn + 16 // esz) * esz) + 32
+            + 8 * 6 * rk + 3 * 4 * rk + 3 * rk + rk // 32 * 4)
+
+
+def zconv3_wgrad_split(rows: int, cin: int, cout: int,
+                       dtype=torch.bfloat16) -> ZWSplit:
+    """The slabs, warps per tile and chunks that minimise a step-count
+    model of the kernel's time: waves of resident blocks x steps per block
+    x (a warp's share of a tile-step, 1 / ks, plus a fixed cost for the
+    step's loads and barriers: 1.0 in bf16, whose tile-steps are tensor-
+    core work, 0.5 in f32), with 0.2% per chunk for the partial sums.
+    (On an H100 at L2 64 -> 64, bf16 ran faster with 64 x 64 slabs and 2
+    warps a tile than with 32 x 32 and 4, f32 the other way round.)
+    Blocks hold at most 12 warps; an SM holds 12 warps (their registers)
+    and what its shared memory allows."""
+    rk = zw_rows(dtype)
+    fixed = 1.0 if rk == 128 else 0.5
+    steps = -(-rows // rk)
+    best = None
+    for bm in (s for s in ZW_SLABS if cin % s == 0):
+        for bn in (s for s in ZW_SLABS if cout % s == 0):
+            tiles = (bm // 32) * (bn // 32)
+            smem = zw_smem(bm, bn, dtype)
+            for ks in (1, 2, 4, 8) if rk == 64 else (1, 2, 4):
+                warps = tiles * ks
+                if warps > ZW_MAX_WARPS or smem > 227 * 1024:
+                    continue
+                per_sm = max(1, min(ZW_MAX_WARPS // warps,
+                                    SM_SMEM // (smem + 1024)))
+                slots, per_chunk = SMS * per_sm, 9 * (cin // bm) * (cout // bn)
+                for waves_aim in range(1, 9):
+                    chunks = max(1, min(max(steps, 1),
+                                        waves_aim * slots // per_chunk))
+                    waves = -(-per_chunk * chunks // slots)
+                    est = (waves * -(-steps // chunks) * (1 / ks + fixed)
+                           * (1 + 0.002 * chunks * ks))
+                    key = (est, -warps)
+                    if best is None or key < best[0]:
+                        best = (key, bm, bn, ks, chunks)
+    if best is None:
+        raise ValueError(f"zconv3_wgrad: widths must be multiples of 32, got "
+                         f"{cin} -> {cout}")
+    _, bm, bn, ks, chunks = best
+    return ZWSplit(bm, bn, ks, chunks, rk, steps, -(-steps // chunks) * rk, 1,
+                   (chunks * ks, 27, cin, cout))
+
+
 def zconv3_wgrad(x, dout, nbr9, zup, zdn, dout_mask):
-    """KF, zconv3 (csrc/zconv_wgrad.cu).  x [Na, Cin], dout [Na, Cout] ->
+    """KF, zconv3 (csrc/zconv3_wgrad.cu).  x [Na, Cin], dout [Na, Cout] ->
     dW [27, Cin, Cout] (= [9, 3*Cin, Cout]) in x's dtype."""
     if x.device.type == "cpu":
         return zconv3_wgrad_plain(x, dout, nbr9, zup, zdn, dout_mask)
     name = "zconv3_wgrad"
-    na = x.shape[0]
+    check(name, x, dout)
+    na, cin = x.shape
+    cout = dout.shape[1]
     if dout.shape[0] != na:
         raise ValueError(f"{name}: x and dout must have the same rows")
     int_map(name, nbr9, (9, na), x.device)
-    for f in (zup, zdn):
+    for f in (zup, zdn, dout_mask):
         flag(name, f, na, x.device)
-    dw = _wgrad(name, 27, x, dout, dout_mask, na, (nbr9, zup, zdn), (na,))
-    return dw.reshape(9, 3 * x.shape[1], dout.shape[1])
+    on_card(name, nbr9, zup, zdn, *([] if dout_mask is None else [dout_mask]))
+    dw = torch.empty(27, cin, cout, dtype=x.dtype, device=x.device)
+    if na == 0:
+        return dw.zero_().reshape(9, 3 * cin, cout)
+    sp = zconv3_wgrad_split(na, cin, cout, x.dtype)
+    partial = torch.empty(sp.partial, dtype=torch.float32, device=x.device)
+    _cuda.call(name, x.data_ptr(), dout.data_ptr(), nbr9.data_ptr(),
+               zup.data_ptr(), zdn.data_ptr(), ptr(dout_mask),
+               partial.data_ptr(), dw.data_ptr(), na, cin, cout, sp.bm, sp.bn,
+               sp.ks, sp.chunks, DTYPES[x.dtype])
+    LAUNCHES[name] += 1
+    return dw.reshape(9, 3 * cin, cout)
 
 
 def zconv_down_wgrad(x, dout, parent, off, dout_mask):

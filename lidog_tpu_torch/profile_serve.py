@@ -44,7 +44,7 @@ def kernel_events(prof):
 # device kernel name fragment -> the wrapper (launch counter) it belongs to
 _GROUPS = (("Conv3Map", "zconv3_fwd"), ("DownMap", "zconv_down_fwd"),
            ("UpMap", "zconv_up_fwd"), ("bn_act_kernel", "bn_act"),
-           ("Conv3DxMap", "zconv3_bwd_dx"), ("Conv3WMap", "zconv3_wgrad"),
+           ("Conv3DxMap", "zconv3_bwd_dx"), ("zconv3_wgrad", "zconv3_wgrad"),
            ("DownWMap", "zconv_down_wgrad"), ("UpWMap", "zconv_up_wgrad"),
            ("wgrad_sum_kernel", "wgrad sum pass (KF, LB)"),
            ("NbrMap", "sparse_conv_fwd"), ("TransposeWMap", "sparse_conv_wgrad"),
@@ -80,7 +80,7 @@ _GROUPS = (("Conv3Map", "zconv3_fwd"), ("DownMap", "zconv_down_fwd"),
            ("scatter_rows_kernel", "emit_rows"),
            ("decode_kernel", "emit_rows"),
            ("FillFunctor", "fill (torch.zeros / full of new buffers)"),
-           ("Memset", "memset (every cudaMemset; KI's zero-fill is one)"))
+           ("Memset", "memset (every cudaMemset; KI's and LC's zero-fills)"))
 
 
 def _group(name: str) -> str:
@@ -175,7 +175,8 @@ def main(argv=None):
             coords, mask, vox = raw["coords"], raw["mask"], None
         else:
             vox = alone("voxelize", lambda: voxelize_device(
-                flat, ones, zeros, pred.voxel_size, pred.cap_in))
+                flat, ones, zeros, pred.voxel_size, pred.cap_in,
+                batch_size=1))
             coords, mask = vox.coords, vox.mask
         plan = alone("plan build", lambda: pred.builder(coords, mask))
         logits = pred.model(input_tensor(plan, mask[:, None].float()), plan)

@@ -77,7 +77,8 @@ class Predictor:
             bidx = torch.arange(b, dtype=torch.int32,
                                 device=self.device).repeat_interleave(p)
             vox = voxelize_device(pts.reshape(b * p, 3), valid.reshape(-1),
-                                  bidx, self.voxel_size, self.cap_in)
+                                  bidx, self.voxel_size, self.cap_in,
+                                  batch_size=b)
             coords, mask = vox.coords, vox.mask
         plan = self.builder(coords, mask)
         logits = self.model(input_tensor(plan, mask[:, None].float()), plan)

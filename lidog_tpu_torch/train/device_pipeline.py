@@ -21,7 +21,7 @@ def device_batch_from_points(points, valid, labels, voxel_size: float,
     batch_idx = torch.arange(b, dtype=torch.int32,
                              device=points.device).repeat_interleave(p)
     vox = voxelize_device(flat, valid.reshape(b * p), batch_idx, voxel_size,
-                          capacity)
+                          capacity, batch_size=b)
     lab = labels.reshape(b * p)[vox.rep_idx.long()]
     feats = vox.mask[:, None].to(torch.float32)
     if point_feats is not None:

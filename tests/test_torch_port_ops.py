@@ -862,6 +862,224 @@ def test_optimizer_matches_optax(name, scheduler, wd):
             assert abs(float(sched_j(step)) - sched_t(step)) <= 5e-8, step
 
 
+def _edge_points(rng, b, p):
+    """b scans of p points at voxel 0.5 with cells at and just beyond the
+    ends of the 13-bit range (x, y or z of -4096, 4095, -4097, 4096),
+    duplicates, and every 7th point invalid."""
+    pts = ((rng.rand(b * p, 3) - 0.5) * 40.0).astype(np.float32)
+    ends = np.array([-2048.0, 2047.75, -2048.25, 2048.0], np.float32)
+    for a in range(3):
+        pts[a::5, a] = ends[(np.arange(len(pts[a::5])) // 3) % 4]
+    pts[1::11] = pts[0]  # duplicates of one voxel
+    valid = np.ones(b * p, bool)
+    valid[::7] = False
+    return pts, valid, np.repeat(np.arange(b, dtype=np.int32), p)
+
+
+def test_voxelize_bitwise_edges():
+    """voxelize_device against lidog_tpu's with points at and just beyond
+    the ends of the 13-bit cell range (+-4096 cells) and invalid points,
+    4 scans, with and without the caller's batch size (the plain version
+    that LC is held to on the card)."""
+    import jax.numpy as jnp
+    import torch
+
+    from lidog_tpu.core.voxelize import voxelize_device as jax_vox
+    from lidog_tpu_torch.core.voxelize import voxelize_device
+
+    pts, valid, bidx = _edge_points(np.random.RandomState(5), 4, 300)
+    for cap in (1024, 500):
+        jv = jax_vox(jnp.asarray(pts), jnp.asarray(valid), jnp.asarray(bidx),
+                     0.5, cap)
+        for bs in (None, 4):
+            tv = voxelize_device(torch.from_numpy(pts),
+                                 torch.from_numpy(valid),
+                                 torch.from_numpy(bidx), 0.5, cap,
+                                 batch_size=bs)
+            for f in tv._fields:
+                a, b = np.asarray(getattr(jv, f)), getattr(tv, f).numpy()
+                assert a.dtype == b.dtype and a.shape == b.shape, f
+                np.testing.assert_array_equal(a, b, err_msg=f"{f} cap={cap}")
+    coords = tv.coords.numpy()[tv.mask.numpy()]
+    assert coords[:, 1:].min() == -4096 and coords[:, 1:].max() == 4095
+    assert int(tv.overflow) > 0
+
+
+def _lsd_order(u, passes, bits, tile):
+    """A stable LSD radix sort of uint64 u over its low passes * bits bits,
+    each pass as LC does it: a key's slot is its digit's start, plus the
+    digit's count in the earlier tiles, plus its rank in its tile."""
+    order = np.arange(len(u))
+    radix = 1 << bits
+    for p in range(passes):
+        k = u[order]
+        d = ((k >> np.uint64(bits * p)) & np.uint64(radix - 1)).astype(np.int64)
+        start = np.concatenate([[0], np.cumsum(np.bincount(d, minlength=radix))])
+        out = np.empty_like(order)
+        seen = np.zeros(radix, np.int64)  # the earlier tiles' counts
+        for t0 in range(0, len(d), tile):
+            dt = d[t0:t0 + tile]
+            rank = np.empty(len(dt), np.int64)
+            for v in np.unique(dt):
+                at = np.nonzero(dt == v)[0]
+                rank[at] = np.arange(len(at))
+            out[start[dt] + seen[dt] + rank] = order[t0:t0 + tile]
+            seen += np.bincount(dt, minlength=radix)
+        order = out
+    return order
+
+
+def _sort_key(disc, valid, batch_idx, invalid_key):
+    """int64 [P]: the key LC sorts stably (before its sign flip), c = hi *
+    2^26 + lo of keys.pack, invalid_key where keys.pack marks the point
+    invalid."""
+    import torch
+
+    from lidog_tpu_torch.core import keys
+
+    hi, lo = keys.pack(torch.cat([batch_idx[:, None].to(torch.int32), disc],
+                                 dim=1), valid)
+    ok = lo != keys.INVALID_KEY  # (a valid lo is below 2^26)
+    c = hi.to(torch.int64) * (1 << 26) + lo.to(torch.int64)
+    return torch.where(ok, c, torch.full_like(c, invalid_key))
+
+
+@pytest.mark.parametrize("batch_size", [1, 4, 64])
+def test_voxelize_passes_lsd(batch_size):
+    """LC's pass plan (core/voxelize.py voxelize_passes, which the kernel
+    runs): the packed key with the plan's invalid key, sorted by a tiled
+    LSD radix over only the plan's passes, gives voxelize_plain's order
+    (keys.sort_by_key) with invalid points, cells at the ends of the
+    13-bit range, and 3 tiles; at B = 1, 4 and 64 the key has 40, 42 and
+    46 live bits (5, 5 and 6 passes of 9 bits)."""
+    import torch
+
+    from lidog_tpu_torch.core import keys
+    from lidog_tpu_torch.core.voxelize import (_RADIX_BITS, _TILE, quantize,
+                                               voxelize_passes,
+                                               voxelize_plain)
+
+    b = batch_size
+    pts, valid, bidx = _edge_points(np.random.RandomState(7), b,
+                                    (2 * _TILE + 700) // b)
+    disc = quantize(torch.from_numpy(pts), 0.5)
+    tvalid, tb = torch.from_numpy(valid), torch.from_numpy(bidx)
+    plan = voxelize_passes(len(pts), batch_size)
+    assert plan.tiles == 3 and plan.invalid_key == batch_size << 39
+    assert plan.passes == {1: 5, 4: 5, 64: 6}[batch_size]
+    assert plan.passes * _RADIX_BITS >= 39 + batch_size.bit_length()
+    c = _sort_key(disc, tvalid, tb, plan.invalid_key).numpy()
+    u = c.view(np.uint64) ^ np.uint64(1 << 63)
+    order = _lsd_order(u, plan.passes, _RADIX_BITS, _TILE)
+    hi, lo = keys.pack(torch.cat([tb[:, None], disc], dim=1), tvalid)
+    np.testing.assert_array_equal(order, keys.sort_by_key(hi, lo).numpy())
+    want = voxelize_plain(disc, tvalid, tb, len(pts))
+    first = np.r_[True, u[order][1:] != u[order][:-1]] \
+        & (c[order] != plan.invalid_key)
+    assert first.sum() == int(want.num_voxels)
+    np.testing.assert_array_equal(order[first],
+                                  want.rep_idx.numpy()[:first.sum()])
+
+
+def _zconv3_wgrad_tiled(x, dout, nbr9, zup, zdn, mask, sp):
+    """csrc/zconv3_wgrad.cu's blocking in float64: per xy offset o and
+    chunk c the steps c, c + chunks, ... of sp.rows rows; per step the G_o
+    rows (zero without a source), the x window of rows r0 - 1 .. r0 +
+    sp.rows, and the tap byte of each row (G live; z-1 and z+1 flags); the
+    chunk's partial sums, then their ordered sum."""
+    import torch
+
+    rk = sp.rows
+    na = x.shape[0]
+    x64, d64 = x.double(), dout.double()
+    partial = torch.zeros(sp.partial, dtype=torch.float64)
+    for o in range(9):
+        for c in range(sp.chunks):
+            for s in range(c, sp.steps, sp.chunks):
+                r = torch.arange(s * rk, (s + 1) * rk)
+                inl = r < na
+                rc = r.clamp(max=na - 1)
+                src = rc if o == 4 else nbr9[8 - o, rc].long()
+                src = torch.where(inl & (src >= 0) & (src < na), src, -1)
+                g = src >= 0
+                if mask is not None:
+                    g &= mask[src.clamp(min=0)]
+                G = d64[src.clamp(min=0)] * (src >= 0)[:, None]
+                w = torch.arange(s * rk - 1, (s + 1) * rk + 1)
+                okw = (w >= 0) & (w < na)
+                X = x64[w.clamp(0, na - 1)] * okw[:, None]
+                bits = (g & zdn[rc] & inl, g, g & zup[rc] & inl)
+                for t in range(3):
+                    A = X[t:t + rk] * bits[t][:, None]
+                    partial[c, 3 * o + t] += A.T @ G
+    return partial.sum(0)
+
+
+@pytest.mark.parametrize("rows", [491_520, 311_296, 102_400, 43_008, 0, 1,
+                                  37, 65, 129])
+def test_zconv3_wgrad_split(rows):
+    """KF's zconv3 split (ops/zconv.py zconv3_wgrad_split) at the training
+    plan's level row counts and at 0 rows, 1 row, fewer than one step and
+    one row past a step (64 rows a step in f32, 128 in bf16): the slabs tile the widths with <= 12 warps, the
+    strided chunks cover every step once, each step's window has one halo
+    row a side, and the grid takes at most 8 waves of an H100's resident
+    blocks.
+    At the small counts the kernel's blocking, run in float64 on seeded
+    inputs with -1 and out-of-range sources, z flags at the level's ends
+    and a dout mask, equals zconv3_wgrad_plain."""
+    import torch
+
+    from lidog_tpu_torch.ops.zconv import (SM_SMEM, SMS, ZW_MAX_WARPS,
+                                           zconv3_wgrad_plain,
+                                           zconv3_wgrad_split, zw_rows,
+                                           zw_smem)
+
+    for cin, cout, dt in ((96, 96, torch.bfloat16), (128, 96, torch.bfloat16),
+                          (32, 32, torch.bfloat16), (256, 256, torch.bfloat16),
+                          (384, 256, torch.bfloat16), (96, 96, torch.float32)):
+        sp = zconv3_wgrad_split(rows, cin, cout, dt)
+        assert cin % sp.bm == 0 and cout % sp.bn == 0
+        assert sp.bm % 32 == 0 and sp.bn % 32 == 0
+        warps = (sp.bm // 32) * (sp.bn // 32) * sp.ks
+        assert warps <= ZW_MAX_WARPS and sp.ks in (1, 2, 4, 8)
+        assert sp.rows % (32 * sp.ks) == 0 or dt == torch.float32
+        assert zw_smem(sp.bm, sp.bn, dt) <= 227 * 1024
+        per_sm = max(1, min(ZW_MAX_WARPS // warps,
+                            SM_SMEM // (zw_smem(sp.bm, sp.bn, dt) + 1024)))
+        blocks = 9 * (cin // sp.bm) * (cout // sp.bn) * sp.chunks
+        assert blocks <= 8 * SMS * per_sm or sp.chunks == 1  # <= 8 waves
+        assert sp.rows == zw_rows(dt) and sp.halo == 1
+        assert sp.steps == -(-rows // sp.rows)
+        assert 1 <= sp.chunks <= max(1, sp.steps)
+        seen = sorted(s for c in range(sp.chunks)
+                      for s in range(c, sp.steps, sp.chunks))
+        assert seen == list(range(sp.steps))
+        assert sp.rows_per_chunk == -(-sp.steps // sp.chunks) * sp.rows
+        assert sp.rows_per_chunk * sp.chunks >= rows
+        assert sp.partial == (sp.chunks * sp.ks, 27, cin, cout)
+    if rows == 0 or rows > 129:
+        return
+    rng = np.random.default_rng(rows)
+    na, cin, cout = rows, 32, 32
+    x = torch.from_numpy(rng.standard_normal((na, cin)).astype(np.float32))
+    dout = torch.from_numpy(rng.standard_normal((na, cout)).astype(np.float32))
+    nbr9 = torch.from_numpy(rng.integers(-1, na + 3, (9, na)).astype(np.int32))
+    zup = torch.from_numpy(rng.random(na) < 0.6)
+    zup[-1] = True  # a z+1 flag on the last row: its source is past the level
+    zdn = torch.zeros(na, dtype=torch.bool)
+    zdn[1:] = zup[:-1]
+    zdn[0] = True  # and a z-1 flag on the first
+    mask = torch.from_numpy(rng.random(na) < 0.8)
+    want = zconv3_wgrad_plain(x, dout, nbr9, zup, zdn, mask)  # f32 sums
+    scale = float(want.abs().max())
+    for dt in (torch.float32, torch.bfloat16):
+        sp = zconv3_wgrad_split(na, cin, cout, dt)
+        got = _zconv3_wgrad_tiled(x, dout, nbr9, zup, zdn, mask, sp)
+        np.testing.assert_allclose(got.reshape(9, 3 * cin, cout).numpy(),
+                                   want.double().numpy(), rtol=0,
+                                   atol=1e-5 * scale)
+
+
 def test_kernel_wrappers_take_plain_versions_on_cpu():
     """Each kernel wrapper takes its plain version for a CPU tensor and
     counts no launch; a tensor on neither the CPU nor a card raises.  The
@@ -1083,6 +1301,16 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
                                       on_meta["m"], reverse=False)
     assert int(tables[0][2]["overflow"][1]) > 0  # KV's dropped columns
     assert int(voxelize.voxelize_plain(disc, vvalid, vbatch, 3).overflow) > 0
+    # LC's batch-size contract (the batch id of a valid point lies below
+    # batch_size): held on the CPU too, where breaking it raises
+    for cap in (2 * n, 3):
+        got = voxelize.voxelize_cells(disc, vvalid, vbatch, cap, batch_size=2)
+        want = voxelize.voxelize_plain(disc, vvalid, vbatch, cap)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="batch_size"):
+        voxelize.voxelize_cells(disc, vvalid, vbatch, 3, batch_size=1)
+    with pytest.raises(ValueError, match="batch_size"):
+        voxelize.voxelize_cells(disc, vvalid, vbatch, 3, batch_size=0)
     assert {k: v for t in counters for k, v in t.items()} == before
 
 

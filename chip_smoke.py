@@ -15,7 +15,9 @@ no result line):
      inputs: the forward kernels (KA-KD) at shapes from a full-width
      serving plan of one synthetic scan, the backward kernels (KE-KH, and
      KB/KC on their transposed-weight backward uses) at shapes from the
-     training plan of 4 scans; max error relative to max|plain| against a
+     training plan of 4 scans, KA at its L0 shapes too, and KA and KE at
+     every width pair of MinkUNet34's zconv3 calls at its level of the
+     training plan (ZCONV3_WIDTHS); max error relative to max|plain| against a
      stated bound, kernel / plain times (CUDA events), and the kernel's
      least possible time on an H100 (bytes over 3.35 TB/s or operations
      over the peak rate of their type);
@@ -421,6 +423,56 @@ def conv3_pairs(plan, lvl):
     return int((taps * L.real.long()).sum())
 
 
+# MinkUNet34's zconv3 width pairs (Cin, Cout) at their levels of the
+# training plan, besides block8's at L0: block1 and block7 (L1), block2
+# and block6 (L2), block3 and block5 (L3), block4 (L4)
+ZCONV3_WIDTHS = ((1, 32, 32), (2, 32, 64), (2, 64, 64), (3, 64, 128),
+                 (3, 128, 128), (4, 128, 256), (4, 256, 256), (3, 384, 256),
+                 (2, 192, 128), (1, 128, 96), (1, 96, 96))
+
+
+def record_ka(ck, plan, lvl, cin, cout, dt, tag=""):
+    """KA against zconv3_plain at one level of plan, seeded features on its
+    real rows."""
+    from lidog_tpu_torch.ops import zconv
+
+    L = plan.level(lvl)
+    nbr9 = plan.kmaps[f"conv9_l{lvl}"]
+    n = nbr9.shape[1]
+    x = ck.feats(n, cin, L.real, dt)
+    wf = ck.weights(dt, 9, 3 * cin, cout)
+    ck.record("zconv3_fwd", "lidog_tpu_torch/csrc/zconv3_fwd.cu",
+              "lidog_tpu/ops/zconv.py:180 (_zconv3_core); "
+              "benchmarks/micro/micro_windowconv.py:113 (make_windowed)",
+              lambda: zconv.zconv3_fwd(x, nbr9, L.zup, L.zdn, wf, L.real),
+              lambda: zconv.zconv3_plain(x, nbr9, L.zup, L.zdn, wf, L.real),
+              dt, nbytes(x, nbr9, L.zup, L.zdn, wf, L.real)
+              + n * cout * x.element_size(),
+              2 * cin * cout * conv3_pairs(plan, lvl),
+              f"{tag}L{lvl} {n} rows {cin}->{cout}")
+
+
+def record_ke(ck, plan, lvl, dout, wf):
+    """KE against zconv3_bwd_dx_plain at one level of plan (dout read
+    through the level's real mask)."""
+    from lidog_tpu_torch.ops import zconv
+
+    L = plan.level(lvl)
+    nbr9 = plan.kmaps[f"conv9_l{lvl}"]
+    n, cout = dout.shape
+    cin = wf.shape[1] // 3
+    ck.record("zconv3_bwd_dx", "lidog_tpu_torch/csrc/zconv3_bwd_dx.cu",
+              "lidog_tpu/ops/zconv.py:231 (_zconv3_bwd dx, _zcat_t:116)",
+              lambda: zconv.zconv3_bwd_dx(dout, nbr9, L.zup, L.zdn, wf,
+                                          L.real),
+              lambda: zconv.zconv3_bwd_dx_plain(dout, nbr9, L.zup, L.zdn,
+                                                wf, L.real),
+              dout.dtype, nbytes(dout, nbr9, L.zup, L.zdn, wf, L.real)
+              + n * cin * dout.element_size(),
+              2 * cin * cout * conv3_pairs(plan, lvl),
+              f"L{lvl} {n} rows {cin}->{cout}")
+
+
 def kernel_checks(plan, gen):
     """Phase 3, forward kernels at the serving plan's shapes."""
     import torch
@@ -439,20 +491,7 @@ def kernel_checks(plan, gen):
     # f32 (MinkUNet34's default compute dtype) at L1 32 -> 32
     for lvl, cin, cout, dt in ((0, 128, 96, bf), (0, 96, 96, bf),
                                (1, 32, 32, bf), (1, 32, 32, f32)):
-        L = plan.level(lvl)
-        nbr9 = plan.kmaps[f"conv9_l{lvl}"]
-        n = nbr9.shape[1]
-        nnz9 = conv3_pairs(plan, lvl)
-        x = feats(n, cin, L.real, dt)
-        wf = weights(dt, 9, 3 * cin, cout)
-        record("zconv3_fwd", "lidog_tpu_torch/csrc/zconv3_fwd.cu",
-               "lidog_tpu/ops/zconv.py:180 (_zconv3_core); "
-               "benchmarks/micro/micro_windowconv.py:113 (make_windowed)",
-               lambda: zconv.zconv3_fwd(x, nbr9, L.zup, L.zdn, wf, L.real),
-               lambda: zconv.zconv3_plain(x, nbr9, L.zup, L.zdn, wf, L.real),
-               dt, nbytes(x, nbr9, L.zup, L.zdn, wf, L.real)
-               + n * cout * x.element_size(), 2 * cin * cout * nnz9,
-               f"L{lvl} {n} rows {cin}->{cout}")
+        record_ka(ck, plan, lvl, cin, cout, dt)
 
     # KB: zconv_down L0 -> L1, 32 -> 32 (conv1)
     nbr8 = plan.kmaps["down8_l0"]
@@ -545,17 +584,21 @@ def backward_kernel_checks(plan, gen):
         x = feats(n, cin, L.real, dt)
         dout = feats(n, cout, ones, dt)
         wf = weights(dt, 9, 3 * cin, cout)
-        esz = x.element_size()
-        shape = f"L{lvl} {n} rows {cin}->{cout}"
-        record("zconv3_bwd_dx", "lidog_tpu_torch/csrc/zconv3_bwd_dx.cu",
-               "lidog_tpu/ops/zconv.py:231 (_zconv3_bwd dx, _zcat_t:116)",
-               lambda: zconv.zconv3_bwd_dx(dout, nbr9, L.zup, L.zdn, wf,
-                                           L.real),
-               lambda: zconv.zconv3_bwd_dx_plain(dout, nbr9, L.zup, L.zdn,
-                                                 wf, L.real),
-               dt, nbytes(dout, nbr9, L.zup, L.zdn, wf, L.real)
-               + n * cin * esz, 2 * cin * cout * nnz9, shape)
-        record_zw(x, dout, nbr9, L.zup, L.zdn, L.real, nnz9, shape)
+        record_ke(ck, plan, lvl, dout, wf)
+        record_zw(x, dout, nbr9, L.zup, L.zdn, L.real, nnz9,
+                  f"L{lvl} {n} rows {cin}->{cout}")
+
+    # KA at the training plan's L0 shapes (block8), then KA and KE once at
+    # every other width pair of MinkUNet34's 46 zconv3 calls, at its level
+    for cin, cout in ((128, 96), (96, 96)):
+        record_ka(ck, plan, 0, cin, cout, bf, "training ")
+    for lvl, cin, cout in ZCONV3_WIDTHS:
+        n = plan.level(lvl).coords.shape[0]
+        record_ka(ck, plan, lvl, cin, cout, bf, "training ")
+        if (lvl, cin, cout) != (1, 32, 32):  # (KE held there above)
+            record_ke(ck, plan, lvl, feats(n, cout, torch.ones(
+                n, dtype=torch.bool, device=dev), bf),
+                weights(bf, 9, 3 * cin, cout))
 
     # KF (zconv3) where its tiling changes: L1 128 -> 96 (block7_0.conv1:
     # 12 warps a block), L4 256 -> 256 (block4, 12 launches a step: two
@@ -2280,7 +2323,8 @@ def pipeline_kernel_checks(dev, gen):
     the training capacity) and on the same batch at a capacity below its
     voxel count (overflow > 0), with every 7th point invalid, and with
     cells at the ends of the 13-bit range; a valid point at batch id B
-    gives overflow -1 (the batch-size contract); the label gather on phase
+    sets batch_breach (the batch-size contract); voxelize_device without a
+    batch size on 2 scans equal to the CPU's; the label gather on phase
     4's scan, sorted (plan.pos, then the voxelizer's inverse map) and
     sortless (plan.pos per point), with seeded bf16 logits."""
     import numpy as np
@@ -2288,7 +2332,7 @@ def pipeline_kernel_checks(dev, gen):
 
     from lidog_tpu_torch.core import keys
     from lidog_tpu_torch.core.voxelize import (quantize, voxelize_cells,
-                                               voxelize_plain)
+                                               voxelize_device, voxelize_plain)
     from lidog_tpu_torch.models.minkunet import MinkUNet34
     from lidog_tpu_torch.ops.labels import label_gather, labels_plain
     from lidog_tpu_torch.serve import Predictor
@@ -2353,17 +2397,43 @@ def pipeline_kernel_checks(dev, gen):
             packed, sorted=True, return_inverse=True))
         print(f"[kernel] voxelize {shape}: library (torch.unique) "
               f"{ck.rows[-1]['library_ms']:.4f} ms", flush=True)
-    # the batch-size contract: a valid point at batch id B sets overflow to
-    # -1 on the card (the CPU raises)
+    # the batch-size contract: a valid point at batch id B sets batch_breach
+    # on the card (the CPU raises); overflow keeps lidog_tpu's meaning
     broken = [t.clone() for t in train_cells]
     broken[2][-1] = TRAIN_BATCH
-    flagged = int(voxelize_cells(*broken, TRAIN_CAP_IN,
-                                 batch_size=TRAIN_BATCH).overflow)
-    if flagged != -1:
+    got = voxelize_cells(*broken, TRAIN_CAP_IN, batch_size=TRAIN_BATCH)
+    if int(got.batch_breach) != 1 or int(got.overflow) != max(
+            int(got.num_voxels) - TRAIN_CAP_IN, 0):
         raise AssertionError(f"voxelizer: a valid point at batch id "
-                             f"{TRAIN_BATCH} gave overflow {flagged}, not -1")
-    print("[kernel] voxelize: a batch id at batch_size sets overflow -1",
+                             f"{TRAIN_BATCH} gave batch_breach "
+                             f"{int(got.batch_breach)}, overflow "
+                             f"{int(got.overflow)}")
+    print("[kernel] voxelize: a batch id at batch_size sets batch_breach",
           flush=True)
+    # voxelize_device called as lidog_tpu's, without a batch size (the card
+    # takes B = MAX_BATCH, 7 passes), on a batch of 2 at a roomy capacity
+    # and at one that overflows: equal to the CPU's, which the CPU tests
+    # hold to lidog_tpu's
+    two = tpts[:2].reshape(-1, 3)
+    for cap in (2 * PER_SCAN, PER_SCAN // 2):
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            flat = torch.from_numpy(np.ascontiguousarray(two)).to(d)
+            outs.append(voxelize_device(
+                flat, torch.ones(flat.shape[0], dtype=torch.bool, device=d),
+                torch.arange(2, dtype=torch.int32, device=d)
+                .repeat_interleave(flat.shape[0] // 2), VOXEL, cap))
+        for f, a, b in zip(outs[1]._fields, *outs):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"voxelize_device without batch_size, "
+                                     f"cap {cap}: {f} differs card vs CPU")
+        if int(outs[0].batch_breach) != 0 or (cap < 2 * PER_SCAN) != (
+                int(outs[0].overflow) > 0):
+            raise AssertionError(f"voxelize_device without batch_size, cap "
+                                 f"{cap}: overflow {int(outs[0].overflow)}, "
+                                 f"batch_breach {int(outs[0].batch_breach)}")
+    print("[kernel] voxelize_device without batch_size on a batch of 2: "
+          "equal to the CPU's", flush=True)
     model = MinkUNet34(out_channels=NUM_CLASSES, compute_dtype=torch.bfloat16,
                        generator=torch.Generator().manual_seed(SEED))
     kw = dict(batch_size=1, voxel_size=VOXEL, caps_per_scan=PER_SCAN,

@@ -75,6 +75,10 @@ class VoxelizedDevice(NamedTuple):
     inverse: torch.Tensor  # int32 [P] point -> voxel slot (-1 invalid/overflow)
     num_voxels: torch.Tensor  # int32 scalar
     overflow: torch.Tensor  # int32 scalar, voxels dropped to capacity
+    # int32 scalar: 1 when a valid point's batch id is not below the batch
+    # size in effect (the caller's, or MAX_BATCH), else 0 (a field of the
+    # port's own; lidog_tpu's VoxelizedDevice ends at overflow)
+    batch_breach: torch.Tensor
 
 
 LAUNCHES = {"voxelize": 0}
@@ -115,7 +119,9 @@ def voxelize_passes(p: int, batch_size: int) -> VoxelPasses:
 def voxelize_plain(disc, valid, batch_idx, capacity: int) -> VoxelizedDevice:
     """The voxelization of cells disc int32 [P, 3] with valid bool [P] and
     batch_idx int32 [P]: the plain version of LC (sort, first flags,
-    cumsum slots, scatters)."""
+    cumsum slots, scatters); batch_breach flags a valid point whose batch
+    id is past keys.pack's batch field (voxelize_cells raises first for a
+    smaller batch size that the caller gave)."""
     dev = disc.device
     p = disc.shape[0]
     coords4 = torch.cat([batch_idx[:, None].to(torch.int32), disc], dim=1)
@@ -145,8 +151,9 @@ def voxelize_plain(disc, valid, batch_idx, capacity: int) -> VoxelizedDevice:
     inverse = torch.full((p,), -1, dtype=torch.int32, device=dev)
     inverse[order] = inv_sorted
     overflow = torch.clamp(num_voxels - capacity, min=0)
+    breach = (valid & (batch_idx >= MAX_BATCH)).any().to(torch.int32)
     return VoxelizedDevice(coords_out, mask, rep_out[:capacity], inverse,
-                           num_voxels, overflow)
+                           num_voxels, overflow, breach)
 
 
 def voxelize_cells(disc, valid, batch_idx, capacity: int, *,
@@ -155,11 +162,14 @@ def voxelize_cells(disc, valid, batch_idx, capacity: int, *,
     tensors; arguments as voxelize_plain's.  batch_size B states that the
     batch id of every valid point lies below B (a negative one marks the
     point invalid, as keys.pack does); the key then has 39 + bit_length(B)
-    live bits, which the sort's passes cover (voxelize_passes).  The kernel
-    needs B; on the CPU it may be left out.  A valid point whose batch id
-    is B or more breaks the contract: the CPU raises, and the kernel, which
-    cannot sort such a key, sets overflow to -1.  One call launches a
-    memset, the key kernel, the passes and the compaction in order."""
+    live bits, which the sort's passes cover (voxelize_passes).  Left out,
+    B is MAX_BATCH, keys.pack's whole batch field (7 passes on the card,
+    where a small B takes 5).  A valid point whose batch id is B or more
+    breaks the contract: a given batch_size makes the CPU raise; otherwise
+    batch_breach comes out 1, and on the card, which cannot sort such a
+    key, the voxels are not meaningful.  overflow is lidog_tpu's, max(num
+    - capacity, 0), on both.  One call launches a memset, the key kernel,
+    the passes and the compaction in order."""
     if disc.device.type == "cpu":
         if batch_size is not None:
             _check_batch_size(batch_size)
@@ -172,8 +182,6 @@ def voxelize_cells(disc, valid, batch_idx, capacity: int, *,
     p = disc.shape[0]
     if dev.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got {dev}")
-    if batch_size is None:
-        raise ValueError(f"{name}: the kernel needs batch_size")
     for t, dt, shape, what in ((disc, torch.int32, (p, 3), "disc int32 [P, 3]"),
                                (valid, torch.bool, (p,), "valid bool [P]"),
                                (batch_idx, torch.int32, (p,),
@@ -183,17 +191,19 @@ def voxelize_cells(disc, valid, batch_idx, capacity: int, *,
             raise ValueError(f"{name}: {what} must be contiguous on {dev}")
     if capacity <= 0:
         raise ValueError(f"{name}: capacity must be positive")
-    plan = voxelize_passes(p, batch_size)
+    plan = voxelize_passes(p, MAX_BATCH if batch_size is None
+                           else batch_size)
     coords = torch.empty(capacity, 4, dtype=torch.int32, device=dev)
     mask = torch.empty(capacity, dtype=torch.bool, device=dev)
     rep = torch.empty(capacity, dtype=torch.int32, device=dev)
     inverse = torch.empty(p, dtype=torch.int32, device=dev)
-    stats = torch.empty(2, dtype=torch.int32, device=dev)
-    num, overflow = stats[0], stats[1]
+    stats = torch.empty(3, dtype=torch.int32, device=dev)
+    num, overflow, breach = stats[0], stats[1], stats[2]
     if p == 0:
         for t in (coords, mask, rep, stats):
             t.zero_()
-        return VoxelizedDevice(coords, mask, rep, inverse, num, overflow)
+        return VoxelizedDevice(coords, mask, rep, inverse, num, overflow,
+                               breach)
     # one scratch allocation: the work area (16-byte aligned), the [2, P]
     # u64 key and [2, P] int32 index ping-pong buffers
     work = -(-plan.work_ints // 4) * 4
@@ -202,16 +212,17 @@ def voxelize_cells(disc, valid, batch_idx, capacity: int, *,
     _cuda.call(name, disc.data_ptr(), valid.data_ptr(), batch_idx.data_ptr(),
                base + 4 * work, base + 4 * work + 16 * p, base,
                coords.data_ptr(), mask.data_ptr(), rep.data_ptr(),
-               inverse.data_ptr(), num.data_ptr(), overflow.data_ptr(), p,
-               capacity, plan.passes, plan.invalid_key, work)
+               inverse.data_ptr(), num.data_ptr(), overflow.data_ptr(),
+               breach.data_ptr(), p, capacity, plan.passes, plan.invalid_key,
+               work)
     LAUNCHES[name] += 1
-    return VoxelizedDevice(coords, mask, rep, inverse, num, overflow)
+    return VoxelizedDevice(coords, mask, rep, inverse, num, overflow, breach)
 
 
 def voxelize_device(points, valid, batch_idx, voxel_size: float,
                     capacity: int, *, batch_size=None) -> VoxelizedDevice:
     """points float32 [P, 3], valid bool [P], batch_idx int32 [P] below
-    batch_size (needed on the card: see voxelize_cells)."""
+    batch_size, which may be left out (see voxelize_cells)."""
     disc = quantize(points[:, :3], voxel_size)
     return voxelize_cells(disc, valid.contiguous(),
                           batch_idx.to(torch.int32).contiguous(), capacity,

@@ -1,6 +1,8 @@
-// Gather-GEMM template shared by the three sparse conv forwards
-// (zconv3_fwd.cu, zconv_down_fwd.cu, zconv_up_fwd.cu) and the zconv3
-// backward dx (zconv3_bwd_dx.cu).
+// Gather-GEMM template of the strided sparse conv forwards KB
+// (zconv_down_fwd.cu) and KC (zconv_up_fwd.cu), which are also the
+// backward dx of each other with transposed weights; wgrad.cuh includes
+// it.  (The zconv3 forward and dx, KA and KE, have their own blocking:
+// zconv3_mma.cuh.)
 //
 //   out[i, :] = mask[i] * sum_{o < NOFF} sum_{t < NTAPS} x[src(o, t, i), :] @ w[o, t]
 //

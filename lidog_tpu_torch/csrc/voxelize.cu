@@ -10,7 +10,9 @@
 // valid bool [P], batch int32 [P].  Output: coords int32 [cap, 4] (batch,
 // x, y, z of each voxel's first point, canonical order), mask bool [cap],
 // rep int32 [cap] (that point's index), inverse int32 [P] (point -> voxel
-// slot, -1 when invalid or beyond cap), num_voxels and overflow (int32).
+// slot, -1 when invalid or beyond cap), num_voxels, overflow (max(num -
+// cap, 0), as lidog_tpu's) and batch_breach (int32, 1 when the batch-size
+// contract below is broken, else 0).
 //
 // The sort key: keys.pack's (hi, lo) per point, as the plain version's
 // int32 arithmetic; c = hi * 2^26 + lo orders exactly as the plain
@@ -21,7 +23,7 @@
 // key's 39 + bit_length(B) live bits (5 up to B = 63).  Stored as u = c ^
 // 2^63; the passes sort its low 9 * npass bits.  A valid point with batch
 // id B or more would have a key the passes cannot sort: vox_keys flags it
-// and overflow comes out as -1.
+// and batch_breach comes out as 1 (the voxels are then not meaningful).
 //
 // Launches, all on the current stream, no host sync (7 kernels and one
 // memset at B <= 63):
@@ -50,8 +52,8 @@
 //     each tile's voxel start by a look-back over the tiles' flag counts
 //     (one warp, 32 predecessors at a time), every point's slot (the
 //     plain cumsum - 1), the coords, rep, mask and inverse scatters (all
-//     gathers issued before the scan); the last tile writes num_voxels and
-//     overflow (-1 when the contract flag is set).
+//     gathers issued before the scan); the last tile writes num_voxels,
+//     overflow and batch_breach (the contract flag).
 //
 // Bound on an H100: bytes (the points' fields read once, the outputs
 // written once; 0.005 ms for 4 x 100k points), far below what the passes
@@ -306,7 +308,8 @@ vox_compact(const unsigned long long* __restrict__ keys, const int* __restrict__
             unsigned* __restrict__ cstatus, int* counter, const int* __restrict__ bad, int n,
             int cap, long long c_inv,
             int* __restrict__ coords, uint8_t* __restrict__ mask, int* __restrict__ rep,
-            int* __restrict__ inverse, int* __restrict__ num_out, int* __restrict__ overflow_out) {
+            int* __restrict__ inverse, int* __restrict__ num_out, int* __restrict__ overflow_out,
+            int* __restrict__ breach_out) {
   __shared__ int warp_sums[32];
   __shared__ int s_tile, s_base;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -363,7 +366,8 @@ vox_compact(const unsigned long long* __restrict__ keys, const int* __restrict__
       if (tile == tiles - 1) {
         const int num = before + tile_count;
         *num_out = num;
-        *overflow_out = *bad ? -1 : max(num - cap, 0);
+        *overflow_out = max(num - cap, 0);
+        *breach_out = *bad;
       }
     }
   }
@@ -393,7 +397,8 @@ vox_compact(const unsigned long long* __restrict__ keys, const int* __restrict__
 // cudaError_t (0 = launched).
 extern "C" int voxelize(const void* disc, const void* valid, const void* batch, void* keys,
                         void* idx, void* work, void* coords, void* mask, void* rep,
-                        void* inverse, void* num_voxels, void* overflow, int n, int cap,
+                        void* inverse, void* num_voxels, void* overflow, void* batch_breach,
+                        int n, int cap,
                         int npass, long long c_inv, int work_ints, void* stream) {
   const int tiles = (n + TILE - 1) / TILE;
   // work: totals [npass][RADIX], counters [npass + 1], the contract flag,
@@ -452,6 +457,7 @@ extern "C" int voxelize(const void* disc, const void* valid, const void* batch, 
       k + (size_t)out * n, ix + (size_t)out * n, static_cast<const int*>(disc),
       static_cast<const int*>(batch), cstatus, counters + npass, bad, n, cap, c_inv,
       static_cast<int*>(coords), static_cast<uint8_t*>(mask), static_cast<int*>(rep),
-      static_cast<int*>(inverse), static_cast<int*>(num_voxels), static_cast<int*>(overflow));
+      static_cast<int*>(inverse), static_cast<int*>(num_voxels), static_cast<int*>(overflow),
+      static_cast<int*>(batch_breach));
   return (int)cudaGetLastError();
 }

@@ -51,7 +51,7 @@ _ARGTYPES = {
     "emit_rows": [_P] * 13 + [_I] * 6 + [_P],
     "sparse_conv_fwd": [_P] * 6 + [_I] * 6 + [_P],
     "sparse_conv_wgrad": [_P] * 6 + [_I] * 9 + [_P],
-    "voxelize": [_P] * 12 + [_I] * 3 + [_L, _I, _P],
+    "voxelize": [_P] * 13 + [_I] * 3 + [_L, _I, _P],
     "label_gather": [_P] * 5 + [_I] * 5 + [_P],
     "window_row_gather": [_P] * 3 + [_I] * 3 + [_P],
     "window_lane_gather": [_P] * 3 + [_I] * 4 + [_P],

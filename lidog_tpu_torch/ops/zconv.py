@@ -13,7 +13,9 @@ there).
 Each kernel has a plain PyTorch version (`*_plain`) and a hand-written CUDA
 kernel (csrc/, see each source's note):
 
-  KA zconv3_fwd      KE zconv3_bwd_dx     KF zconv3_wgrad (zconv3_wgrad.cu)
+  KA zconv3_fwd      KE zconv3_bwd_dx     (both over zconv3_mma.cuh; their
+                                          blocking: zconv3_tiles)
+  KF zconv3_wgrad (zconv3_wgrad.cu; its blocking: zconv3_wgrad_split)
   KB zconv_down_fwd  (also zconv_up's dx, with transposed weights)
   KC zconv_up_fwd    (also zconv_down's dx, with transposed weights)
   KF zconv_down_wgrad, zconv_up_wgrad (zconv_wgrad.cu over wgrad.cuh)
@@ -243,6 +245,13 @@ def zconv_up_fwd(x, parent, off, w8, out_mask, src_mask=None):
     return out
 
 
+def dx_weights(wf):
+    """KE's weight layout: wt[e][t] = wf[8-e][t]^T, [9, 3, Cout, Cin], from
+    wf [9, 3*Cin, Cout]."""
+    cin, cout = wf.shape[1] // 3, wf.shape[2]
+    return wf.reshape(9, 3, cin, cout).flip(0).transpose(2, 3).contiguous()
+
+
 def zconv3_bwd_dx(dout, nbr9, zup, zdn, wf, dout_mask):
     """KE (csrc/zconv3_bwd_dx.cu).  dout [Na, Cout]; wf [9, 3*Cin, Cout]
     -> dx [Na, Cin]."""
@@ -254,8 +263,7 @@ def zconv3_bwd_dx(dout, nbr9, zup, zdn, wf, dout_mask):
     if tuple(wf.shape) != (9, 3 * cin, cout):
         raise ValueError(f"{name}: wf must be [9, 3*Cin, {cout}], got "
                          f"{tuple(wf.shape)}")
-    # wt[e][t] = wf[8-e][t]^T: [9, 3, Cout, Cin], the kernel's weight layout
-    wt = wf.reshape(9, 3, cin, cout).flip(0).transpose(2, 3).contiguous()
+    wt = dx_weights(wf)
     check(name, dout, wt)
     int_map(name, nbr9, (9, na), dout.device)
     for f in (zup, zdn, dout_mask):
@@ -267,6 +275,67 @@ def zconv3_bwd_dx(dout, nbr9, zup, zdn, wf, dout_mask):
                    dx.data_ptr(), na, cout, cin, DTYPES[dout.dtype])
         LAUNCHES[name] += 1
     return dx
+
+
+class Z3Tiles(NamedTuple):
+    """The blocking of KA (csrc/zconv3_fwd.cu) and KE (zconv3_bwd_dx.cu),
+    which their C launchers choose in the same way (csrc/zconv3_mma.cuh)."""
+    bm: int  # output rows of a block
+    threads: int  # of a block
+    per_sm: int  # blocks an SM holds by registers (the launch bounds)
+    bn: int  # output columns of a block: all of the width up to 128
+    bk: int  # K elements a ring stage (the last of an offset may be short)
+    stages: int  # of the cp.async ring
+    halo: int  # gathered rows past each end of the block's rows (KE's z taps)
+    grid: tuple  # (row blocks, column blocks)
+    smem: int  # dynamic shared memory of a block, bytes
+
+
+def zconv3_tiles(kernel: str, rows: int, cin: int, cout: int,
+                 dtype=torch.bfloat16) -> Z3Tiles:
+    """KA's (kernel "fwd": K = 3 Cin, output Cout) or KE's ("dx": K =
+    Cout, output Cin) blocking for a level of `rows` rows.  BN: the widest
+    of 128, 96, 64 and 32 that divides the output width.  BM: 128 rows if
+    that makes at least 4 waves of two blocks on each of an H100's 132
+    SMs, else 64; 2 BM threads (bf16: warps of 32 x BN/2 mma tiles, f32:
+    8 x BN/16 register tiles), held by registers to 512 threads an SM
+    (KA at BN <= 64: 1024).  The ring: K elements a stage, KA 64 in bf16
+    and 32 in f32, KE 32 in bf16, 8 in f32 (16 at BN <= 64; the last chunk
+    of an offset may be short); 3 stages, but 2 in bf16 at BN 128 and in
+    KA at BN <= 64, and 4 in KE's f32 above BN 64.  A stage holds A (the
+    gathered rows, BM or, in KE, BM + 2 of them, each padded by 16 bytes)
+    and B (the weight rows, one slab in KA, one per z tap in KE, padded by
+    16 bytes); then the block's source table (9 words per gathered row)
+    and KA's live-row order (2 bytes a row) or KE's z-mask bytes."""
+    if kernel not in ("fwd", "dx"):
+        raise ValueError(f"zconv3_tiles: kernel is 'fwd' or 'dx', got "
+                         f"{kernel}")
+    if cin % 32 or cout % 32:
+        raise ValueError(f"zconv3_tiles: widths must be multiples of 32, got "
+                         f"{cin} -> {cout}")
+    esz = torch.finfo(dtype).bits // 8
+    epv = 16 // esz
+    width = cout if kernel == "fwd" else cin
+    bn = next(b for b in (128, 96, 64, 32) if width % b == 0)
+    bm = 128 if -(-rows // 128) * (width // bn) >= 4 * 2 * SMS else 64
+    narrow = bn <= 64
+    stages = (2 if bn == 128 else 3) if esz == 2 else 3
+    per_sm = 256 // bm
+    if kernel == "fwd":
+        bk, halo = (64 if esz == 2 else 32), 0
+        if narrow:
+            stages, per_sm = 2, 512 // bm
+        ring = bm * (bk + epv) + bk * (bn + epv)
+        table = 9 * bm * 4 + 2 * bm
+    else:
+        halo = 1
+        bk = 32 if esz == 2 else 16 if narrow else 8
+        stages = stages if esz == 2 else 3 if narrow else 4
+        ring = (bm + 2) * (bk + epv) + 3 * bk * (bn + epv)
+        table = 9 * (bm + 2) * 4 + bm
+    return Z3Tiles(bm, 2 * bm, per_sm, bn, bk, stages, halo,
+                   (-(-rows // bm), width // bn),
+                   stages * ring * esz + table)
 
 
 def _wgrad(name, k, x, dout, dout_mask, rows, maps, sizes):

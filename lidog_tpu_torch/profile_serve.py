@@ -42,9 +42,11 @@ def kernel_events(prof):
 
 
 # device kernel name fragment -> the wrapper (launch counter) it belongs to
-_GROUPS = (("Conv3Map", "zconv3_fwd"), ("DownMap", "zconv_down_fwd"),
-           ("UpMap", "zconv_up_fwd"), ("bn_act_kernel", "bn_act"),
-           ("Conv3DxMap", "zconv3_bwd_dx"), ("zconv3_wgrad", "zconv3_wgrad"),
+_GROUPS = (("zconv3_fwd_kernel", "zconv3_fwd"),
+           ("DownMap", "zconv_down_fwd"), ("UpMap", "zconv_up_fwd"),
+           ("bn_act_kernel", "bn_act"),
+           ("zconv3_bwd_dx_kernel", "zconv3_bwd_dx"),
+           ("zconv3_wgrad", "zconv3_wgrad"),
            ("DownWMap", "zconv_down_wgrad"), ("UpWMap", "zconv_up_wgrad"),
            ("wgrad_sum_kernel", "wgrad sum pass (KF, LB)"),
            ("NbrMap", "sparse_conv_fwd"), ("TransposeWMap", "sparse_conv_wgrad"),

@@ -10,10 +10,14 @@ round adds one such quartet), and prints every output line tagged with
 its checkout.  `train` and `serve` run `python -m
 lidog_tpu_torch.profile_train` / `profile_serve` (extra arguments are
 passed on); `kernels` times the zconv3 weight gradient (KF) at
-chip_smoke's training-plan shapes and the voxelizer (LC) at its serving
-and training shapes, with CUDA events (ms per call, mean of 10 after a
-warm-up, as chip_smoke's `cuda_ms`), on the seeded inputs of chip_smoke
-and with each checkout's own kernels, and prints one JSON line; `stages`
+chip_smoke's training-plan shapes, the zconv3 forward and input gradient
+(KA, KE) at the training plan's L0 shapes and at every zconv3 width pair
+of MinkUNet34 at its level (bf16), KA also at the serving plan's shapes,
+KB and KC at their forward (serving) and transposed-weight (training)
+shapes, and the voxelizer (LC) at its serving and training shapes, with
+CUDA events (ms per call, mean of 10 after a warm-up, as chip_smoke's
+`cuda_ms`), on the seeded inputs of chip_smoke and with each checkout's
+own kernels, and prints one JSON line; `stages`
 prints the device ms of the training step's stages (chip_smoke's
 `train_stage_split`: voxelize, plan, forward, backward, optimizer) after
 two warm-up steps, and of a serving request's (`stage_split`: voxelize,
@@ -61,6 +65,79 @@ for lvl, cin, cout, dt, cut in ((0, 128, 96, bf, 0), (0, 96, 96, bf, 0),
     key = f"zconv3_wgrad L{lvl} {n} rows {cin}->{cout} {str(dt)[6:]}"
     out[key] = cs.cuda_ms(lambda: zconv.zconv3_wgrad(x, dout, nbr9, zup, zdn,
                                                      real))
+# KA and KE (and KB, KC beside them): the training plan's L0 shapes, then
+# every other zconv3 width pair of MinkUNet34 at its level, bf16
+ones = {lvl: torch.ones(plan.level(lvl).coords.shape[0], dtype=torch.bool,
+                        device=dev) for lvl in range(5)}
+
+
+def conv3(tag, p, lvl, cin, cout, dt, kinds=("fwd", "dx")):
+    L = p.level(lvl)
+    nbr9 = p.kmaps[f"conv9_l{lvl}"]
+    n = nbr9.shape[1]
+    x = ck.feats(n, cin, L.real, dt)
+    dout = ck.feats(n, cout, torch.ones(n, dtype=torch.bool, device=dev), dt)
+    wf = ck.weights(dt, 9, 3 * cin, cout)
+    shape = f"{tag}L{lvl} {n} rows {cin}->{cout} {str(dt)[6:]}"
+    if "fwd" in kinds:
+        out[f"zconv3_fwd {shape}"] = cs.cuda_ms(
+            lambda: zconv.zconv3_fwd(x, nbr9, L.zup, L.zdn, wf, L.real))
+    if "dx" in kinds:
+        out[f"zconv3_bwd_dx {shape}"] = cs.cuda_ms(
+            lambda: zconv.zconv3_bwd_dx(dout, nbr9, L.zup, L.zdn, wf, L.real))
+
+
+for cin, cout, dt in ((128, 96, bf), (96, 96, bf), (96, 96, f32)):
+    conv3("training ", plan, 0, cin, cout, dt)
+conv3("training ", plan, 1, 32, 32, f32)
+for lvl, cin, cout in ((1, 32, 32), (2, 32, 64), (2, 64, 64), (3, 64, 128),
+                       (3, 128, 128), (4, 128, 256), (4, 256, 256),
+                       (3, 384, 256), (2, 192, 128), (1, 128, 96),
+                       (1, 96, 96)):
+    conv3("training ", plan, lvl, cin, cout, bf)
+l0, l1 = plan.level(0), plan.level(1)
+nbr8, parent, off = (plan.kmaps[k]
+                     for k in ("down8_l0", "parent_l0", "off_l0"))
+for dt in (bf, f32):
+    sfx = str(dt)[6:]
+    d1 = ck.feats(l1.coords.shape[0], 32, ones[1], dt)
+    w8 = ck.weights(dt, 8, 32, 32)
+    out[f"zconv_up_fwd W^T L1->L0 32->32 {sfx}"] = cs.cuda_ms(
+        lambda: zconv.zconv_up_fwd(d1, parent, off, w8, None,
+                                   src_mask=l1.real))
+    d0 = ck.feats(l0.coords.shape[0], 96, ones[0], dt)
+    u8 = ck.weights(dt, 8, 96, 96)
+    out[f"zconv_down_fwd W^T L0->L1 96->96 {sfx}"] = cs.cuda_ms(
+        lambda: zconv.zconv_down_fwd(d0, nbr8, u8, None, src_mask=l0.real))
+# KA (with KB, KC) at the serving plan of one scan, as chip_smoke phase 3
+from lidog_tpu_torch.models.minkunet import MinkUNet34
+from lidog_tpu_torch.serve import Predictor
+
+probe = Predictor(MinkUNet34(out_channels=cs.NUM_CLASSES, compute_dtype=bf,
+                             generator=torch.Generator().manual_seed(cs.SEED)),
+                  batch_size=1, voxel_size=cs.VOXEL, caps_per_scan=cs.PER_SCAN,
+                  grid_half=cs.GRID_HALF, device=dev)
+one = torch.from_numpy(cs.scan(cs.POINTS, cs.SEED)[0]).to(dev)
+vox = V.voxelize_device(one, torch.ones(cs.POINTS, dtype=torch.bool,
+                                        device=dev),
+                        torch.zeros(cs.POINTS, dtype=torch.int32, device=dev),
+                        cs.VOXEL, probe.cap_in, batch_size=1)
+splan = probe.builder(vox.coords, vox.mask)
+for lvl, cin, cout, dt in ((0, 128, 96, bf), (0, 96, 96, bf), (1, 32, 32, bf),
+                           (1, 32, 32, f32)):
+    conv3("serving ", splan, lvl, cin, cout, dt, ("fwd",))
+s0, s1 = splan.level(0), splan.level(1)
+for dt in (bf, f32):
+    sfx = str(dt)[6:]
+    xs = ck.feats(s0.coords.shape[0], 32, s0.real, dt)
+    w8 = ck.weights(dt, 8, 32, 32)
+    out[f"zconv_down_fwd serving L0->L1 32->32 {sfx}"] = cs.cuda_ms(
+        lambda: zconv.zconv_down_fwd(xs, splan.kmaps["down8_l0"], w8, s1.real))
+    xc = ck.feats(s1.coords.shape[0], 96, s1.real, dt)
+    u8 = ck.weights(dt, 8, 96, 96)
+    out[f"zconv_up_fwd serving L1->L0 96->96 {sfx}"] = cs.cuda_ms(
+        lambda: zconv.zconv_up_fwd(xc, splan.kmaps["parent_l0"],
+                                   splan.kmaps["off_l0"], u8, s0.real))
 kw = ("batch_size" in inspect.signature(V.voxelize_cells).parameters)
 for name, pts, bsz, cap in (
         ("serve", cs.scan(cs.POINTS, cs.SEED)[0], 1, cs.PER_SCAN),

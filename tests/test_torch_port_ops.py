@@ -71,17 +71,27 @@ def test_voxelize_bitwise(request):
     pts[::97] = 0.25  # duplicate points in one voxel
     valid = rng.rand(B * P) > 0.05
     bidx = np.repeat(np.arange(B, dtype=np.int32), P)
-    # roomy capacity, then one that drops voxels (overflow path)
+    # roomy capacity, then one that drops voxels (overflow path); called as
+    # lidog_tpu's, without a batch size
     for cap in (2048, 600):
         jv = jax_vox(jnp.asarray(pts), jnp.asarray(valid), jnp.asarray(bidx),
                      0.5, cap)
         tv = voxelize_device(torch.from_numpy(pts), torch.from_numpy(valid),
                              torch.from_numpy(bidx), 0.5, cap)
-        for f in tv._fields:
+        for f in jv._fields:
             a, b = np.asarray(getattr(jv, f)), getattr(tv, f).numpy()
             assert a.dtype == b.dtype and a.shape == b.shape, f
             np.testing.assert_array_equal(a, b, err_msg=f"{f} cap={cap}")
-    assert int(tv.overflow) > 0
+        assert tv._fields == jv._fields + ("batch_breach",)
+        assert tv.batch_breach.dtype == torch.int32
+        assert int(tv.batch_breach) == 0
+    assert int(tv.overflow) == int(tv.num_voxels) - 600 > 0
+    # a valid point past the batch field (MAX_BATCH): flagged, not raised
+    big = torch.from_numpy(bidx).clone()
+    big[5] = 1 << 17
+    tv = voxelize_device(torch.from_numpy(pts), torch.from_numpy(valid), big,
+                         0.5, 2048)
+    assert int(tv.batch_breach) == int(valid[5]) == 1
 
 
 def test_voxel_quantization_matches_jitted_jax():
@@ -896,10 +906,11 @@ def test_voxelize_bitwise_edges():
                                  torch.from_numpy(valid),
                                  torch.from_numpy(bidx), 0.5, cap,
                                  batch_size=bs)
-            for f in tv._fields:
+            for f in jv._fields:
                 a, b = np.asarray(getattr(jv, f)), getattr(tv, f).numpy()
                 assert a.dtype == b.dtype and a.shape == b.shape, f
                 np.testing.assert_array_equal(a, b, err_msg=f"{f} cap={cap}")
+            assert int(tv.batch_breach) == 0
     coords = tv.coords.numpy()[tv.mask.numpy()]
     assert coords[:, 1:].min() == -4096 and coords[:, 1:].max() == 4095
     assert int(tv.overflow) > 0
@@ -944,30 +955,33 @@ def _sort_key(disc, valid, batch_idx, invalid_key):
     return torch.where(ok, c, torch.full_like(c, invalid_key))
 
 
-@pytest.mark.parametrize("batch_size", [1, 4, 64])
+@pytest.mark.parametrize("batch_size", [1, 4, 64, None])
 def test_voxelize_passes_lsd(batch_size):
     """LC's pass plan (core/voxelize.py voxelize_passes, which the kernel
     runs): the packed key with the plan's invalid key, sorted by a tiled
     LSD radix over only the plan's passes, gives voxelize_plain's order
     (keys.sort_by_key) with invalid points, cells at the ends of the
     13-bit range, and 3 tiles; at B = 1, 4 and 64 the key has 40, 42 and
-    46 live bits (5, 5 and 6 passes of 9 bits)."""
+    46 live bits (5, 5 and 6 passes of 9 bits).  None: a batch of 2
+    voxelized without a batch size, as lidog_tpu's voxelize_device is
+    called, which the card runs at B = MAX_BATCH (57 bits, 7 passes)."""
     import torch
 
     from lidog_tpu_torch.core import keys
-    from lidog_tpu_torch.core.voxelize import (_RADIX_BITS, _TILE, quantize,
-                                               voxelize_passes,
+    from lidog_tpu_torch.core.voxelize import (_RADIX_BITS, _TILE, MAX_BATCH,
+                                               quantize, voxelize_passes,
                                                voxelize_plain)
 
-    b = batch_size
+    b = 2 if batch_size is None else batch_size
+    bs = MAX_BATCH if batch_size is None else batch_size
     pts, valid, bidx = _edge_points(np.random.RandomState(7), b,
                                     (2 * _TILE + 700) // b)
     disc = quantize(torch.from_numpy(pts), 0.5)
     tvalid, tb = torch.from_numpy(valid), torch.from_numpy(bidx)
-    plan = voxelize_passes(len(pts), batch_size)
-    assert plan.tiles == 3 and plan.invalid_key == batch_size << 39
-    assert plan.passes == {1: 5, 4: 5, 64: 6}[batch_size]
-    assert plan.passes * _RADIX_BITS >= 39 + batch_size.bit_length()
+    plan = voxelize_passes(len(pts), bs)
+    assert plan.tiles == 3 and plan.invalid_key == bs << 39
+    assert plan.passes == {1: 5, 4: 5, 64: 6, MAX_BATCH: 7}[bs]
+    assert plan.passes * _RADIX_BITS >= 39 + bs.bit_length()
     c = _sort_key(disc, tvalid, tb, plan.invalid_key).numpy()
     u = c.view(np.uint64) ^ np.uint64(1 << 63)
     order = _lsd_order(u, plan.passes, _RADIX_BITS, _TILE)
@@ -1078,6 +1092,202 @@ def test_zconv3_wgrad_split(rows):
         np.testing.assert_allclose(got.reshape(9, 3 * cin, cout).numpy(),
                                    want.double().numpy(), rtol=0,
                                    atol=1e-5 * scale)
+
+
+def _z_columns(rng, na):
+    """zup / zdn of a level of na rows cut into z columns of 1-9 cells,
+    with z flags also on row 0 (z-1) and row na - 1 (z+1), whose sources
+    lie past the level's ends."""
+    import torch
+
+    zup = np.zeros(na, bool)
+    j = 0
+    while j < na:
+        n = int(rng.integers(1, 10))
+        zup[j:min(j + n, na) - 1] = True
+        j += n
+    zdn = np.zeros(na, bool)
+    zdn[1:] = zup[:-1]
+    zup[-1] = zdn[0] = True
+    return torch.from_numpy(zup), torch.from_numpy(zdn)
+
+
+def _zconv3_fwd_tiled(x, nbr9, zup, zdn, wf, mask, tl):
+    """csrc/zconv3_fwd.cu's blocking in float64: per block of tl.bm rows and
+    tl.bn columns, each xy offset's source n and tap flags per row (tap 0:
+    n > 0 and zdn[n]; tap 2: n + 1 < Na and zup[n]; no source where the
+    output mask is 0), the offsets with a source, and per such offset the
+    K chunks of tl.bk elements of each row's run x[n-1] | x[n] | x[n+1]
+    (zero where a column's tap does not count; a chunk may span two taps
+    and the last may be short) against the same rows of wf[d]; the block's
+    rows masked, rows past the level dropped.  (The kernel also puts a
+    block's live rows first; that reorders the rows, not the sums.)"""
+    import torch
+
+    na, cin = x.shape
+    cout = wf.shape[2]
+    zero = torch.zeros(1, cin, dtype=torch.float64)
+    xp = torch.cat([zero, x.double(), zero])
+    run = torch.cat([xp[:-2], xp[1:-1], xp[2:]], dim=1)  # row n's run
+    w64 = wf.double()
+    out = torch.full((na, cout), float("nan"), dtype=torch.float64)
+    for b in range(tl.grid[0]):
+        rows = torch.arange(b * tl.bm, (b + 1) * tl.bm)
+        inl = rows < na
+        rc = rows.clamp(max=na - 1)
+        keep = inl if mask is None else inl & mask[rc]
+        for c in range(tl.grid[1]):
+            cols = slice(c * tl.bn, (c + 1) * tl.bn)
+            acc = torch.zeros(tl.bm, tl.bn, dtype=torch.float64)
+            for d in range(9):
+                n = rc if d == 4 else nbr9[d, rc].long()
+                ok = keep & (n >= 0) & (n < na)
+                if not ok.any():
+                    continue
+                nc = n.clamp(0, na - 1)
+                taps = (ok & (nc > 0) & zdn[nc], ok,
+                        ok & (nc + 1 < na) & zup[nc])
+                for k0 in range(0, 3 * cin, tl.bk):  # (the last may be short)
+                    ks = torch.arange(k0, min(k0 + tl.bk, 3 * cin))
+                    keep_k = torch.stack(taps)[ks // cin].T  # column taps
+                    a = run[nc][:, ks] * keep_k
+                    acc += a @ w64[d][ks][:, cols]
+            out[rows[inl], cols] = (acc * keep[:, None])[inl]
+    return out
+
+
+def _zconv3_bwd_dx_tiled(dout, nbr9, zup, zdn, wt, dmask, tl):
+    """csrc/zconv3_bwd_dx.cu's blocking in float64: per block of output
+    rows j = m0 .. m0 + tl.bm - 1 and tl.bn columns, each xy offset's
+    tl.bm + 2 gathered rows G_e(m0 - 1 .. m0 + tl.bm) (zero outside the
+    level, where the map misses and where the dout mask is 0), the offsets
+    with a source, and per such offset and K chunk of tl.bk the three taps
+    as views of that tile shifted by 2, 1 and 0 rows, taps 0 and 2 masked
+    by zdn[j+1] and zup[j-1] (and the level's ends), against wt[e][t]."""
+    import torch
+
+    na, cout = dout.shape
+    cin = wt.shape[3]
+    d64, w64 = dout.double(), wt.double()
+    dx = torch.full((na, cin), float("nan"), dtype=torch.float64)
+    bm = tl.bm
+    for b in range(tl.grid[0]):
+        j = torch.arange(b * bm, (b + 1) * bm)
+        r = torch.arange(b * bm - 1, (b + 1) * bm + 1)
+        jin, rin = j < na, (r >= 0) & (r < na)
+        rc = r.clamp(0, na - 1)
+        m0 = ((j + 1 < na) & zdn[(j + 1).clamp(max=na - 1)])[:, None]
+        m2 = ((j >= 1) & (j - 1 < na) & zup[(j - 1).clamp(0, na - 1)])[:, None]
+        for c in range(tl.grid[1]):
+            cols = slice(c * tl.bn, (c + 1) * tl.bn)
+            acc = torch.zeros(bm, tl.bn, dtype=torch.float64)
+            for e in range(9):
+                src = rc if e == 4 else nbr9[e, rc].long()
+                ok = rin & (src >= 0) & (src < na)
+                sc = src.clamp(0, na - 1)
+                if dmask is not None:
+                    ok &= dmask[sc]
+                if not ok.any():
+                    continue
+                for k0 in range(0, cout, tl.bk):  # (the last may be short)
+                    g = d64[sc, k0:k0 + tl.bk] * ok[:, None]  # [bm + 2, bk]
+                    for t, (shift, m) in enumerate(((2, m0), (1, None),
+                                                    (0, m2))):
+                        a = g[shift:shift + bm]
+                        if m is not None:
+                            a = a * m
+                        acc += a @ w64[e, t, k0:k0 + g.shape[1], cols]
+            dx[j[jin], cols] = acc[jin]
+    return dx
+
+
+# MinkUNet34's zconv3 width pairs (Cin, Cout), each at its level
+ZCONV3_PAIRS = ((32, 32), (32, 64), (64, 64), (64, 128), (128, 128),
+                (128, 256), (256, 256), (384, 256), (192, 128), (128, 96),
+                (96, 96))
+# (kernel, Cin, Cout, with a mask) of the float64 blocking checks
+Z3_CASES = {"fwd 32->96": ("fwd", 32, 96, True),
+            "fwd 32->256": ("fwd", 32, 256, True),
+            "fwd 64->32 no mask": ("fwd", 64, 32, False),
+            "dx 96<-32": ("dx", 96, 32, True),
+            "dx 256<-64": ("dx", 256, 64, True),
+            "dx 192<-32 no mask": ("dx", 192, 32, False)}
+
+
+@pytest.mark.parametrize("case", list(Z3_CASES))
+def test_zconv3_tiles(case):
+    """KA's and KE's blocking (ops/zconv.py zconv3_tiles, which their C
+    launchers mirror): at the training plan's level row counts and at
+    every MinkUNet34 width pair, the column tile is all of the output width
+    up to 128 (two or three tiles only at 192, 256 and 384), K chunks of
+    whole 16-byte pieces, 128-row blocks where they make 4 waves of the
+    card (else 64), the grid covers the rows and two 128-row blocks fit in
+    an H100 SM's shared memory.  At 300 rows (row blocks that split z
+    columns, the last one partial) the kernel's blocking, run in float64
+    on seeded inputs with -1 and out-of-range sources, z flags at the
+    level's ends and a mask (or none), equals zconv3_plain /
+    zconv3_bwd_dx_plain, in both dtypes' tilings."""
+    import torch
+
+    from lidog_tpu_torch.ops.zconv import (SM_SMEM, SMS, dx_weights,
+                                           zconv3_bwd_dx_plain, zconv3_plain,
+                                           zconv3_tiles)
+
+    kernel, cin, cout, with_mask = Z3_CASES[case]
+    for rows in (491_520, 311_296, 102_400, 43_008, 17_408, 1):
+        for ci, co in ZCONV3_PAIRS:
+            for dt in (torch.bfloat16, torch.float32):
+                tl = zconv3_tiles(kernel, rows, ci, co, dt)
+                width = co if kernel == "fwd" else ci
+                bf16 = dt == torch.bfloat16
+                assert tl.bn == next(b for b in (128, 96, 64, 32)
+                                     if width % b == 0)
+                assert tl.bn == width or width in (192, 256, 384)
+                assert tl.bk % 8 == 0 and tl.bk * (2 if bf16 else 4) in (
+                    32, 64, 128)
+                blocks = -(-rows // 128) * (width // tl.bn)
+                assert tl.bm == (128 if blocks >= 4 * 2 * SMS else 64)
+                narrow_fwd = kernel == "fwd" and tl.bn <= 64
+                assert tl.threads == 2 * tl.bm
+                assert tl.per_sm * tl.threads == (1024 if narrow_fwd else 512)
+                # bf16: warps of 32 rows x BN/2; f32: threads of 8 rows x
+                # BN/16
+                assert tl.threads // 32 == tl.bm // 32 * 2
+                assert tl.threads == tl.bm // 8 * 16
+                assert tl.halo == (kernel == "dx") and tl.stages in (2, 3, 4)
+                assert (tl.stages == 2) == (bf16 and tl.bn == 128
+                                            or narrow_fwd)
+                assert tl.grid == (-(-rows // tl.bm), width // tl.bn)
+                assert tl.smem <= 227 * 1024
+                if tl.bm == 128 and not narrow_fwd:  # two blocks an SM
+                    assert 2 * (tl.smem + 1024 + 16) <= SM_SMEM
+    with pytest.raises(ValueError, match="multiples of 32"):
+        zconv3_tiles(kernel, 10, 48, 32)
+    rng = np.random.default_rng(sum(map(ord, case)))
+    na = 300
+    x = torch.from_numpy(rng.standard_normal((na, cin)).astype(np.float32))
+    dout = torch.from_numpy(rng.standard_normal((na, cout)).astype(np.float32))
+    nbr9 = torch.from_numpy(rng.integers(-1, na + 3, (9, na)).astype(np.int32))
+    nbr9[:, ::13] = -1  # whole rows without a neighbour
+    zup, zdn = _z_columns(rng, na)
+    mask = torch.from_numpy(rng.random(na) < 0.8) if with_mask else None
+    wf = torch.from_numpy((rng.standard_normal((9, 3 * cin, cout)) * 0.1)
+                          .astype(np.float32))
+    if kernel == "fwd":
+        want = zconv3_plain(x, nbr9, zup, zdn, wf, mask)
+    else:
+        want = zconv3_bwd_dx_plain(dout, nbr9, zup, zdn, wf, mask)
+    scale = float(want.abs().max())
+    for dt in (torch.bfloat16, torch.float32):
+        tl = zconv3_tiles(kernel, na, cin, cout, dt)
+        if kernel == "fwd":
+            got = _zconv3_fwd_tiled(x, nbr9, zup, zdn, wf, mask, tl)
+        else:
+            got = _zconv3_bwd_dx_tiled(dout, nbr9, zup, zdn, dx_weights(wf),
+                                       mask, tl)
+        np.testing.assert_allclose(got.numpy(), want.double().numpy(),
+                                   rtol=0, atol=1e-5 * scale,
+                                   err_msg=f"{case} {dt}")
 
 
 def test_kernel_wrappers_take_plain_versions_on_cpu():

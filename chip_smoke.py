@@ -15,9 +15,13 @@ no result line):
      inputs: the forward kernels (KA-KD) at shapes from a full-width
      serving plan of one synthetic scan, the backward kernels (KE-KH, and
      KB/KC on their transposed-weight backward uses) at shapes from the
-     training plan of 4 scans, KA at its L0 shapes too, and KA and KE at
+     training plan of 4 scans, KA at its L0 shapes too, KA and KE at
      every width pair of MinkUNet34's zconv3 calls at its level of the
-     training plan (ZCONV3_WIDTHS); max error relative to max|plain| against a
+     training plan (ZCONV3_WIDTHS), and KG, KH and KD at every (level,
+     width, residual, ReLU) form of its 62 norms (BN_FORMS) in bf16, at L0
+     96 in f32, at an odd width and with a mask of no row and of one row,
+     each twice bitwise equal, with the BN bound a step; max error
+     relative to max|plain| against a
      stated bound, kernel / plain times (CUDA events), and the kernel's
      least possible time on an H100 (bytes over 3.35 TB/s or operations
      over the peak rate of their type);
@@ -195,6 +199,25 @@ PER_STEP = {"zconv3_fwd": 46, "zconv_down_fwd": 8, "zconv_up_fwd": 8,
             "bn_act": 62, "zconv3_bwd_dx": 46, "zconv3_wgrad": 46,
             "zconv_down_wgrad": 4, "zconv_up_wgrad": 4, "bn_train_fwd": 62,
             "bn_train_bwd": 62, **PER_PLAN}
+# the (level, width, residual, ReLU, count) forms of MinkUNet34's 62
+# train-mode norms (models/minkunet.py): the stem's, each down conv's,
+# each block's norm1, shortcut norm (1x1, no ReLU) and norm2 (+ residual),
+# and each up conv's
+BN_FORMS = ((0, 32, False, True, 1), (1, 32, False, True, 3),
+            (1, 32, True, True, 2), (2, 32, False, True, 1),
+            (2, 64, False, True, 3), (2, 64, False, False, 1),
+            (2, 64, True, True, 3), (3, 64, False, True, 1),
+            (3, 128, False, True, 4), (3, 128, False, False, 1),
+            (3, 128, True, True, 4), (4, 128, False, True, 1),
+            (4, 256, False, True, 6), (4, 256, False, False, 1),
+            (4, 256, True, True, 6), (3, 256, False, True, 3),
+            (3, 256, False, False, 1), (3, 256, True, True, 2),
+            (2, 128, False, True, 3), (2, 128, False, False, 1),
+            (2, 128, True, True, 2), (1, 96, False, True, 3),
+            (1, 96, False, False, 1), (1, 96, True, True, 2),
+            (0, 96, False, True, 3), (0, 96, False, False, 1),
+            (0, 96, True, True, 2))
+BN_SRC = "lidog_tpu_torch/csrc/masked_bn.cu"
 # LiDOG (bench_lidog.py:26-34, 66-121): bound 50 m, BEV labels 167^2, one
 # decoder level (block8); per step the backbone's launches and KI, KJ once
 # per level
@@ -528,9 +551,7 @@ def kernel_checks(plan, gen):
     for dt in (bf, f32):
         x = feats(na, 96, l0.real, dt)
         res = feats(na, 96, l0.real, dt)
-        record("bn_act", "lidog_tpu_torch/ops/bn_act_triton.py",
-               "lidog_tpu/ops/norm.py:73 (MaskedBatchNorm eval) + "
-               "lidog_tpu/models/minkunet.py:252 (residual, ReLU)",
+        record("bn_act", BN_SRC, BN_ACT_REPLACES,
                lambda: norm.bn_act(x, mean, inv, bias, l0.real, res, True),
                lambda: norm.bn_act_plain(x, mean, inv, bias, l0.real, res,
                                          True),
@@ -674,57 +695,107 @@ def backward_kernel_checks(plan, gen):
                + 8 * 96 * 96 * esz, 2 * 96 * 96 * up_pairs,
                f"L1->L0 {na0} rows 96->96")
 
-    # KG / KH: train-mode BN at L0, width 96, with residual and ReLU (a
-    # block8 norm2)
-    c = 96
+    # KG, KH and KD at every norm form of MinkUNet34 (bf16) and at L0 96
+    # +res +relu in f32; an odd width (the scalar path) at L1; a mask with
+    # no row and one with a single row at L0 96
+    bound = 0.0
+    for lvl, c, has_res, relu, count in BN_FORMS:
+        b_ms = record_bn(ck, plan.level(lvl).real, c, has_res, relu, bf,
+                         f"L{lvl}")
+        bound += count * b_ms
+    print(f"[bn] bound a step (KG + KH, {sum(f[4] for f in BN_FORMS)} "
+          f"norms at the training plan's rows): {bound:.4f} ms", flush=True)
+    record_bn(ck, l0.real, 96, True, True, f32, "L0")
+    l1real = plan.level(1).real
+    for dt in (bf, f32):
+        record_bn(ck, l1real, 37, True, True, dt, "L1 odd width")
+    one = torch.zeros(na0, dtype=torch.bool, device=dev)
+    one[na0 // 2] = True
+    for real, tag in ((torch.zeros_like(one), "L0 no row"),
+                      (one, "L0 one row")):
+        record_bn(ck, real, 96, True, True, bf, tag)
+    return ck.rows
+
+
+BN_ACT_REPLACES = ("lidog_tpu/ops/norm.py:73 (MaskedBatchNorm eval) + "
+                   "lidog_tpu/models/minkunet.py:252 (residual, ReLU)")
+
+
+def record_bn(ck, real, c, has_res, relu, dt, tag):
+    """KG (bn_train_fwd, which ends in KD), KH (bn_train_bwd) and KD
+    (bn_act) against their plain versions on seeded rows (all of them,
+    masked or not), mask `real`, width c: y, mean, var_raw and inv, and
+    the running stats after the same number of updates (1e-4); dx,
+    dscale, dbias (and dres); y.  Each kernel twice on the same inputs
+    gives bitwise-equal outputs.  Returns the bound of KG + KH."""
+    import torch
+
+    from lidog_tpu_torch.ops import norm
+
+    gen, dev = ck.gen, real.device
+    n = real.shape[0]
     scale = (torch.rand(c, generator=gen) + 0.5).to(dev)
     bias = (torch.randn(c, generator=gen) * 0.1).to(dev)
     stats0 = [(torch.randn(c, generator=gen) * 0.1).to(dev),
               (torch.rand(c, generator=gen) + 0.5).to(dev)]
-    for dt in (bf, f32):
-        x = feats(na0, c, l0.real, dt)
-        res = feats(na0, c, l0.real, dt)
-        esz = x.element_size()
-        run_k = [t.clone() for t in stats0]
-        run_p = [t.clone() for t in stats0]
+    # values on every row: the kernels read masked rows too
+    every = torch.ones_like(real)
+    x = ck.feats(n, c, every, dt)
+    res = ck.feats(n, c, every, dt) if has_res else None
+    dy = ck.feats(n, c, every, dt)
+    esz = x.element_size()
+    shape = (f"{tag} {n} rows {c}" + (" +res" if has_res else "")
+             + (" +relu" if relu else ""))
+    run_k = [t.clone() for t in stats0]
+    run_p = [t.clone() for t in stats0]
 
-        def kg(run):
-            y, mean, var_raw, inv, _ = norm.bn_train_fwd(
-                x, l0.real, scale, bias, *run, 0.1, 1e-5, res, True)
-            return y, mean, var_raw, inv
+    def kg(run, fn=norm.bn_train_fwd):
+        return fn(x, real, scale, bias, *run, 0.1, 1e-5, res, relu)[:4]
 
-        def kg_plain(run):
-            y, mean, var_raw, inv, _ = norm.bn_train_fwd_plain(
-                x, l0.real, scale, bias, *run, 0.1, 1e-5, res, True)
-            return y, mean, var_raw, inv
-
-        record("bn_train_fwd", "lidog_tpu_torch/ops/bn_act_triton.py",
-               "lidog_tpu/ops/norm.py:24 (_masked_moments) + :61-76 (train "
-               "update, normalise)",
-               lambda: kg(run_k), lambda: kg_plain(run_p), dt,
-               nbytes(x, res, l0.real, scale, bias, *stats0)
-               + na0 * c * esz, 10 * na0 * c, f"L0 {na0} rows {c} +res +relu",
-               mma=False)
-        # the running stats took the same number of updates on each side
-        for a, b in zip(run_k, run_p):
-            if not rel_err(a, b) <= 1e-4:
-                raise AssertionError(f"bn_train_fwd running stats {dt}: "
-                                     f"rel err {rel_err(a, b)}")
-        y, mean, var_raw, inv, count = norm.bn_train_fwd_plain(
-            x, l0.real, scale, bias, *[t.clone() for t in stats0], 0.1,
-            1e-5, res, True)
-        dy = feats(na0, c, ones0, dt)
-        args = (dy, y, x, l0.real, scale, mean, var_raw, inv, count, 1e-5,
-                True, True)
-        record("bn_train_bwd", "lidog_tpu_torch/ops/bn_act_triton.py",
-               "autodiff of lidog_tpu/ops/norm.py:24-76 with the residual "
-               "and ReLU of lidog_tpu/models/minkunet.py:252",
-               lambda: norm.bn_train_bwd(*args),
-               lambda: norm.bn_train_bwd_plain(*args), dt,
-               nbytes(dy, y, x, l0.real, scale, mean, var_raw, inv)
-               + 2 * na0 * c * esz, 14 * na0 * c,
-               f"L0 {na0} rows {c} +res +relu", mma=False)
-    return ck.rows
+    vecs = nbytes(real, scale, bias, *stats0) + 3 * c * 4
+    ck.record("bn_train_fwd", BN_SRC,
+              "lidog_tpu/ops/norm.py:24 (_masked_moments) + :61-76 (train "
+              "update, normalise)",
+              lambda: kg(run_k), lambda: kg(run_p, norm.bn_train_fwd_plain),
+              dt, nbytes(x) * (3 if has_res else 2) + vecs, 10 * n * c, shape,
+              mma=False)
+    b_kg = ck.rows[-1]["bound_ms"]
+    # the running stats took the same number of updates on each side
+    for a, b in zip(run_k, run_p):
+        if not rel_err(a, b) <= 1e-4:
+            raise AssertionError(f"bn_train_fwd running stats {shape}: "
+                                 f"rel err {rel_err(a, b)}")
+    twice = [kg([t.clone() for t in stats0]) for _ in range(2)]
+    y, mean, var_raw, inv, count = norm.bn_train_fwd_plain(
+        x, real, scale, bias, *[t.clone() for t in stats0], 0.1, 1e-5, res,
+        relu)
+    args = (dy, y, x, real, scale, mean, var_raw, inv, count, 1e-5, has_res,
+            relu)
+    n_io = 3 + relu + has_res  # dy, x, dx; y (ReLU), dres (residual)
+    ck.record("bn_train_bwd", BN_SRC,
+              "autodiff of lidog_tpu/ops/norm.py:24-76 with the residual "
+              "and ReLU of lidog_tpu/models/minkunet.py:252",
+              lambda: tuple(t for t in norm.bn_train_bwd(*args)
+                            if t is not None),
+              lambda: tuple(t for t in norm.bn_train_bwd_plain(*args)
+                            if t is not None),
+              dt, n_io * n * c * esz + nbytes(real) + 6 * c * 4, 14 * n * c,
+              shape, mma=False)
+    b_kh = ck.rows[-1]["bound_ms"]
+    twice += [tuple(t for t in norm.bn_train_bwd(*args) if t is not None)
+              for _ in range(2)]
+    ck.record("bn_act", BN_SRC, BN_ACT_REPLACES,
+              lambda: norm.bn_act(x, mean, inv, bias, real, res, relu),
+              lambda: norm.bn_act_plain(x, mean, inv, bias, real, res, relu),
+              dt, nbytes(x) * (3 if has_res else 2) + nbytes(real)
+              + 3 * c * 4, 5 * n * c, shape, mma=False)
+    twice += [(norm.bn_act(x, mean, inv, bias, real, res, relu),)
+              for _ in range(2)]
+    for first, second in zip(twice[::2], twice[1::2]):
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"masked BN {shape}: two calls on the same "
+                                 "input differ")
+    return b_kg + b_kh
 
 
 def variant_kernel_checks(plan, gen):
@@ -2806,7 +2877,7 @@ def main():
     dev = torch.device("cuda")
 
     build_s = _cuda.build()
-    import triton  # noqa: F401  (the norm kernels' compiler)
+    import triton  # noqa: F401  (KK-KN's compiler)
 
     print(f"[build] nvcc x{len(_cuda.SOURCES)} in parallel: {build_s:.1f} s",
           flush=True)

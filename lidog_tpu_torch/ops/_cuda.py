@@ -21,13 +21,15 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lidog_tpu_torch"
 SOURCES = ("zconv3_fwd", "zconv_down_fwd", "zconv_up_fwd", "zconv3_bwd_dx",
            "zconv3_wgrad", "zconv_wgrad", "bev_scatter_max", "zconv_full",
            "stem_feat125", "zseg_sweeps", "zseg_tables", "sparse_conv",
-           "voxelize", "label_gather", "window_gather", "window_copy")
+           "voxelize", "label_gather", "window_gather", "window_copy",
+           "masked_bn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C signatures: every pointer and the stream are void*, sizes are int (a
-# 64-bit key is long long).
+# 64-bit key is long long), scalars of the arithmetic float.
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 _ARGTYPES = {
     "zconv3_fwd": [_P] * 7 + [_I] * 4 + [_P],
     "zconv_down_fwd": [_P] * 6 + [_I] * 5 + [_P],
@@ -57,6 +59,10 @@ _ARGTYPES = {
     "window_lane_gather": [_P] * 3 + [_I] * 4 + [_P],
     "lane_gather_sum": [_P] * 3 + [_I] * 2 + [_P],
     "window_copy": [_P] * 3 + [_I] * 4 + [_P],
+    "bn_act": [_P] * 7 + [_I] * 10 + [_P],
+    "bn_train_stats": [_P] * 13 + [_I] * 8 + [_F, _F, _I, _P],
+    "bn_bwd_reduce": [_P] * 17 + [_I] * 9 + [_F, _I, _P],
+    "bn_bwd_apply": [_P] * 8 + [_I] * 9 + [_P],
 }
 # the source (library) of each C function that is not named after its own
 _SOURCE_OF = {"zconv_down_wgrad": "zconv_wgrad",
@@ -72,7 +78,9 @@ _SOURCE_OF = {"zconv_down_wgrad": "zconv_wgrad",
               "sparse_conv_wgrad": "sparse_conv",
               "window_row_gather": "window_gather",
               "window_lane_gather": "window_gather",
-              "lane_gather_sum": "window_gather"}
+              "lane_gather_sum": "window_gather",
+              "bn_act": "masked_bn", "bn_train_stats": "masked_bn",
+              "bn_bwd_reduce": "masked_bn", "bn_bwd_apply": "masked_bn"}
 
 _libs = {}
 

@@ -25,22 +25,40 @@ parameters and no running statistics, so eval mode is the same pass:
 
 Its gradient is JAX's autodiff of the same expression.
 
-Five hand-written Triton kernels (ops/bn_act_triton.py): KD `bn_act`
+Five hand-written kernels: in CUDA C++ (csrc/masked_bn.cu) KD `bn_act`
 (the fused normalising pass), KG `bn_train_fwd` (moments and running
-update, then KD), KH `bn_train_bwd`, KK `instance_norm_fwd` and KL
+update in one launch, then KD) and KH `bn_train_bwd` (two launches); in
+Triton (ops/bn_act_triton.py) KK `instance_norm_fwd` and KL
 `instance_norm_bwd`.  Each `*_plain` function is the plain PyTorch
 version its wrapper takes for a tensor on the CPU.
 """
 
 from __future__ import annotations
 
+from collections import namedtuple
+
 import torch
 from torch import nn
+
+from lidog_tpu_torch.ops import _cuda
+from lidog_tpu_torch.ops._wrap import DTYPES, ptr
 
 LAUNCHES = {"bn_act": 0, "bn_train_fwd": 0, "bn_train_bwd": 0,
             "instance_norm_fwd": 0, "instance_norm_bwd": 0}
 
-# KG/KH column reductions: about eight programs per SM of an H100
+# KD, KG and KH (csrc/masked_bn.cu): threads a block at most and the
+# blocks a launch aims at on an H100's 132 SMs, for the two reductions
+# (one large block a SM: one wave at their register counts, and the block
+# that finishes last reads every block's partials) and for the streaming
+# passes (KD, KH's apply: small blocks, several a SM, each at least
+# BN_APPLY_STEPS steps, the rows a thread loads at once); the thread caps
+# are the source's MAX_THREADS and MAX_APPLY_THREADS
+BN_REDUCE_THREADS = 512
+BN_REDUCE_BLOCKS = 132
+BN_APPLY_THREADS = 128
+BN_APPLY_BLOCKS = 16 * 132
+BN_APPLY_STEPS = 4
+# KM's column reductions (losses/losses.py): about eight programs per SM
 _REDUCE_PROGRAMS = 8 * 132
 # KK/KL segmented reductions: two programs per SM, so that the [P, S, C]
 # partials stay small against the rows they sum
@@ -59,17 +77,17 @@ def bn_act_plain(x, mean, inv, bias, mask, res=None, relu=False):
 
 
 def bn_act(x, mean, inv, bias, mask, res=None, relu=False):
-    """KD: the fused pass as one Triton kernel (the plain version for a
+    """KD (csrc/masked_bn.cu bn_act, one launch; the plain version for a
     CPU tensor).
 
     Replaces lidog_tpu/ops/norm.py:73-76 (eval) with the ReLU and residual
     add of lidog_tpu/models/minkunet.py:213-214,252.  Bound on an H100:
     bytes (read x and res, write y: 2-3 passes over [N, C] in the compute
     dtype; the per-channel vectors stay in cache), no tensor-core work.
-    Design: one program per block of rows x all channels (the channel
-    count padded to a power of two, masked), the f32 affine in registers,
-    the same rounding points as JAX (round the affine result, then add the
-    residual in the compute dtype).
+    Design: each thread owns one 16-byte group of channels (bn_split) and
+    walks a block's contiguous run of rows; the f32 affine in registers,
+    the same rounding points as JAX (round the affine result, mask, then
+    add the residual in f32 and round once at the store).
     """
     if x.device.type == "cpu":
         return bn_act_plain(x, mean, inv, bias, mask, res, relu)
@@ -78,17 +96,11 @@ def bn_act(x, mean, inv, bias, mask, res=None, relu=False):
     out = torch.empty_like(x)
     if n == 0:
         return out
-    import triton
-
-    from lidog_tpu_torch.ops.bn_act_triton import bn_act_kernel
-
-    block_c = triton.next_power_of_2(c)
-    block_r = max(1, 4096 // block_c)
-    bn_act_kernel[(triton.cdiv(n, block_r),)](
-        x, mean, inv, bias, mask.view(torch.uint8),
-        x if res is None else res, out, n, c,
-        HAS_RES=res is not None, RELU=relu, BLOCK_R=block_r,
-        BLOCK_C=block_c, num_warps=4)
+    sp = bn_split(n, c, x.element_size(),
+                  _aligned(x, res, out, mean, inv, bias))
+    _cuda.call("bn_act", x.data_ptr(), mean.data_ptr(), inv.data_ptr(),
+               bias.data_ptr(), mask.data_ptr(), ptr(res), out.data_ptr(), n,
+               c, *_split_args(sp), int(relu), DTYPES[x.dtype])
     LAUNCHES["bn_act"] += 1
     return out
 
@@ -163,12 +175,94 @@ def check_rows(name, x, mask, res, vecs):
 
 def reduce_split(n, block_r, programs=_REDUCE_PROGRAMS):
     """Rows per program (a power of two, a multiple of block_r) and the
-    program count of a column reduction over about `programs` slabs."""
+    program count of a column reduction over about `programs` slabs (KK,
+    KL, KM)."""
     import triton
 
     rows = max(block_r, triton.next_power_of_2(
         triton.cdiv(max(n, 1), programs)))
     return rows, max(1, triton.cdiv(n, rows))
+
+
+BnSplit = namedtuple("BnSplit",
+                     "vec groups gpb lanes threads steps blocks chunks")
+
+
+def bn_split(n, c, element_size, aligned=True, reduce=False):
+    """The split of KD, KG and KH (csrc/masked_bn.cu) over [n, c] rows of
+    element_size bytes, for a reduction (KG's moments, KH's sums) or a
+    streaming pass: each thread owns `vec` channels (16 bytes when a row
+    is a multiple of 16 bytes and the tensors and per-channel vectors are
+    16-byte aligned, else 1); a block covers `gpb` of the row's `groups`
+    channel groups (`chunks` such chunks, more than one only past a
+    block's threads) and `lanes` rows a step (a power of two, threads =
+    gpb * lanes <= BN_REDUCE_THREADS or BN_APPLY_THREADS), `steps` steps
+    of one contiguous run of rows (at least BN_APPLY_STEPS in a streaming
+    pass); about BN_REDUCE_BLOCKS or BN_APPLY_BLOCKS such runs, or fewer
+    (never an empty run, one when n is 0)."""
+    cap = BN_REDUCE_THREADS if reduce else BN_APPLY_THREADS
+    blocks = BN_REDUCE_BLOCKS if reduce else BN_APPLY_BLOCKS
+    vec = 16 // element_size if aligned and (c * element_size) % 16 == 0 \
+        else 1
+    groups = c // vec
+    gpb = min(groups, cap)
+    chunks = -(-groups // gpb)
+    lanes = 1
+    while gpb * lanes * 2 <= cap:
+        lanes *= 2
+    total = -(-n // lanes)  # row steps
+    steps = max(1, -(-total // max(1, min(blocks, total))))
+    if not reduce:
+        steps = max(steps, BN_APPLY_STEPS)
+    return BnSplit(vec, groups, gpb, lanes, gpb * lanes, steps,
+                   max(1, -(-total // steps)), chunks)
+
+
+def _split_args(sp):
+    return sp.vec, sp.gpb, sp.lanes, sp.steps, sp.blocks, sp.chunks
+
+
+def _aligned(*tensors):
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
+_TICKETS = {}
+
+
+def _ticket(device):
+    """The int32 ticket of KG's and KH's last-block finish on `device`:
+    zeroed once here, left at 0 by every launch (one stream)."""
+    t = _TICKETS.get(device)
+    if t is None:
+        t = _TICKETS[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t
+
+
+def _per_channel(c):
+    """Offsets of per-channel vectors in a workspace: c rounded up to 4
+    floats, so that each vector and what follows starts 16-byte aligned."""
+    return -(-c // 4) * 4
+
+
+def _bn_train_stats(x, mask, scale, run_mean, run_var, momentum, eps):
+    """KG's moments (csrc/masked_bn.cu bn_train_stats, one launch): updates
+    run_mean and run_var in place and returns (mean, var_raw, inv, count)
+    as bn_train_fwd_plain does, views of one workspace that also holds the
+    blocks' partials."""
+    n, c = x.shape
+    sp = bn_split(n, c, x.element_size(), _aligned(x), reduce=True)
+    cp = _per_channel(c)
+    ws = torch.empty(3 * cp + 4 + sp.blocks * (2 * c + 1),
+                     dtype=torch.float32, device=x.device)
+    base, part = ws.data_ptr(), 3 * cp + 4
+    _cuda.call("bn_train_stats", x.data_ptr(), mask.data_ptr(),
+               scale.data_ptr(), run_mean.data_ptr(), run_var.data_ptr(),
+               base + 4 * part, base + 4 * (part + sp.blocks * c),
+               base + 4 * (part + 2 * sp.blocks * c), base, base + 4 * cp,
+               base + 8 * cp, base + 12 * cp, _ticket(x.device).data_ptr(),
+               n, c, *_split_args(sp), float(momentum), float(eps),
+               DTYPES[x.dtype])
+    return ws[:c], ws[cp:cp + c], ws[2 * cp:2 * cp + c], ws[3 * cp:3 * cp + 1]
 
 
 def bn_train_fwd(x, mask, scale, bias, run_mean, run_var, momentum, eps,
@@ -178,45 +272,50 @@ def bn_train_fwd(x, mask, scale, bias, run_mean, run_var, momentum, eps,
     inv, count) as bn_train_fwd_plain.
 
     Replaces lidog_tpu/ops/norm.py:24-38 (_masked_moments) and :61-76.
-    Bound on an H100: bytes (x read twice: once for the moments, once by
-    the normalising pass; res read and y written once), no tensor-core
-    work.  Design: (1) one program per contiguous slab of rows sums the
-    masked values, their squares and the mask into f32 partials per
-    program, so the result does not depend on which program runs first;
-    (2) one program per block of channels sums the partials in order,
-    applies JAX's clamps, updates the running stats in place and writes
-    mean, var_raw and inv; (3) KD (bn_act) normalises.
+    Bound on an H100: bytes (x, res read and y written once; the kernels
+    read x twice), no tensor-core work.  Design (csrc/masked_bn.cu): (1)
+    bn_train_stats: each block sums the masked values, their squares and
+    the mask over its run of rows into f32 partials; the block that
+    finishes last sums the partials in block order, applies JAX's clamps,
+    updates the running stats in place and writes mean, var_raw, inv and
+    count, so the result does not depend on which block runs first; (2)
+    KD (bn_act) normalises.  Two launches a call.
     """
     if x.device.type == "cpu":
         return bn_train_fwd_plain(x, mask, scale, bias, run_mean, run_var,
                                   momentum, eps, res, relu)
     check_rows("bn_train_fwd", x, mask, res,
-                (scale, bias, run_mean, run_var))
-    import triton
-
-    from lidog_tpu_torch.ops.bn_act_triton import (
-        bn_stats_kernel, bn_train_finalize_kernel)
-
-    n, c = x.shape
-    block_c = triton.next_power_of_2(c)
-    block_r = max(1, 4096 // block_c)
-    rows, progs = reduce_split(n, block_r)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    psum, psq = torch.empty(progs, c, **f32), torch.empty(progs, c, **f32)
-    pcnt = torch.empty(progs, **f32)
-    bn_stats_kernel[(progs,)](x, mask.view(torch.uint8), psum, psq, pcnt, n,
-                              c, ROWS=rows, BLOCK_R=block_r, BLOCK_C=block_c,
-                              num_warps=4)
-    mean, var_raw, inv = (torch.empty(c, **f32) for _ in range(3))
-    count = torch.empty(1, **f32)
-    fin_c = min(block_c, 128)
-    bn_train_finalize_kernel[(triton.cdiv(c, fin_c),)](
-        psum, psq, pcnt, progs, scale, run_mean, run_var, mean, var_raw, inv,
-        count, c, float(momentum), float(eps), BLOCK_P=4096 // fin_c,
-        BLOCK_C=fin_c, num_warps=4)
+               (scale, bias, run_mean, run_var))
+    mean, var_raw, inv, count = _bn_train_stats(x, mask, scale, run_mean,
+                                                run_var, momentum, eps)
     LAUNCHES["bn_train_fwd"] += 1
     y = bn_act(x, mean, inv, bias, mask, res, relu)
     return y, mean, var_raw, inv, count
+
+
+def _bn_bwd_reduce(dy, y, x, mask, scale, mean, var_raw, inv, count, eps,
+                   has_res, relu):
+    """KH's sums (csrc/masked_bn.cu bn_bwd_reduce, one launch): returns
+    (dscale, dbias, a, b, dres or None), the per-channel vectors views of
+    one workspace; dres = g (dy through the ReLU gate) when has_res."""
+    n, c = x.shape
+    dres = torch.empty_like(x) if has_res else None
+    sp = bn_split(n, c, x.element_size(), _aligned(dy, y, x, dres, mean),
+                  reduce=True)
+    cp = _per_channel(c)
+    ws = torch.empty(4 * cp + 2 * sp.blocks * c, dtype=torch.float32,
+                     device=x.device)
+    base, part = ws.data_ptr(), 4 * cp
+    _cuda.call("bn_bwd_reduce", dy.data_ptr(), ptr(y) if relu else None,
+               x.data_ptr(), mask.data_ptr(), scale.data_ptr(),
+               mean.data_ptr(), var_raw.data_ptr(), inv.data_ptr(),
+               count.data_ptr(), ptr(dres), base + 4 * part,
+               base + 4 * (part + sp.blocks * c), base, base + 4 * cp,
+               base + 8 * cp, base + 12 * cp, _ticket(x.device).data_ptr(),
+               n, c, *_split_args(sp), int(relu), float(eps),
+               DTYPES[x.dtype])
+    return (ws[:c], ws[cp:cp + c], ws[2 * cp:2 * cp + c],
+            ws[3 * cp:3 * cp + c], dres)
 
 
 def bn_train_bwd(dy, y, x, mask, scale, mean, var_raw, inv, count, eps,
@@ -226,12 +325,14 @@ def bn_train_bwd(dy, y, x, mask, scale, mean, var_raw, inv, count, eps,
 
     Replaces JAX's autodiff of lidog_tpu/ops/norm.py:24-76 with the ReLU
     and residual add after it (JAX has no custom VJP here).  Bound on an
-    H100: bytes (dy, y and x read twice, dx and dres written once).
-    Design: (1) per-program f32 partials of sum(g) and sum(g * (x -
-    mean)) over masked rows, g = dy through the ReLU gate; (2) per channel
-    block, the partials summed in order into dbias, dscale and the two
-    coefficients of the moment term; (3) one elementwise pass writes dres
-    = g and dx = round(g * inv) + round(mask * (a + b * x)).
+    H100: bytes (dy, y and x read, dx and dres written once).  Design
+    (csrc/masked_bn.cu): (1) bn_bwd_reduce: per-block f32 partials of
+    sum(g * m) and sum(g * m * (x - mean)), g = dy through the ReLU gate
+    (written as dres when there is a residual); the block that finishes
+    last sums them in block order into dbias, dscale and the two
+    coefficients of the moment term; (2) bn_bwd_apply writes dx =
+    round(g * m * inv) + round(m * (a + b * x)), reading g from dres when
+    there is one.  Two launches a call.
     """
     if dy.device.type == "cpu":
         return bn_train_bwd_plain(dy, y, x, mask, scale, mean, var_raw, inv,
@@ -239,34 +340,23 @@ def bn_train_bwd(dy, y, x, mask, scale, mean, var_raw, inv, count, eps,
     check_rows("bn_train_bwd", x, mask, dy, (scale, mean, var_raw, inv))
     if relu:
         check_rows("bn_train_bwd", x, mask, y, ())
-    import triton
-
-    from lidog_tpu_torch.ops.bn_act_triton import (
-        bn_bwd_apply_kernel, bn_bwd_finalize_kernel, bn_bwd_reduce_kernel)
-
+    if count.dtype != torch.float32 or tuple(count.shape) != (1,) \
+            or count.device != x.device:
+        raise ValueError(f"bn_train_bwd: count must be float32 [1] on "
+                         f"{x.device}")
+    dscale, dbias, a, b, dres = _bn_bwd_reduce(
+        dy, y, x, mask, scale, mean, var_raw, inv, count, eps, has_res, relu)
     n, c = x.shape
-    block_c = triton.next_power_of_2(c)
-    block_r = max(1, 4096 // block_c)
-    rows, progs = reduce_split(n, block_r)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    ps1, ps2 = torch.empty(progs, c, **f32), torch.empty(progs, c, **f32)
-    y_arg = y if relu else x
-    bn_bwd_reduce_kernel[(progs,)](dy, y_arg, x, mask.view(torch.uint8), mean,
-                                   ps1, ps2, n, c, RELU=relu, ROWS=rows,
-                                   BLOCK_R=block_r, BLOCK_C=block_c,
-                                   num_warps=4)
-    dscale, dbias, a, b = (torch.empty(c, **f32) for _ in range(4))
-    fin_c = min(block_c, 128)
-    bn_bwd_finalize_kernel[(triton.cdiv(c, fin_c),)](
-        ps1, ps2, progs, scale, mean, var_raw, inv, count, dscale, dbias, a,
-        b, c, float(eps), BLOCK_P=4096 // fin_c, BLOCK_C=fin_c, num_warps=4)
     dx = torch.empty_like(x)
-    dres = torch.empty_like(x) if has_res else None
     if n:
-        bn_bwd_apply_kernel[(triton.cdiv(n, block_r),)](
-            dy, y_arg, x, mask.view(torch.uint8), inv, a, b, dx,
-            dx if dres is None else dres, n, c, HAS_RES=has_res, RELU=relu,
-            BLOCK_R=block_r, BLOCK_C=block_c, num_warps=4)
+        # g from dres (already through the gate), or from dy and y
+        g, gate = (dres, None) if has_res else (dy, y if relu else None)
+        sp = bn_split(n, c, x.element_size(),
+                      _aligned(g, gate, x, dx, inv, a, b))
+        _cuda.call("bn_bwd_apply", g.data_ptr(), ptr(gate), x.data_ptr(),
+                   mask.data_ptr(), inv.data_ptr(), a.data_ptr(),
+                   b.data_ptr(), dx.data_ptr(), n, c, *_split_args(sp),
+                   DTYPES[x.dtype])
     LAUNCHES["bn_train_bwd"] += 1
     return dx, dscale, dbias, dres
 

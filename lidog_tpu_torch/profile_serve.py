@@ -51,8 +51,7 @@ _GROUPS = (("zconv3_fwd_kernel", "zconv3_fwd"),
            ("wgrad_sum_kernel", "wgrad sum pass (KF, LB)"),
            ("NbrMap", "sparse_conv_fwd"), ("TransposeWMap", "sparse_conv_wgrad"),
            ("vox_", "voxelize"), ("label_gather_kernel", "label_gather"),
-           ("bn_stats_kernel", "bn_train_fwd"),
-           ("bn_train_finalize_kernel", "bn_train_fwd"),
+           ("bn_moments_kernel", "bn_train_fwd"),
            ("bn_bwd_", "bn_train_bwd"),
            ("scatter_max_bwd", "bev_scatter_max_bwd"),
            ("scatter_max_bf16", "bev_scatter_max"),

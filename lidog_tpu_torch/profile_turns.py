@@ -14,7 +14,12 @@ chip_smoke's training-plan shapes, the zconv3 forward and input gradient
 (KA, KE) at the training plan's L0 shapes and at every zconv3 width pair
 of MinkUNet34 at its level (bf16), KA also at the serving plan's shapes,
 KB and KC at their forward (serving) and transposed-weight (training)
-shapes, and the voxelizer (LC) at its serving and training shapes, with
+shapes, the masked BatchNorm's KG, KH and KD at every (level, width,
+residual, ReLU) form of MinkUNet34's norms (chip_smoke's BN_FORMS; bf16,
+and L0 96 in f32) on the training plan and KD on the serving plan, also
+as device ms (torch.profiler) with their sums over a step's and a
+request's 62 norms and the device split of KG's and KH's kernels at L0
+96, and the voxelizer (LC) at its serving and training shapes, with
 CUDA events (ms per call, mean of 10 after a warm-up, as chip_smoke's
 `cuda_ms`), on the seeded inputs of chip_smoke and with each checkout's
 own kernels, and prints one JSON line; `stages`
@@ -28,6 +33,7 @@ line.  Needs a CUDA card; prints the card's name and power limit first.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import subprocess
 import sys
@@ -40,7 +46,7 @@ import torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
 from lidog_tpu_torch.core import voxelize as V
-from lidog_tpu_torch.ops import _cuda, zconv
+from lidog_tpu_torch.ops import _cuda, norm, zconv
 
 _cuda.build()
 dev = torch.device("cuda")
@@ -138,6 +144,81 @@ for dt in (bf, f32):
     out[f"zconv_up_fwd serving L1->L0 96->96 {sfx}"] = cs.cuda_ms(
         lambda: zconv.zconv_up_fwd(xc, splan.kmaps["parent_l0"],
                                    splan.kmaps["off_l0"], u8, s0.real))
+# the masked BatchNorm at every norm form of MinkUNet34 (bf16; chip_smoke's
+# BN_FORMS, passed in as JSON): KG, KH and KD on the training plan's rows
+# (CUDA events, and device ms by the profiler), KD on the serving plan's
+# rows (device ms), L0 96 +res +relu also in f32, the sums over a step's
+# and a request's 62 norms, and the device split of KG's and KH's kernels
+# at L0 96 +res +relu
+from lidog_tpu_torch.profile_serve import kernel_events
+
+
+def device_ms(fn, calls=5, split=False):
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ev = kernel_events(prof)
+    if split:
+        return {name[:60]: [us / calls / 1e3, k // calls]
+                for name, us, k in ev}
+    return sum(us for _, us, _ in ev) / calls / 1e3
+
+
+def bn_inputs(L, c, has_res, relu, dt):
+    n = L.coords.shape[0]
+    every = torch.ones(n, dtype=torch.bool, device=dev)
+    x, dy = ck.feats(n, c, every, dt), ck.feats(n, c, every, dt)
+    res = ck.feats(n, c, every, dt) if has_res else None
+    scale = torch.rand(c, generator=gen).to(dev) + 0.5
+    bias = torch.zeros(c, device=dev)
+    run = [torch.zeros(c, device=dev), torch.ones(c, device=dev)]
+    y, mean, var_raw, inv, cnt = norm.bn_train_fwd_plain(
+        x, L.real, scale, bias, *[t.clone() for t in run], 0.1, 1e-5, res,
+        relu)
+    bwd = (dy, y, x, L.real, scale, mean, var_raw, inv, cnt, 1e-5, has_res,
+           relu)
+    return {"bn_train_fwd": lambda: norm.bn_train_fwd(
+                x, L.real, scale, bias, *run, 0.1, 1e-5, res, relu),
+            "bn_train_bwd": lambda: norm.bn_train_bwd(*bwd),
+            "bn_act": lambda: norm.bn_act(x, mean, inv, bias, L.real, res,
+                                          relu)}
+
+
+sums = {"bn_train_fwd + bn_train_bwd a step (62 norms), device": 0.0,
+        "bn_act a step (in bn_train_fwd), device": 0.0,
+        "bn_act a request (62 norms), device": 0.0}
+forms = [tuple(f) for f in json.loads(sys.argv[1])]
+for lvl, c, has_res, relu, count, dt in [f + (bf,) for f in forms] + [
+        (0, 96, True, True, 0, f32)]:
+    calls = bn_inputs(plan.level(lvl), c, has_res, relu, dt)
+    shape = (f"L{lvl} {plan.level(lvl).coords.shape[0]} rows {c}"
+             + (" +res" if has_res else "") + (" +relu" if relu else "")
+             + f" {str(dt)[6:]}")
+    for name, fn in calls.items():
+        out[f"{name} {shape}"] = cs.cuda_ms(fn)
+        out[f"{name} {shape} device"] = device_ms(fn)
+    sums["bn_train_fwd + bn_train_bwd a step (62 norms), device"] += count * (
+        out[f"bn_train_fwd {shape} device"]
+        + out[f"bn_train_bwd {shape} device"])
+    sums["bn_act a step (in bn_train_fwd), device"] += count * out[
+        f"bn_act {shape} device"]
+    if lvl == 0 and c == 96 and has_res:
+        for name in ("bn_train_fwd", "bn_train_bwd"):
+            for kname, v in device_ms(calls[name], split=True).items():
+                out[f"{name} {shape} device: {kname}"] = v
+    if count:
+        fn = bn_inputs(splan.level(lvl), c, has_res, relu, dt)["bn_act"]
+        sshape = f"serving L{lvl} {splan.level(lvl).coords.shape[0]} rows " \
+            + shape.split(" rows ", 1)[1]
+        out[f"bn_act {sshape} device"] = device_ms(fn)
+        sums["bn_act a request (62 norms), device"] += count * out[
+            f"bn_act {sshape} device"]
+out.update(sums)
 kw = ("batch_size" in inspect.signature(V.voxelize_cells).parameters)
 for name, pts, bsz, cap in (
         ("serve", cs.scan(cs.POINTS, cs.SEED)[0], 1, cs.PER_SCAN),
@@ -219,9 +300,13 @@ def main(argv=None):
     print(card_line(), flush=True)
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     other = os.path.abspath(args.other)
-    if args.what in ("kernels", "stages"):
-        cmd = [sys.executable, "-c",
-               _KERNELS if args.what == "kernels" else _STAGES]
+    if args.what == "kernels":
+        sys.path.insert(0, here)
+        from chip_smoke import BN_FORMS
+
+        cmd = [sys.executable, "-c", _KERNELS, json.dumps(BN_FORMS)]
+    elif args.what == "stages":
+        cmd = [sys.executable, "-c", _STAGES]
     else:
         cmd = [sys.executable, "-m", f"lidog_tpu_torch.profile_{args.what}",
                *args.extra]

@@ -520,6 +520,225 @@ def test_batchnorm_train_match_jax(dtype, request):
             assert err <= tol, (with_res, relu, k, err)
 
 
+def _bn_blocked_sums(vals, sp, order):
+    """The f32 column sums of KG's and KH's reductions (csrc/masked_bn.cu)
+    over vals [n, k] as blocked by the split sp: each block, in the finish
+    order `order`, sums its run of lanes * steps rows per lane (lane j
+    takes rows j, j + lanes, ... in order), then over its lanes by the
+    pairwise tree (lane j adds lane j + h, h = lanes / 2 ... 1), into its
+    partial row, and draws a ticket; the block that draws the last ticket
+    sums the partial rows by the same lane walk and tree in block order.
+    Returns the sums and how many blocks ran that finish."""
+    rows = sp.lanes * sp.steps
+    parts = np.zeros((sp.blocks, vals.shape[1]), np.float32)
+    written = np.zeros(sp.blocks, bool)
+
+    def lanes_tree(v):
+        acc = np.zeros((sp.lanes, v.shape[1]), np.float32)
+        for i in range(0, len(v), sp.lanes):
+            step = v[i:i + sp.lanes]
+            acc[:len(step)] += step
+        h = sp.lanes // 2
+        while h:
+            acc[:h] += acc[h:2 * h]
+            h //= 2
+        return acc[0]
+
+    ticket, finishes, out = 0, 0, None
+    for b in order:
+        parts[b] = lanes_tree(vals[b * rows:(b + 1) * rows])
+        written[b] = True
+        ticket += 1
+        if ticket == sp.blocks:  # the last ticket: every partial is written
+            assert written.all()
+            out = lanes_tree(parts)
+            finishes += 1
+    return out, finishes
+
+
+def _bn_train_model(x, m, scale, run_mean, run_var, momentum, eps, sp,
+                    order):
+    """KG's moments (bn_train_stats) in numpy f32 over the blocked sums:
+    (mean, var_raw, inv, count, run_mean, run_var) with JAX's clamps."""
+    f32 = np.float32
+    c = x.shape[1]
+    f = x * m[:, None].astype(f32)
+    sums, finishes = _bn_blocked_sums(np.concatenate([f, f * f], 1), sp,
+                                      order)
+    assert finishes == 1
+    count = f32(max(int(m.sum()), 1))  # an integer count, exact
+    mean = sums[:c] / count
+    var_raw = sums[c:] / count - mean * mean
+    var = np.maximum(var_raw, f32(0))
+    unbiased = var * count / max(count - f32(1), f32(1))
+    mom = f32(momentum)
+    new_mean = (f32(1) - mom) * run_mean + mom * mean
+    new_var = (f32(1) - mom) * run_var + mom * unbiased
+    inv = scale / np.sqrt(var + f32(eps))
+    return mean, var_raw, inv, np.array([count]), new_mean, new_var
+
+
+def _bn_bwd_model(dy, y, x, m, scale, mean, var_raw, inv, count, eps, sp,
+                  order):
+    """KH (bn_bwd_reduce, then bn_bwd_apply) in numpy f32 over the blocked
+    sums, with the ReLU gate: (dx, dscale, dbias)."""
+    f32 = np.float32
+    c = x.shape[1]
+    mf = m[:, None].astype(f32)
+    g = np.where(y > 0, dy, f32(0))
+    gm = g * mf
+    sums, finishes = _bn_blocked_sums(
+        np.concatenate([gm, gm * (x - mean)], 1), sp, order)
+    assert finishes == 1
+    s1, s2 = sums[:c], sums[c:]
+    ve = np.maximum(var_raw, f32(0)) + f32(eps)
+    rstd = f32(1) / np.sqrt(ve)
+    tie = np.where(var_raw > 0, f32(1), np.where(var_raw == 0, f32(0.5),
+                                                 f32(0)))
+    dvar = s2 * scale * (f32(-0.5) * rstd / ve) * tie
+    dmean = -(s1 * inv) - f32(2) * mean * dvar
+    a, b = dmean / count, f32(2) * dvar / count
+    dx = gm * inv + mf * (a + b * x)
+    return dx, s2 * rstd, s1
+
+
+# (n, c, blocks target or None for BN_REDUCE_BLOCKS) of each model case
+BN_MODEL_CASES = {"c24": (300, 24, None), "odd_c": (1000, 37, None),
+                  "empty_mask": (300, 24, None), "one_row": (300, 24, None),
+                  "constant": (513, 24, None), "long_runs": (3001, 24, 7)}
+
+
+@pytest.mark.parametrize("case", list(BN_MODEL_CASES))
+def test_bn_blocked_model(case, monkeypatch):
+    """A numpy f32 model of KG's and KH's reductions (csrc/masked_bn.cu)
+    as blocked by bn_split, in both the f32 and the bf16 split of the
+    rows: bitwise the same under several orders in which the blocks
+    finish, and within 1e-5 of max |plain| of bn_train_fwd_plain /
+    bn_train_bwd_plain (f32 sums in another order).  Cases: C = 24, an
+    odd C (the scalar path), a mask with no row (count clamped at 1), one
+    row (count - 1 clamped at 1), constant channels (var_raw exactly 0)
+    and given var_raw of 0 and below 0 in the backward (JAX's 1/2 at a
+    tie, 0 below), rows not a multiple of a block's run, and blocks that
+    walk several steps (a target of 7 blocks)."""
+    import torch
+
+    from lidog_tpu_torch.ops import norm
+
+    n, c, blocks = BN_MODEL_CASES[case]
+    rng = np.random.default_rng(list(BN_MODEL_CASES).index(case))
+    x = (rng.standard_normal((n, c)) * 2 + 0.5).astype(np.float32)
+    m = rng.random(n) > 0.3
+    if case == "empty_mask":
+        m[:] = False
+    elif case == "one_row":
+        m[:] = False
+        m[n // 2] = True
+    elif case == "constant":
+        x[:, :3] = np.array([0.5, 0.0, -3.0], np.float32)  # exact sums
+    res = rng.standard_normal((n, c)).astype(np.float32)
+    dy = rng.standard_normal((n, c)).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    bias = (rng.standard_normal(c) * 0.2).astype(np.float32)
+    run = [(rng.standard_normal(c) * 0.3).astype(np.float32),
+           rng.uniform(0.3, 3.0, c).astype(np.float32)]
+    t = torch.from_numpy
+    run_p = [t(v.copy()) for v in run]
+    y, mean, var_raw, inv, count = norm.bn_train_fwd_plain(
+        t(x), t(m), t(scale), t(bias), *run_p, 0.1, 1e-5, t(res), True)
+    want_fwd = [v.numpy() for v in (mean, var_raw, inv, count, *run_p)]
+    if case == "constant":
+        assert (want_fwd[1][:3] == 0).all()
+        var_raw = var_raw.clone()
+        var_raw[3:5] = torch.tensor([0.0, -1e-3])  # a tie, and below 0
+    if case in ("empty_mask", "one_row"):
+        assert float(count) == 1.0
+    bwd_in = [v.numpy() for v in (y, mean, var_raw, inv, count)]
+    dx, dscale, dbias, _ = norm.bn_train_bwd_plain(
+        t(dy), y, t(x), t(m), t(scale), mean, var_raw, inv, count, 1e-5,
+        True, True)
+    want_bwd = [v.numpy() for v in (dx, dscale, dbias)]
+    if blocks:
+        monkeypatch.setattr(norm, "BN_REDUCE_BLOCKS", blocks)
+    for esz in (4, 2):
+        sp = norm.bn_split(n, c, esz, reduce=True)
+        if case == "long_runs":
+            assert sp.steps > 1 and sp.blocks > 1
+        orders = [np.arange(sp.blocks), np.arange(sp.blocks)[::-1],
+                  *(rng.permutation(sp.blocks) for _ in range(3))]
+        fwd = [_bn_train_model(x, m, scale, *run, 0.1, 1e-5, sp, o)
+               for o in orders]
+        bwd = [_bn_bwd_model(dy, bwd_in[0], x, m, scale, *bwd_in[1:], 1e-5,
+                             sp, o) for o in orders]
+        for got in fwd[1:]:
+            assert all(np.array_equal(a, b) for a, b in zip(got, fwd[0]))
+        for got in bwd[1:]:
+            assert all(np.array_equal(a, b) for a, b in zip(got, bwd[0]))
+        for name, want, got in zip(
+                ("mean", "var_raw", "inv", "count", "run_mean", "run_var",
+                 "dx", "dscale", "dbias"),
+                want_fwd + want_bwd, list(fwd[0]) + list(bwd[0])):
+            assert got.dtype == np.float32, name
+            assert _rel(want, got) <= 1e-5, (case, esz, name,
+                                              _rel(want, got))
+
+
+@pytest.mark.parametrize("n", [0, 1, 37, 300, 102_400, 491_520])
+def test_bn_split(n):
+    """bn_split (KD, KG, KH): the 16-byte path only where a row is a
+    multiple of 16 bytes and the tensors are aligned; the chunks cover the
+    row's channel groups and the blocks every row exactly once, with no
+    empty chunk or block; lanes a power of two, at most BN_MAX_THREADS
+    threads (BN_REDUCE_THREADS in a reduction, BN_APPLY_THREADS in a
+    streaming pass), at most BN_REDUCE_BLOCKS or BN_APPLY_BLOCKS blocks,
+    a streaming pass's blocks at least BN_APPLY_STEPS steps long.  The
+    thread caps are the ones csrc/masked_bn.cu checks."""
+    import re
+
+    from lidog_tpu_torch.ops import _cuda, norm
+
+    src = (_cuda.CSRC / "masked_bn.cu").read_text()
+    for name, cap in (("MAX_THREADS", norm.BN_REDUCE_THREADS),
+                      ("MAX_APPLY_THREADS", norm.BN_APPLY_THREADS)):
+        assert re.search(rf"constexpr int {name} = (\d+);",
+                         src).group(1) == str(cap), name
+
+    for c in (1, 7, 24, 32, 37, 96, 256, 4100):
+        for esz in (4, 2):
+            for aligned in (True, False):
+                for reduce in (False, True):
+                    sp = norm.bn_split(n, c, esz, aligned, reduce)
+                    cap = (norm.BN_REDUCE_THREADS if reduce
+                           else norm.BN_APPLY_THREADS)
+                    wide = aligned and (c * esz) % 16 == 0
+                    assert sp.vec == (16 // esz if wide else 1)
+                    assert sp.groups * sp.vec == c
+                    assert sp.gpb * (sp.chunks - 1) < sp.groups \
+                        <= sp.gpb * sp.chunks
+                    assert sp.lanes & (sp.lanes - 1) == 0
+                    assert sp.threads == sp.gpb * sp.lanes <= cap
+                    assert 2 * sp.threads > cap or sp.gpb == sp.groups
+                    limit = (norm.BN_REDUCE_BLOCKS if reduce
+                             else norm.BN_APPLY_BLOCKS)
+                    assert 1 <= sp.blocks <= limit and sp.steps >= 1
+                    assert reduce or sp.steps >= norm.BN_APPLY_STEPS
+                    run = sp.lanes * sp.steps
+                    if n == 0:
+                        assert sp.blocks == 1
+                    else:
+                        assert (sp.blocks - 1) * run < n <= sp.blocks * run
+            if c != 96 or esz != 2:
+                continue
+            # every row once: block b, lane j, step i take row
+            # b * run + i * lanes + j
+            sp = norm.bn_split(n, c, esz, True, reduce=True)
+            run = sp.lanes * sp.steps
+            r = (np.arange(sp.blocks)[:, None, None] * run
+                 + np.arange(sp.steps)[None, :, None] * sp.lanes
+                 + np.arange(sp.lanes)[None, None, :]).ravel()
+            assert np.array_equal(np.sort(r[r < n]), np.arange(n))
+            assert (sp.vec, sp.gpb, sp.lanes, sp.threads) == (8, 12, 32, 384)
+
+
 def _ulp(a, dtype):
     """One unit in the last place of dtype at |a| (a as float32 numpy)."""
     mant = {"float32": 23, "bfloat16": 7}[dtype]

@@ -13,16 +13,19 @@ no result line):
      launch);
   3. per kernel: the kernel against its plain PyTorch version on the same
      inputs: the forward kernels (KA-KD) at shapes from a full-width
-     serving plan of one synthetic scan, the backward kernels (KE-KH, and
-     KB/KC on their transposed-weight backward uses) at shapes from the
+     serving plan of one synthetic scan (KB and KC at every strided
+     form's forward), the backward kernels (KE-KH) at shapes from the
      training plan of 4 scans, KA at its L0 shapes too, KA and KE at
      every width pair of MinkUNet34's zconv3 calls at its level of the
-     training plan (ZCONV3_WIDTHS), and KG, KH and KD at every (level,
-     width, residual, ReLU) form of its 62 norms (BN_FORMS) in bf16, at L0
-     96 in f32, at an odd width and with a mask of no row and of one row,
-     each twice bitwise equal, with the BN bound a step; max error
-     relative to max|plain| against a
-     stated bound, kernel / plain times (CUDA events), and the kernel's
+     training plan (ZCONV3_WIDTHS), every strided form (STRIDED_FORMS:
+     forward, dx through the partner kernel with W^T, and KF's dW, called
+     twice and held bitwise equal) there with the bound of a step's 24
+     strided launches, the L0 <-> L1 pair also in f32, and KG, KH and KD
+     at every (level, width, residual, ReLU) form of its 62 norms
+     (BN_FORMS) in bf16, at L0 96 in f32, at an odd width and with a mask
+     of no row and of one row, each twice bitwise equal, with the BN bound
+     a step; max error relative to max|plain| against a stated bound,
+     kernel / plain times (CUDA events), and the kernel's
      least possible time on an H100 (bytes over 3.35 TB/s or operations
      over the peak rate of their type);
   4. full-width serving: Predictor(MinkUNet34, bf16) on a 100,000-point
@@ -113,7 +116,8 @@ no result line):
      gather-GEMM, csrc/sparse_conv.cu; forward and dIn) and LB (dW) at the
      generic training plan's conv3 L0 32->32 and 128->96, conv3 L3
      512->256, down L0->L1 32->32 and up L1->L0 96->96, the stem (K 125,
-     1 -> 32: KO / KP) in bf16 and f32 within phase 3's bounds, and LA at
+     1 -> 32: KO / KP) in bf16 and f32 within phase 3's bounds (LB called
+     twice and held bitwise equal), and LA at
      P2's shape (27 taps, 393,216 rows, 96 -> 96, bf16); the voxelizer LC
      (csrc/voxelize.cu) torch.equal to its plain version on phase 4's
      scan, on the training batch and at a capacity below its voxel count
@@ -496,6 +500,140 @@ def record_ke(ck, plan, lvl, dout, wf):
               f"L{lvl} {n} rows {cin}->{cout}")
 
 
+# MinkUNet34's strided convs (models/minkunet.py): (kind, fine level, Cin,
+# Cout) of conv1-conv4 (down, fine L -> coarse L + 1) and convtr4-convtr7
+# (up, coarse L + 1 -> fine L).  A training step runs each form's forward
+# (KB down, KC up), its dx (the partner kernel with W^T: KC for a down, KB
+# for an up) and its dW (KF's down or up form): 24 launches.
+STRIDED_FORMS = (("down", 0, 32, 32), ("down", 1, 32, 32),
+                 ("down", 2, 64, 64), ("down", 3, 128, 128),
+                 ("up", 3, 256, 256), ("up", 2, 256, 128),
+                 ("up", 1, 128, 96), ("up", 0, 96, 96))
+STRIDED_SRC = {"zconv_down_fwd": "lidog_tpu_torch/csrc/zconv_down_fwd.cu",
+               "zconv_up_fwd": "lidog_tpu_torch/csrc/zconv_up_fwd.cu",
+               "zconv_down_wgrad": "lidog_tpu_torch/csrc/zconv_wgrad.cu",
+               "zconv_up_wgrad": "lidog_tpu_torch/csrc/zconv_wgrad.cu"}
+
+
+def record_strided(ck, plan, kind, lvl, cin, cout, dt,
+                   parts=("fwd", "dx", "dW"), tag=""):
+    """One strided form at its level pair of `plan` against its plain
+    versions: the forward, dx (the partner forward kernel with W^T, the
+    cotangent read through the output mask) and dW (called twice and held
+    bitwise equal).  Returns the sum of their bounds (ms)."""
+    import torch
+
+    from lidog_tpu_torch.ops import zconv
+
+    fine, coarse = plan.level(lvl), plan.level(lvl + 1)
+    nbr8 = plan.kmaps[f"down8_l{lvl}"]
+    parent, off = plan.kmaps[f"parent_l{lvl}"], plan.kmaps[f"off_l{lvl}"]
+    nf, nc = fine.coords.shape[0], coarse.coords.shape[0]
+    esz = torch.finfo(dt).bits // 8
+    down = kind == "down"
+    # x on the conv's input level, the cotangent on its output level
+    (ni, mi), (no, mo) = ((nf, fine.real), (nc, coarse.real)) if down else (
+        (nc, coarse.real), (nf, fine.real))
+    x = ck.feats(ni, cin, mi, dt)
+    dout = ck.feats(no, cout, torch.ones(no, dtype=torch.bool,
+                                         device=x.device), dt)
+    w8 = ck.weights(dt, 8, cin, cout)
+    w8t = w8.transpose(1, 2).contiguous()
+    src = parent.clamp(min=0).long()
+    # live (fine row, parent) pairs through each mask: the one-hot work
+    pairs_c = int(((parent >= 0) & coarse.real[src]).sum())
+    pairs_f = int(((parent >= 0) & fine.real).sum())
+    # live (coarse row, child) entries: KB's forward through the output
+    # mask, its dx through the source mask
+    live_c = int(((nbr8 >= 0) & coarse.real[None]).sum())
+    taps_f = int(((nbr8 >= 0) & fine.real[nbr8.clamp(min=0).long()]).sum())
+    a, b = (lvl, lvl + 1) if down else (lvl + 1, lvl)
+    shape = f"{tag}{kind} L{a}->L{b} {cin}->{cout} {nf} fine rows"
+    rep = ("lidog_tpu/ops/zconv.py:466 (_down_loop / _zdown_core)",
+           "lidog_tpu/ops/zconv.py:505 (_zdown_bwd dx, _onehot_matmuls:437 "
+           "transpose=True)",
+           "lidog_tpu/ops/zconv.py:505 (_zdown_bwd dW, _onehot_dw:455)") \
+        if down else (
+           "lidog_tpu/ops/zconv.py:548 (_zup_core, _onehot_matmuls:437)",
+           "lidog_tpu/ops/zconv.py:561 (_zup_bwd dx, _down_loop:466 with W^T)",
+           "lidog_tpu/ops/zconv.py:561 (_zup_bwd dW, _onehot_dw:455)")
+    bound = 0.0
+
+    def rec(name, replaces, kfn, pfn, nbyte, ops, what):
+        nonlocal bound
+        b, _ = Checker.bound(nbyte, ops, "bf16" if dt == torch.bfloat16
+                             else "f32")
+        bound += b
+        ck.record(name, STRIDED_SRC[name], replaces, kfn, pfn, dt, nbyte, ops,
+                  f"{what} {shape}")
+
+    if down:
+        if "fwd" in parts:
+            rec("zconv_down_fwd", rep[0],
+                lambda: zconv.zconv_down_fwd(x, nbr8, w8, coarse.real),
+                lambda: zconv.zconv_down_plain(x, nbr8, w8, coarse.real),
+                nbytes(x, nbr8, w8, coarse.real) + nc * cout * esz,
+                2 * cin * cout * live_c, "fwd")
+        if "dx" in parts:
+            rec("zconv_up_fwd", rep[1],
+                lambda: zconv.zconv_up_fwd(dout, parent, off, w8t, None,
+                                           src_mask=coarse.real),
+                lambda: zconv.zconv_up_plain(dout, parent, off, w8t, None,
+                                             src_mask=coarse.real),
+                nbytes(dout, parent, off, w8t, coarse.real) + nf * cin * esz,
+                2 * cin * cout * pairs_c, "dx")
+        if "dW" in parts:
+            def kfn():
+                return zconv.zconv_down_wgrad(x, dout, parent, off,
+                                              coarse.real)
+
+            rec("zconv_down_wgrad", rep[2], kfn,
+                lambda: zconv.zconv_down_wgrad_plain(x, dout, parent, off,
+                                                     coarse.real),
+                nbytes(x, dout, parent, off, coarse.real)
+                + 8 * cin * cout * esz,
+                2 * cin * cout * pairs_c, "dW")
+            twice_equal("zconv_down_wgrad", kfn, shape)
+    else:
+        if "fwd" in parts:
+            rec("zconv_up_fwd", rep[0],
+                lambda: zconv.zconv_up_fwd(x, parent, off, w8, fine.real),
+                lambda: zconv.zconv_up_plain(x, parent, off, w8, fine.real),
+                nbytes(x, parent, off, w8, fine.real) + nf * cout * esz,
+                2 * cin * cout * pairs_f, "fwd")
+        if "dx" in parts:
+            rec("zconv_down_fwd", rep[1],
+                lambda: zconv.zconv_down_fwd(dout, nbr8, w8t, None,
+                                             src_mask=fine.real),
+                lambda: zconv.zconv_down_plain(dout, nbr8, w8t, None,
+                                               src_mask=fine.real),
+                nbytes(dout, nbr8, w8t, fine.real) + nc * cin * esz,
+                2 * cin * cout * taps_f, "dx")
+        if "dW" in parts:
+            def kfn():
+                return zconv.zconv_up_wgrad(x, dout, parent, off, fine.real)
+
+            rec("zconv_up_wgrad", rep[2], kfn,
+                lambda: zconv.zconv_up_wgrad_plain(x, dout, parent, off,
+                                                   fine.real),
+                nbytes(x, dout, parent, off, fine.real) + 8 * cin * cout * esz,
+                2 * cin * cout * pairs_f, "dW")
+            twice_equal("zconv_up_wgrad", kfn, shape)
+    return bound
+
+
+def twice_equal(name, kfn, shape):
+    """A deterministic kernel: two calls on the same inputs bitwise equal."""
+    import torch
+
+    a, b = kfn(), kfn()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name} {shape}: two calls differ in "
+                             f"{int((a != b).sum())} elements")
+    print(f"[kernel] {name} {shape}: two calls bitwise equal", flush=True)
+
+
 def kernel_checks(plan, gen):
     """Phase 3, forward kernels at the serving plan's shapes."""
     import torch
@@ -504,7 +642,7 @@ def kernel_checks(plan, gen):
 
     bf, f32 = torch.bfloat16, torch.float32
     dev = plan.levels[0].coords.device
-    l0, l1 = plan.level(0), plan.level(1)
+    l0 = plan.level(0)
     na = l0.coords.shape[0]
     ck = Checker(gen, dev)
     feats, weights, record = ck.feats, ck.weights, ck.record
@@ -516,33 +654,15 @@ def kernel_checks(plan, gen):
                                (1, 32, 32, bf), (1, 32, 32, f32)):
         record_ka(ck, plan, lvl, cin, cout, dt)
 
-    # KB: zconv_down L0 -> L1, 32 -> 32 (conv1)
-    nbr8 = plan.kmaps["down8_l0"]
-    nnz8 = int(((nbr8 >= 0) & l1.real[None]).sum())
-    for dt in (bf, f32):
-        x = feats(na, 32, l0.real, dt)
-        w8 = weights(dt, 8, 32, 32)
-        record("zconv_down_fwd", "lidog_tpu_torch/csrc/zconv_down_fwd.cu",
-               "lidog_tpu/ops/zconv.py:466 (_down_loop / _zdown_core)",
-               lambda: zconv.zconv_down_fwd(x, nbr8, w8, l1.real),
-               lambda: zconv.zconv_down_plain(x, nbr8, w8, l1.real),
-               dt, nbytes(x, nbr8, w8, l1.real)
-               + nbr8.shape[1] * 32 * x.element_size(), 2 * 32 * 32 * nnz8,
-               f"L0->L1 {nbr8.shape[1]} rows 32->32")
-
-    # KC: zconv_up L1 -> L0 into 96 (convtr7: 96 -> 96)
-    parent, off = plan.kmaps["parent_l0"], plan.kmaps["off_l0"]
-    nnz_up = int(((parent >= 0) & l0.real).sum())
-    for dt in (bf, f32):
-        x = feats(l1.coords.shape[0], 96, l1.real, dt)
-        w8 = weights(dt, 8, 96, 96)
-        record("zconv_up_fwd", "lidog_tpu_torch/csrc/zconv_up_fwd.cu",
-               "lidog_tpu/ops/zconv.py:548 (_zup_core, _onehot_matmuls:437)",
-               lambda: zconv.zconv_up_fwd(x, parent, off, w8, l0.real),
-               lambda: zconv.zconv_up_plain(x, parent, off, w8, l0.real),
-               dt, nbytes(x, parent, off, w8, l0.real)
-               + na * 96 * x.element_size(), 2 * 96 * 96 * nnz_up,
-               f"L1->L0 {na} rows 96->96")
+    # KB and KC: every strided form's forward on the serving plan (bf16),
+    # and the L0 <-> L1 pair's in f32
+    for kind, lvl, cin, cout in STRIDED_FORMS:
+        record_strided(ck, plan, kind, lvl, cin, cout, bf, ("fwd",),
+                       "serving ")
+    for kind, lvl, cin, cout in STRIDED_FORMS:
+        if lvl == 0:
+            record_strided(ck, plan, kind, lvl, cin, cout, f32, ("fwd",),
+                           "serving ")
 
     # KD: BN(eval) + residual + ReLU at L0, width 96 (block8 norm2)
     mean = (torch.randn(96, generator=gen) * 0.1).to(dev)
@@ -578,7 +698,6 @@ def backward_kernel_checks(plan, gen):
     # forward's output mask
     ones0 = torch.ones(na0, dtype=torch.bool, device=dev)
     ones1 = torch.ones(na1, dtype=torch.bool, device=dev)
-    wgrad_src = "lidog_tpu_torch/csrc/zconv_wgrad.cu"
     zw_src = "lidog_tpu_torch/csrc/zconv3_wgrad.cu"
     zw_rep = "lidog_tpu/ops/zconv.py:268 (_zconv3_bwd dW)"
 
@@ -643,57 +762,16 @@ def backward_kernel_checks(plan, gen):
         record_zw(x, dout, nbr9, zup, zdn, real, nnz9,
                   f"L{lvl} {n} rows {cin}->{cout}")
 
-    # the strided pair L0 <-> L1: conv1 (down 32 -> 32) and convtr7 (up
-    # 96 -> 96); dx through the partner forward kernel, dW through KF
-    nbr8 = plan.kmaps["down8_l0"]
-    parent, off = plan.kmaps["parent_l0"], plan.kmaps["off_l0"]
-    src = parent.clamp(min=0).long()
-    down_pairs = int(((parent >= 0) & l1.real[src]).sum())  # dout read via L1
-    up_pairs = int(((parent >= 0) & l0.real).sum())  # dout read via L0
-    down_taps = int(((nbr8 >= 0) & l0.real[nbr8.clamp(min=0).long()]).sum())
-    for dt in (bf, f32):
-        esz = torch.finfo(dt).bits // 8
-        # zconv_down (32 -> 32): dW, and dx = KC(dout, W^T)
-        x = feats(na0, 32, l0.real, dt)
-        dout = feats(na1, 32, ones1, dt)
-        w8t = weights(dt, 8, 32, 32).transpose(1, 2).contiguous()
-        record("zconv_up_fwd", "lidog_tpu_torch/csrc/zconv_up_fwd.cu",
-               "lidog_tpu/ops/zconv.py:505 (_zdown_bwd dx, "
-               "_onehot_matmuls:437 transpose=True)",
-               lambda: zconv.zconv_up_fwd(dout, parent, off, w8t, None,
-                                          src_mask=l1.real),
-               lambda: zconv.zconv_up_plain(dout, parent, off, w8t, None,
-                                            src_mask=l1.real),
-               dt, nbytes(dout, parent, off, w8t, l1.real) + na0 * 32 * esz,
-               2 * 32 * 32 * down_pairs, f"bwd dx L1->L0 {na0} rows 32->32")
-        record("zconv_down_wgrad", wgrad_src,
-               "lidog_tpu/ops/zconv.py:505 (_zdown_bwd dW, _onehot_dw:455)",
-               lambda: zconv.zconv_down_wgrad(x, dout, parent, off, l1.real),
-               lambda: zconv.zconv_down_wgrad_plain(x, dout, parent, off,
-                                                    l1.real),
-               dt, nbytes(x, dout, parent, off, l1.real) + 8 * 32 * 32 * esz,
-               2 * 32 * 32 * down_pairs, f"L0->L1 {na0} rows 32->32")
-        # zconv_up (96 -> 96): dW, and dx = KB(dout, W^T)
-        xc = feats(na1, 96, l1.real, dt)
-        doutf = feats(na0, 96, ones0, dt)
-        u8t = weights(dt, 8, 96, 96).transpose(1, 2).contiguous()
-        record("zconv_down_fwd", "lidog_tpu_torch/csrc/zconv_down_fwd.cu",
-               "lidog_tpu/ops/zconv.py:561 (_zup_bwd dx, _down_loop:466 "
-               "with W^T)",
-               lambda: zconv.zconv_down_fwd(doutf, nbr8, u8t, None,
-                                            src_mask=l0.real),
-               lambda: zconv.zconv_down_plain(doutf, nbr8, u8t, None,
-                                              src_mask=l0.real),
-               dt, nbytes(doutf, nbr8, u8t, l0.real) + na1 * 96 * esz,
-               2 * 96 * 96 * down_taps, f"bwd dx L0->L1 {na1} rows 96->96")
-        record("zconv_up_wgrad", wgrad_src,
-               "lidog_tpu/ops/zconv.py:561 (_zup_bwd dW, _onehot_dw:455)",
-               lambda: zconv.zconv_up_wgrad(xc, doutf, parent, off, l0.real),
-               lambda: zconv.zconv_up_wgrad_plain(xc, doutf, parent, off,
-                                                  l0.real),
-               dt, nbytes(xc, doutf, parent, off, l0.real)
-               + 8 * 96 * 96 * esz, 2 * 96 * 96 * up_pairs,
-               f"L1->L0 {na0} rows 96->96")
+    # every strided form of MinkUNet34 on the training plan (forward, dx,
+    # dW) in bf16, the L0 <-> L1 pair (conv1, convtr7) also in f32; the
+    # bound of a step's 24 strided launches
+    bound = sum(record_strided(ck, plan, *form, bf)
+                for form in STRIDED_FORMS)
+    print(f"[strided] bound a step (KB, KC, KF: {3 * len(STRIDED_FORMS)} "
+          f"launches at the training plan's rows): {bound:.4f} ms", flush=True)
+    for kind, lvl, cin, cout in STRIDED_FORMS:
+        if lvl == 0:
+            record_strided(ck, plan, kind, lvl, cin, cout, f32)
 
     # KG, KH and KD at every norm form of MinkUNet34 (bf16) and at L0 96
     # +res +relu in f32; an odd width (the scalar path) at L1; a mask with
@@ -2361,14 +2439,18 @@ def generic_kernel_checks(dev, gen):
                                                        m_out), dt,
                           nbytes(dout, tmap, wt, m_out) + x.numel() * es,
                           2 * t_hits * cin * cout, "dIn " + shape)
+            def kfn():
+                return sc.sparse_conv_wgrad(x, dout, tmap, m_out,
+                                            reverse=rev)
+
             ck.record("zconv_full_wgrad" if stem else "sparse_conv_wgrad",
-                      k_src, rep_b,
-                      lambda: sc.sparse_conv_wgrad(x, dout, tmap, m_out,
-                                                   reverse=rev),
+                      k_src, rep_b, kfn,
                       lambda: sc.sparse_conv_wgrad_plain(x, dout, tmap, m_out,
                                                          reverse=rev), dt,
                       nbytes(x, dout, tmap, m_out) + w.numel() * 4,
                       2 * t_hits * cin * cout, "dW " + shape)
+            if not stem:
+                twice_equal("sparse_conv_wgrad", kfn, "dW " + shape)
     # P2's shape: 27 taps over 393,216 output rows, 96 -> 96, bf16
     dt = torch.bfloat16
     m0 = plan.level(0).mask

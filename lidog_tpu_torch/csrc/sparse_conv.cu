@@ -28,12 +28,14 @@
 // (every map entry reads one 64-1024 byte row), and the MMAs (2 K N Cin
 // Cout) operations; at 96-256 channels the bf16 products sit far below the
 // 989 TFLOP/s peak's reach of those bytes, so both kernels are bound by
-// the bytes they gather and by gather latency.  Design: the shared
-// gather-GEMM (gather_gemm.cuh: 64 x BN output tiles, each offset's 64
-// source rows resolved once, an offset no row of the tile hits skipped by
-// a block vote, 16-byte row loads into shared memory, bf16 WMMA / f32
-// FMA) and the two-pass weight-gradient template (wgrad.cuh).  The
-// stem's K = 125 and narrow widths go through KO/KP (zconv_full.cu).
+// the bytes they gather and by each K stage's serial work.  Design: the
+// shared gather-GEMM (gather_gemm.cuh: all of Cout up to 128 a block, each
+// row's sources resolved once, one K loop over (live offset, Cin chunk)
+// through a cp.async ring, mma.sync) and the grouped weight gradient
+// (wgrad.cuh: a block serves 9 of the 27 offsets, or all 8, with one warp
+// each, so an x row is read once per group and dW tile).  The stem's K =
+// 125 and narrow widths go through KO/KP (zconv_full.cu).
+#include "gather_gemm.cuh"
 #include "wgrad.cuh"
 
 namespace {
@@ -42,19 +44,18 @@ using namespace lidog;
 template <int K>
 struct NbrMap {
   static constexpr int NOFF = K;
-  static constexpr int NTAPS = 1;
+  static constexpr bool ONEHOT = false;
   const int* nbr;  // [K, n_out]
   int n_out;
-  __device__ int src(int o, int, int row) const { return nbr[(size_t)o * n_out + row]; }
+  __device__ int src(int o, int row) const { return nbr[(size_t)o * n_out + row]; }
 };
 
 template <int KK>
-struct TransposeWMap {  // rows: the conv's input rows; A = x, G = dout
+struct TransposeWMap {  // rows: the conv's input rows; A = x[r], G = dout
   static constexpr int K = KK;
   const int* tmap;  // [K, n_in] rows of dout
   int n_in;
   int reverse;
-  __device__ int a_src(int, int r) const { return r; }
   __device__ int g_src(int k, int r) const {
     return tmap[(size_t)(reverse ? K - 1 - k : k) * n_in + r];
   }
@@ -80,10 +81,10 @@ extern "C" int sparse_conv_wgrad(const void* x, const void* dout, const void* tm
                                  int rpc, int dtype, void* stream) {
   const int* t = static_cast<const int*>(tmap);
   if (k == 27)
-    return launch_wgrad(x, dout, dout_mask, partial, dw, TransposeWMap<27>{t, n_in, reverse},
-                        n_in, n_out, n_in, chunks, rpc, cin, cout, dtype, stream);
+    return launch_group_wgrad(x, dout, dout_mask, partial, dw, TransposeWMap<27>{t, n_in, reverse},
+                              n_in, n_out, n_in, chunks, rpc, cin, cout, dtype, stream);
   if (k == 8)
-    return launch_wgrad(x, dout, dout_mask, partial, dw, TransposeWMap<8>{t, n_in, reverse},
-                        n_in, n_out, n_in, chunks, rpc, cin, cout, dtype, stream);
+    return launch_group_wgrad(x, dout, dout_mask, partial, dw, TransposeWMap<8>{t, n_in, reverse},
+                              n_in, n_out, n_in, chunks, rpc, cin, cout, dtype, stream);
   return (int)cudaErrorInvalidValue;
 }

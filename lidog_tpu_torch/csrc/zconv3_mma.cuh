@@ -1,7 +1,10 @@
 // What the zconv3 forward (KA, zconv3_fwd.cu) and input gradient (KE,
 // zconv3_bwd_dx.cu) share: the block shape, the cp.async ring's copies,
 // the tensor-core fragments (ldmatrix, mma.sync m16n8k16 bf16 with f32
-// sums) and the f32 register tile.
+// sums) and the f32 register tile.  The strided and generic gather-GEMMs
+// (gather_gemm.cuh: KB, KC, LA) use the same block shape, ring pieces and
+// tiles, and their weight gradients (wgrad.cuh: KF's down/up forms, LB)
+// the ring pieces and fragments.
 //
 // Both kernels are gather-GEMMs whose output block owns BM rows (128, or
 // 64 where 128-row blocks would make fewer than 4 waves of the card) and

@@ -7,7 +7,13 @@
 //
 // x is the fine level [n_in, cin], out the coarse level [n_out, cout]; a -1
 // map entry is a zero row.  The shared gather-GEMM (gather_gemm.cuh) with
-// eight offsets and one tap; f32 accumulation, one rounding, as in JAX.
+// eight gathering offsets; f32 accumulation, one rounding, as in JAX.
+//
+// Bound on an H100: bytes (each fine row is read once, by its parent, and
+// each coarse row written once).  A coarse row has 1-2 of its 8 children
+// on the main path's levels, so the products of the 8 offsets over a
+// tile's rows are ~5x the live ones; a warp skips an offset only when
+// none of its 32 rows has that child.
 //
 // The backward of zconv_up launches this kernel too (lidog_tpu/ops/
 // zconv.py:561-568, `_down_loop(dout, nbr8, W^T)`): x is then the fine
@@ -18,10 +24,10 @@
 namespace {
 struct DownMap {
   static constexpr int NOFF = 8;
-  static constexpr int NTAPS = 1;
+  static constexpr bool ONEHOT = false;
   const int* nbr8;  // [8, n_out]
   int n_out;
-  __device__ int src(int o, int, int row) const { return nbr8[(size_t)o * n_out + row]; }
+  __device__ int src(int o, int row) const { return nbr8[(size_t)o * n_out + row]; }
 };
 }  // namespace
 

@@ -5,13 +5,16 @@
 //
 //   out[j] = m[j] * x[parent[j]] @ w8[off[j]]     (0 where parent < 0)
 //
-// Per-row weight select through the shared gather-GEMM (gather_gemm.cuh):
-// offset o's operand holds row j's parent row where off[j] == o and a zero
-// row elsewhere, so each output row gets exactly one nonzero product, and
-// an offset no row of a 64-row tile uses is skipped by the block vote.
-// Each row's product is summed in f32 and rounded once, which equals the
-// JAX version's rounding of the selected product.  The first version pays
-// the MMAs of the zero rows of the other offsets in a tile.
+// Per-row weight select through the shared gather-GEMM's one-hot map
+// (gather_gemm.cuh): a block sorts its rows by offset, gathers each row's
+// parent once, in the stages of its own offset, and multiplies it once, by
+// w8[off]; the other offsets' rows of the fragments a segment touches are
+// zero-filled.  Each row's product is summed in f32 and rounded once,
+// which equals the JAX version's rounding of the selected product.
+//
+// Bound on an H100: bytes (x rows gathered once each per child, the fine
+// output written once); the weight slabs of the 8 offsets, read by every
+// block from L2, are the largest copy of a stage at narrow widths.
 //
 // The backward of zconv_down launches this kernel too (lidog_tpu/ops/
 // zconv.py:505-516, `_onehot_matmuls(dout[parent], off, W, transpose=True)`):
@@ -22,10 +25,13 @@
 namespace {
 struct UpMap {
   static constexpr int NOFF = 8;
-  static constexpr int NTAPS = 1;
+  static constexpr bool ONEHOT = true;
   const int* parent;  // [n_out]
   const int* off;     // [n_out]
-  __device__ int src(int o, int, int row) const { return off[row] == o ? parent[row] : -1; }
+  __device__ int pick(int row, int& s) const {
+    s = parent[row];
+    return off[row];
+  }
 };
 }  // namespace
 

@@ -18,8 +18,10 @@
 // dout is read, K x Cin x Cout is small), operations only where Cin and
 // Cout are both >= 256.
 //
-// Design: the two-pass deterministic reduction of wgrad.cuh, with one Map
-// policy per conv below.
+// Design: the one-hot weight gradient of wgrad.cuh (one pass over the
+// fine rows: each row gathered once per dW tile and added only to its own
+// offset's sums, by the warp of that offset), with one Map policy per conv
+// below, and the deterministic two-pass sum.
 #include "wgrad.cuh"
 
 namespace {
@@ -29,16 +31,22 @@ struct DownWMap {  // rows: fine; A = fine x, G = coarse dout
   static constexpr int K = 8;
   const int* parent;
   const int* off;
-  __device__ int a_src(int k, int r) const { return off[r] == k ? r : -1; }
-  __device__ int g_src(int k, int r) const { return off[r] == k ? parent[r] : -1; }
+  __device__ int pick(int r, int& a, int& g) const {
+    a = r;
+    g = parent[r];
+    return off[r];
+  }
 };
 
 struct UpWMap {  // rows: fine; A = coarse x, G = fine dout
   static constexpr int K = 8;
   const int* parent;
   const int* off;
-  __device__ int a_src(int k, int r) const { return off[r] == k ? parent[r] : -1; }
-  __device__ int g_src(int k, int r) const { return off[r] == k ? r : -1; }
+  __device__ int pick(int r, int& a, int& g) const {
+    a = parent[r];
+    g = r;
+    return off[r];
+  }
 };
 }  // namespace
 
@@ -47,8 +55,8 @@ extern "C" int zconv_down_wgrad(const void* x, const void* dout, const void* par
                                 int n_fine, int n_coarse, int cin, int cout, int chunks, int rpc,
                                 int dtype, void* stream) {
   DownWMap map{static_cast<const int*>(parent), static_cast<const int*>(off)};
-  return launch_wgrad(x, dout, dout_mask, partial, dw, map, n_fine, n_coarse, n_fine, chunks, rpc,
-                      cin, cout, dtype, stream);
+  return launch_onehot_wgrad(x, dout, dout_mask, partial, dw, map, n_fine, n_coarse, n_fine,
+                             chunks, rpc, cin, cout, dtype, stream);
 }
 
 extern "C" int zconv_up_wgrad(const void* x, const void* dout, const void* parent,
@@ -56,6 +64,6 @@ extern "C" int zconv_up_wgrad(const void* x, const void* dout, const void* paren
                               int n_coarse, int n_fine, int cin, int cout, int chunks, int rpc,
                               int dtype, void* stream) {
   UpWMap map{static_cast<const int*>(parent), static_cast<const int*>(off)};
-  return launch_wgrad(x, dout, dout_mask, partial, dw, map, n_coarse, n_fine, n_fine, chunks, rpc,
-                      cin, cout, dtype, stream);
+  return launch_onehot_wgrad(x, dout, dout_mask, partial, dw, map, n_coarse, n_fine, n_fine,
+                             chunks, rpc, cin, cout, dtype, stream);
 }

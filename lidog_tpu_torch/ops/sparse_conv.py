@@ -17,8 +17,10 @@ summation order and is not carried over.
 Kernels (csrc/sparse_conv.cu; each wrapper takes its plain version for a
 CPU tensor and launches its kernel, or raises, for a CUDA tensor):
 
-  LA sparse_conv_fwd    the gather-GEMM (also dIn, over the transpose map)
-  LB sparse_conv_wgrad  dW, two deterministic passes
+  LA sparse_conv_fwd    the gather-GEMM (also dIn, over the transpose map;
+                        csrc/gather_gemm.cuh)
+  LB sparse_conv_wgrad  dW, two deterministic passes (csrc/wgrad.cuh's
+                        grouped kernel: 9 or 8 offsets a block)
 
   KO zconv_full_fwd    the same function for any K, widths up to 64
   KP zconv_full_wgrad  its dW over a symmetric map (csrc/zconv_full.cu)
@@ -40,7 +42,7 @@ import torch
 
 from lidog_tpu_torch.ops import _cuda
 from lidog_tpu_torch.ops._wrap import (DTYPES, check, flag, gather_rows,
-                                       int_map, masked, ptr, wgrad_chunks)
+                                       int_map, masked, ptr, wgrad_split)
 
 LAUNCHES = {"sparse_conv_fwd": 0, "sparse_conv_wgrad": 0,
             "zconv_full_fwd": 0, "zconv_full_wgrad": 0}
@@ -224,13 +226,12 @@ def sparse_conv_wgrad(x, dout, tmap, dout_mask=None, *, reverse):
     dw = torch.empty(k, cin, cout, dtype=x.dtype, device=x.device)
     if n_in == 0:
         return dw.zero_()
-    chunks, rpc = wgrad_chunks(n_in, k, cin, cout)
-    partial = torch.empty(chunks, k, cin, cout, dtype=torch.float32,
-                          device=x.device)
+    sp = wgrad_split("group", n_in, k, cin, cout, x.dtype)
+    partial = torch.empty(sp.partial, dtype=torch.float32, device=x.device)
     _cuda.call(name, x.data_ptr(), dout.data_ptr(), tmap.data_ptr(),
                ptr(dout_mask), partial.data_ptr(), dw.data_ptr(), n_in,
-               n_out, k, int(reverse), cin, cout, chunks, rpc,
-               DTYPES[x.dtype])
+               n_out, k, int(reverse), cin, cout, sp.chunks,
+               sp.rows_per_chunk, DTYPES[x.dtype])
     LAUNCHES[name] += 1
     return dw
 

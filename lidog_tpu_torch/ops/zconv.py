@@ -18,7 +18,10 @@ kernel (csrc/, see each source's note):
   KF zconv3_wgrad (zconv3_wgrad.cu; its blocking: zconv3_wgrad_split)
   KB zconv_down_fwd  (also zconv_up's dx, with transposed weights)
   KC zconv_up_fwd    (also zconv_down's dx, with transposed weights)
-  KF zconv_down_wgrad, zconv_up_wgrad (zconv_wgrad.cu over wgrad.cuh)
+                     (both over gather_gemm.cuh; its blocking:
+                     _wrap.gather_gemm_tiles)
+  KF zconv_down_wgrad, zconv_up_wgrad (zconv_wgrad.cu over wgrad.cuh's
+                     one-hot kernel; its split: _wrap.wgrad_split)
 
 The kernel wrapper (named after the C function) takes the plain version
 for a tensor on the CPU and launches the kernel for a CUDA tensor, raising
@@ -46,9 +49,9 @@ from typing import NamedTuple
 import torch
 
 from lidog_tpu_torch.ops import _cuda
-from lidog_tpu_torch.ops._wrap import (DTYPES, check, flag, gather_rows,
-                                       int_map, masked, on_card, ptr,
-                                       wgrad_chunks)
+from lidog_tpu_torch.ops._wrap import (DTYPES, SMS, check, flag,
+                                       gather_rows, int_map, masked, on_card,
+                                       ptr, wgrad_split)
 
 LAUNCHES = {"zconv3_fwd": 0, "zconv_down_fwd": 0, "zconv_up_fwd": 0,
             "zconv3_bwd_dx": 0, "zconv3_wgrad": 0, "zconv_down_wgrad": 0,
@@ -347,20 +350,19 @@ def _wgrad(name, k, x, dout, dout_mask, rows, maps, sizes):
     dw = torch.empty(k, cin, cout, dtype=x.dtype, device=x.device)
     if rows == 0:
         return dw.zero_()
-    chunks, rpc = wgrad_chunks(rows, k, cin, cout)
-    partial = torch.empty(chunks, k, cin, cout, dtype=torch.float32,
-                          device=x.device)
+    sp = wgrad_split("onehot", rows, k, cin, cout, x.dtype)
+    partial = torch.empty(sp.partial, dtype=torch.float32, device=x.device)
     _cuda.call(name, x.data_ptr(), dout.data_ptr(),
                *[m.data_ptr() for m in maps], ptr(dout_mask),
-               partial.data_ptr(), dw.data_ptr(), *sizes, cin, cout, chunks,
-               rpc, DTYPES[x.dtype])
+               partial.data_ptr(), dw.data_ptr(), *sizes, cin, cout,
+               sp.chunks, sp.rows_per_chunk, DTYPES[x.dtype])
     LAUNCHES[name] += 1
     return dw
 
 
 # csrc/zconv3_wgrad.cu: warps per block at most (an SM's registers hold 12
-# such warps); an H100's SMs and shared memory (bytes) per SM
-ZW_MAX_WARPS, SMS, SM_SMEM = 12, 132, 233_472
+# such warps); an H100's shared memory (bytes) per SM
+ZW_MAX_WARPS, SM_SMEM = 12, 233_472
 ZW_SLABS = (128, 96, 64, 32)
 
 

@@ -48,7 +48,6 @@ _GROUPS = (("zconv3_fwd_kernel", "zconv3_fwd"),
            ("zconv3_bwd_dx_kernel", "zconv3_bwd_dx"),
            ("zconv3_wgrad", "zconv3_wgrad"),
            ("DownWMap", "zconv_down_wgrad"), ("UpWMap", "zconv_up_wgrad"),
-           ("wgrad_sum_kernel", "wgrad sum pass (KF, LB)"),
            ("NbrMap", "sparse_conv_fwd"), ("TransposeWMap", "sparse_conv_wgrad"),
            ("vox_", "voxelize"), ("label_gather_kernel", "label_gather"),
            ("bn_moments_kernel", "bn_train_fwd"),

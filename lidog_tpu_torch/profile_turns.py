@@ -13,9 +13,13 @@ passed on); `kernels` times the zconv3 weight gradient (KF) at
 chip_smoke's training-plan shapes, the zconv3 forward and input gradient
 (KA, KE) at the training plan's L0 shapes and at every zconv3 width pair
 of MinkUNet34 at its level (bf16), KA also at the serving plan's shapes,
-KB and KC at their forward (serving) and transposed-weight (training)
-shapes, the masked BatchNorm's KG, KH and KD at every (level, width,
-residual, ReLU) form of MinkUNet34's norms (chip_smoke's BN_FORMS; bf16,
+KB, KC and KF at every strided form of MinkUNet34 (chip_smoke's
+STRIDED_FORMS: forward, dx and dW on the training plan, the forward on
+the serving plan, also as device ms with the sums over a step's 24 and a
+request's 8 launches), LA and LB at the generic training plan's shapes
+(chip_smoke phase 20), the masked BatchNorm's KG, KH and KD at every
+(level, width, residual, ReLU) form of MinkUNet34's norms (chip_smoke's
+BN_FORMS; bf16,
 and L0 96 in f32) on the training plan and KD on the serving plan, also
 as device ms (torch.profiler) with their sums over a step's and a
 request's 62 norms and the device split of KG's and KH's kernels at L0
@@ -48,9 +52,29 @@ import chip_smoke as cs
 from lidog_tpu_torch.core import voxelize as V
 from lidog_tpu_torch.ops import _cuda, norm, zconv
 
+from lidog_tpu_torch.profile_serve import kernel_events
+
 _cuda.build()
 dev = torch.device("cuda")
 out = {}
+
+
+def device_ms(fn, calls=5, split=False):
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ev = kernel_events(prof)
+    if split:
+        return {name[:60]: [us / calls / 1e3, k // calls]
+                for name, us, k in ev}
+    return sum(us for _, us, _ in ev) / calls / 1e3
+
+
 tpts, tlabels = cs.train_data()
 b = cs.train_batch(tpts, tlabels, dev)
 plan = cs.train_plan_builder()(b["coords"], b["mask"])
@@ -101,20 +125,54 @@ for lvl, cin, cout in ((1, 32, 32), (2, 32, 64), (2, 64, 64), (3, 64, 128),
                        (3, 384, 256), (2, 192, 128), (1, 128, 96),
                        (1, 96, 96)):
     conv3("training ", plan, lvl, cin, cout, bf)
-l0, l1 = plan.level(0), plan.level(1)
-nbr8, parent, off = (plan.kmaps[k]
-                     for k in ("down8_l0", "parent_l0", "off_l0"))
-for dt in (bf, f32):
-    sfx = str(dt)[6:]
-    d1 = ck.feats(l1.coords.shape[0], 32, ones[1], dt)
-    w8 = ck.weights(dt, 8, 32, 32)
-    out[f"zconv_up_fwd W^T L1->L0 32->32 {sfx}"] = cs.cuda_ms(
-        lambda: zconv.zconv_up_fwd(d1, parent, off, w8, None,
-                                   src_mask=l1.real))
-    d0 = ck.feats(l0.coords.shape[0], 96, ones[0], dt)
-    u8 = ck.weights(dt, 8, 96, 96)
-    out[f"zconv_down_fwd W^T L0->L1 96->96 {sfx}"] = cs.cuda_ms(
-        lambda: zconv.zconv_down_fwd(d0, nbr8, u8, None, src_mask=l0.real))
+# every strided form of MinkUNet34 (chip_smoke's STRIDED_FORMS, passed in
+# as JSON): the forward, dx (the partner kernel with W^T) and dW on the
+# training plan in bf16 (events and device ms; the device sum of a step's
+# 24 launches), the L0 <-> L1 pair also in f32 (events)
+def strided(p, kind, lvl, cin, cout, dt):
+    fine, coarse = p.level(lvl), p.level(lvl + 1)
+    nbr8, parent, off = (p.kmaps[f"{k}_l{lvl}"]
+                         for k in ("down8", "parent", "off"))
+    nf, nc = fine.coords.shape[0], coarse.coords.shape[0]
+    down = kind == "down"
+    ni, mi, no = (nf, fine.real, nc) if down else (nc, coarse.real, nf)
+    x = ck.feats(ni, cin, mi, dt)
+    dout = ck.feats(no, cout, torch.ones(no, dtype=torch.bool, device=dev),
+                    dt)
+    w8 = ck.weights(dt, 8, cin, cout)
+    w8t = w8.transpose(1, 2).contiguous()
+    a, b = (lvl, lvl + 1) if down else (lvl + 1, lvl)
+    label = f"{kind} L{a}->L{b} {cin}->{cout} {str(dt)[6:]}"
+    if down:
+        return label, {
+            "fwd": lambda: zconv.zconv_down_fwd(x, nbr8, w8, coarse.real),
+            "dx": lambda: zconv.zconv_up_fwd(dout, parent, off, w8t, None,
+                                             src_mask=coarse.real),
+            "dW": lambda: zconv.zconv_down_wgrad(x, dout, parent, off,
+                                                 coarse.real)}
+    return label, {
+        "fwd": lambda: zconv.zconv_up_fwd(x, parent, off, w8, fine.real),
+        "dx": lambda: zconv.zconv_down_fwd(dout, nbr8, w8t, None,
+                                           src_mask=fine.real),
+        "dW": lambda: zconv.zconv_up_wgrad(x, dout, parent, off, fine.real)}
+
+
+forms = [tuple(f) for f in json.loads(sys.argv[2])]
+step = 0.0
+for form in forms:
+    label, calls = strided(plan, *form, bf)
+    for part, fn in calls.items():
+        out[f"{part} {label}"] = cs.cuda_ms(fn)
+        out[f"{part} {label} device"] = device_ms(fn)
+        step += out[f"{part} {label} device"]
+    del calls
+out["strided a step (24 launches), device"] = step
+for form in forms:
+    if form[1] == 0:
+        label, calls = strided(plan, *form, f32)
+        for part, fn in calls.items():
+            out[f"{part} {label}"] = cs.cuda_ms(fn)
+        del calls
 # KA (with KB, KC) at the serving plan of one scan, as chip_smoke phase 3
 from lidog_tpu_torch.models.minkunet import MinkUNet34
 from lidog_tpu_torch.serve import Predictor
@@ -132,43 +190,23 @@ splan = probe.builder(vox.coords, vox.mask)
 for lvl, cin, cout, dt in ((0, 128, 96, bf), (0, 96, 96, bf), (1, 32, 32, bf),
                            (1, 32, 32, f32)):
     conv3("serving ", splan, lvl, cin, cout, dt, ("fwd",))
-s0, s1 = splan.level(0), splan.level(1)
-for dt in (bf, f32):
-    sfx = str(dt)[6:]
-    xs = ck.feats(s0.coords.shape[0], 32, s0.real, dt)
-    w8 = ck.weights(dt, 8, 32, 32)
-    out[f"zconv_down_fwd serving L0->L1 32->32 {sfx}"] = cs.cuda_ms(
-        lambda: zconv.zconv_down_fwd(xs, splan.kmaps["down8_l0"], w8, s1.real))
-    xc = ck.feats(s1.coords.shape[0], 96, s1.real, dt)
-    u8 = ck.weights(dt, 8, 96, 96)
-    out[f"zconv_up_fwd serving L1->L0 96->96 {sfx}"] = cs.cuda_ms(
-        lambda: zconv.zconv_up_fwd(xc, splan.kmaps["parent_l0"],
-                                   splan.kmaps["off_l0"], u8, s0.real))
+# KB and KC: every strided form's forward on the serving plan (bf16;
+# events and device ms, the device sum of a request's 8)
+req = 0.0
+for form in forms:
+    label, calls = strided(splan, *form, bf)
+    fn = calls["fwd"]
+    out[f"fwd serving {label}"] = cs.cuda_ms(fn)
+    out[f"fwd serving {label} device"] = device_ms(fn)
+    req += out[f"fwd serving {label} device"]
+    del calls
+out["KB + KC a request (8 launches), device"] = req
 # the masked BatchNorm at every norm form of MinkUNet34 (bf16; chip_smoke's
 # BN_FORMS, passed in as JSON): KG, KH and KD on the training plan's rows
 # (CUDA events, and device ms by the profiler), KD on the serving plan's
 # rows (device ms), L0 96 +res +relu also in f32, the sums over a step's
 # and a request's 62 norms, and the device split of KG's and KH's kernels
 # at L0 96 +res +relu
-from lidog_tpu_torch.profile_serve import kernel_events
-
-
-def device_ms(fn, calls=5, split=False):
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    ev = kernel_events(prof)
-    if split:
-        return {name[:60]: [us / calls / 1e3, k // calls]
-                for name, us, k in ev}
-    return sum(us for _, us, _ in ev) / calls / 1e3
-
-
 def bn_inputs(L, c, has_res, relu, dt):
     n = L.coords.shape[0]
     every = torch.ones(n, dtype=torch.bool, device=dev)
@@ -233,6 +271,34 @@ for name, pts, bsz, cap in (
     extra = {"batch_size": bsz} if kw else {}
     out[f"voxelize {name}"] = cs.cuda_ms(lambda: V.voxelize_cells(
         disc, valid, bidx, cap, **extra))
+# LA and LB at the generic training plan's shapes (chip_smoke phase 20):
+# the forward, dIn over the transpose map and dW, bf16, events and device
+del plan, b
+torch.cuda.empty_cache()
+_, gplan = cs.generic_batch_plan(dev)
+from lidog_tpu_torch.ops import sparse_conv as sc
+
+for name, li, lo, cin, cout, partner in (
+        ("conv3_l0", 0, 0, 32, 32, None), ("conv3_l0", 0, 0, 128, 96, None),
+        ("conv3_l3", 3, 3, 512, 256, None), ("down_l0", 0, 1, 32, 32, "up_l0"),
+        ("up_l0", 1, 0, 96, 96, "down_l0")):
+    nbr = gplan.kmaps[name]
+    m_in, m_out = gplan.level(li).mask, gplan.level(lo).mask
+    x = ck.feats(m_in.shape[0], cin, m_in, bf)
+    w = ck.weights(bf, nbr.shape[0], cin, cout)
+    dout = ck.feats(m_out.shape[0], cout, m_out, bf)
+    rev = partner is None
+    tmap = nbr if rev else gplan.kmaps[partner]
+    wt = (w.flip(0) if rev else w).transpose(1, 2).contiguous()
+    shape = f"{name} {nbr.shape[1]} rows K {nbr.shape[0]} {cin}->{cout}"
+    for part, fn in (
+            ("sparse_conv_fwd", lambda: sc.sparse_conv_fwd(x, nbr, w, m_out)),
+            ("sparse_conv_fwd dIn", lambda: sc.sparse_conv_fwd(
+                dout, tmap, wt, None, m_out)),
+            ("sparse_conv_wgrad", lambda: sc.sparse_conv_wgrad(
+                x, dout, tmap, m_out, reverse=rev))):
+        out[f"{part} {shape}"] = cs.cuda_ms(fn)
+        out[f"{part} {shape} device"] = device_ms(fn)
 print("[kernels] " + json.dumps(out), flush=True)
 """
 
@@ -302,9 +368,10 @@ def main(argv=None):
     other = os.path.abspath(args.other)
     if args.what == "kernels":
         sys.path.insert(0, here)
-        from chip_smoke import BN_FORMS
+        from chip_smoke import BN_FORMS, STRIDED_FORMS
 
-        cmd = [sys.executable, "-c", _KERNELS, json.dumps(BN_FORMS)]
+        cmd = [sys.executable, "-c", _KERNELS, json.dumps(BN_FORMS),
+               json.dumps(STRIDED_FORMS)]
     elif args.what == "stages":
         cmd = [sys.executable, "-c", _STAGES]
     else:

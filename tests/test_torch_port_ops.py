@@ -1509,6 +1509,453 @@ def test_zconv3_tiles(case):
                                    err_msg=f"{case} {dt}")
 
 
+def _gg_tiled(x, w, n_out, mask, src_mask, tl, nbr=None, parent=None,
+              off=None):
+    """csrc/gather_gemm.cuh's blockings in float64: KB / LA (`nbr` [K,
+    n_out], gathering) or KC (`parent`, `off` [n_out], one-hot).
+    Gathering, per block of tl.bm rows and tl.bn columns: the rows whose
+    output mask is set and each one's validated source at each offset
+    (with K <= 8 sorted by the set of offsets they have a source at, here
+    stably), the offsets with a source, then chunks of tl.bk of those
+    offsets' Cin columns end to end (a chunk may hold two offsets, the last
+    may be short): a fresh A tile (NaN where the kernel copies nothing; a
+    missing source zero), the matching weight rows, and per k16 (bf16) /
+    k4 (f32) step of an offset the products of the warps' 32 rows (bf16)
+    or the threads' 8 (f32) where one of them has a source at it; the
+    live
+    rows written, the block's others 0.  One-hot, per block (range of
+    tl.rows rows, offset o, tl.bn columns): the range's rows with mask set
+    and a source inside x, not src_mask-dead, at offset o, in row order,
+    in tiles of tl.bm (NaN past a tile's rows), each times w[o] and
+    written to its row; the offset-0 blocks write zeros in the range's
+    rows that are not live at an offset < K."""
+    import torch
+
+    n_in, cin = x.shape
+    noff, _, cout = w.shape
+    x64, w64 = x.double(), w.double()
+    nan = float("nan")
+    out = torch.full((n_out, cout), nan, dtype=torch.float64)
+
+    def src_ok(s):
+        return 0 <= s < n_in and (src_mask is None or bool(src_mask[s]))
+
+    if nbr is None:
+        def live(r):
+            return (mask is None or bool(mask[r])) and 0 <= int(off[r]) < noff \
+                and src_ok(int(parent[r]))
+
+        for rb, o, cb in np.ndindex(*tl.grid):
+            rows = range(rb * tl.rows, min((rb + 1) * tl.rows, n_out))
+            cols = slice(cb * tl.bn, (cb + 1) * tl.bn)
+            mine = [r for r in rows if live(r) and int(off[r]) == o]
+            for t0 in range(0, len(mine), tl.bm):
+                tile = mine[t0:t0 + tl.bm]
+                a = torch.full((tl.bm, cin), nan, dtype=torch.float64)
+                for p, r in enumerate(tile):
+                    a[p] = x64[int(parent[r])]
+                prod = a @ w64[o, :, cols]
+                for p, r in enumerate(tile):
+                    out[r, cols] = prod[p]
+            if o == 0:
+                for r in rows:
+                    if not live(r):
+                        out[r, cols] = 0
+        return out
+    bm, rg = tl.bm, tl.group
+    step = 16 if rg == 32 else 4
+    for b in range(tl.grid[0]):
+        rows = range(b * bm, min((b + 1) * bm, n_out))
+        rowof = [r for r in rows if mask is None or bool(mask[r])]
+        out[list(rows)] = 0
+        if noff <= 8:
+            rowof.sort(key=lambda r: sum(src_ok(int(nbr[k, r])) << k
+                                         for k in range(noff)))
+        tab = [[int(nbr[k, r]) if src_ok(int(nbr[k, r])) else -1
+                for r in rowof] for k in range(noff)]
+        offs = [k for k in range(noff) if max(tab[k], default=-1) >= 0]
+        cols_all = [(k, c) for k in offs for c in range(cin)]
+        for cb in range(tl.grid[1]):
+            cols = slice(cb * tl.bn, (cb + 1) * tl.bn)
+            acc = torch.zeros(bm, tl.bn, dtype=torch.float64)
+            for q0 in range(0, len(cols_all), tl.bk):
+                chunk = cols_all[q0:q0 + tl.bk]
+                a = torch.full((bm, len(chunk)), nan, dtype=torch.float64)
+                bmat = torch.stack([w64[k, c, cols] for k, c in chunk])
+                for p in range(len(rowof)):
+                    for i, (k, c) in enumerate(chunk):
+                        s = tab[k][p]
+                        a[p, i] = x64[s, c] if s >= 0 else 0
+                for i0 in range(0, len(chunk), step):
+                    k = chunk[i0][0]
+                    for p in range(0, bm, rg):
+                        if max(tab[k][p:p + rg], default=-1) >= 0:
+                            acc[p:p + rg] += (a[p:p + rg, i0:i0 + step]
+                                              @ bmat[i0:i0 + step])
+            for p, r in enumerate(rowof):
+                out[r, cols] = acc[p]
+    return out
+
+
+def _onehot_wgrad_tiled(a, g, g_mask, parent, off, up, sp):
+    """csrc/wgrad.cuh's one-hot kernel (KF down / up) in float64: per chunk
+    of sp.rows_per_chunk fine rows, dW tile (32 x sp.bn) and offset k (one
+    warp), the chunk walked in windows of 32 rows, each window's rows of
+    offset k with an (A, G) pair inside a and g (and g_mask set) appended
+    in row order to the warp's list; a stage takes the list's first
+    min(len, 16) entries once it holds 16 or the chunk has ended (the rest
+    of the stage zero) and adds A^T G to offset k's sums; partial[chunk, k]
+    summed over the chunks in order.  A = a[r], G = g[parent[r]] (down) or
+    A = a[parent[r]], G = g[r] (up)."""
+    import torch
+
+    rows, rpc = parent.shape[0], sp.rows_per_chunk
+    n_a, cin = a.shape
+    n_g, cout = g.shape
+    a64, g64 = a.double(), g.double()
+    part = torch.zeros(sp.partial, dtype=torch.float64)
+    for ch in range(sp.chunks):
+        r_end = min(rows, (ch + 1) * rpc)
+        for m0 in range(0, cin, sp.bm):
+            for n0 in range(0, cout, sp.bn):
+                for k in range(8):
+                    acc = torch.zeros(sp.bm, sp.bn, dtype=torch.float64)
+                    pos, lst = ch * rpc, []
+                    while True:
+                        while len(lst) < sp.rows_step and pos < r_end:
+                            for r in range(pos, min(pos + 32, r_end)):
+                                p = int(parent[r])
+                                sa, sg = (p, r) if up else (r, p)
+                                if int(off[r]) == k and 0 <= sa < n_a \
+                                        and 0 <= sg < n_g and (
+                                            g_mask is None or g_mask[sg]):
+                                    lst.append((sa, sg))
+                            pos += 32
+                        n = min(len(lst), sp.rows_step)
+                        if n == 0:
+                            break
+                        A = torch.zeros(sp.rows_step, sp.bm,
+                                        dtype=torch.float64)
+                        G = torch.zeros(sp.rows_step, sp.bn,
+                                        dtype=torch.float64)
+                        for i, (sa, sg) in enumerate(lst[:n]):
+                            A[i] = a64[sa, m0:m0 + sp.bm]
+                            G[i] = g64[sg, n0:n0 + sp.bn]
+                        acc += A.T @ G
+                        lst = lst[n:]
+                    part[ch, k, m0:m0 + sp.bm, n0:n0 + sp.bn] = acc
+    return part.sum(0)
+
+
+def _group_wgrad_tiled(x, dout, tmap, dmask, reverse, sp):
+    """csrc/wgrad.cuh's grouped kernel (LB) in float64: per chunk, dW tile
+    and group of sp.group offsets (warp w: offset group * sp.group + w),
+    steps of 32 rows r0 .. of x (zero past the chunk), each warp's G rows
+    dout[T[k, r]] (T[k] = tmap[K-1-k] when `reverse`, else tmap[k]; zero
+    where T misses or dmask is 0), its 16-row halves (bf16) or rows (f32:
+    sp.bn 32 with group 9 and 8 alike) without a G row skipped."""
+    import torch
+
+    n_in, cin = x.shape
+    n_out, cout = dout.shape
+    kk, rpc = tmap.shape[0], sp.rows_per_chunk
+    x64, d64 = x.double(), dout.double()
+    part = torch.zeros(sp.partial, dtype=torch.float64)
+    for ch in range(sp.chunks):
+        r_begin, r_end = ch * rpc, min(n_in, (ch + 1) * rpc)
+        for m0 in range(0, cin, sp.bm):
+            for n0 in range(0, cout, sp.bn):
+                for gi in range(kk // sp.group):
+                    for w in range(sp.group):
+                        k = gi * sp.group + w
+                        t = tmap[kk - 1 - k if reverse else k]
+                        acc = torch.zeros(sp.bm, sp.bn, dtype=torch.float64)
+                        for r0 in range(r_begin, r_end, sp.rows_step):
+                            A = torch.zeros(sp.rows_step, sp.bm,
+                                            dtype=torch.float64)
+                            G = torch.zeros(sp.rows_step, sp.bn,
+                                            dtype=torch.float64)
+                            bits = 0
+                            for i, r in enumerate(range(r0, min(
+                                    r0 + sp.rows_step, r_end))):
+                                A[i] = x64[r, m0:m0 + sp.bm]
+                                s = int(t[r])
+                                if 0 <= s < n_out and (dmask is None
+                                                       or dmask[s]):
+                                    G[i] = d64[s, n0:n0 + sp.bn]
+                                    bits |= 1 << i
+                            for h in range(0, sp.rows_step, 16):
+                                if (bits >> h) & 0xFFFF:
+                                    acc += A[h:h + 16].T @ G[h:h + 16]
+                        part[ch, k, m0:m0 + sp.bm, n0:n0 + sp.bn] = acc
+    return part.sum(0)
+
+
+def _strided_maps(rng, nf, nc, mixed=True):
+    """A level pair of nf fine and nc coarse rows: parent / off (some -1
+    parents; offsets mixed within every 16 rows) and the down map nbr8 it
+    implies, with some out-of-range entries."""
+    import torch
+
+    parent = rng.integers(-1, nc, nf).astype(np.int32)
+    parent[::11] = -1
+    off = rng.integers(0, 8, nf).astype(np.int32)
+    if not mixed:  # runs of one offset, as a z-sorted level holds them
+        off = np.sort(off)
+    nbr8 = np.full((8, nc), -1, np.int32)
+    for j in range(nf):
+        if parent[j] >= 0:
+            nbr8[off[j], parent[j]] = j
+    nbr8[:, ::17] = nf + 5  # past the fine level: a miss
+    return (torch.from_numpy(parent), torch.from_numpy(off),
+            torch.from_numpy(nbr8))
+
+
+# (kind, Cin, Cout, row tile forced (0: the launcher's), with masks) of
+# the float64 gather-GEMM blocking checks; KC's dx and KB's dx run with
+# mask None
+GG_CASES = {"down 32->96": ("down", 32, 96, 0, True),
+            "down 96->256 bm128": ("down", 96, 256, 128, True),
+            "down dx 64->32 no mask": ("down", 64, 32, 0, False),
+            "up 32->256": ("up", 32, 256, 0, True),
+            "up 96->64 short range": ("up", 96, 64, 128, True),
+            "up dx 128->32 no mask short range": ("up", 128, 32, 128, False),
+            "la K27 32->128 bm128": ("la27", 32, 128, 128, True),
+            "la K8 64->96 bm128": ("la8", 64, 96, 128, True)}
+
+
+@pytest.mark.parametrize("case", list(GG_CASES))
+def test_gather_gemm_tiles(case):
+    """The gather-GEMMs' blocking (ops/_wrap.py gather_gemm_tiles, which
+    the C launcher mirrors): the column tile is all of Cout up to 128 (two
+    tiles at 256); gathering: 128-row blocks where they make 4 waves of two
+    blocks an SM, two blocks' shared memory within an SM's; one-hot: a
+    block per (1024-row range, offset, column tile), two 128-row tiles in
+    flight in bf16; a block's shared memory within an H100's, at
+    MinkUNet34's strided and generic widths.  At ~300 rows (the last block
+    partial; gathering also in 128-row blocks; one-hot also in 64-row
+    tiles and 128-row ranges) the kernel's
+    blocking in float64, in both dtypes' tilings, on seeded maps with -1
+    and out-of-range sources, all 8 offsets mixed in a tile, an output
+    and a source mask, equals zconv_down_plain (KB), zconv_up_plain (KC)
+    and sparse_conv_plain (LA)."""
+    import torch
+
+    from lidog_tpu_torch.ops._wrap import (ONEHOT_ROWS, SMEM_MAX, SMS,
+                                           gather_gemm_tiles)
+    from lidog_tpu_torch.ops.sparse_conv import sparse_conv_plain
+    from lidog_tpu_torch.ops.zconv import (SM_SMEM, zconv_down_plain,
+                                           zconv_up_plain)
+
+    for rows in (491_520, 311_296, 153_600, 43_008, 17_408, 1):
+        for cin, cout in ((32, 32), (96, 64), (128, 96), (256, 128),
+                          (96, 256), (256, 256)):
+            for noff, onehot in ((8, False), (8, True), (27, False)):
+                for dt in (torch.bfloat16, torch.float32):
+                    tl = gather_gemm_tiles(rows, noff, cin, cout, onehot, dt)
+                    bf16 = dt == torch.bfloat16
+                    assert tl.bn == {32: 32, 64: 64, 96: 96, 128: 128,
+                                     256: 128}[cout]
+                    ct = cout // tl.bn
+                    assert tl.threads == 2 * tl.bm
+                    assert tl.smem <= SMEM_MAX - 1024
+                    if onehot:
+                        assert tl.rows == ONEHOT_ROWS and tl.bk == cin
+                        assert tl.grid == (-(-rows // tl.rows), 8, ct)
+                        # two tiles of 128 rows in flight (bf16: at every
+                        # width here)
+                        assert (tl.bm, tl.stages) == (128, 2) or not bf16
+                        continue
+                    assert tl.bm == (128 if -(-rows // 128) * ct >= 8 * SMS
+                                     else 64)
+                    assert tl.grid == (-(-rows // tl.bm), ct)
+                    assert tl.group == (32 if bf16 else 8)
+                    assert tl.bk * torch.finfo(dt).bits // 8 == 128
+                    assert tl.stages == (2 if tl.bn == 128 or tl.bm == 64
+                                         else 3)
+                    assert 2 * (tl.smem + 1024 + 64) <= SM_SMEM
+    with pytest.raises(ValueError, match="multiples of 32"):
+        gather_gemm_tiles(10, 8, 48, 32)
+    kind, cin, cout, bm, masks = GG_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    nf, nc = 301, 173
+    parent, off, nbr8 = _strided_maps(rng, nf, nc)
+    w8 = torch.from_numpy((rng.standard_normal((8, cin, cout)) * 0.1)
+                          .astype(np.float32))
+    if kind == "down":  # x fine -> coarse rows
+        n_in, n_out = nf, nc
+    elif kind == "up":
+        n_in, n_out = nc, nf
+    else:
+        noff = 27 if kind == "la27" else 8
+        n_in, n_out = nf, 307
+        nbr = torch.from_numpy(rng.integers(-1, nf + 2, (noff, n_out))
+                               .astype(np.int32))
+        nbr[:, ::9] = -1
+        w8 = torch.from_numpy((rng.standard_normal((noff, cin, cout)) * 0.1)
+                              .astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((n_in, cin)).astype(np.float32))
+    mask = torch.from_numpy(rng.random(n_out) < 0.8) if masks else None
+    src_mask = torch.from_numpy(rng.random(n_in) < 0.85)
+    if kind == "down":
+        want = zconv_down_plain(x, nbr8, w8, mask, src_mask)
+    elif kind == "up":
+        want = zconv_up_plain(x, parent, off, w8, mask, src_mask)
+    else:
+        want = sparse_conv_plain(x, nbr, w8, mask, src_mask)
+    scale = float(want.abs().max())
+    assert scale > 0
+    for dt in (torch.bfloat16, torch.float32):
+        tl = gather_gemm_tiles(n_out, w8.shape[0], cin, cout, kind == "up",
+                               dt)
+        if bm and kind == "up":  # 64-row tiles, 128-row ranges
+            tl = tl._replace(bm=64, threads=128, rows=128,
+                             grid=(-(-n_out // 128),) + tl.grid[1:])
+        elif bm:
+            tl = tl._replace(bm=bm, threads=2 * bm,
+                             grid=(-(-n_out // bm), tl.grid[1]))
+        maps = ({"parent": parent, "off": off} if kind == "up" else
+                {"nbr": nbr8 if kind == "down" else nbr})
+        got = _gg_tiled(x, w8, n_out, mask, src_mask, tl, **maps)
+        np.testing.assert_allclose(got.numpy(), want.double().numpy(),
+                                   rtol=0, atol=1e-5 * scale,
+                                   err_msg=f"{case} {dt}")
+
+
+# (kind, Cin, Cout, offsets mixed in every 16 rows) of the one-hot dW checks
+OW_CASES = {"down 32->96": ("down", 32, 96, True),
+            "down 64->256 sorted": ("down", 64, 256, False),
+            "up 96->32": ("up", 96, 32, True),
+            "up 32->64 sorted": ("up", 32, 64, False)}
+
+
+@pytest.mark.parametrize("case", list(OW_CASES))
+def test_onehot_wgrad_tiled(case):
+    """KF's down / up forms (csrc/wgrad.cuh one-hot kernel) in float64 at
+    ~300 fine rows: one pass over the fine rows, each added only to its own
+    offset's sums, in the wrapper's split and in one of 2 chunks of 160
+    rows (windows that carry rows over to the next stage), both dtypes'
+    tiles, with -1 parents, every offset in every tile and a dout mask,
+    equals zconv_down_wgrad_plain / zconv_up_wgrad_plain."""
+    import torch
+
+    from lidog_tpu_torch.ops._wrap import wgrad_split
+    from lidog_tpu_torch.ops.zconv import (zconv_down_wgrad_plain,
+                                           zconv_up_wgrad_plain)
+
+    kind, cin, cout, mixed = OW_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    nf, nc = 301, 97
+    parent, off, _ = _strided_maps(rng, nf, nc, mixed)
+    up = kind == "up"
+    n_a, n_g = (nc, nf) if up else (nf, nc)
+    a = torch.from_numpy(rng.standard_normal((n_a, cin)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((n_g, cout)).astype(np.float32))
+    gmask = torch.from_numpy(rng.random(n_g) < 0.8)
+    plain = zconv_up_wgrad_plain if up else zconv_down_wgrad_plain
+    want = plain(a, g, parent, off, gmask).double()
+    scale = float(want.abs().max())
+    for dt in (torch.bfloat16, torch.float32):
+        sp = wgrad_split("onehot", nf, 8, cin, cout, dt)
+        for split in (sp, sp._replace(chunks=2, rows_per_chunk=160,
+                                      partial=(2, 8, cin, cout))):
+            got = _onehot_wgrad_tiled(a, g, gmask, parent, off, up, split)
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                       atol=1e-5 * scale,
+                                       err_msg=f"{case} {dt} {split}")
+
+
+# (K, reverse, Cin, Cout) of LB's grouped dW checks
+GW_CASES = {"K27 reverse 32->64": (27, True, 32, 64),
+            "K8 partner 64->96": (8, False, 64, 96),
+            "K27 reverse 64->32": (27, True, 64, 32)}
+
+
+@pytest.mark.parametrize("case", list(GW_CASES))
+def test_group_wgrad_tiled(case):
+    """LB (csrc/wgrad.cuh grouped kernel) in float64 at ~300 rows: 9 (of
+    27) or all 8 offsets a block, the x rows of each 32-row step shared,
+    in the wrapper's split and in 2 chunks (the last ragged), both dtypes'
+    tiles, with -1 and out-of-range map entries and a dout mask, equals
+    sparse_conv_wgrad_plain."""
+    import torch
+
+    from lidog_tpu_torch.ops._wrap import wgrad_split
+    from lidog_tpu_torch.ops.sparse_conv import sparse_conv_wgrad_plain
+
+    k, reverse, cin, cout = GW_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    n_in, n_out = 299, 211
+    tmap = torch.from_numpy(rng.integers(-1, n_out + 3, (k, n_in))
+                            .astype(np.int32))
+    tmap[:, 40:72] = -1  # a step half without a G row at every offset
+    x = torch.from_numpy(rng.standard_normal((n_in, cin)).astype(np.float32))
+    dout = torch.from_numpy(rng.standard_normal((n_out, cout))
+                            .astype(np.float32))
+    dmask = torch.from_numpy(rng.random(n_out) < 0.8)
+    want = sparse_conv_wgrad_plain(x, dout, tmap, dmask,
+                                   reverse=reverse).double()
+    scale = float(want.abs().max())
+    for dt in (torch.bfloat16, torch.float32):
+        sp = wgrad_split("group", n_in, k, cin, cout, dt)
+        assert sp.group == (9 if k == 27 else 8)
+        for split in (sp, sp._replace(chunks=2, rows_per_chunk=192,
+                                      partial=(2, k, cin, cout))):
+            got = _group_wgrad_tiled(x, dout, tmap, dmask, reverse, split)
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                       atol=1e-5 * scale,
+                                       err_msg=f"{case} {dt} {split}")
+
+
+@pytest.mark.parametrize("rows", [0, 1, 300, 17_408, 102_400, 311_296,
+                                  491_520, 524_288])
+def test_wgrad_split(rows):
+    """csrc/wgrad.cuh's split (ops/_wrap.py wgrad_split, whose tile rules
+    the C launchers mirror) at MinkUNet34's strided widths (one-hot) and
+    the generic plan's (grouped): dW tiles of 32 Cin x (one-hot bf16:
+    all of Cout up to 128; f32 and grouped: 64 or 32) columns, 9 of 27 or
+    8 offsets a block, chunks of a multiple of 32 rows that cover the rows
+    once, the last non-empty, at most 65,535, and as many as bring the
+    blocks to the kind's target (fewer only where chunks of 32 rows run
+    out)."""
+    import torch
+
+    from lidog_tpu_torch.ops._wrap import WGRAD_BLOCKS, wgrad_split
+
+    widths = {"onehot": [(8, 32, 32), (8, 64, 64), (8, 128, 128),
+                         (8, 256, 256), (8, 256, 128), (8, 128, 96),
+                         (8, 96, 96)],
+              "group": [(27, 32, 32), (27, 128, 96), (27, 512, 256),
+                        (8, 32, 32), (8, 96, 96)]}
+    for kind, shapes in widths.items():
+        for k, cin, cout in shapes:
+            for dt in (torch.bfloat16, torch.float32):
+                sp = wgrad_split(kind, rows, k, cin, cout, dt)
+                bf16 = dt == torch.bfloat16
+                if kind == "onehot" and bf16:
+                    bn = next(b for b in (128, 96, 64, 32) if cout % b == 0)
+                else:
+                    bn = 64 if cout % 64 == 0 and (bf16 or kind == "onehot") \
+                        else 32
+                assert (sp.bm, sp.bn) == (32, bn)
+                assert sp.group == (8 if k == 8 else 9)
+                assert sp.rows_step == (16 if kind == "onehot" else 32)
+                assert sp.blocks == (cin // 32) * (cout // bn) * (k // sp.group)
+                assert sp.rows_per_chunk % 32 == 0 and sp.rows_per_chunk >= 32
+                assert sp.chunks * sp.rows_per_chunk >= rows
+                assert (sp.chunks - 1) * sp.rows_per_chunk < max(rows, 1)
+                assert 1 <= sp.chunks <= 65_535
+                assert sp.partial == (sp.chunks, k, cin, cout)
+                target = -(-WGRAD_BLOCKS[kind] // sp.blocks)
+                if sp.rows_per_chunk > 32:  # not one 32-row step a chunk
+                    assert sp.chunks <= target
+                    assert sp.chunks >= min(target, -(-rows // 32)) // 2
+    with pytest.raises(ValueError, match="8 offsets"):
+        wgrad_split("onehot", 10, 27, 32, 32)
+    with pytest.raises(ValueError, match="K 27 or 8"):
+        wgrad_split("group", 10, 125, 32, 32)
+
+
 def test_kernel_wrappers_take_plain_versions_on_cpu():
     """Each kernel wrapper takes its plain version for a CPU tensor and
     counts no launch; a tensor on neither the CPU nor a card raises.  The

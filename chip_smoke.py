@@ -99,10 +99,12 @@ no result line):
  18. the plan's sweep kernels KR (stem occupancy + conv9 at level 0), KS
      (conv9 at levels 1-4), KT (pos3) and KU (the packed y-neighbourhood
      table) torch.equal to their plain versions on the builder's own
-     inputs: the serving plan of phase 4's scan and the training plan of
-     4 scans at every level each runs at (KU also at the general stem's
-     level-0 width), and the CPU tests' edge voxels with roomy and starved
-     caps (run after phase 15, before phase 4);
+     inputs: the serving plan of phase 4's scan, the training plan of 4
+     scans and its sortless plan at every level each runs at, KU also at
+     every level of the general stem's plan, and the CPU tests' edge
+     voxels with roomy and starved caps (run after phase 15, before phase
+     4); KU's and KX's rows in the kernels line carry their level and
+     that level's launches (`level_launches`);
  19. the plan's column-table kernels KV (the y-dilated column grid and
      slot stamps), KW (the real z-bit words), KX (the aug words and
      per-scan starts) and KY (the aug rows and the level's maps)
@@ -143,8 +145,9 @@ no result line):
 
 Every request and voxelized training batch runs LC once and every request
 LD once.  Every request and step builds one plan: KV, KW, KX, KY, KT and KU 5
-calls each, KR 1 (KQ in its place on the general stem) and KS 4, counted
-with the model's launches.  On the card the plan runs no plain torch: only
+calls each (KX and KU one kernel a call, counted per level too), KR 1 (KQ
+in its place on the general stem) and KS 4, counted with the model's
+launches.  On the card the plan runs no plain torch: only
 these kernels and the fills of its own buffers.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -179,12 +182,16 @@ PER_FORWARD = {"zconv3_fwd": 46, "zconv_down_fwd": 4, "zconv_up_fwd": 4,
                "bn_act": 62}
 # the plan's kernels per plan build (one plan per request or step): the
 # column tables KV, KW, KX, KY and the sweeps KT and KU at each of the 5
-# levels, KR at level 0 (the occupancy stem) and KS at levels 1-4
+# levels, KR at level 0 (the occupancy stem) and KS at levels 1-4; KU and
+# KX (one kernel a call each) also counted per level ("name@Li")
 PER_PLAN = {"pos3_lookup": 5, "build_packed": 5, "stem_conv9_packed": 1,
             "conv9_packed": 4, "column_grid": 5, "real_words": 5,
-            "assemble_aug": 5, "emit_rows": 5}
+            "assemble_aug": 5, "emit_rows": 5,
+            **{f"{k}@L{i}": 1 for k in ("build_packed", "assemble_aug")
+               for i in range(5)}}
 # the voxelizer LC once per request or voxelized batch, and the label
 # gather LD once per request (the sortless path has no voxelizer)
+LEVEL_KERNELS = ("build_packed", "assemble_aug")
 PER_SORTLESS_REQUEST = {**PER_FORWARD, **PER_PLAN, "label_gather": 1}
 PER_REQUEST = {**PER_SORTLESS_REQUEST, "voxelize": 1}
 VOXELIZED = {"voxelize": 1}
@@ -308,13 +315,22 @@ def _launch_tables():
 
 
 def counters():
-    return {k: v for d in _launch_tables() for k, v in d.items()}
+    from lidog_tpu_torch.core import zseg
+
+    out = {k: v for d in _launch_tables() for k, v in d.items()}
+    for k, per_level in zseg.LEVEL_LAUNCHES.items():
+        out.update({f"{k}@L{i}": v for i, v in enumerate(per_level)})
+    return out
 
 
 def zero_counters():
+    from lidog_tpu_torch.core import zseg
+
     for d in _launch_tables():
         for k in d:
             d[k] = 0
+    for per_level in zseg.LEVEL_LAUNCHES.values():
+        per_level[:] = [0] * len(per_level)
 
 
 def scan(points, seed):
@@ -509,6 +525,15 @@ STRIDED_FORMS = (("down", 0, 32, 32), ("down", 1, 32, 32),
                  ("down", 2, 64, 64), ("down", 3, 128, 128),
                  ("up", 3, 256, 256), ("up", 2, 256, 128),
                  ("up", 1, 128, 96), ("up", 0, 96, 96))
+# the plan kernels that `profile_turns kernels` times in turns with another
+# checkout, as (plan, level, wrapper in core/zseg.py): KU and KX at every
+# level of the serving and training plans, KR and KT at the training
+# plan's L0, KS at its L1 and KQ at the general stem's L0
+PLAN_FORMS = tuple((p, lvl, k) for p in ("serve", "train")
+                   for k in ("_build_packed", "assemble_aug")
+                   for lvl in range(5)) + (
+    ("train", 0, "stem_conv9_packed"), ("train", 0, "pos3_lookup"),
+    ("train", 1, "conv9_packed"), ("cin4", 0, "stem_feat125_packed"))
 STRIDED_SRC = {"zconv_down_fwd": "lidog_tpu_torch/csrc/zconv_down_fwd.cu",
                "zconv_up_fwd": "lidog_tpu_torch/csrc/zconv_up_fwd.cu",
                "zconv_down_wgrad": "lidog_tpu_torch/csrc/zconv_wgrad.cu",
@@ -993,7 +1018,7 @@ def stem_kernel_checks(dev, gen):
     nbr = plan.kmaps["stem125"]
     k = nbr.shape[0]
     cells, slots = sweep_lookups(args, kwargs, range(-STEM_R, STEM_R + 1))
-    aug_bytes = (2 * STEM_R + 1) * (ZWORDS + 1) * 8  # a row's aug slabs
+    aug_bytes = (2 * STEM_R + 1) * (ZWORDS + 1) * 4  # a row's aug slabs
     ck.record("stem_feat125", "lidog_tpu_torch/csrc/stem_feat125.cu",
               "lidog_tpu/core/zseg.py:540 (stem_feat125_packed)",
               lambda: zseg.stem_feat125_packed(*args, **kwargs),
@@ -1064,18 +1089,20 @@ def sweep_nbytes(name, args, kwargs):
 
     from lidog_tpu_torch.core.bitgrid import ZWORDS
 
-    slab = (ZWORDS + 1) * 8  # an aug slab: words + start, int64
+    slab = (ZWORDS + 1) * 4  # an aug slab: words + start, int32
     if name == "pos3_lookup":
         aug16, coords, valid = args[:3]
         cid = kwargs["cid"]
         rows = int(torch.unique(cid[valid & (cid >= 0)]).numel())
         return nbytes(coords, valid, cid) + rows * slab + 3 * cid.numel() * 8
     if name == "_build_packed":
+        from lidog_tpu_torch.core.zseg import packed_width
+
         real_w, aug16, col_bxy, col_valid = args[:4]
         r, aug_r, slots = args[7], kwargs["aug_r"], real_w.shape[0]
-        width = max(2 * r + 1, 0) * ZWORDS + (2 * aug_r + 1) * (ZWORDS + 1)
         return ((nbytes(real_w) if r >= 0 else 0) + slots * slab
-                + nbytes(col_bxy, col_valid) + slots * width * 8)
+                + nbytes(col_bxy, col_valid)
+                + slots * packed_width(r, aug_r) * 4)
     coords, valid = args[2], args[3]
     n = coords.shape[0]
     cells, slots9 = sweep_lookups(args, kwargs, (-1, 0, 1))
@@ -1084,17 +1111,17 @@ def sweep_nbytes(name, args, kwargs):
     cells, slots = sweep_lookups(args, kwargs, range(-STEM_R, STEM_R + 1))
     k = (2 * STEM_R + 1) ** 3
     return (nbytes(coords, valid) + cells * 8
-            + slots * (2 * STEM_R + 1) * ZWORDS * 8 + slots9 * 3 * slab
+            + slots * (2 * STEM_R + 1) * ZWORDS * 4 + slots9 * 3 * slab
             + n * (k * 2 + 9 * 4))
 
 
 def plan_kernel_checks(dev):
     """Phase 18: KR, KS, KT and KU torch.equal to their plain versions on
     the inputs the plan builder gives them: the serving plan of phase 4's
-    scan, the training plan of 4 scans (KU also at the general stem's
-    level-0 width), and the edge voxels of the CPU tests (data/synthetic.py
-    plan_edge_voxels, roomy and starved caps); each at every level it runs
-    at."""
+    scan, the training plan of 4 scans, its sortless plan, the general
+    stem's plan (KU only; KQ is phase 15's), and the edge voxels of the CPU
+    tests (data/synthetic.py plan_edge_voxels, roomy and starved caps);
+    each at every level it runs at."""
     import torch
 
     from lidog_tpu_torch.caps import make_zcaps
@@ -1111,14 +1138,17 @@ def plan_kernel_checks(dev):
                           VOXEL, PER_SCAN, batch_size=1)
     tpts, tlabels = train_data()
     tbatch = train_batch(tpts, tlabels, dev)
+    raw = train_batch(tpts, tlabels, dev, sortless=True)
     edge = [torch.from_numpy(a).to(dev) for a in synthetic.plan_edge_voxels()]
     cases = [("serve", zseg.ZSegPlanBuilder(
         *make_zcaps(PER_SCAN)[:2], num_batches=1, grid_half=GRID_HALF,
         caps_col_dil=make_zcaps(PER_SCAN)[2]), vox.coords, vox.mask, None),
              ("train", train_plan_builder(), tbatch["coords"],
               tbatch["mask"], None),
+             ("train sortless", train_plan_builder(assume_unique=False),
+              raw["coords"], raw["mask"], None),
              ("train cin4", train_plan_builder(IN_CHANNELS),
-              tbatch["coords"], tbatch["mask"], (0, "_build_packed"))]
+              tbatch["coords"], tbatch["mask"], "_build_packed")]
     for label, caps in (("edges", synthetic.EDGE_CAPS),
                         ("edges starved", synthetic.EDGE_CAPS_STARVED)):
         cases.append((label, zseg.ZSegPlanBuilder(
@@ -1126,7 +1156,7 @@ def plan_kernel_checks(dev):
             *edge, None))
     for label, builder, coords, mask, only in cases:
         for lvl, name, args, kwargs in builder.sweep_inputs(coords, mask):
-            if only is not None and (lvl, name) != only:
+            if only is not None and name != only:
                 continue
             key, plain, replaces = PLAN_KERNELS[name]
             wrapper, plain = getattr(zseg, name), getattr(zseg, plain)
@@ -1141,9 +1171,11 @@ def plan_kernel_checks(dev):
                       lambda f=wrapper, a=args, k=kwargs: f(*a, **k),
                       lambda f=plain, a=args, k=kwargs: f(*a, **k),
                       {"stem_conv9_packed": torch.bfloat16,
-                       "conv9_packed": torch.int32}.get(key, torch.int64),
+                       "conv9_packed": torch.int32,
+                       "build_packed": torch.int32}.get(key, torch.int64),
                       sweep_nbytes(name, args, kwargs), 0,
                       shape, mma=False, exact=True)
+            ck.rows[-1]["level"] = lvl
     return ck.rows
 
 
@@ -1206,7 +1238,7 @@ def table_nbytes(name, args, kwargs):
             cells += grid_hits(grid, b, (gx + dx).clamp(0, g - 1), gy, ok,
                                g)[0]
         return (nbytes(real_w, cb, cv) + cells * 8 + nb * ccap * (ZWORDS + 2)
-                * 8 + nb * 8)
+                * 4 + nb * 8)
     pos3, coords, valid, counts_b, nb, cap_a, gh, lvl = args
     n, n_a = coords.shape[0], nb * cap_a
     out = n_a * (16 + 4) + n * 4  # coords, 4 flags; pos or parent
@@ -1298,10 +1330,12 @@ def table_kernel_checks(dev):
             plain = getattr(zseg, name + "_plain")
             ck.record(name, src, TABLE_KERNELS[name],
                       table_call(wrapper, args, kwargs),
-                      table_call(plain, args, kwargs), torch.int64,
+                      table_call(plain, args, kwargs),
+                      torch.int32 if name == "assemble_aug" else torch.int64,
                       table_nbytes(name, args, kwargs), 0,
                       f"{label} L{lvl} {table_shape(name, args)}",
                       mma=False, exact=True)
+            ck.rows[-1]["level"] = lvl
     return ck.rows
 
 
@@ -3096,6 +3130,9 @@ def main():
         r["launches"] = sum(by_path[p].get(r["name"], 0) for p in by_path)
         r["launches_by_path"] = {p: by_path[p].get(r["name"], 0)
                                  for p in by_path}
+        if r["name"] in LEVEL_KERNELS:  # KU and KX: that level's launches
+            key = f"{r['name']}@L{r['level']}"
+            r["level_launches"] = sum(by_path[p].get(key, 0) for p in by_path)
 
     summary = {"card": card, "build_s": build_s,
                "total_s": time.perf_counter() - t_start,
@@ -3115,14 +3152,16 @@ def main():
             "bound_by", "library_ms")
     extra = ("shape", "max_rel_err", "tol_rel")
     entries = {}
+    level = ("level", "level_launches")
     for r in rows:  # one entry per kernel; further shapes nest under it
         if r["name"] in entries:
             entries[r["name"]]["more_shapes"].append(
                 {k: r[k] for k in ("shape", "max_abs_err", "max_rel_err",
-                                   "ms", "plain_ms", "bound_ms", "bound_by")})
+                                   "ms", "plain_ms", "bound_ms", "bound_by")
+                 + level if k in r})
         else:
-            entries[r["name"]] = {**{k: r[k] for k in keys + extra},
-                                  "more_shapes": []}
+            entries[r["name"]] = {**{k: r[k] for k in keys + extra + level
+                                     if k in r}, "more_shapes": []}
     print(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,8 +29,12 @@ lax.map segmenting and LIDOG_TPU_SEG_LOOKUP.  Here a grid lookup is one
 int32 gather, and the sweeps run over all segments at once; a row's
 segment is its index // segment capacity, so no map reaches another scan.
 
-Bit words are int64 holding uint32 values (core/bitgrid.py).  Internal
-index arithmetic is int64; outputs are cast to the JAX dtypes.
+Bit words are int64 holding uint32 values (core/bitgrid.py) in the
+column grid and the real words; the aug words (`aug16`) and the packed
+y-neighbourhood table are int32, as lidog_tpu's, their words the uint32
+bits read as int32 and the packed rows padded to a multiple of 8 words
+(16-byte aligned rows).  Internal index arithmetic is int64; outputs are
+cast to the JAX dtypes.
 """
 
 from __future__ import annotations
@@ -52,6 +56,9 @@ ZMAX = ZWORDS * 32
 LAUNCHES = {"stem_feat125": 0, "stem_conv9_packed": 0, "conv9_packed": 0,
             "pos3_lookup": 0, "build_packed": 0, "column_grid": 0,
             "real_words": 0, "assemble_aug": 0, "emit_rows": 0}
+# KU's and KX's launches by plan level (counted beside LAUNCHES)
+LEVEL_LAUNCHES = {"build_packed": [0] * NUM_LEVELS,
+                  "assemble_aug": [0] * NUM_LEVELS}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +141,18 @@ def _rows_or_miss(table, idx):
     cap = table.shape[0]
     hit = (idx >= 0) & (idx < cap)
     return table[idx.clamp(0, cap - 1)] * hit[:, None].to(table.dtype)
+
+
+def _wrap32(x):
+    """int64 values -> int32 by their low 32 bits (two's complement): the
+    int32 tables hold uint32 words and int32 sums as lidog_tpu's do."""
+    return (((x + 2**31) & U32) - 2**31).to(torch.int32)
+
+
+def _u32(t):
+    """An int32 table's rows widened to int64, each word as its uint32
+    value (the starts and counts, which are >= 0, keep theirs)."""
+    return t.long() & U32
 
 
 def _pack_bxy(b, gx, gy):
@@ -304,8 +323,9 @@ def assemble_aug_plain(real_w, col_bxy, col_valid, grid_d, num_batches: int,
     (plain version of KX, lidog_tpu/core/zseg.py:335).
 
     ghost = zdil(own) & ~own & OR(3x3 neighbourhood real words).  Returns
-    (aug16 [B*ccap, ZWORDS+2] = words + GLOBAL start + count, aug rows per
-    scan [B]); adds the rows past cap_a to overflow[1 + level]."""
+    (aug16 int32 [B*ccap, ZWORDS+2] = words + GLOBAL start + count, aug
+    rows per scan int64 [B]); adds the rows past cap_a to
+    overflow[1 + level]."""
     b, gx, gy = _unpack_bxy(col_bxy)
     own = real_w
     adj = _y_adjacency(col_bxy, col_valid)
@@ -323,7 +343,7 @@ def assemble_aug_plain(real_w, col_bxy, col_valid, grid_d, num_batches: int,
     counts_b = popc2.sum(1)
     seg = torch.arange(num_batches, device=aug.device)[:, None] * cap_a
     start = (_cumsum_excl_axis1(popc2) + seg).reshape(-1)
-    aug16 = torch.cat([aug, start[:, None], popc[:, None]], dim=1)
+    aug16 = _wrap32(torch.cat([aug, start[:, None], popc[:, None]], dim=1))
     overflow[1 + level] += torch.clamp(counts_b - cap_a, min=0).sum().to(
         torch.int32)
     return aug16, counts_b
@@ -331,16 +351,18 @@ def assemble_aug_plain(real_w, col_bxy, col_valid, grid_d, num_batches: int,
 
 def _build_packed_plain(real_w, aug16, col_bxy, col_valid,
                         num_batches: int, ccap: int, cap_a: int, r: int,
-                        aug_r: int = 1):
+                        aug_r: int = 1, level: int = 0):
     """Per-slot y-neighbourhood row, built by validated slot shifts (plain
-    version of KU, lidog_tpu/core/zseg.py:378):
-    [real words of gy-r..gy+r | (aug words + LOCAL start) of
-    gy-aug_r..gy+aug_r].  r < 0 leaves out the real slabs (the conv9 sweep
-    of levels > 0); the feature-stem sweep (stem_feat125_packed) passes
-    aug_r = r.  aug_r <= max(r, 1): a neighbour column within the dilation
-    radius sits exactly dy consecutive slots away."""
+    version of KU, lidog_tpu/core/zseg.py:378): int32 [B*ccap,
+    packed_width(r, aug_r)] of [real words of gy-r..gy+r | (aug words +
+    LOCAL start) of gy-aug_r..gy+aug_r | zeros to a multiple of 8 words].
+    r < 0 leaves out the real slabs (the conv9 sweep of levels > 0); the
+    feature-stem sweep (stem_feat125_packed) passes aug_r = r.
+    aug_r <= max(r, 1): a neighbour column within the dilation radius sits
+    exactly dy consecutive slots away.  `level` (the plan level) only
+    names the kernel wrapper's per-level count."""
     b = torch.arange(num_batches * ccap, device=real_w.device) // ccap
-    m_aug = aug16[:, :ZWORDS + 1].clone()
+    m_aug = aug16[:, :ZWORDS + 1].long()
     m_aug[:, ZWORDS] += torch.where(col_valid, -b * cap_a, 0)
     adj = _y_adjacency(col_bxy, col_valid)
 
@@ -353,11 +375,25 @@ def _build_packed_plain(real_w, aug16, col_bxy, col_valid,
     assert aug_r <= max(r, 1), "aug shifts must stay within the dilation"
     slabs = [at_dy(real_w, dy) for dy in range(-r, r + 1)]
     slabs += [at_dy(m_aug, dy) for dy in range(-aug_r, aug_r + 1)]
-    return torch.cat(slabs, dim=1)
+    width = packed_width(r, aug_r)
+    pad = width - sum(t.shape[1] for t in slabs)
+    slabs.append(m_aug.new_zeros(m_aug.shape[0], pad))
+    return _wrap32(torch.cat(slabs, dim=1))
+
+
+def packed_width(r: int, aug_r: int) -> int:
+    """Words of a packed row: the real and aug slabs, padded to a multiple
+    of 8 (lidog_tpu's _build_packed pad)."""
+    w = max(2 * r + 1, 0) * ZWORDS + (2 * aug_r + 1) * (ZWORDS + 1)
+    return -(-w // 8) * 8
+
+
+_KU_MAX_R = 4  # KU's largest shift (csrc/zseg_sweeps.cu MAX_R)
 
 
 def _build_packed(real_w, aug16, col_bxy, col_valid, num_batches: int,
-                  ccap: int, cap_a: int, r: int, aug_r: int = 1):
+                  ccap: int, cap_a: int, r: int, aug_r: int = 1,
+                  level: int = 0):
     """KU (csrc/zseg_sweeps.cu) for CUDA tensors, the plain version for CPU
     tensors; arguments as the plain version's."""
     if real_w.device.type == "cpu":
@@ -366,27 +402,32 @@ def _build_packed(real_w, aug16, col_bxy, col_valid, num_batches: int,
     name = "build_packed"
     dev = _require_cuda(name, real_w, aug16, col_bxy, col_valid)
     slots = num_batches * ccap
-    width = max(2 * r + 1, 0) * ZWORDS + (2 * aug_r + 1) * (ZWORDS + 1)
+    width = packed_width(r, aug_r)
     _require(name, (
-        (r >= -1 and 0 <= aug_r <= max(r, 1),
-         f"needs r >= -1 and 0 <= aug_r <= max(r, 1), got {r}, {aug_r}"),
+        (r >= -1 and 0 <= aug_r <= max(r, 1) and max(r, aug_r) <= _KU_MAX_R,
+         f"needs r >= -1 and 0 <= aug_r <= max(r, 1) <= {_KU_MAX_R}, got "
+         f"{r}, {aug_r}"),
         (real_w.dtype == torch.int64
          and tuple(real_w.shape) == (slots, ZWORDS),
          f"real_w must be int64 [{slots}, {ZWORDS}]"),
-        (aug16.dtype == torch.int64
+        (aug16.dtype == torch.int32
          and tuple(aug16.shape) == (slots, ZWORDS + 2),
-         f"aug16 must be int64 [{slots}, {ZWORDS + 2}]"),
+         f"aug16 must be int32 [{slots}, {ZWORDS + 2}]"),
         (col_bxy.dtype == torch.int64 and tuple(col_bxy.shape) == (slots,),
          f"col_bxy must be int64 [{slots}]"),
         (col_valid.dtype == torch.bool and tuple(col_valid.shape) == (slots,),
          f"col_valid must be bool [{slots}]"),
+        (0 <= level < NUM_LEVELS, f"level must lie in [0, {NUM_LEVELS})"),
     ))
-    out = torch.empty(slots, width, dtype=torch.int64, device=dev)
+    _require(name, ((slots * width < 2**31, "table too large for int32 "
+                     "indices"),))
+    out = torch.empty(slots, width, dtype=torch.int32, device=dev)
     if slots:
         _cuda.call(name, real_w.data_ptr(), aug16.data_ptr(),
                    col_bxy.data_ptr(), col_valid.data_ptr(), out.data_ptr(),
                    slots, ccap, cap_a, r, aug_r, width)
         LAUNCHES[name] += 1
+        LEVEL_LAUNCHES[name][level] += 1
     return out
 
 
@@ -417,7 +458,7 @@ def _sweep_rows(cid_grid, packed, coords, valid, g, ccap, nb, grid_half,
         cid = _grid_lookup(cid_grid, bq, gxn, gy0, okc, g)
         cid = torch.where(cid >= 0, cid - bq * ccap, -1)
         hit = okc & (cid >= 0) & (cid < ccap)
-        row = packed[bq * ccap + cid.clamp(0, ccap - 1)]
+        row = _u32(packed[bq * ccap + cid.clamp(0, ccap - 1)])
         yield dx, bz0, hit, row
 
 
@@ -565,9 +606,9 @@ def _require_sweep(name, cid_grid, packed, coords, valid, g, ccap, nb,
         (n % nb == 0, f"rows {n} are not {nb} equal segments"),
         (cid_grid.dtype == torch.int64 and tuple(cid_grid.shape)
          == (nb * g * g,), "cid_grid must be int64 [nb*g*g]"),
-        (packed.dtype == torch.int64 and packed.dim() == 2
+        (packed.dtype == torch.int32 and packed.dim() == 2
          and packed.shape[0] == nb * ccap and width >= min_width,
-         f"packed must be int64 [nb*ccap, >= {min_width}]"),
+         f"packed must be int32 [nb*ccap, >= {min_width}]"),
     ))
     return dev, width
 
@@ -657,7 +698,7 @@ def pos3_plain(aug16, coords, valid, g: int, cap_a: int, grid_half: int,
     ok = valid & (gx0 >= 0) & (gx0 < g) & (gy0 >= 0) & (gy0 < g)
     cid = torch.where(ok, cid, -1)
     hit = cid >= 0
-    row = _rows_or_miss(aug16, cid)
+    row = _u32(_rows_or_miss(aug16, cid))
     words = row[:, :ZWORDS]
     startv = row[:, ZWORDS]
     seg_base = bq * cap_a
@@ -687,9 +728,9 @@ def pos3_lookup(aug16, coords, valid, g: int, cap_a: int, grid_half: int,
     dev = _require_cuda(name, aug16, coords, valid, cid)
     n = _require_rows(name, coords, valid)
     _require(name, (
-        (aug16.dtype == torch.int64 and aug16.dim() == 2
+        (aug16.dtype == torch.int32 and aug16.dim() == 2
          and aug16.shape[1] == ZWORDS + 2,
-         f"aug16 must be int64 [slots, {ZWORDS + 2}]"),
+         f"aug16 must be int32 [slots, {ZWORDS + 2}]"),
         (cid.dtype == torch.int64 and tuple(cid.shape) == (n,),
          "cid must be int64 [N]"),
     ))
@@ -710,7 +751,8 @@ def pos3_lookup(aug16, coords, valid, g: int, cap_a: int, grid_half: int,
 # into the plan's int32 overflow vector.
 # ---------------------------------------------------------------------------
 
-_CHUNK = 256  # KX's slots per block (csrc/zseg_tables.cu THREADS)
+_KX_TILE = 256  # KX's slots per tile (csrc/zseg_tables.cu KX_TILE)
+_KX_STATE = {}
 _REP_NONE = 2**31 - 1  # KY's rep of a row no input row maps to, before -1
 
 
@@ -847,17 +889,27 @@ def assemble_aug(real_w, col_bxy, col_valid, grid_d, num_batches: int,
          and tuple(grid_d.shape) == (num_batches * g * g,),
          "grid_d must be int64 [B*g*g]"),
     ))
-    nchunks = -(-ccap // _CHUNK)
-    aug16 = torch.empty(slots, ZWORDS + 2, dtype=torch.int64, device=dev)
+    tiles = num_batches * -(-ccap // _KX_TILE)
+    aug16 = torch.empty(slots, ZWORDS + 2, dtype=torch.int32, device=dev)
     counts_b = torch.empty(num_batches, dtype=torch.int64, device=dev)
-    yor3 = torch.empty(slots, ZWORDS, dtype=torch.int32, device=dev)
-    chunks = torch.empty(num_batches * nchunks, dtype=torch.int64, device=dev)
     _cuda.call(name, real_w.data_ptr(), col_bxy.data_ptr(),
                col_valid.data_ptr(), grid_d.data_ptr(), aug16.data_ptr(),
-               counts_b.data_ptr(), yor3.data_ptr(), chunks.data_ptr(),
+               counts_b.data_ptr(), _kx_state(dev, tiles).data_ptr(),
                overflow.data_ptr(), num_batches, g, ccap, cap_a, level)
     LAUNCHES[name] += 1
+    LEVEL_LAUNCHES[name][level] += 1
     return aug16, counts_b
+
+
+def _kx_state(device, tiles: int):
+    """KX's look-back words on `device`: one int64 per tile, then its tile
+    and finish counters (two int32): zeroed here when first made or grown,
+    and left zeroed by every launch (the port launches on one stream)."""
+    t = _KX_STATE.get(device)
+    if t is None or t.numel() < tiles + 1:
+        t = _KX_STATE[device] = torch.zeros(tiles + 1, dtype=torch.int64,
+                                            device=device)
+    return t
 
 
 def emit_rows(pos3, coords, valid, counts_b, num_batches: int, cap_a: int,
@@ -1122,7 +1174,7 @@ class ZSegPlanBuilder:
             r, aug_r = STEM_R, STEM_R if self.stem_feature_map else 1
         return ((t.real_w, t.aug16, t.col_bxy, t.col_valid, self.num_batches,
                  self.caps_col_dil[i], self.caps_aug[i], r),
-                dict(aug_r=aug_r))
+                dict(aug_r=aug_r, level=i))
 
     def _sweep_args(self, i: int, t: "_LevelTables", packed):
         """(args, kwargs) of level i's sweep over its packed table: the

@@ -5,9 +5,10 @@
 // Replaces lidog_tpu/core/zseg.py:540-628 (stem_feat125_packed).  Inputs
 // are the plan builder's own tables: the dense cell -> column id grid
 // (int64 GLOBAL segmented column ids, -1 empty) and the packed
-// y-neighbourhood table built with aug_r = r (int64 words holding uint32
-// bit words; per row, after the real slabs at aug_off, 2r+1 slabs of
-// ZWORDS aug words + the LOCAL start row, for dy = -r..r).  For query row
+// y-neighbourhood table built with aug_r = r (int32, as lidog_tpu's: the
+// uint32 bit words read as int32; per row, after the real slabs at
+// aug_off, 2r+1 slabs of ZWORDS aug words + the LOCAL start row, for dy =
+// -r..r).  For query row
 // i of scan b (rows are segment-aligned: b = i / (N / nb)) and each dx:
 //
 //   cid  = grid[b, gx+dx, gy] - b*ccap      (hit: valid, in the grid, a column)
@@ -57,7 +58,7 @@ __device__ __forceinline__ int bit_at(const unsigned (&w)[ZWORDS], int bz) {
 }
 
 __global__ void __launch_bounds__(NT)
-stem_feat125_kernel(const long long* __restrict__ grid, const long long* __restrict__ packed,
+stem_feat125_kernel(const long long* __restrict__ grid, const int* __restrict__ packed,
                     const int4* __restrict__ coords, const uint8_t* __restrict__ valid,
                     int* __restrict__ nbr, int* __restrict__ conv9, int n, int cap_q, int g,
                     int ccap, int cap_a, int grid_half, int level, int width, int aug_off) {
@@ -78,7 +79,7 @@ stem_feat125_kernel(const long long* __restrict__ grid, const long long* __restr
     cid = v >= 0 ? v - (long long)b * ccap : -1;
   }
   const bool hit = cid >= 0 && cid < ccap;
-  const long long* row = packed + ((long long)b * ccap + (hit ? cid : 0)) * width + aug_off;
+  const int* row = packed + ((long long)b * ccap + (hit ? cid : 0)) * width + aug_off;
   const int seg = b * cap_a;
   const int bzc = min(max(bz0, 0), ZMAX - 1);
 
@@ -88,11 +89,11 @@ stem_feat125_kernel(const long long* __restrict__ grid, const long long* __restr
 #pragma unroll
     for (int q = 0; q < D; ++q) out[q] = -1;
     if (hit) {
-      const long long* slab = row + (ZWORDS + 1) * dyi;
+      const int* slab = row + (ZWORDS + 1) * dyi;
       unsigned w[ZWORDS];
 #pragma unroll
       for (int q = 0; q < ZWORDS; ++q) w[q] = (unsigned)slab[q];
-      const long long start = slab[ZWORDS];
+      const long long start = (long long)slab[ZWORDS];
       const int wi = bzc >> 5, ib = bzc & 31;
       int below = 0;
 #pragma unroll
@@ -139,7 +140,7 @@ extern "C" int stem_feat125(const void* grid, const void* packed, const void* co
   if (n == 0) return 0;
   const dim3 blocks((n + NT - 1) / NT, D);
   stem_feat125_kernel<<<blocks, NT, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(grid), static_cast<const long long*>(packed),
+      static_cast<const long long*>(grid), static_cast<const int*>(packed),
       static_cast<const int4*>(coords), static_cast<const uint8_t*>(valid),
       static_cast<int*>(nbr), static_cast<int*>(conv9), n, n / nb, g, ccap, cap_a, grid_half,
       level, width, aug_off);

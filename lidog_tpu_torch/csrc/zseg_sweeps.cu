@@ -10,13 +10,16 @@
 //
 // Each output is bitwise equal to the plain version in core/zseg.py: the
 // integer steps are the plain version's one for one (z-bit words are
-// uint32 values, held as int64 in the tables; ranks are __popc counts).
+// uint32 values: int64 in the real words, int32 in the aug words (aug16
+// [slots, 16]: words, GLOBAL start, count) and in the packed table, as in
+// lidog_tpu; ranks are __popc counts).
 //
-//   KU: per slot s and output word j: the word of the row dy slots away
-//       (dy = -r..r real slabs of ZWORDS words, then dy = -aug_r..aug_r
-//       aug slabs of ZWORDS words + the LOCAL start row, start - b*cap_a
-//       where the source slot is valid), where every slot pair between s
-//       and s+dy is y-adjacent (same b, gx and gy+1, both valid), else 0.
+//   KU: per slot s: the words of the rows dy slots away (dy = -r..r real
+//       slabs of ZWORDS words, then dy = -aug_r..aug_r aug slabs of ZWORDS
+//       words + the LOCAL start row, start - b*cap_a where the source slot
+//       is valid), where every slot pair between s and s+dy is y-adjacent
+//       (same b, gx and gy+1, both valid), else 0; then zeros up to a
+//       multiple of 8 words (lidog_tpu's pad).
 //   KR: per level-0 row and dx = -2..2: the column (gx+dx, gy) through the
 //       grid (the row's segment is row / (N / nb); only gx+dx is range
 //       checked), then per dy the 5 z bits around bz from the real slab,
@@ -31,17 +34,22 @@
 //       rank(z) - bit(z-s)); -1 where the bit is clear, z is outside the
 //       column or the row falls past the segment's cap_a rows.
 //
-// Bound on an H100: bytes.  KU writes its table (723 MB at the training
-// plan's level 0: 786,432 slots x 115 int64); KR writes 134 x 2-4 bytes
-// per row; KS and KT read a grid cell and a table row per (row, dx) and
-// write 9 int32 or 3 int64 per row.
+// Bound on an H100: bytes.  KU reads the real words (int64: 88 MB at the
+// training plan's level 0) and aug16 (50 MB) and writes its table (377 MB
+// there: 786,432 slots x 120 int32); KR writes 134 x 2-4 bytes per row; KS
+// and KT read a grid cell and a table row per (row, dx) and write 9 int32
+// or 3 int64 per row.
 //
-// Design: KU one thread per output word (stores coalesced; the adjacency
-// of the <= 2 slot pairs between is recomputed from the slots' packed
-// coordinates, which the cache serves).  KR/KS one thread per (row, dx):
-// one grid read, one table row read with __popc ranks; KR stages its
-// occupancy bits for 64 rows in shared memory and stores them as one
-// contiguous span.  KT one thread per row.
+// Design: KU a block per KU_TILE consecutive slots: the tile's source rows
+// and a halo of R = max(r, aug_r) slots each side are staged once in
+// shared memory (coalesced loads; the local start fixed there once per aug
+// row), each slot's dy adjacency becomes one bitmask, and every thread
+// owns one 16-byte column group of the rows, which it writes for a run of
+// the tile's rows (32-bit indices, no division in that loop; a warp's
+// stores are one contiguous span).  KR/KS one thread per (row, dx): one
+// grid read, one table row read with __popc ranks; KR stages its occupancy
+// bits for 64 rows in shared memory and stores them as one contiguous
+// span.  KT one thread per row.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,11 +64,15 @@ constexpr int ROWS = 64;           // KR/KS rows per block
 constexpr int STEM_R = 2;
 constexpr int STEM_K = (2 * STEM_R + 1) * (2 * STEM_R + 1) * (2 * STEM_R + 1);
 constexpr uint16_t BF16_ONE = 0x3F80;
+constexpr int MAX_R = 4;             // KU's largest shift (core/zseg.py _KU_MAX_R)
+constexpr int KU_TILE = 128;         // KU's slots per block
+constexpr int KU_THREADS = 256;
+constexpr int STAGE = 2 * ZWORDS + 1;  // a staged slot: real words | aug words + start
 
 // start + rank of bit bz in an aug slab (words, start), or -1 where the
 // row missed, bz is outside [0, ZMAX), the bit is clear or the position
 // is outside [0, cap_a) (core/zseg.py _rank_in_slab, _aug_ranks).
-__device__ __forceinline__ long long slab_rank(const long long* slab, int bz, bool hit,
+__device__ __forceinline__ long long slab_rank(const int* slab, int bz, bool hit,
                                                int cap_a) {
   if (!hit || bz < 0 || bz >= ZMAX) return -1;
   const int wi = bz >> 5, ib = bz & 31;
@@ -68,14 +80,14 @@ __device__ __forceinline__ long long slab_rank(const long long* slab, int bz, bo
   for (int q = 0; q < wi; ++q) below += __popc((unsigned)slab[q]);
   const unsigned w = (unsigned)slab[wi];
   if (!((w >> ib) & 1u)) return -1;
-  const long long idx = slab[ZWORDS] + below + __popc(w & ((1u << ib) - 1u));
+  const long long idx = (long long)slab[ZWORDS] + below + __popc(w & ((1u << ib) - 1u));
   return (idx >= 0 && idx < cap_a) ? idx : -1;
 }
 
 // KR (STEM, DXR = 2) and KS (DXR = 1): block (ROWS, 2*DXR+1), thread (row, dx).
 template <int DXR, bool STEM>
 __global__ void __launch_bounds__(ROWS*(2 * DXR + 1))
-sweep_kernel(const long long* __restrict__ grid, const long long* __restrict__ packed,
+sweep_kernel(const long long* __restrict__ grid, const int* __restrict__ packed,
              const int4* __restrict__ coords, const uint8_t* __restrict__ valid,
              uint16_t* __restrict__ occ, int* __restrict__ conv9, int n, int nb, int g, int ccap,
              int cap_a, int grid_half, int level, int width, int aug_off) {
@@ -102,7 +114,7 @@ sweep_kernel(const long long* __restrict__ grid, const long long* __restrict__ p
       }
     }
     const bool hit = cid >= 0 && cid < ccap;
-    const long long* row = packed + ((long long)b * ccap + (hit ? cid : 0)) * width;
+    const int* row = packed + ((long long)b * ccap + (hit ? cid : 0)) * width;
     if (STEM) {
       const int lo = bz0 - STEM_R;
       const int wlo = lo >> 5;  // arithmetic shift
@@ -110,7 +122,7 @@ sweep_kernel(const long long* __restrict__ grid, const long long* __restrict__ p
       uint16_t* t = tile + threadIdx.x * STEM_K + dxi * (2 * STEM_R + 1) * (2 * STEM_R + 1);
 #pragma unroll
       for (int dyi = 0; dyi < 2 * STEM_R + 1; ++dyi) {
-        const long long* slab = row + ZWORDS * dyi;
+        const int* slab = row + ZWORDS * dyi;
         const unsigned w0 = (hit && wlo >= 0 && wlo < ZWORDS) ? (unsigned)slab[wlo] : 0u;
         const unsigned w1 =
             (hit && wlo + 1 >= 0 && wlo + 1 < ZWORDS) ? (unsigned)slab[wlo + 1] : 0u;
@@ -147,7 +159,7 @@ sweep_kernel(const long long* __restrict__ grid, const long long* __restrict__ p
 }
 
 // KT: one thread per source row.
-__global__ void pos3_kernel(const long long* __restrict__ aug16, long long slots,
+__global__ void pos3_kernel(const int* __restrict__ aug16, long long slots,
                             const int4* __restrict__ coords, const uint8_t* __restrict__ valid,
                             const long long* __restrict__ cid, long long* __restrict__ out, int n,
                             int g, int cap_a, int grid_half, int level) {
@@ -166,7 +178,7 @@ __global__ void pos3_kernel(const long long* __restrict__ aug16, long long slots
   const bool in_table = hit && cd < slots;
 #pragma unroll
   for (int q = 0; q < ZWORDS; ++q) w[q] = in_table ? (unsigned)aug16[cd * AUG16 + q] : 0u;
-  if (in_table) start = aug16[cd * AUG16 + ZWORDS];
+  if (in_table) start = (long long)aug16[cd * AUG16 + ZWORDS];
   auto bit_at = [&](int bz) {
     const int z = min(max(bz, 0), ZMAX - 1);
     unsigned v = 0;
@@ -196,49 +208,106 @@ __global__ void pos3_kernel(const long long* __restrict__ aug16, long long slots
   }
 }
 
-// y-adjacency of slot u and u+1 (core/zseg.py _y_adjacency).
-__device__ __forceinline__ bool y_adjacent(const long long* bxy, const uint8_t* cvalid,
-                                           long long u, long long slots) {
-  return u >= 0 && u + 1 < slots && cvalid[u] && cvalid[u + 1] && bxy[u + 1] == bxy[u] + 1;
-}
-
-// KU: one thread per output word.
-__global__ void build_packed_kernel(const long long* __restrict__ real_w,
-                                    const long long* __restrict__ aug16,
-                                    const long long* __restrict__ bxy,
-                                    const uint8_t* __restrict__ cvalid, long long* __restrict__ out,
-                                    long long slots, int ccap, int cap_a, int r, int aug_r,
-                                    int width) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= slots * width) return;
-  const long long s = e / width;
-  const int j = (int)(e - s * width);
-  const int nreal = r >= 0 ? (2 * r + 1) * ZWORDS : 0;
-  int dy, q;
-  bool real;
-  if (j < nreal) {
-    real = true;
-    dy = j / ZWORDS - r;
-    q = j % ZWORDS;
-  } else {
-    real = false;
-    dy = (j - nreal) / SLAB - aug_r;
-    q = (j - nreal) % SLAB;
-  }
-  const long long t = s + dy;
-  bool ok = t >= 0 && t < slots;
-  for (int k = 0; ok && k < (dy > 0 ? dy : -dy); ++k)  // the slot pairs between
-    ok = y_adjacent(bxy, cvalid, dy > 0 ? s + k : s + dy + k, slots);
-  long long v = 0;
-  if (ok) {
-    if (real) {
-      v = real_w[t * ZWORDS + q];
-    } else {
-      v = aug16[t * AUG16 + q];
-      if (q == ZWORDS && cvalid[t]) v -= (t / ccap) * cap_a;  // the local start
+// KU: one block per KU_TILE slots.  Dynamic shared memory: the staged
+// rows [KU_TILE + 2R][STAGE] (words as uint32), each staged slot's
+// adjacency to the next, and each tile slot's dy mask (bit dy + R).
+__global__ void __launch_bounds__(KU_THREADS)
+build_packed_kernel(const long long* __restrict__ real_w, const int* __restrict__ aug16,
+                    const long long* __restrict__ bxy, const uint8_t* __restrict__ cvalid,
+                    int* __restrict__ out, int slots, int ccap, int cap_a, int r, int aug_r,
+                    int width) {
+  extern __shared__ unsigned sm[];
+  const int R = max(r, aug_r);
+  const int span = KU_TILE + 2 * R;
+  unsigned* mask_s = sm + span * STAGE;             // [KU_TILE]
+  uint8_t* adj_s = reinterpret_cast<uint8_t*>(mask_s + KU_TILE);  // [span]
+  const int tid = threadIdx.x;
+  const int s0 = blockIdx.x * KU_TILE;
+  const int u0 = s0 - R;  // the slot of staged row 0
+  const int nrows = min(KU_TILE, slots - s0);
+  // stage the real words (the low 32 bits of each int64), a contiguous span
+  if (r >= 0) {
+    const long long e0 = (long long)u0 * ZWORDS, end = (long long)slots * ZWORDS;
+    for (int k = tid; k < span * ZWORDS; k += KU_THREADS) {
+      const int i = k / ZWORDS, q = k - i * ZWORDS;
+      const long long e = e0 + k;
+      sm[i * STAGE + q] = (e >= 0 && e < end) ? (unsigned)real_w[e] : 0u;
     }
   }
-  out[e] = v;
+  // the aug words and the start (16-byte loads of aug16 rows), the start
+  // made local once per staged row; the adjacency of each staged slot
+  for (int k = tid; k < span * 4; k += KU_THREADS) {
+    const int i = k >> 2, c = k & 3;
+    const int u = u0 + i;
+    int4 v = make_int4(0, 0, 0, 0);
+    if (u >= 0 && u < slots) {
+      v = reinterpret_cast<const int4*>(aug16)[(size_t)u * 4 + c];
+      if (c == 3 && cvalid[u])  // word 14, the start: int32 wrap as lidog_tpu's
+        v.z = (int)((unsigned)v.z - (unsigned)((u / ccap) * cap_a));
+    }
+    unsigned* dst = sm + i * STAGE + ZWORDS + 4 * c;
+    dst[0] = (unsigned)v.x;
+    dst[1] = (unsigned)v.y;
+    dst[2] = (unsigned)v.z;
+    if (c < 3) dst[3] = (unsigned)v.w;  // word 15 (the count) is not a slab word
+  }
+  for (int i = tid; i < span; i += KU_THREADS) {
+    const int u = u0 + i;
+    adj_s[i] = u >= 0 && u + 1 < slots && cvalid[u] && cvalid[u + 1] && bxy[u + 1] == bxy[u] + 1;
+  }
+  __syncthreads();
+  // each tile slot's dy mask: dy is taken where every pair between is adjacent
+  for (int t = tid; t < nrows; t += KU_THREADS) {
+    const int c = t + R;
+    unsigned m = 1u << R;
+    bool ok = true;
+    for (int dy = 1; dy <= R; ++dy) {
+      ok = ok && adj_s[c + dy - 1];
+      m |= ok ? 1u << (R + dy) : 0u;
+    }
+    ok = true;
+    for (int dy = 1; dy <= R; ++dy) {
+      ok = ok && adj_s[c - dy];
+      m |= ok ? 1u << (R - dy) : 0u;
+    }
+    mask_s[t] = m;
+  }
+  __syncthreads();
+  // this thread's 16-byte column group: each word's staged offset from the
+  // slot's row and its dy bit (-1: padding)
+  const int w4 = width >> 2;
+  const int rstep = KU_THREADS / w4;
+  if (tid >= rstep * w4) return;
+  const int c4 = tid % w4, row0 = tid / w4;
+  const int nreal = r >= 0 ? (2 * r + 1) * ZWORDS : 0;
+  const int naug = (2 * aug_r + 1) * SLAB;
+  int off[4], bit[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int j = 4 * c4 + e;
+    int dy = 0, col = 0;
+    bit[e] = -1;
+    if (j < nreal) {
+      dy = j / ZWORDS - r;
+      col = j % ZWORDS;
+      bit[e] = dy + R;
+    } else if (j < nreal + naug) {
+      dy = (j - nreal) / SLAB - aug_r;
+      col = ZWORDS + (j - nreal) % SLAB;
+      bit[e] = dy + R;
+    }
+    off[e] = (R + dy) * STAGE + col;
+  }
+  int* dst = out + s0 * width + 4 * c4;
+  for (int t = row0; t < nrows; t += rstep) {
+    const unsigned m = mask_s[t];
+    const unsigned* src = sm + t * STAGE;
+    int v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = (bit[e] >= 0 && ((m >> bit[e]) & 1u)) ? (int)src[off[e]] : 0;
+    *reinterpret_cast<int4*>(dst + t * width) = make_int4(v[0], v[1], v[2], v[3]);
+  }
 }
 
 cudaStream_t as_stream(void* stream) { return reinterpret_cast<cudaStream_t>(stream); }
@@ -249,8 +318,9 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 // Each function returns a cudaError_t (0 = launched).
 
-// KR: occ bf16 [n, 125] (raw bits), conv9 int32 [9, n] from the packed
-// table [nb*ccap, width] with 5 real slabs and 3 aug slabs at aug_off.
+// KR: occ bf16 [n, 125] (raw bits), conv9 int32 [9, n] from the int32
+// packed table [nb*ccap, width] with 5 real slabs and 3 aug slabs at
+// aug_off.
 extern "C" int stem_conv9_packed(const void* grid, const void* packed, const void* coords,
                                  const void* valid, void* occ, void* conv9, int n, int nb, int g,
                                  int ccap, int cap_a, int grid_half, int level, int width,
@@ -262,14 +332,15 @@ extern "C" int stem_conv9_packed(const void* grid, const void* packed, const voi
   if (n == 0) return 0;
   const dim3 block(ROWS, 2 * STEM_R + 1);
   sweep_kernel<STEM_R, true><<<(n + ROWS - 1) / ROWS, block, 0, as_stream(stream)>>>(
-      static_cast<const long long*>(grid), static_cast<const long long*>(packed),
+      static_cast<const long long*>(grid), static_cast<const int*>(packed),
       static_cast<const int4*>(coords), static_cast<const uint8_t*>(valid),
       static_cast<uint16_t*>(occ), static_cast<int*>(conv9), n, nb, g, ccap, cap_a, grid_half,
       level, width, aug_off);
   return (int)cudaGetLastError();
 }
 
-// KS: conv9 int32 [9, n] from the aug-only packed table [nb*ccap, width].
+// KS: conv9 int32 [9, n] from the aug-only int32 packed table [nb*ccap,
+// width].
 extern "C" int conv9_packed(const void* grid, const void* packed, const void* coords,
                             const void* valid, void* conv9, int n, int nb, int g, int ccap,
                             int cap_a, int grid_half, int level, int width, void* stream) {
@@ -279,13 +350,14 @@ extern "C" int conv9_packed(const void* grid, const void* packed, const void* co
   if (n == 0) return 0;
   const dim3 block(ROWS, 3);
   sweep_kernel<1, false><<<(n + ROWS - 1) / ROWS, block, 0, as_stream(stream)>>>(
-      static_cast<const long long*>(grid), static_cast<const long long*>(packed),
+      static_cast<const long long*>(grid), static_cast<const int*>(packed),
       static_cast<const int4*>(coords), static_cast<const uint8_t*>(valid), nullptr,
       static_cast<int*>(conv9), n, nb, g, ccap, cap_a, grid_half, level, width, 0);
   return (int)cudaGetLastError();
 }
 
-// KT: out int64 [3, n] from aug16 [slots, 16] and each row's column id.
+// KT: out int64 [3, n] from aug16 int32 [slots, 16] and each row's column
+// id.
 extern "C" int pos3_lookup(const void* aug16, const void* coords, const void* valid,
                            const void* cid, void* out, int n, int slots, int g, int cap_a,
                            int grid_half, int level, void* stream) {
@@ -293,26 +365,30 @@ extern "C" int pos3_lookup(const void* aug16, const void* coords, const void* va
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   pos3_kernel<<<(n + 255) / 256, 256, 0, as_stream(stream)>>>(
-      static_cast<const long long*>(aug16), slots, static_cast<const int4*>(coords),
+      static_cast<const int*>(aug16), slots, static_cast<const int4*>(coords),
       static_cast<const uint8_t*>(valid), static_cast<const long long*>(cid),
       static_cast<long long*>(out), n, g, cap_a, grid_half, level);
   return (int)cudaGetLastError();
 }
 
-// KU: out int64 [slots, width], width = max(2r+1, 0)*14 + (2*aug_r+1)*15.
+// KU: out int32 [slots, width] from real_w int64 [slots, 14], aug16 int32
+// [slots, 16] (16-byte aligned), col_bxy int64 and col_valid bool [slots];
+// width = max(2r+1, 0)*14 + (2*aug_r+1)*15 rounded up to a multiple of 8.
 extern "C" int build_packed(const void* real_w, const void* aug16, const void* col_bxy,
                             const void* col_valid, void* out, int slots, int ccap, int cap_a,
                             int r, int aug_r, int width, void* stream) {
-  if (slots < 0 || ccap < 1 || cap_a < 1 || r < -1 || aug_r < 0 ||
-      width != (r >= 0 ? (2 * r + 1) * ZWORDS : 0) + (2 * aug_r + 1) * SLAB)
+  const int w = (r >= 0 ? (2 * r + 1) * ZWORDS : 0) + (2 * aug_r + 1) * SLAB;
+  if (slots < 0 || ccap < 1 || cap_a < 1 || r < -1 || aug_r < 0 || aug_r > max(r, 1) ||
+      max(r, aug_r) > MAX_R || width != (w + 7) / 8 * 8 || !aligned16(aug16) ||
+      !aligned16(out) || (long long)slots * width >= 0x7FFFFFFFLL)
     return (int)cudaErrorInvalidValue;
-  const long long total = (long long)slots * width;
-  if (total == 0) return 0;
-  const long long blocks = (total + 255) / 256;
-  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  build_packed_kernel<<<(unsigned)blocks, 256, 0, as_stream(stream)>>>(
-      static_cast<const long long*>(real_w), static_cast<const long long*>(aug16),
+  if (slots == 0) return 0;
+  const int R = max(r, aug_r);
+  const int span = KU_TILE + 2 * R;
+  const size_t smem = (size_t)span * STAGE * 4 + KU_TILE * 4 + span;
+  build_packed_kernel<<<(slots + KU_TILE - 1) / KU_TILE, KU_THREADS, smem, as_stream(stream)>>>(
+      static_cast<const long long*>(real_w), static_cast<const int*>(aug16),
       static_cast<const long long*>(col_bxy), static_cast<const uint8_t*>(col_valid),
-      static_cast<long long*>(out), slots, ccap, cap_a, r, aug_r, width);
+      static_cast<int*>(out), slots, ccap, cap_a, r, aug_r, width);
   return (int)cudaGetLastError();
 }

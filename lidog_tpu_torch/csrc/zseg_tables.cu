@@ -12,9 +12,11 @@
 // Each output is bitwise equal to its plain version in core/zseg.py
 // (column_grid_plain, real_words_plain, assemble_aug_plain,
 // emit_rows_plain): the integer steps are the plain version's one for one.
-// z-bit words are uint32 values held in int64 tables; counts and scans are
-// integer sums, exact in any order; overflow terms are added with int32
-// atomics, which wrap as the plain version's int64 sum cast to int32 does.
+// z-bit words are uint32 values, held in int64 real-word tables and in the
+// int32 aug16 rows (words, GLOBAL start, count: lidog_tpu's dtype); counts
+// and scans are integer sums, exact in any order; overflow terms are added
+// with int32 atomics, which wrap as the plain version's int64 sum cast to
+// int32 does.
 //
 //   KV: (1) one thread per source row stamps its cell's has flag (an
 //       idempotent byte store) and, on unique level-0 input, counts the
@@ -34,13 +36,24 @@
 //       deduped voxels past cap_real to overflow[0].  Levels 1-4: one
 //       thread per slot ORs its 4 child columns' words in the finer level's
 //       tables and coarsens them (_zpair_words).
-//   KX: (1) one thread per slot: yor3 = own | y-adjacent slots' words
-//       (uint32 scratch); (2) one block per 256 slots of a scan: own words,
-//       the two x-neighbours' yor3 through the grid, ghost words, popcount,
-//       the block's popcount sum; (3) one block per scan: the exclusive
-//       scan of the block sums, counts_b and the rows past cap_a into
-//       overflow; (4) the in-block scan: global start = block offset +
-//       prefix + b*cap_a.
+//   KX: one launch; a block per tile of KX_TILE slots of one scan, taken
+//       in order from a tile counter: the tile's real words and those of
+//       one slot each side are staged in shared memory (coalesced), where
+//       each slot's yor3 (own | y-adjacent slots' words) is formed; for a
+//       slot whose own words are not 0 (else its aug words are 0 whatever
+//       its neighbours hold) and that is valid, the two x-neighbours'
+//       slots through the grid, compacted into a list of (slot, dx)
+//       pairs, whose yor3 a half-warp each rebuilds from their three real
+//       rows (random, whole-row reads; every load of KX_PAIRS pairs
+//       issued before any is used, since at the small levels a few blocks
+//       run and each round trip adds to the launch); ghost words,
+//       popcount, the block scan, and the tile's offset in its scan by a
+//       decoupled look-back over the scan's earlier tiles (a 64-bit status
+//       word per tile); the scan's last tile writes counts_b and adds the
+//       rows past cap_a to overflow; global start = offset + prefix +
+//       b*cap_a; the tile's rows leave through a swizzled shared-memory
+//       tile as 16-byte stores.  The last block to finish resets the
+//       status words and counters, which the wrapper zeroes once.
 //   KY: (1) one thread per source row: its 3 candidates' packed
 //       gxgy << 9 | bz (uint32 wrap) scattered to their aug rows, the real
 //       flag, and pos (+ rep by atomicMin) at level 0, parent, off and the
@@ -48,11 +61,13 @@
 //       j-1, j, j+1: coords, valid, real &= valid, zup and zdn.
 //
 // Every step is a separate launch on the caller's stream, so each reads
-// the previous step's complete output.  Device-wide scans are reduce-then-
-// scan with a warp-shuffle block scan; no library scan.
+// the previous step's complete output.  KV's scans are reduce-then-scan
+// with a warp-shuffle block scan, KX's a single pass with look-back; no
+// library scan.
 //
 // Bound on an H100: bytes.  KV writes the int64 grid (B*g*g*8: 134 MB at
-// the training plan's level 0), the others their tables and rows.
+// the training plan's level 0), the others their tables and rows (KX
+// reads the int64 real words, 88 MB there, and writes aug16, 50 MB).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,7 +78,15 @@ constexpr int ZC = ZWORDS * 16;
 constexpr int ZMAX = ZWORDS * 32;
 constexpr int AUG16 = ZWORDS + 2;  // aug16 row: words + start + count
 constexpr int NUM_LEVELS = 5;
-constexpr int THREADS = 256;      // per-thread launches; KX's slots per block
+constexpr int THREADS = 256;      // per-thread launches
+constexpr int KX_TILE = 256;      // KX's slots per tile = threads per block
+constexpr int KX_ROW = ZWORDS + 1;  // KX's shared-memory row stride (odd)
+constexpr int KX_PAIRS = 4;       // KX's neighbour fetches in flight per half-warp
+// KX's look-back status word: flag << 62 | the tile's sum (0 = not yet
+// published), the flag AGG (the tile alone) or PREFIX (with every earlier
+// tile of its scan)
+constexpr unsigned long long KX_AGG = 1ULL << 62, KX_PREFIX = 2ULL << 62,
+                             KX_VALUE = (1ULL << 62) - 1;
 constexpr int SCAN_THREADS = 1024;
 constexpr int REP_NONE = 0x7FFFFFFF;
 
@@ -346,100 +369,216 @@ __global__ void coarsen_kernel(const long long* __restrict__ col_bxy,
   }
 }
 
-// slot u+1 is (same b, gx, gy+1) and both are valid (_y_adjacency).
-__device__ __forceinline__ bool y_adjacent(const long long* bxy, const uint8_t* cvalid,
-                                           long long u, long long slots) {
-  return u >= 0 && u + 1 < slots && cvalid[u] && cvalid[u + 1] && bxy[u + 1] == bxy[u] + 1;
+__device__ __forceinline__ unsigned long long ld_status(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_status(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
 }
 
-// KX (1): yor3 per slot.
-__global__ void yor3_kernel(const long long* __restrict__ real_w,
-                            const long long* __restrict__ col_bxy,
-                            const uint8_t* __restrict__ col_valid, unsigned* __restrict__ yor3,
-                            long long slots) {
-  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= slots) return;
-  const bool up = y_adjacent(col_bxy, col_valid, s, slots);
-  const bool dn = y_adjacent(col_bxy, col_valid, s - 1, slots);
-#pragma unroll
-  for (int q = 0; q < ZWORDS; ++q) {
-    unsigned w = (unsigned)real_w[s * ZWORDS + q];
-    if (up) w |= (unsigned)real_w[(s + 1) * ZWORDS + q];
-    if (dn) w |= (unsigned)real_w[(s - 1) * ZWORDS + q];
-    yor3[s * ZWORDS + q] = w;
+// KX: one block per tile (see the top).  state: [nb * tiles_per_scan]
+// status words, then the tile and finish counters (two uint32); all 0 on
+// entry and on exit.
+__global__ void __launch_bounds__(KX_TILE)
+aug_kernel(const long long* __restrict__ real_w, const long long* __restrict__ bxy,
+           const uint8_t* __restrict__ cvalid, const long long* __restrict__ grid,
+           int* __restrict__ aug16, long long* __restrict__ counts_b, int* __restrict__ overflow,
+           unsigned long long* __restrict__ state, int nb, int g, int ccap, int cap_a, int level,
+           int tiles_per_scan) {
+  // the staged real words of the tile's slots and one each side (row i is
+  // slot s0 - 1 + i), later the output tile [KX_TILE][16] int32
+  __shared__ __align__(16) unsigned own_s[KX_TILE * AUG16];
+  __shared__ unsigned nbr_s[KX_TILE * KX_ROW];  // yor3 of the 3x3 neighbourhood
+  __shared__ long long bxy_s[KX_TILE + 2];
+  __shared__ uint8_t val_s[KX_TILE + 2];
+  // the (slot, dx) pairs whose x-neighbour slot is looked up: 2 t + d, and
+  // that neighbour's slot
+  __shared__ int pair_s[2 * KX_TILE], pcid_s[2 * KX_TILE];
+  __shared__ int s_tile, s_last;
+  __shared__ long long s_before;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int total = nb * tiles_per_scan;
+  unsigned* counters = reinterpret_cast<unsigned*>(state + total);
+  if (tid == 0) s_tile = (int)atomicAdd(counters, 1u);  // tiles start in order
+  __syncthreads();
+  const int tile = s_tile;
+  const int b = tile / tiles_per_scan, k = tile - b * tiles_per_scan;
+  const int slots = nb * ccap;
+  const int s0 = b * ccap + k * KX_TILE;
+  const int n_in = min(KX_TILE, ccap - k * KX_TILE);
+  const long long cells = (long long)nb * g * g;
+  for (int i = tid; i < n_in + 2; i += KX_TILE) {
+    const int u = s0 - 1 + i;
+    const bool in = u >= 0 && u < slots;
+    bxy_s[i] = in ? bxy[u] : 0;
+    val_s[i] = in ? cvalid[u] : 0;
   }
-}
-
-// KX (2): grid (chunks, nb): aug words and popcount per slot, block sums.
-__global__ void aug_kernel(const long long* __restrict__ real_w,
-                           const long long* __restrict__ col_bxy,
-                           const uint8_t* __restrict__ col_valid,
-                           const long long* __restrict__ grid, const unsigned* __restrict__ yor3,
-                           long long* __restrict__ aug16, long long* __restrict__ chunk_sum,
-                           int nb, int g, int ccap) {
-  const long long b = blockIdx.y;
-  const int local = blockIdx.x * THREADS + threadIdx.x;
-  const long long slots = (long long)nb * ccap, cells = (long long)nb * g * g;
-  const long long s = b * ccap + local;
-  long long popc = 0;
-  if (local < ccap) {
-    const long long p = col_bxy[s];
-    const bool v = col_valid[s];
+  {
+    const long long e0 = (long long)(s0 - 1) * ZWORDS, end = (long long)slots * ZWORDS;
+    for (int e = tid; e < (n_in + 2) * ZWORDS; e += KX_TILE) {
+      const int i = e / ZWORDS, q = e - i * ZWORDS;
+      own_s[i * KX_ROW + q] = (e0 + e >= 0 && e0 + e < end) ? (unsigned)real_w[e0 + e] : 0u;
+    }
+  }
+  __syncthreads();
+  // per slot: its own yor3 and its x-neighbours' slots
+  int cid[2] = {-1, -1};
+  if (tid < n_in) {
+    const int c = tid + 1;
+    const bool up = val_s[c] && val_s[c + 1] && bxy_s[c + 1] == bxy_s[c] + 1;
+    const bool dn = val_s[c - 1] && val_s[c] && bxy_s[c] == bxy_s[c - 1] + 1;
+    unsigned any = 0;
+#pragma unroll
+    for (int q = 0; q < ZWORDS; ++q) {
+      const unsigned w = own_s[c * KX_ROW + q];
+      any |= w;
+      nbr_s[tid * KX_ROW + q] = w | (up ? own_s[(c + 1) * KX_ROW + q] : 0u) |
+                                (dn ? own_s[(c - 1) * KX_ROW + q] : 0u);
+    }
+    const long long p = bxy_s[c];
     const long long bb = p >> 24, gx = (p >> 12) & 4095, gy = p & 4095;
-    unsigned own[ZWORDS], nb_or[ZWORDS];
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+      const long long gxn = gx + 2 * d - 1;
+      if (val_s[c] && any != 0u && gxn >= 0 && gxn < g) {
+        const long long flat = (bb * g + gxn) * g + gy;
+        if (flat >= 0 && flat < cells) {
+          const long long cn = grid[flat];
+          if (cn >= 0 && cn < slots) cid[d] = (int)cn;
+        }
+      }
+    }
+  }
+  // the pairs with a neighbour, compacted in slot order
+  int npairs;
+  {
+    const int k0 = (cid[0] >= 0) + (cid[1] >= 0);
+    int at = block_exclusive_scan(k0, &npairs);
+#pragma unroll
+    for (int d = 0; d < 2; ++d)
+      if (cid[d] >= 0) {
+        pair_s[at] = 2 * tid + d;
+        pcid_s[at++] = cid[d];
+      }
+  }
+  __syncthreads();
+  // the x-neighbours' yor3: a half-warp per pair, a lane per word, KX_PAIRS
+  // pairs in flight (every load issued before any is used)
+  {
+    const int hw = tid >> 4, hl = tid & 15;
+    const bool word = hl < ZWORDS;
+    for (int p0 = hw; p0 < npairs; p0 += 16 * KX_PAIRS) {
+      long long pc[KX_PAIRS], pu[KX_PAIRS], pd[KX_PAIRS];
+      uint8_t vc[KX_PAIRS], vu[KX_PAIRS], vd[KX_PAIRS];
+      unsigned w0[KX_PAIRS], wu[KX_PAIRS], wd[KX_PAIRS];
+#pragma unroll
+      for (int j = 0; j < KX_PAIRS; ++j) {
+        const int p = p0 + 16 * j;
+        const int cn = p < npairs ? pcid_s[p] : -1;
+        const bool here = cn >= 0, up = here && cn + 1 < slots, dn = here && cn >= 1;
+        const long long* row = real_w + (long long)(here ? cn : 0) * ZWORDS + hl;
+        pc[j] = here ? bxy[cn] : 0;
+        pu[j] = up ? bxy[cn + 1] : 0;
+        pd[j] = dn ? bxy[cn - 1] : 0;
+        vc[j] = here ? cvalid[cn] : 0;
+        vu[j] = up ? cvalid[cn + 1] : 0;
+        vd[j] = dn ? cvalid[cn - 1] : 0;
+        w0[j] = here && word ? (unsigned)row[0] : 0u;
+        wu[j] = up && word ? (unsigned)row[ZWORDS] : 0u;
+        wd[j] = dn && word ? (unsigned)row[-ZWORDS] : 0u;
+      }
+#pragma unroll
+      for (int j = 0; j < KX_PAIRS; ++j) {
+        const int p = p0 + 16 * j;
+        if (p >= npairs || !word) continue;
+        const bool upn = vc[j] && vu[j] && pu[j] == pc[j] + 1;
+        const bool dnn = vc[j] && vd[j] && pd[j] + 1 == pc[j];
+        const unsigned acc = w0[j] | (upn ? wu[j] : 0u) | (dnn ? wd[j] : 0u);
+        atomicOr(&nbr_s[(pair_s[p] >> 1) * KX_ROW + hl], acc);
+      }
+    }
+  }
+  __syncthreads();
+  // ghost words and popcount per slot
+  unsigned a[ZWORDS];
+  long long popc = 0;
+  {
+    const int c = tid + 1;
+    const bool v = tid < n_in && val_s[c];
 #pragma unroll
     for (int q = 0; q < ZWORDS; ++q) {
-      own[q] = (unsigned)real_w[s * ZWORDS + q];
-      nb_or[q] = yor3[s * ZWORDS + q];
-    }
-#pragma unroll
-    for (int dx = -1; dx <= 1; dx += 2) {
-      const long long gxn = gx + dx;
-      if (!(v && gxn >= 0 && gxn < g)) continue;
-      const long long flat = (bb * g + gxn) * g + gy;
-      if (flat < 0 || flat >= cells) continue;
-      const long long cidn = grid[flat];
-      if (cidn < 0 || cidn >= slots) continue;
-#pragma unroll
-      for (int q = 0; q < ZWORDS; ++q) nb_or[q] |= yor3[cidn * ZWORDS + q];
-    }
-#pragma unroll
-    for (int q = 0; q < ZWORDS; ++q) {
+      const unsigned o = tid < n_in ? own_s[c * KX_ROW + q] : 0u;
+      const unsigned om = (q > 0 && tid < n_in) ? own_s[c * KX_ROW + q - 1] : 0u;
+      const unsigned op = (q + 1 < ZWORDS && tid < n_in) ? own_s[c * KX_ROW + q + 1] : 0u;
       // zdil: z +- 1, carrying bit 31 of word q-1 into bit 0 of word q and back
-      const unsigned up = (own[q] << 1) | (q > 0 ? own[q - 1] >> 31 : 0u);
-      const unsigned dn = (own[q] >> 1) | (q + 1 < ZWORDS ? own[q + 1] << 31 : 0u);
-      const unsigned a = v ? (own[q] | ((up | dn) & ~own[q] & nb_or[q])) : 0u;
-      aug16[s * AUG16 + q] = (long long)a;
-      popc += __popc(a);
+      const unsigned upw = (o << 1) | (om >> 31);
+      const unsigned dnw = (o >> 1) | (op << 31);
+      a[q] = v ? (o | ((upw | dnw) & ~o & nbr_s[tid * KX_ROW + q])) : 0u;
+      popc += __popc(a[q]);
     }
-    aug16[s * AUG16 + ZWORDS + 1] = popc;
   }
-  long long tot;
-  block_exclusive_scan(popc, &tot);
-  if (threadIdx.x == 0) chunk_sum[b * gridDim.x + blockIdx.x] = tot;
-}
-
-// KX (3): one block per scan: block offsets, counts_b, aug-row overflow.
-__global__ void chunk_scan_kernel(long long* __restrict__ chunk, long long* __restrict__ counts_b,
-                                  int* __restrict__ overflow, int nchunks, int cap_a, int level) {
-  const long long b = blockIdx.x;
-  const long long total = block_scan_span(chunk + b * nchunks, chunk + b * nchunks, nchunks, 0);
-  if (threadIdx.x == 0) {
-    counts_b[b] = total;
-    atomicAdd(overflow + 1 + level, (int)max(total - cap_a, 0LL));
+  long long tile_sum;
+  const long long excl = block_exclusive_scan(popc, &tile_sum);  // (its barriers end own_s's reads)
+  if (warp == 0) {  // decoupled look-back over the scan's earlier tiles, 32 at a time
+    unsigned long long* st = state + (size_t)b * tiles_per_scan;
+    long long before = 0;
+    if (lane == 0) st_status(st + k, (k == 0 ? KX_PREFIX : KX_AGG) | (unsigned long long)tile_sum);
+    for (int p = k - 1; p >= 0;) {
+      const int q = p - lane;
+      const unsigned long long w = q >= 0 ? ld_status(st + q) : KX_PREFIX;
+      const unsigned pm = __ballot_sync(0xffffffffu, (w & KX_PREFIX) != 0);
+      const unsigned zm = __ballot_sync(0xffffffffu, w == 0);
+      const int first_p = pm ? __ffs(pm) - 1 : 32, first_z = zm ? __ffs(zm) - 1 : 32;
+      const int upto = min(first_p + 1, first_z);  // lanes summed this round
+      long long add = lane < upto ? (long long)(w & KX_VALUE) : 0;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) add += __shfl_xor_sync(0xffffffffu, add, o);
+      before += add;
+      if (first_p < first_z) break;
+      p -= upto;
+    }
+    if (lane == 0) {
+      if (k > 0) st_status(st + k, KX_PREFIX | (unsigned long long)(before + tile_sum));
+      s_before = before;
+      if (k == tiles_per_scan - 1) {
+        const long long cnt = before + tile_sum;
+        counts_b[b] = cnt;
+        atomicAdd(overflow + 1 + level, (int)max(cnt - cap_a, 0LL));
+      }
+    }
   }
-}
-
-// KX (4): grid (chunks, nb): global start of each slot's aug rows.
-__global__ void start_kernel(long long* __restrict__ aug16, const long long* __restrict__ chunk,
-                             int ccap, int cap_a) {
-  const long long b = blockIdx.y;
-  const int local = blockIdx.x * THREADS + threadIdx.x;
-  const long long s = b * ccap + local;
-  const long long popc = local < ccap ? aug16[s * AUG16 + ZWORDS + 1] : 0;
-  long long tot;
-  const long long ex = block_exclusive_scan(popc, &tot);
-  if (local < ccap) aug16[s * AUG16 + ZWORDS] = chunk[b * gridDim.x + blockIdx.x] + ex + b * cap_a;
+  __syncthreads();
+  // the output tile: 16-byte chunk c of row t at chunk (c ^ ((t >> 1) & 3))
+  // of its row, so that 8 consecutive rows' stores hit distinct banks
+  int4* out_s = reinterpret_cast<int4*>(own_s);
+  if (tid < n_in) {
+    const int start = (int)(s_before + excl + (long long)b * cap_a);  // int32 wrap
+    const int sw = (tid >> 1) & 3;
+    out_s[tid * 4 + (0 ^ sw)] = make_int4((int)a[0], (int)a[1], (int)a[2], (int)a[3]);
+    out_s[tid * 4 + (1 ^ sw)] = make_int4((int)a[4], (int)a[5], (int)a[6], (int)a[7]);
+    out_s[tid * 4 + (2 ^ sw)] = make_int4((int)a[8], (int)a[9], (int)a[10], (int)a[11]);
+    out_s[tid * 4 + (3 ^ sw)] = make_int4((int)a[12], (int)a[13], start, (int)popc);
+  }
+  __syncthreads();
+  int4* dst = reinterpret_cast<int4*>(aug16) + (size_t)s0 * 4;
+  for (int e = tid; e < n_in * 4; e += KX_TILE) {
+    const int t = e >> 2;
+    dst[e] = out_s[t * 4 + ((e & 3) ^ ((t >> 1) & 3))];
+  }
+  // the last block to finish leaves the state zeroed for the next launch
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(counters + 1, 1u) == (unsigned)(total - 1);
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int i = tid; i < total; i += KX_TILE) state[i] = 0;
+  if (tid == 0) {
+    counters[0] = 0;
+    counters[1] = 0;
+  }
 }
 
 // KY (1): one thread per source row.
@@ -626,33 +765,22 @@ extern "C" int real_words(const void* coords, const void* valid, const void* vox
   return (int)cudaGetLastError();
 }
 
-// KX: aug16 int64 [nb*ccap, 16], counts_b int64 [nb]; scratch yor3 int32
-// [nb*ccap, 14], chunk int64 [nb * ceil(ccap / 256)].
+// KX: aug16 int32 [nb*ccap, 16] (16-byte aligned), counts_b int64 [nb];
+// state: int64 [nb * ceil(ccap / KX_TILE) + 1], zero on entry and left
+// zero (the look-back words and the two tile counters).
 extern "C" int assemble_aug(const void* real_w, const void* col_bxy, const void* col_valid,
-                            const void* grid, void* aug16, void* counts_b, void* yor3, void* chunk,
+                            const void* grid, void* aug16, void* counts_b, void* state,
                             void* overflow, int nb, int g, int ccap, int cap_a, int level,
                             void* stream) {
-  if (nb < 1 || g < 1 || ccap < 1 || cap_a < 1 || level < 0 || level >= NUM_LEVELS)
+  if (nb < 1 || g < 1 || ccap < 1 || cap_a < 1 || level < 0 || level >= NUM_LEVELS ||
+      (long long)nb * ccap * AUG16 >= 0x7FFFFFFFLL || !aligned16(aug16))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = as_stream(stream);
-  const long long slots = (long long)nb * ccap;
-  const int nchunks = (ccap + THREADS - 1) / THREADS;
-  const dim3 grid2(nchunks, nb);
-  unsigned* y3 = static_cast<unsigned*>(yor3);
-  long long* a16 = static_cast<long long*>(aug16);
-  long long* ch = static_cast<long long*>(chunk);
-  yor3_kernel<<<blocks_of(slots), THREADS, 0, st>>>(static_cast<const long long*>(real_w),
-                                                    static_cast<const long long*>(col_bxy),
-                                                    static_cast<const uint8_t*>(col_valid), y3,
-                                                    slots);
-  aug_kernel<<<grid2, THREADS, 0, st>>>(
+  const int tiles_per_scan = (ccap + KX_TILE - 1) / KX_TILE;
+  aug_kernel<<<nb * tiles_per_scan, KX_TILE, 0, as_stream(stream)>>>(
       static_cast<const long long*>(real_w), static_cast<const long long*>(col_bxy),
-      static_cast<const uint8_t*>(col_valid), static_cast<const long long*>(grid), y3, a16, ch,
-      nb, g, ccap);
-  chunk_scan_kernel<<<nb, SCAN_THREADS, 0, st>>>(ch, static_cast<long long*>(counts_b),
-                                                 static_cast<int*>(overflow), nchunks, cap_a,
-                                                 level);
-  start_kernel<<<grid2, THREADS, 0, st>>>(a16, ch, ccap, cap_a);
+      static_cast<const uint8_t*>(col_valid), static_cast<const long long*>(grid),
+      static_cast<int*>(aug16), static_cast<long long*>(counts_b), static_cast<int*>(overflow),
+      static_cast<unsigned long long*>(state), nb, g, ccap, cap_a, level, tiles_per_scan);
   return (int)cudaGetLastError();
 }
 

@@ -73,10 +73,7 @@ _GROUPS = (("zconv3_fwd_kernel", "zconv3_fwd"),
            ("row_scan_kernel", "column_grid"), ("grid_kernel", "column_grid"),
            ("stamp_kernel", "column_grid"), ("real_bits_kernel", "real_words"),
            ("real_over_kernel", "real_words"),
-           ("coarsen_kernel", "real_words"), ("yor3_kernel", "assemble_aug"),
-           ("aug_kernel", "assemble_aug"),
-           ("chunk_scan_kernel", "assemble_aug"),
-           ("start_kernel", "assemble_aug"),
+           ("coarsen_kernel", "real_words"), ("aug_kernel", "assemble_aug"),
            ("scatter_rows_kernel", "emit_rows"),
            ("decode_kernel", "emit_rows"),
            ("FillFunctor", "fill (torch.zeros / full of new buffers)"),

@@ -2,6 +2,7 @@
 
     python -m lidog_tpu_torch.profile_turns --other DIR [--rounds 2]
         {train,serve,kernels,stages} [-- extra arguments]
+    python -m lidog_tpu_torch.profile_turns --other DIR kernels -- plan
 
 Runs the same measurement in a fresh process from this checkout's root
 and from DIR (another checkout of the repo, e.g. its parent commit
@@ -23,10 +24,15 @@ BN_FORMS; bf16,
 and L0 96 in f32) on the training plan and KD on the serving plan, also
 as device ms (torch.profiler) with their sums over a step's and a
 request's 62 norms and the device split of KG's and KH's kernels at L0
-96, and the voxelizer (LC) at its serving and training shapes, with
-CUDA events (ms per call, mean of 10 after a warm-up, as chip_smoke's
+96, the voxelizer (LC) at its serving and training shapes, and the plan
+kernels of chip_smoke's PLAN_FORMS (KU and KX at every level of the
+serving and training plans, KR, KS, KQ and KT at one level each) on the
+builder's own inputs, also as device ms, with a step's and a request's KU
++ KX device sums beside their byte bounds (each checkout's own tables),
+with CUDA events (ms per call, mean of 10 after a warm-up, as chip_smoke's
 `cuda_ms`), on the seeded inputs of chip_smoke and with each checkout's
-own kernels, and prints one JSON line; `stages`
+own kernels, and prints one JSON line (`kernels -- plan`: the plan
+kernels alone); `stages`
 prints the device ms of the training step's stages (chip_smoke's
 `train_stage_split`: voxelize, plan, forward, backward, optimizer) after
 two warm-up steps, and of a serving request's (`stage_split`: voxelize,
@@ -77,6 +83,52 @@ def device_ms(fn, calls=5, split=False):
 
 tpts, tlabels = cs.train_data()
 b = cs.train_batch(tpts, tlabels, dev)
+# the plan kernels (chip_smoke's PLAN_FORMS, passed in as JSON) on the
+# inputs the builder gives them: events and device ms, the byte bound, and
+# the KU + KX sums over a step's and a request's 5 levels
+from lidog_tpu_torch.caps import make_zcaps
+from lidog_tpu_torch.core import zseg as Z
+
+one = torch.from_numpy(cs.scan(cs.POINTS, cs.SEED)[0]).to(dev)
+vox = V.voxelize_device(one, torch.ones(cs.POINTS, dtype=torch.bool,
+                                        device=dev),
+                        torch.zeros(cs.POINTS, dtype=torch.int32, device=dev),
+                        cs.VOXEL, cs.PER_SCAN, batch_size=1)
+zc = make_zcaps(cs.PER_SCAN)
+builders = {"serve": (Z.ZSegPlanBuilder(*zc[:2], num_batches=1,
+                                        grid_half=cs.GRID_HALF,
+                                        caps_col_dil=zc[2]),
+                      vox.coords, vox.mask),
+            "train": (cs.train_plan_builder(), b["coords"], b["mask"]),
+            "cin4": (cs.train_plan_builder(cs.IN_CHANNELS), b["coords"],
+                     b["mask"])}
+plan_sums = {}
+for pname, (builder, coords, mask) in builders.items():
+    want = {(lvl, k) for p, lvl, k in json.loads(sys.argv[3]) if p == pname}
+    calls = [c for c in builder.sweep_inputs(coords, mask)
+             if (c[0], c[1]) in want]
+    calls += [c for c in builder.table_inputs(coords, mask)
+              if (c[0], c[1]) in want]
+    for lvl, name, args, kwargs in calls:
+        fn = getattr(Z, name)
+        key = f"{name} {pname} L{lvl}"
+        out[key] = cs.cuda_ms(lambda: fn(*args, **kwargs))
+        out[f"{key} device"] = device_ms(lambda: fn(*args, **kwargs))
+        nbyte = (cs.table_nbytes if name == "assemble_aug"
+                 else cs.sweep_nbytes)(name, args, kwargs)
+        out[f"{key} bound"] = nbyte / cs.HBM_BYTES_PER_S * 1e3
+        if name in ("_build_packed", "assemble_aug"):
+            tag = {"train": "a step", "serve": "a request"}[pname]
+            for part in ("device", "bound"):
+                k = f"KU + KX {tag} (5 levels each), {part}"
+                plan_sums[k] = plan_sums.get(k, 0.0) + out[f"{key} {part}"]
+    del calls
+out.update(plan_sums)
+if sys.argv[4:] == ["plan"]:  # the plan kernels alone
+    print("[kernels] " + json.dumps(out), flush=True)
+    sys.exit(0)
+del vox, builders
+torch.cuda.empty_cache()
 plan = cs.train_plan_builder()(b["coords"], b["mask"])
 gen = torch.Generator().manual_seed(cs.SEED + 8)
 ck = cs.Checker(gen, dev)
@@ -368,10 +420,10 @@ def main(argv=None):
     other = os.path.abspath(args.other)
     if args.what == "kernels":
         sys.path.insert(0, here)
-        from chip_smoke import BN_FORMS, STRIDED_FORMS
+        from chip_smoke import BN_FORMS, PLAN_FORMS, STRIDED_FORMS
 
         cmd = [sys.executable, "-c", _KERNELS, json.dumps(BN_FORMS),
-               json.dumps(STRIDED_FORMS)]
+               json.dumps(STRIDED_FORMS), json.dumps(PLAN_FORMS), *args.extra]
     elif args.what == "stages":
         cmd = [sys.executable, "-c", _STAGES]
     else:

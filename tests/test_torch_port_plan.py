@@ -15,7 +15,10 @@ edges (data/synthetic.py plan_edge_voxels: the grid's x and y edges, z
 at both ends of the plan's range, y columns with and without gaps
 between their dilated slots), roomy, with starved row caps, with starved
 y-dilated column caps (columns and their voxels dropped past the cap),
-and as sortless input (each edge voxel 1-3 times, shuffled).
+and as sortless input (each edge voxel 1-3 times, shuffled).  The int32
+tables behind the plan's sweeps, aug16 and the packed rows, are held
+against lidog_tpu's _assemble_aug and _build_packed at their three
+widths (test_plan_tables_bitwise_equal).
 
 The generic UNetPlan (core/plan.py build_unet_plan) vs lidog_tpu's
 core/plan.py, bitwise too: per level coords, mask and the sorted keys,
@@ -179,6 +182,93 @@ def test_plan_bitwise_equal(case, request):
     if case == "edges_col_starved":  # the column caps drop voxels at L0
         assert int(np.asarray(jp.overflow)[1]) > 0
     _assert_plans_equal(jp, tp)
+
+
+@pytest.mark.parametrize("case", ["zseg", "zseg_starved", "sortless"])
+def test_plan_tables_bitwise_equal(case, request):
+    """The port's int32 tables against lidog_tpu's, bitwise: the plain KX
+    (assemble_aug_plain) and KU (_build_packed_plain) against
+    lidog_tpu's _assemble_aug and _build_packed, jitted on the CPU, on the
+    same tables (the port's plain builder's column tables of each level,
+    as numpy): aug16 (int32 words, global start, count), counts_b, the aug
+    rows' overflow term, and the packed rows with their padding.  Widths:
+    r 2 / aug_r 1 (115 -> 120 words) and r 2 / aug_r 2 (the general stem,
+    145 -> 152) at level 0, r -1 / aug_r 1 (45 -> 48) at levels 1-4.
+    Inputs: tests/test_zseg.py's (unique; and its starved caps, as
+    test_plan_bitwise_equal's zseg_starved) and tests/test_sortless.py's
+    clouds as raw cells (sortless)."""
+    from tests.conftest import run_isolated
+
+    if run_isolated(request):
+        return
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from lidog_tpu.core import zseg as jz
+    from lidog_tpu_torch.core import zseg as tz
+
+    options = {}
+    if case.startswith("zseg"):
+        from tests.test_zseg import B, CAPS_A, CAPS_R, _build_inputs
+
+        coords, mask, _ = _build_inputs(np.random.RandomState(7))
+        caps_r, caps_a, grid_half = CAPS_R, CAPS_A, 64
+        if case == "zseg_starved":
+            caps_r = tuple(c // 2 for c in CAPS_R)
+            caps_a = tuple(c // 3 for c in CAPS_A)
+    else:
+        from tests.test_sortless import B, CAPS_A, CAPS_R, GRID_HALF
+
+        coords, mask, _, _ = _sortless_inputs()
+        caps_r, caps_a, grid_half = CAPS_R, CAPS_A, GRID_HALF
+        options = dict(assume_unique=False)
+    builder = tz.ZSegPlanBuilder(caps_r, caps_a, num_batches=B,
+                                 grid_half=grid_half, **options)
+    aug_j = jax.jit(jz._assemble_aug, static_argnums=(4, 5, 6, 7))
+    packed_j = jax.jit(jz._build_packed, static_argnums=(4, 5, 6, 7),
+                       static_argnames=("aug_r",))
+    aug_over = 0
+    widths = set()
+    for lvl, name, args, kwargs in builder.table_inputs(
+            torch.from_numpy(coords), torch.from_numpy(mask)):
+        if name != "assemble_aug":
+            continue
+        real_w, col_bxy, col_valid, grid_d, nb, g, ccap, cap_a = args
+        # lidog_tpu's tables: int32 (real16 has 2 spare words)
+        real16 = np.zeros((real_w.shape[0], 16), np.int32)
+        real16[:, :14] = real_w.numpy().astype(np.uint32).view(np.int32)
+        jargs = (jnp.asarray(real16),
+                 jnp.asarray(col_bxy.numpy().astype(np.int32)),
+                 jnp.asarray(col_valid.numpy()),
+                 jnp.asarray(grid_d.numpy().astype(np.int32)))
+        overflow = torch.zeros_like(kwargs["overflow"])
+        aug16, counts_b = tz.assemble_aug_plain(*args, level=lvl,
+                                                overflow=overflow)
+        ja, jc = aug_j(*jargs, nb, g, ccap, cap_a)
+        assert aug16.dtype == torch.int32 and np.asarray(ja).dtype == np.int32
+        np.testing.assert_array_equal(aug16.numpy(), np.asarray(ja),
+                                      err_msg=f"aug16 L{lvl}")
+        np.testing.assert_array_equal(counts_b.numpy(), np.asarray(jc),
+                                      err_msg=f"counts_b L{lvl}")
+        term = int(jnp.sum(jnp.maximum(jc - cap_a, 0)))
+        assert int(overflow[1 + lvl]) == term, (lvl, overflow, term)
+        aug_over += term
+        forms = ((2, 1), (2, 2)) if lvl == 0 else ((-1, 1),)
+        for r, aug_r in forms:
+            packed = tz._build_packed_plain(real_w, aug16, col_bxy, col_valid,
+                                            nb, ccap, cap_a, r, aug_r)
+            jp = np.asarray(packed_j(jargs[0], ja, *jargs[1:3], nb, ccap,
+                                     cap_a, r, aug_r=aug_r))
+            assert packed.dtype == torch.int32 and jp.dtype == np.int32
+            assert packed.shape[1] == tz.packed_width(r, aug_r) \
+                and packed.shape[1] % 8 == 0
+            np.testing.assert_array_equal(packed.numpy(), jp,
+                                          err_msg=f"packed L{lvl} {r} {aug_r}")
+            widths.add(packed.shape[1])
+    assert widths == {120, 152, 48}
+    # the starved caps drop aug rows; the roomy ones hold every row
+    assert (aug_over > 0) == (case == "zseg_starved")
 
 
 @pytest.mark.parametrize("case", ["roomy", "starved"])

@@ -526,14 +526,18 @@ STRIDED_FORMS = (("down", 0, 32, 32), ("down", 1, 32, 32),
                  ("up", 3, 256, 256), ("up", 2, 256, 128),
                  ("up", 1, 128, 96), ("up", 0, 96, 96))
 # the plan kernels that `profile_turns kernels` times in turns with another
-# checkout, as (plan, level, wrapper in core/zseg.py): KU and KX at every
-# level of the serving and training plans, KR and KT at the training
-# plan's L0, KS at its L1 and KQ at the general stem's L0
+# checkout, as (plan, level, wrapper in core/zseg.py): KV, KW, KX, KY and
+# KU at every level of the serving and training plans, KR at both plans'
+# L0, KS at their L1-L4, KT at the training plan's L0 and KQ at the
+# general stem's L0
 PLAN_FORMS = tuple((p, lvl, k) for p in ("serve", "train")
-                   for k in ("_build_packed", "assemble_aug")
-                   for lvl in range(5)) + (
-    ("train", 0, "stem_conv9_packed"), ("train", 0, "pos3_lookup"),
-    ("train", 1, "conv9_packed"), ("cin4", 0, "stem_feat125_packed"))
+                   for k in ("column_grid", "real_words", "assemble_aug",
+                             "emit_rows", "_build_packed")
+                   for lvl in range(5)) + tuple(
+    (p, lvl, "conv9_packed") for p in ("serve", "train")
+    for lvl in range(1, 5)) + (
+    ("serve", 0, "stem_conv9_packed"), ("train", 0, "stem_conv9_packed"),
+    ("train", 0, "pos3_lookup"), ("cin4", 0, "stem_feat125_packed"))
 STRIDED_SRC = {"zconv_down_fwd": "lidog_tpu_torch/csrc/zconv_down_fwd.cu",
                "zconv_up_fwd": "lidog_tpu_torch/csrc/zconv_up_fwd.cu",
                "zconv_down_wgrad": "lidog_tpu_torch/csrc/zconv_wgrad.cu",
@@ -1024,7 +1028,7 @@ def stem_kernel_checks(dev, gen):
               lambda: zseg.stem_feat125_packed(*args, **kwargs),
               lambda: zseg.stem_feat125_plain(*args, **kwargs),
               torch.int32, (k + 9) * n * 4 + nbytes(l0.coords, l0.valid)
-              + cells * 8 + slots * aug_bytes, 0,
+              + cells * args[0].element_size() + slots * aug_bytes, 0,
               f"L0 {n} rows ({cells} cells, {slots} columns) -> "
               f"[{k}+9, {n}]", mma=False)
     del args, kwargs
@@ -1104,13 +1108,14 @@ def sweep_nbytes(name, args, kwargs):
                 + nbytes(col_bxy, col_valid)
                 + slots * packed_width(r, aug_r) * 4)
     coords, valid = args[2], args[3]
-    n = coords.shape[0]
+    n, cell = coords.shape[0], args[0].element_size()  # a grid cell's bytes
     cells, slots9 = sweep_lookups(args, kwargs, (-1, 0, 1))
     if name == "conv9_packed":
-        return nbytes(coords, valid) + cells * 8 + slots9 * 3 * slab + 9 * n * 4
+        return (nbytes(coords, valid) + cells * cell + slots9 * 3 * slab
+                + 9 * n * 4)
     cells, slots = sweep_lookups(args, kwargs, range(-STEM_R, STEM_R + 1))
     k = (2 * STEM_R + 1) ** 3
-    return (nbytes(coords, valid) + cells * 8
+    return (nbytes(coords, valid) + cells * cell
             + slots * (2 * STEM_R + 1) * ZWORDS * 4 + slots9 * 3 * slab
             + n * (k * 2 + 9 * 4))
 
@@ -1207,10 +1212,10 @@ def table_nbytes(name, args, kwargs):
     from lidog_tpu_torch.core.bitgrid import ZWORDS
 
     words = ZWORDS * 8  # a row of real words, int64
-    if name == "column_grid":
+    if name == "column_grid":  # the int32 grid, int64 vox_cid, col tables
         coords, valid, nb, gh, lvl, ccap = args[:6]
         g = (2 * gh) >> lvl
-        return (nbytes(coords, valid) + nb * g * g * 8 + coords.shape[0] * 8
+        return (nbytes(coords, valid) + nb * g * g * 4 + coords.shape[0] * 8
                 + nb * ccap * 9)
     if name == "real_words":
         lvl, nb, ccap, gh = args
@@ -1228,7 +1233,8 @@ def table_nbytes(name, args, kwargs):
                 c, h = grid_hits(kwargs["fine_grid"], b, gxf, gyf,
                                  cv & (gxf < f_g) & (gyf < f_g), f_g)
                 cells, rows = cells + c, rows + h
-        return nbytes(cb, cv) + cells * 8 + rows * words + out
+        return (nbytes(cb, cv) + cells * kwargs["fine_grid"].element_size()
+                + rows * words + out)
     if name == "assemble_aug":
         real_w, cb, cv, grid, nb, g, ccap = args[:7]
         b, gx, gy = cb >> 24, (cb >> 12) & 4095, cb & 4095
@@ -1237,8 +1243,8 @@ def table_nbytes(name, args, kwargs):
             ok = cv & (gx + dx >= 0) & (gx + dx < g)
             cells += grid_hits(grid, b, (gx + dx).clamp(0, g - 1), gy, ok,
                                g)[0]
-        return (nbytes(real_w, cb, cv) + cells * 8 + nb * ccap * (ZWORDS + 2)
-                * 4 + nb * 8)
+        return (nbytes(real_w, cb, cv) + cells * grid.element_size()
+                + nb * ccap * (ZWORDS + 2) * 4 + nb * 8)
     pos3, coords, valid, counts_b, nb, cap_a, gh, lvl = args
     n, n_a = coords.shape[0], nb * cap_a
     out = n_a * (16 + 4) + n * 4  # coords, 4 flags; pos or parent
@@ -1282,7 +1288,8 @@ def table_kernel_checks(dev):
     scans, its sortless plan (device_batch_raw), the general stem's plan,
     and the edge voxels of the CPU tests with roomy, starved and
     column-starved caps, and as sortless input (also with caps_real below
-    its voxels); each at every level."""
+    its voxels); each at every level, and the scratch of KV, KX and KY
+    zero again after each check's launches."""
     import torch
 
     from lidog_tpu_torch.caps import make_zcaps
@@ -1336,6 +1343,11 @@ def table_kernel_checks(dev):
                       f"{label} L{lvl} {table_shape(name, args)}",
                       mma=False, exact=True)
             ck.rows[-1]["level"] = lvl
+            torch.cuda.synchronize()
+            bad = zseg.scratch_left_zero(coords.device)
+            if bad:
+                raise AssertionError(f"{name} {label} L{lvl}: scratch "
+                                     f"{bad} left nonzero")
     return ck.rows
 
 

@@ -30,7 +30,7 @@ int32 gather, and the sweeps run over all segments at once; a row's
 segment is its index // segment capacity, so no map reaches another scan.
 
 Bit words are int64 holding uint32 values (core/bitgrid.py) in the
-column grid and the real words; the aug words (`aug16`) and the packed
+real words; the column grid, the aug words (`aug16`) and the packed
 y-neighbourhood table are int32, as lidog_tpu's, their words the uint32
 bits read as int32 and the packed rows padded to a multiple of 8 words
 (16-byte aligned rows).  Internal index arithmetic is int64; outputs are
@@ -107,9 +107,10 @@ def _cumsum_excl_axis1(x2d):
 
 
 def _grid_lookup(grid_flat, b, gx, gy, ok, g: int):
-    """Dense-grid column id of cell (b, gx, gy), -1 where not ok."""
+    """Dense-grid column id (int64) of cell (b, gx, gy), -1 where not
+    ok."""
     flat = torch.where(ok, (b.long() * g + gx) * g + gy, 0)
-    return torch.where(ok, grid_flat[flat], -1)
+    return torch.where(ok, grid_flat[flat].long(), -1)
 
 
 def _zdil_words(u):
@@ -164,14 +165,14 @@ def _unpack_bxy(p):
 
 
 def _grid_from_has(has2, num_batches: int, ccap: int):
-    """has2 [B, g*g] 0/1 -> (cid_grid [B*g*g] int64 of GLOBAL segmented
-    column ids or -1, column overflow scalar)."""
+    """has2 [B, g*g] 0/1 -> (cid_grid [B*g*g] int32 of GLOBAL segmented
+    column ids or -1, lidog_tpu's dtype; column overflow scalar)."""
     cloc = _cumsum_excl_axis1(has2)
     ncols = cloc[:, -1] + has2[:, -1].long()
     base = (torch.arange(num_batches, device=has2.device) * ccap)[:, None]
     cid_grid = torch.where((has2 > 0) & (cloc < ccap), cloc + base, -1)
     col_over = torch.clamp(ncols - ccap, min=0).sum()
-    return cid_grid.reshape(-1), col_over
+    return cid_grid.reshape(-1).to(torch.int32), col_over
 
 
 def _dilate_y(has2, g: int, r: int):
@@ -210,7 +211,7 @@ def column_grid_plain(coords, valid, num_batches: int, grid_half: int,
 
     coords int32 [N, 4] (raw, or a finer level's rows: only coords >> level
     is read), valid bool [N]; the level's cells g x g, g = 2*grid_half >>
-    level, dilated along gy by +-r.  Returns (grid_d int64 [B*g*g] GLOBAL
+    level, dilated along gy by +-r.  Returns (grid_d int32 [B*g*g] GLOBAL
     segmented column id or -1, vox_cid int64 [N] each row's column or -1,
     col_bxy int64 [B*ccap] packed (b, gx, gy) of each slot (0 where empty),
     col_valid bool [B*ccap]).  Adds the rows lost to the column cap and the
@@ -604,8 +605,8 @@ def _require_sweep(name, cid_grid, packed, coords, valid, g, ccap, nb,
     width = packed.shape[1] if packed.dim() == 2 else 0
     _require(name, (
         (n % nb == 0, f"rows {n} are not {nb} equal segments"),
-        (cid_grid.dtype == torch.int64 and tuple(cid_grid.shape)
-         == (nb * g * g,), "cid_grid must be int64 [nb*g*g]"),
+        (cid_grid.dtype == torch.int32 and tuple(cid_grid.shape)
+         == (nb * g * g,), "cid_grid must be int32 [nb*g*g]"),
         (packed.dtype == torch.int32 and packed.dim() == 2
          and packed.shape[0] == nb * ccap and width >= min_width,
          f"packed must be int32 [nb*ccap, >= {min_width}]"),
@@ -752,8 +753,96 @@ def pos3_lookup(aug16, coords, valid, g: int, cap_a: int, grid_half: int,
 # ---------------------------------------------------------------------------
 
 _KX_TILE = 256  # KX's slots per tile (csrc/zseg_tables.cu KX_TILE)
-_KX_STATE = {}
+_KV_TILE_WORDS = 1024  # KV's most bit words a row-pass tile (KV_TILE_WORDS)
+_KV_BLOCKS = 264  # KV's row-pass tiles wanted a launch: two per H100 SM
+_SCAN_EPOCHS = 2**30 - 1  # KV's look-back tags cycle through 1 .. this
 _REP_NONE = 2**31 - 1  # KY's rep of a row no input row maps to, before -1
+# Kernel scratch kept on each device between launches (the port launches
+# on one stream, so each launch sees the previous one's finished state):
+# (name, device) -> a tensor that is zero between launches (KV's bit grid,
+# KX's look-back state, KY's real flags); device -> KV's tile counter and
+# real-row counts, the host's count of the tiles issued, the last epoch
+# and the look-back words (stale words carry an earlier epoch); device ->
+# KY's two packed-row tables, the rows each holds from its last launch,
+# and the one the next launch fills.
+_SCRATCH = {}
+_KV_TICKETS = {}
+_KY_ROWS = {}
+
+
+def column_grid_tiles(g: int, nb: int, tile_words: int = _KV_TILE_WORDS,
+                      blocks: int = _KV_BLOCKS):
+    """KV's row-pass blocking at a level of g x g cells and nb scans
+    (csrc/zseg_tables.cu grid_rows_kernel): (W, rows_per_tile,
+    tiles_per_scan) -- the bit words of a (b, gx) row, ceil(g / 32); the
+    whole rows of a tile, as many as give `blocks` tiles a launch but at
+    most tile_words words (the kernel's KV_TILE_WORDS) and at least one
+    row; and the tiles of a scan's g rows."""
+    w = -(-g // 32)
+    rows = max(1, min(tile_words // w, nb * g // blocks))
+    return w, rows, -(-g // rows)
+
+
+def _zeroed(name: str, device, n: int, dtype=torch.int64):
+    """A kernel's scratch of at least n elements on `device`: zeroed here
+    when first made or grown, and left zeroed by every launch that uses
+    it."""
+    t = _SCRATCH.get((name, device))
+    if t is None or t.numel() < n:
+        t = _SCRATCH[(name, device)] = torch.zeros(max(n, 1), dtype=dtype,
+                                                   device=device)
+    return t
+
+
+def _kv_tickets(device, nb: int, tiles: int):
+    """KV's row-pass state for a launch of nb * tiles tiles on `device`:
+    (counts int64 [1 + nb], the tile counter's value before the launch,
+    as an int32, the launch's epoch, its look-back words int64 [nb *
+    tiles]).  The counter runs on from launch to launch (mod 2^32) and
+    the look-back words are never reset: this launch's carry its epoch."""
+    t = _KV_TICKETS.get(device)
+    if t is None or t[0].numel() < 1 + nb:
+        t = _KV_TICKETS[device] = [torch.zeros(1 + nb, dtype=torch.int64,
+                                               device=device), 0, 0, None]
+    counts, base, epoch, status = t
+    if status is None or status.numel() < nb * tiles:
+        status = t[3] = torch.zeros(nb * tiles, dtype=torch.int64,
+                                    device=device)
+    t[1] = (base + nb * tiles) % 2**32
+    t[2] = epoch % _SCAN_EPOCHS + 1
+    return counts, base - 2**32 if base >= 2**31 else base, t[2], status
+
+
+def _ky_rows(device, n_a: int):
+    """KY's packed-row tables for a launch of n_a rows on `device`: (the
+    zeroed table this launch fills, the other table, which this launch
+    clears, and its rows to clear)."""
+    r = _KY_ROWS.get(device)
+    if r is None or r[0][0].numel() < n_a:
+        r = _KY_ROWS[device] = [
+            [torch.zeros(max(n_a, 1), dtype=torch.int32, device=device)
+             for _ in range(2)], [0, 0], 0]
+    tables, dirty, cur = r
+    other = 1 - cur
+    stale_n = dirty[other]
+    dirty[other], dirty[cur], r[2] = 0, n_a, other
+    return tables[cur], tables[other], stale_n
+
+
+def scratch_left_zero(device):
+    """The names of the kernel scratch on `device` that breaks its
+    invariant between launches (empty when all is well): each zeroed
+    scratch, KV's real-row counts and the KY table that the next launch
+    fills must be all zero."""
+    bad = [name for (name, dev), t in _SCRATCH.items()
+           if dev == device and bool(t.any())]
+    t = _KV_TICKETS.get(device)
+    if t is not None and bool(t[0][1:].any()):
+        bad.append("column_grid real-row counts")
+    r = _KY_ROWS.get(device)
+    if r is not None and bool(r[0][r[2]].any()):
+        bad.append("emit_rows packed rows")
+    return bad
 
 
 def _require_overflow(name, overflow, dev):
@@ -796,24 +885,26 @@ def column_grid(coords, valid, num_batches: int, grid_half: int, level: int,
     g = (2 * grid_half) >> level
     _require_level(name, num_batches, g, level, ccap)
     _require_overflow(name, overflow, dev)
-    _require(name, ((0 <= r and 2 * r + 1 <= g, f"bad radius {r}"),
-                    (g <= 32768, "g must be <= 32768 (a row in shared "
-                     "memory)")))
-    slots, rows = num_batches * ccap, num_batches * g
-    grid_d = torch.empty(rows * g, dtype=torch.int64, device=dev)
+    _require(name, ((0 <= r <= 31 and 2 * r + 1 <= g, f"bad radius {r}"),
+                    (g <= 32768, "g must be <= 32768 (a row of bit words "
+                     "in one tile)")))
+    slots, cells = num_batches * ccap, num_batches * g * g
+    w, rows_per_tile, tiles_per_scan = column_grid_tiles(g, num_batches)
+    grid_d = torch.empty(cells, dtype=torch.int32, device=dev)
     vox_cid = torch.empty(n, dtype=torch.int64, device=dev)
-    col_bxy = torch.zeros(slots, dtype=torch.int64, device=dev)
-    col_valid = torch.zeros(slots, dtype=torch.bool, device=dev)
-    has = torch.zeros(rows * g, dtype=torch.int8, device=dev)  # scratch
-    row_tab = torch.empty(2, rows, dtype=torch.int64, device=dev)  # scratch
-    nreal = (torch.zeros(num_batches, dtype=torch.int64, device=dev)
-             if cap_real >= 0 else None)  # scratch
+    # col_bxy int64 and col_valid bool, zeroed by one fill
+    cols = torch.zeros(slots * 9, dtype=torch.uint8, device=dev)
+    col_bxy = cols[:slots * 8].view(torch.int64)
+    col_valid = cols[slots * 8:].view(torch.bool)
+    bits = _zeroed("column_grid bits", dev, num_batches * g * w,
+                   torch.int32)
+    counts, base, epoch, status = _kv_tickets(dev, num_batches,
+                                              tiles_per_scan)
     _cuda.call(name, coords.data_ptr(), valid.data_ptr(), grid_d.data_ptr(),
                vox_cid.data_ptr(), col_bxy.data_ptr(), col_valid.data_ptr(),
-               has.data_ptr(), row_tab.data_ptr(),
-               None if nreal is None else nreal.data_ptr(),
+               bits.data_ptr(), counts.data_ptr(), status.data_ptr(),
                overflow.data_ptr(), n, num_batches, grid_half, level, ccap, r,
-               cap_real)
+               cap_real, rows_per_tile, base, epoch)
     LAUNCHES[name] += 1
     return grid_d, vox_cid, col_bxy, col_valid
 
@@ -847,9 +938,9 @@ def real_words(level: int, num_batches: int, ccap: int, grid_half: int, *,
         f_g = (2 * grid_half) >> (level - 1)
         fine_slots = fine_real.shape[0] if fine_real.dim() == 2 else 0
         _require(name, (
-            (fine_grid.dtype == torch.int64
+            (fine_grid.dtype == torch.int32
              and tuple(fine_grid.shape) == (num_batches * f_g * f_g,),
-             "fine_grid must be int64 [B*g_fine^2]"),
+             "fine_grid must be int32 [B*g_fine^2]"),
             (fine_real.dtype == torch.int64 and fine_real.dim() == 2
              and fine_real.shape[1] == ZWORDS,
              f"fine_real must be int64 [slots, {ZWORDS}]"),
@@ -885,31 +976,21 @@ def assemble_aug(real_w, col_bxy, col_valid, grid_d, num_batches: int,
         (real_w.dtype == torch.int64
          and tuple(real_w.shape) == (slots, ZWORDS),
          f"real_w must be int64 [{slots}, {ZWORDS}]"),
-        (grid_d.dtype == torch.int64
+        (grid_d.dtype == torch.int32
          and tuple(grid_d.shape) == (num_batches * g * g,),
-         "grid_d must be int64 [B*g*g]"),
+         "grid_d must be int32 [B*g*g]"),
     ))
     tiles = num_batches * -(-ccap // _KX_TILE)
     aug16 = torch.empty(slots, ZWORDS + 2, dtype=torch.int32, device=dev)
     counts_b = torch.empty(num_batches, dtype=torch.int64, device=dev)
     _cuda.call(name, real_w.data_ptr(), col_bxy.data_ptr(),
                col_valid.data_ptr(), grid_d.data_ptr(), aug16.data_ptr(),
-               counts_b.data_ptr(), _kx_state(dev, tiles).data_ptr(),
+               counts_b.data_ptr(), _zeroed("assemble_aug state", dev,
+                                            tiles + 1).data_ptr(),
                overflow.data_ptr(), num_batches, g, ccap, cap_a, level)
     LAUNCHES[name] += 1
     LEVEL_LAUNCHES[name][level] += 1
     return aug16, counts_b
-
-
-def _kx_state(device, tiles: int):
-    """KX's look-back words on `device`: one int64 per tile, then its tile
-    and finish counters (two int32): zeroed here when first made or grown,
-    and left zeroed by every launch (the port launches on one stream)."""
-    t = _KX_STATE.get(device)
-    if t is None or t.numel() < tiles + 1:
-        t = _KX_STATE[device] = torch.zeros(tiles + 1, dtype=torch.int64,
-                                            device=device)
-    return t
 
 
 def emit_rows(pos3, coords, valid, counts_b, num_batches: int, cap_a: int,
@@ -933,10 +1014,11 @@ def emit_rows(pos3, coords, valid, counts_b, num_batches: int, cap_a: int,
     ))
     n_a = num_batches * cap_a
     coords_a = torch.empty(n_a, 4, dtype=torch.int32, device=dev)
-    real_a = torch.zeros(n_a, dtype=torch.bool, device=dev)
-    valid_a, zup, zdn = (torch.empty(n_a, dtype=torch.bool, device=dev)
-                         for _ in range(3))
-    packed_a = torch.zeros(n_a, dtype=torch.int64, device=dev)  # scratch
+    real_a, valid_a, zup, zdn = (torch.empty(n_a, dtype=torch.bool,
+                                             device=dev) for _ in range(4))
+    # the scattered rows' packed words and real flags
+    packed_a, stale, stale_n = _ky_rows(dev, n_a)
+    flag_a = _zeroed("emit_rows flags", dev, n_a, torch.bool)
     pos = torch.empty(n, dtype=torch.int32, device=dev)
     off = map8 = None
     if level:
@@ -947,10 +1029,10 @@ def emit_rows(pos3, coords, valid, counts_b, num_batches: int, cap_a: int,
     _cuda.call(name, pos3.data_ptr(), coords.data_ptr(), valid.data_ptr(),
                counts_b.data_ptr(), coords_a.data_ptr(), real_a.data_ptr(),
                valid_a.data_ptr(), zup.data_ptr(), zdn.data_ptr(),
-               packed_a.data_ptr(), pos.data_ptr(),
-               None if off is None else off.data_ptr(),
+               packed_a.data_ptr(), stale.data_ptr(), flag_a.data_ptr(),
+               pos.data_ptr(), None if off is None else off.data_ptr(),
                None if map8 is None else map8.data_ptr(), n, num_batches,
-               cap_a, grid_half, level, int(rep))
+               cap_a, grid_half, level, int(rep), stale_n)
     LAUNCHES[name] += 1
     rows = (coords_a, real_a, valid_a, zup, zdn, pos)
     if level:

@@ -4,7 +4,7 @@
 //
 // Replaces lidog_tpu/core/zseg.py:540-628 (stem_feat125_packed).  Inputs
 // are the plan builder's own tables: the dense cell -> column id grid
-// (int64 GLOBAL segmented column ids, -1 empty) and the packed
+// (int32 GLOBAL segmented column ids, -1 empty) and the packed
 // y-neighbourhood table built with aug_r = r (int32, as lidog_tpu's: the
 // uint32 bit words read as int32; per row, after the real slabs at
 // aug_off, 2r+1 slabs of ZWORDS aug words + the LOCAL start row, for dy =
@@ -58,7 +58,7 @@ __device__ __forceinline__ int bit_at(const unsigned (&w)[ZWORDS], int bz) {
 }
 
 __global__ void __launch_bounds__(NT)
-stem_feat125_kernel(const long long* __restrict__ grid, const int* __restrict__ packed,
+stem_feat125_kernel(const int* __restrict__ grid, const int* __restrict__ packed,
                     const int4* __restrict__ coords, const uint8_t* __restrict__ valid,
                     int* __restrict__ nbr, int* __restrict__ conv9, int n, int cap_q, int g,
                     int ccap, int cap_a, int grid_half, int level, int width, int aug_off) {
@@ -75,7 +75,7 @@ stem_feat125_kernel(const long long* __restrict__ grid, const int* __restrict__ 
   const int gxn = gx0 + dx;
   long long cid = -1;
   if (valid[i] && gxn >= 0 && gxn < g && gy0 >= 0 && gy0 < g) {
-    const long long v = grid[((long long)b * g + gxn) * g + gy0];
+    const int v = grid[((long long)b * g + gxn) * g + gy0];
     cid = v >= 0 ? v - (long long)b * ccap : -1;
   }
   const bool hit = cid >= 0 && cid < ccap;
@@ -140,7 +140,7 @@ extern "C" int stem_feat125(const void* grid, const void* packed, const void* co
   if (n == 0) return 0;
   const dim3 blocks((n + NT - 1) / NT, D);
   stem_feat125_kernel<<<blocks, NT, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(grid), static_cast<const int*>(packed),
+      static_cast<const int*>(grid), static_cast<const int*>(packed),
       static_cast<const int4*>(coords), static_cast<const uint8_t*>(valid),
       static_cast<int*>(nbr), static_cast<int*>(conv9), n, n / nb, g, ccap, cap_a, grid_half,
       level, width, aug_off);

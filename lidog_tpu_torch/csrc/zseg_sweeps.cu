@@ -87,7 +87,7 @@ __device__ __forceinline__ long long slab_rank(const int* slab, int bz, bool hit
 // KR (STEM, DXR = 2) and KS (DXR = 1): block (ROWS, 2*DXR+1), thread (row, dx).
 template <int DXR, bool STEM>
 __global__ void __launch_bounds__(ROWS*(2 * DXR + 1))
-sweep_kernel(const long long* __restrict__ grid, const int* __restrict__ packed,
+sweep_kernel(const int* __restrict__ grid, const int* __restrict__ packed,
              const int4* __restrict__ coords, const uint8_t* __restrict__ valid,
              uint16_t* __restrict__ occ, int* __restrict__ conv9, int n, int nb, int g, int ccap,
              int cap_a, int grid_half, int level, int width, int aug_off) {
@@ -109,7 +109,7 @@ sweep_kernel(const long long* __restrict__ grid, const int* __restrict__ packed,
       // lie inside its grid; the read is guarded all the same
       const long long flat = ((long long)b * g + gxn) * g + gy0;
       if (flat >= 0 && flat < (long long)nb * g * g) {
-        const long long v = grid[flat];
+        const int v = grid[flat];
         cid = v >= 0 ? v - (long long)b * ccap : -1;
       }
     }
@@ -319,8 +319,8 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // Each function returns a cudaError_t (0 = launched).
 
 // KR: occ bf16 [n, 125] (raw bits), conv9 int32 [9, n] from the int32
-// packed table [nb*ccap, width] with 5 real slabs and 3 aug slabs at
-// aug_off.
+// grid [nb*g*g] and the int32 packed table [nb*ccap, width] with 5 real
+// slabs and 3 aug slabs at aug_off.
 extern "C" int stem_conv9_packed(const void* grid, const void* packed, const void* coords,
                                  const void* valid, void* occ, void* conv9, int n, int nb, int g,
                                  int ccap, int cap_a, int grid_half, int level, int width,
@@ -332,7 +332,7 @@ extern "C" int stem_conv9_packed(const void* grid, const void* packed, const voi
   if (n == 0) return 0;
   const dim3 block(ROWS, 2 * STEM_R + 1);
   sweep_kernel<STEM_R, true><<<(n + ROWS - 1) / ROWS, block, 0, as_stream(stream)>>>(
-      static_cast<const long long*>(grid), static_cast<const int*>(packed),
+      static_cast<const int*>(grid), static_cast<const int*>(packed),
       static_cast<const int4*>(coords), static_cast<const uint8_t*>(valid),
       static_cast<uint16_t*>(occ), static_cast<int*>(conv9), n, nb, g, ccap, cap_a, grid_half,
       level, width, aug_off);
@@ -350,7 +350,7 @@ extern "C" int conv9_packed(const void* grid, const void* packed, const void* co
   if (n == 0) return 0;
   const dim3 block(ROWS, 3);
   sweep_kernel<1, false><<<(n + ROWS - 1) / ROWS, block, 0, as_stream(stream)>>>(
-      static_cast<const long long*>(grid), static_cast<const int*>(packed),
+      static_cast<const int*>(grid), static_cast<const int*>(packed),
       static_cast<const int4*>(coords), static_cast<const uint8_t*>(valid), nullptr,
       static_cast<int*>(conv9), n, nb, g, ccap, cap_a, grid_half, level, width, 0);
   return (int)cudaGetLastError();

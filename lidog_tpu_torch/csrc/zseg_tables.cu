@@ -13,23 +13,37 @@
 // (column_grid_plain, real_words_plain, assemble_aug_plain,
 // emit_rows_plain): the integer steps are the plain version's one for one.
 // z-bit words are uint32 values, held in int64 real-word tables and in the
-// int32 aug16 rows (words, GLOBAL start, count: lidog_tpu's dtype); counts
-// and scans are integer sums, exact in any order; overflow terms are added
-// with int32 atomics, which wrap as the plain version's int64 sum cast to
-// int32 does.
+// int32 aug16 rows (words, GLOBAL start, count: lidog_tpu's dtype); the
+// column grid is int32, as lidog_tpu's; counts and scans are integer sums,
+// exact in any order; overflow terms are added with int32 atomics, which
+// wrap as the plain version's int64 sum cast to int32 does.
 //
-//   KV: (1) one thread per source row stamps its cell's has flag (an
-//       idempotent byte store) and, on unique level-0 input, counts the
-//       scan's real rows; (2) one block per (b, gx) row of g cells dilates
-//       the row along gy by +-r in shared memory (never across gx rows),
-//       in place, and counts it; (3) one block per scan: the exclusive
-//       scan of its g row counts, the columns past ccap and the real rows
-//       past cap_real into overflow; (4) one block per row: the in-row
-//       scan, grid = cloc + b*ccap where dilated and cloc < ccap, else -1;
-//       (5) one thread per source row: its column id (vox_cid), the rows
-//       lost to the cap into overflow, and the 2r+1 slot stamps of packed
-//       (b, gx, gy+dy) under the segment guard.  Every writer of a slot
-//       writes the same value (the slot is the column of that cell).
+//   KV: (1) one thread per source row sets its cell's bit in a bit grid,
+//       one bit per cell, each (b, gx) row padded to W = ceil(g/32) words
+//       (one atomicOr per run of a warp's rows on one word), and on unique level-0
+//       input counts the scan's real rows; (2) one pass over whole rows:
+//       a block per tile of rows of one scan, taken in order from a tile
+//       counter, loads the tile's words (and clears them), dilates each
+//       word along gy by +-r with shifts that carry bits from the row's
+//       neighbour words (never across rows), popcounts them, block-scans
+//       the counts and finds the tile's offset in its scan by a decoupled
+//       look-back over the scan's earlier tiles; the scan's last tile adds
+//       the columns past ccap and the real rows past cap_real to overflow;
+//       grid = cloc + b*ccap where dilated and cloc < ccap, else -1,
+//       written as 16-byte stores of 4 cells.  The wrapper picks the rows
+//       a tile (core/zseg.py column_grid_tiles: ~2 tiles an SM, whole rows
+//       of at most KV_TILE_WORDS words).  Nothing is reset at the end: the
+//       tile counter runs on from launch to launch (the wrapper passes
+//       its value before the launch) and the look-back words carry the
+//       launch's epoch, so that an earlier launch's words read as not yet
+//       published; (3) one thread per source row: its column id
+//       (vox_cid), the rows lost to the cap into overflow, and the 2r+1
+//       slot stamps of packed (b, gx, gy+dy) under the segment guard, by
+//       the first row of each run of a column's rows in a warp.  Every writer of a slot writes
+//       the same value (the slot is the column of that cell).  A grid-side
+//       write of the slot stamps would differ where the plain version
+//       leaves a dilated slot unstamped (its voxel's own column past
+//       ccap), so they stay here.
 //   KW: level 0, unique input: atomicAdd of the bit on the word's low 32
 //       bits (the plain scatter-add mod 2^32); sortless input: atomicOr,
 //       counting the bits that were new per scan, then one block adds the
@@ -55,17 +69,24 @@
 //       tile as 16-byte stores.  The last block to finish resets the
 //       status words and counters, which the wrapper zeroes once.
 //   KY: (1) one thread per source row: its 3 candidates' packed
-//       gxgy << 9 | bz (uint32 wrap) scattered to their aug rows, the real
-//       flag, and pos (+ rep by atomicMin) at level 0, parent, off and the
-//       down8 transpose above; (2) one thread per aug row decodes rows
-//       j-1, j, j+1: coords, valid, real &= valid, zup and zdn.
+//       gxgy << 9 | bz (uint32 wrap, lidog_tpu's int32 cand_p) and the real
+//       flag scattered to their aug rows of two scratch tables, and pos (+
+//       rep by atomicMin) at level 0, parent, off and the down8 transpose
+//       above; (2) a block per tile of KY_TILE aug rows of one scan decodes
+//       each row once into shared memory (with one row each side), in
+//       32-bit arithmetic (division by g a shift where g is a power of
+//       two): coords as 16-byte stores, valid, real &= valid, zup and zdn
+//       from the neighbours in shared memory.  The real flags are cleared
+//       by the block that reads them; the packed rows go to one of two
+//       tables in turn, and each launch clears the other one (the rows the
+//       previous launch filled), so that no block clears a row that a
+//       neighbouring block still reads and no launch needs a fill.
 //
 // Every step is a separate launch on the caller's stream, so each reads
-// the previous step's complete output.  KV's scans are reduce-then-scan
-// with a warp-shuffle block scan, KX's a single pass with look-back; no
-// library scan.
+// the previous step's complete output.  KV's and KX's scans are single
+// passes with look-back; no library scan.
 //
-// Bound on an H100: bytes.  KV writes the int64 grid (B*g*g*8: 134 MB at
+// Bound on an H100: bytes.  KV writes the int32 grid (B*g*g*4: 67 MB at
 // the training plan's level 0), the others their tables and rows (KX
 // reads the int64 real words, 88 MB there, and writes aug16, 50 MB).
 #include <cuda_runtime.h>
@@ -82,12 +103,20 @@ constexpr int THREADS = 256;      // per-thread launches
 constexpr int KX_TILE = 256;      // KX's slots per tile = threads per block
 constexpr int KX_ROW = ZWORDS + 1;  // KX's shared-memory row stride (odd)
 constexpr int KX_PAIRS = 4;       // KX's neighbour fetches in flight per half-warp
-// KX's look-back status word: flag << 62 | the tile's sum (0 = not yet
-// published), the flag AGG (the tile alone) or PREFIX (with every earlier
-// tile of its scan)
-constexpr unsigned long long KX_AGG = 1ULL << 62, KX_PREFIX = 2ULL << 62,
-                             KX_VALUE = (1ULL << 62) - 1;
-constexpr int SCAN_THREADS = 1024;
+constexpr int KV_THREADS = 256;   // KV's row pass: threads per block
+constexpr int KV_WORDS = 4;       // bit words per thread, consecutive
+// bit words per row-pass tile: whole rows of at most 1024 words (g <= 32768)
+constexpr int KV_TILE_WORDS = KV_THREADS * KV_WORDS;
+constexpr int KY_TILE = 256;      // KY's aug rows per decode block = threads per block
+// a look-back status word (KV, KX): flag << 62 | the sum, published when
+// its flag is AGG (the tile alone) or PREFIX (with every earlier tile of
+// its scan).  KX's words are reset by its last block; KV never resets its
+// words but tags them with the launch's epoch, epoch << 32 | a sum below
+// 2^32, and reads another epoch's word as not yet published.
+constexpr unsigned long long SCAN_AGG = 1ULL << 62, SCAN_PREFIX = 2ULL << 62,
+                             SCAN_FLAGS = 3ULL << 62, SCAN_SUM = SCAN_AGG - 1,
+                             SCAN_SUM32 = 0xFFFFFFFFULL;
+constexpr unsigned SCAN_EPOCHS = 0x3FFFFFFFu;
 constexpr int REP_NONE = 0x7FFFFFFF;
 
 // core/bitgrid.py _cell_of + the row's ok flag.
@@ -140,20 +169,46 @@ __device__ T block_exclusive_scan(T v, T* total) {
   return before;
 }
 
-// Exclusive scan of in[0, n) into out (may alias in), plus base; returns
-// the sum.  One block; every thread must call it.
-__device__ long long block_scan_span(const long long* in, long long* out, long long n,
-                                     long long base) {
-  long long carry = base;
-  for (long long k0 = 0; k0 < n; k0 += blockDim.x) {
-    const long long k = k0 + threadIdx.x;
-    const long long v = k < n ? in[k] : 0;
-    long long tot;
-    const long long ex = block_exclusive_scan(v, &tot);
-    if (k < n) out[k] = carry + ex;
-    carry += tot;
+__device__ __forceinline__ unsigned long long ld_status(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_status(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
+}
+
+// KV: tile k's offset in its scan by a decoupled look-back over the
+// scan's earlier tiles (status words st[0, k)), 32 at a time; publishes
+// tile k's sum, then its inclusive prefix, under `epoch` (KX's aug_kernel
+// runs the same look-back on words that its last block resets).  Warp 0
+// calls it; every lane returns the offset.  The tiles must start in order
+// (a tile waits only on earlier ones).
+__device__ long long scan_lookback(unsigned long long* st, int k, long long tile_sum,
+                                   unsigned epoch) {
+  const int lane = threadIdx.x & 31;
+  const unsigned long long tag = (unsigned long long)epoch << 32;
+  long long before = 0;
+  if (lane == 0)
+    st_status(st + k, (k == 0 ? SCAN_PREFIX : SCAN_AGG) | tag | (unsigned long long)tile_sum);
+  for (int p = k - 1; p >= 0;) {
+    const int q = p - lane;
+    unsigned long long w = q >= 0 ? ld_status(st + q) : SCAN_PREFIX | tag;
+    if ((w & ~SCAN_FLAGS & ~SCAN_SUM32) != tag) w = 0;  // an earlier launch's word
+    const unsigned pm = __ballot_sync(0xffffffffu, (w & SCAN_PREFIX) != 0);
+    const unsigned zm = __ballot_sync(0xffffffffu, w == 0);
+    const int first_p = pm ? __ffs(pm) - 1 : 32, first_z = zm ? __ffs(zm) - 1 : 32;
+    const int upto = min(first_p + 1, first_z);  // lanes summed this round
+    long long add = lane < upto ? (long long)(w & SCAN_SUM32) : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) add += __shfl_xor_sync(0xffffffffu, add, o);
+    before += add;
+    if (first_p < first_z) break;
+    p -= upto;
   }
-  return carry - base;
+  if (lane == 0 && k > 0)
+    st_status(st + k, SCAN_PREFIX | tag | (unsigned long long)(before + tile_sum));
+  return before;
 }
 
 // Add, per warp, the flags of its threads to counter[key] (one atomic per
@@ -168,80 +223,181 @@ __device__ __forceinline__ void warp_count(bool flag, long long key, T* counter)
     atomicAdd(counter + key, (T)__popc(same));
 }
 
-// KV (1): has flags; real rows per scan on unique level-0 input.
-__global__ void has_kernel(const int4* __restrict__ coords, const uint8_t* __restrict__ valid,
-                           int8_t* __restrict__ has, unsigned long long* __restrict__ nreal,
-                           int n, int nb, int grid_half, int level, bool count_real) {
+// Whether this lane starts a run of consecutive ok lanes of its warp with
+// equal keys.  Every thread of the warp must call it.
+__device__ __forceinline__ bool run_start(bool ok, unsigned key) {
+  const unsigned prev = __shfl_up_sync(0xffffffffu, key, 1);
+  const int prev_ok = __shfl_up_sync(0xffffffffu, (int)ok, 1);
+  return ok && ((threadIdx.x & 31) == 0 || !prev_ok || prev != key);
+}
+
+// Add, per run of consecutive ok lanes with equal keys, the run's length
+// to counter[key] (one atomic a run: a sorted warp's keys make few runs).
+// Every thread of the warp must call it.
+__device__ __forceinline__ void run_count(bool ok, unsigned key,
+                                          unsigned long long* counter) {
+  const bool lead = run_start(ok, key);
+  const unsigned ends = __ballot_sync(0xffffffffu, lead || !ok);
+  if (lead) {
+    const int lane = threadIdx.x & 31;
+    const unsigned after = lane == 31 ? 0u : ends & (0xffffffffu << (lane + 1));
+    atomicAdd(counter + key, (unsigned long long)((after ? __ffs(after) - 1 : 32) - lane));
+  }
+}
+
+// KV (1): one thread per source row: its cell's bit in the row-padded
+// bit grid (bits[(b*g + gx) * W + gy/32], bit gy%32; one atomicOr per run
+// of lanes on one word, the run's bits ORed by shuffles); real rows per
+// scan on unique level-0 input.
+__global__ void bit_stamp_kernel(const int4* __restrict__ coords,
+                                 const uint8_t* __restrict__ valid, unsigned* __restrict__ bits,
+                                 unsigned long long* __restrict__ nreal, int n, int nb,
+                                 int grid_half, int level, int W, bool count_real) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
   const int g = (2 * grid_half) >> level;
   bool ok = false;
   int b = 0;
+  unsigned word = 0xffffffffu, bit = 0u;
   if (i < n) {
     const Cell c = cell_of(coords[i], valid[i], grid_half, level);
     ok = c.ok && c.b >= 0 && c.b < nb;
-    b = c.b;
-    if (ok) has[((long long)c.b * g + c.gx) * g + c.gy] = 1;
-  }
-  if (count_real) warp_count(ok, ok ? b : 0, nreal);
-}
-
-// KV (2): one block per (b, gx) row: dilate along gy by +-r, count.
-__global__ void dilate_kernel(int8_t* __restrict__ has, long long* __restrict__ row_count, int g,
-                              int r) {
-  extern __shared__ int8_t row_s[];
-  int8_t* h = has + (long long)blockIdx.x * g;
-  for (int k = threadIdx.x; k < g; k += blockDim.x) row_s[k] = h[k];
-  __syncthreads();
-  long long cnt = 0;
-  for (int k = threadIdx.x; k < g; k += blockDim.x) {
-    int8_t v = 0;
-    for (int d = -r; d <= r; ++d) {
-      const int q = k + d;
-      if (q >= 0 && q < g) v |= row_s[q];
+    if (ok) {
+      b = c.b;
+      word = ((unsigned)c.b * g + c.gx) * (unsigned)W + (c.gy >> 5);
+      bit = 1u << (c.gy & 31);
     }
-    h[k] = v;
-    cnt += v;
   }
-  long long tot;
-  block_exclusive_scan(cnt, &tot);
-  if (threadIdx.x == 0) row_count[blockIdx.x] = tot;
+  // each lane ORs the bits of the later lanes on its word (any order: a
+  // word's bits may reach more than one atomicOr, which is idempotent)
+  unsigned acc = bit;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned y = __shfl_down_sync(0xffffffffu, acc, o);
+    const unsigned wy = __shfl_down_sync(0xffffffffu, word, o);
+    if (lane + o < 32 && wy == word) acc |= y;
+  }
+  if (run_start(ok, word)) atomicOr(bits + word, acc);
+  if (count_real) run_count(ok, (unsigned)b, nreal);
 }
 
-// KV (3): one block per scan: row offsets; column and real-row overflow.
-__global__ void row_scan_kernel(const long long* __restrict__ row_count,
-                                long long* __restrict__ row_off,
-                                const unsigned long long* __restrict__ nreal,
-                                int* __restrict__ overflow, int g, int ccap, int level,
-                                int cap_real) {
-  const long long b = blockIdx.x;
-  const long long ncols = block_scan_span(row_count + b * g, row_off + b * g, g, 0);
-  if (threadIdx.x == 0) {
-    atomicAdd(overflow + 1 + level, (int)max(ncols - ccap, 0LL));
-    if (cap_real >= 0) atomicAdd(overflow, (int)max((long long)nreal[b] - cap_real, 0LL));
+// KV (2): one block per tile of whole (b, gx) rows of one scan (see the
+// top).  counts: the tile counter (uint32; this launch's tiles are its
+// values base .. base + nb * tiles_per_scan - 1), then [nb] real-row
+// counts (0 on entry, reset by each scan's last tile); status: [nb *
+// tiles_per_scan] look-back words, this launch's tagged with `epoch` and
+// never reset; the bit words are 0 on entry and on exit (each block
+// clears those it read).
+__global__ void __launch_bounds__(KV_THREADS)
+grid_rows_kernel(unsigned* __restrict__ bits, int* __restrict__ grid,
+                 unsigned long long* __restrict__ counts, unsigned long long* __restrict__ status,
+                 int* __restrict__ overflow, int nb, int g, int gshift, int W, int wshift,
+                 int rows_per_tile, int tiles_per_scan, int ccap, int r, int level, int cap_real,
+                 unsigned base, unsigned epoch) {
+  __shared__ __align__(16) unsigned word_s[KV_TILE_WORDS];  // has, then dilated words
+  __shared__ __align__(16) int pre_s[KV_TILE_WORDS];  // tile columns before each word
+  __shared__ int s_tile;
+  __shared__ long long s_before;
+  const int tid = threadIdx.x;
+  unsigned long long* nreal = counts + 1;
+  if (tid == 0)  // tiles start in order
+    s_tile = (int)(atomicAdd(reinterpret_cast<unsigned*>(counts), 1u) - base);
+  __syncthreads();
+  const int tile = s_tile;
+  const int b = tile / tiles_per_scan, k = tile - b * tiles_per_scan;
+  const int row0 = k * rows_per_tile;
+  const int nrows = min(rows_per_tile, g - row0);
+  const int nwords = nrows * W;
+  unsigned* src = bits + ((size_t)b * g + row0) * W;
+  for (int e = tid; e < nwords; e += KV_THREADS) {
+    const unsigned v = src[e];
+    word_s[e] = v;
+    if (v) src[e] = 0u;  // the bit grid is left zero for the next call
+  }
+  __syncthreads();
+  // the dilation of words 4t .. 4t+3 along gy by +-r (neighbour words of
+  // the same row only; bits past g masked in the row's last word)
+  unsigned d[KV_WORDS];
+  int cnt = 0;
+  const unsigned tail = (g & 31) ? (1u << (g & 31)) - 1u : 0xffffffffu;
+#pragma unroll
+  for (int j = 0; j < KV_WORDS; ++j) {
+    const int e = KV_WORDS * tid + j;
+    d[j] = 0u;
+    if (e < nwords) {
+      const int wi = wshift >= 0 ? e & (W - 1) : e % W;
+      const unsigned x = word_s[e];
+      const unsigned px = wi > 0 ? word_s[e - 1] : 0u, nx = wi < W - 1 ? word_s[e + 1] : 0u;
+      unsigned v = x;
+      for (int s = 1; s <= r; ++s)
+        v |= (x >> s) | (nx << (32 - s)) | (x << s) | (px >> (32 - s));
+      d[j] = wi == W - 1 ? v & tail : v;
+      cnt += __popc(d[j]);
+    }
+  }
+  int tile_sum;
+  int excl = block_exclusive_scan(cnt, &tile_sum);  // (its barriers end word_s's reads)
+#pragma unroll
+  for (int j = 0; j < KV_WORDS; ++j) {
+    const int e = KV_WORDS * tid + j;
+    if (e < nwords) {
+      word_s[e] = d[j];
+      pre_s[e] = excl;
+      excl += __popc(d[j]);
+    }
+  }
+  if (tid < 32) {
+    const long long before =
+        scan_lookback(status + (size_t)b * tiles_per_scan, k, (long long)tile_sum, epoch);
+    if (tid == 0) {
+      s_before = before;
+      if (k == tiles_per_scan - 1) {  // the scan's column and real-row overflow
+        atomicAdd(overflow + 1 + level, (int)max(before + tile_sum - ccap, 0LL));
+        if (cap_real >= 0) {
+          atomicAdd(overflow, (int)max((long long)nreal[b] - cap_real, 0LL));
+          nreal[b] = 0;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // grid = cloc + b*ccap where dilated and cloc < ccap, else -1
+  const int before = (int)s_before, seg = b * ccap;
+  int* out = grid + ((size_t)b * g + row0) * g;
+  if ((g & 3) == 0) {  // 16-byte stores: 4 cells of one word
+    const int per_row = g >> 2, chunks = nrows * per_row;
+    int4* out4 = reinterpret_cast<int4*>(out);
+    for (int q = tid; q < chunks; q += KV_THREADS) {
+      const int row = gshift >= 2 ? q >> (gshift - 2) : q / per_row;
+      const int col = (q - row * per_row) << 2;
+      const int e = row * W + (col >> 5), bit = col & 31;
+      const unsigned w = word_s[e];
+      int c = before + pre_s[e] + __popc(w & ((1u << bit) - 1u));
+      int o[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const bool on = (w >> (bit + u)) & 1u;
+        o[u] = on && c < ccap ? c + seg : -1;
+        c += on;
+      }
+      out4[q] = make_int4(o[0], o[1], o[2], o[3]);
+    }
+  } else {
+    for (int q = tid; q < nrows * g; q += KV_THREADS) {
+      const int row = q / g, col = q - row * g;
+      const int e = row * W + (col >> 5), bit = col & 31;
+      const unsigned w = word_s[e];
+      const int c = before + pre_s[e] + __popc(w & ((1u << bit) - 1u));
+      out[q] = ((w >> bit) & 1u) && c < ccap ? c + seg : -1;
+    }
   }
 }
 
-// KV (4): one block per (b, gx) row: column ids.
-__global__ void grid_kernel(const int8_t* __restrict__ has, const long long* __restrict__ row_off,
-                            long long* __restrict__ grid, int g, int ccap) {
-  const long long row = blockIdx.x;
-  const long long base = (row / g) * ccap;
-  const int8_t* h = has + row * g;
-  long long* out = grid + row * g;
-  long long carry = row_off[row];
-  for (int k0 = 0; k0 < g; k0 += blockDim.x) {
-    const int k = k0 + threadIdx.x;
-    const long long v = k < g ? h[k] : 0;
-    long long tot;
-    const long long cloc = carry + block_exclusive_scan(v, &tot);
-    if (k < g) out[k] = (v > 0 && cloc < ccap) ? cloc + base : -1;
-    carry += tot;
-  }
-}
-
-// KV (5): one thread per source row: vox_cid, dropped rows, slot stamps.
+// KV (3): one thread per source row: vox_cid, dropped rows, slot stamps
+// (the rows of one column write the same stamps: the first of each run of
+// a column's rows in a warp writes them).
 __global__ void stamp_kernel(const int4* __restrict__ coords, const uint8_t* __restrict__ valid,
-                             const long long* __restrict__ grid, long long* __restrict__ vox_cid,
+                             const int* __restrict__ grid, long long* __restrict__ vox_cid,
                              long long* __restrict__ col_bxy, uint8_t* __restrict__ col_valid,
                              int* __restrict__ overflow, int n, int nb, int grid_half, int level,
                              int ccap, int r) {
@@ -249,34 +405,37 @@ __global__ void stamp_kernel(const int4* __restrict__ coords, const uint8_t* __r
   const int g = (2 * grid_half) >> level;
   const long long cells = (long long)nb * g * g, slots = (long long)nb * ccap;
   bool drop = false;
+  long long cid = -1, bsafe = 0;
+  int gxc = 0, gyc = 0;
   if (i < n) {
     const Cell c = cell_of(coords[i], valid[i], grid_half, level);
-    const int gxc = clampi(c.gx, 0, g - 1), gyc = clampi(c.gy, 0, g - 1);
-    const long long bsafe = c.ok ? c.b : 0;
-    long long cid = -1;
+    gxc = clampi(c.gx, 0, g - 1);
+    gyc = clampi(c.gy, 0, g - 1);
+    bsafe = c.ok ? c.b : 0;
     if (c.ok) {
       const long long flat = (bsafe * g + gxc) * g + gyc;
       if (flat >= 0 && flat < cells) cid = grid[flat];
     }
     vox_cid[i] = cid;
     drop = c.ok && cid < 0;
-    if (cid >= 0) {
-      const long long pack0 = (long long)(((unsigned long long)bsafe << 24) |
-                                          ((unsigned long long)gxc << 12) | (unsigned long long)gyc);
-      const long long seg0 = bsafe * ccap;
-      for (int dy = -r; dy <= r; ++dy) {
-        const int gyn = gyc + dy;
-        const long long slot = cid + dy;
-        if (gyn >= 0 && gyn < g && slot >= seg0 && slot < seg0 + ccap && slot >= 0 &&
-            slot < slots) {
-          const long long v = pack0 + dy;
-          col_bxy[slot] = v > 0 ? v : 0;
-          col_valid[slot] = v >= 0;
-        }
+  }
+  if (run_start(cid >= 0, (unsigned)cid)) {
+    const long long pack0 = (long long)(((unsigned long long)bsafe << 24) |
+                                        ((unsigned long long)gxc << 12) | (unsigned long long)gyc);
+    const long long seg0 = bsafe * ccap;
+    for (int dy = -r; dy <= r; ++dy) {
+      const int gyn = gyc + dy;
+      const long long slot = cid + dy;
+      if (gyn >= 0 && gyn < g && slot >= seg0 && slot < seg0 + ccap && slot >= 0 &&
+          slot < slots) {
+        const long long v = pack0 + dy;
+        col_bxy[slot] = v > 0 ? v : 0;
+        col_valid[slot] = v >= 0;
       }
     }
   }
-  warp_count(drop, 1 + level, overflow);
+  const unsigned drops = __ballot_sync(0xffffffffu, drop);
+  if ((threadIdx.x & 31) == 0 && drops) atomicAdd(overflow + 1 + level, __popc(drops));
 }
 
 // KW, level 0: the source rows' bits.
@@ -329,7 +488,7 @@ __device__ __forceinline__ unsigned compress_even(unsigned x) {
 // KW, levels 1-4: one thread per slot: 4 child fetches, then _zpair_words.
 __global__ void coarsen_kernel(const long long* __restrict__ col_bxy,
                                const uint8_t* __restrict__ col_valid,
-                               const long long* __restrict__ fine_grid,
+                               const int* __restrict__ fine_grid,
                                const long long* __restrict__ fine_real,
                                long long* __restrict__ real_w, long long slots,
                                long long fine_slots, int nb, int grid_half, int level) {
@@ -351,7 +510,7 @@ __global__ void coarsen_kernel(const long long* __restrict__ col_bxy,
       if (!(v && gxf < f_g && gyf < f_g)) continue;
       const long long flat = (bC * f_g + gxf) * f_g + gyf;
       if (flat < 0 || flat >= fine_cells) continue;
-      const long long cidf = fine_grid[flat];
+      const long long cidf = fine_grid[flat];  // int32 grid
       if (cidf < 0 || cidf >= fine_slots) continue;  // a miss: a zero row
 #pragma unroll
       for (int q = 0; q < ZWORDS; ++q) acc[q] |= (unsigned)fine_real[cidf * ZWORDS + q];
@@ -369,21 +528,12 @@ __global__ void coarsen_kernel(const long long* __restrict__ col_bxy,
   }
 }
 
-__device__ __forceinline__ unsigned long long ld_status(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ void st_status(unsigned long long* p, unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
-}
-
 // KX: one block per tile (see the top).  state: [nb * tiles_per_scan]
 // status words, then the tile and finish counters (two uint32); all 0 on
 // entry and on exit.
 __global__ void __launch_bounds__(KX_TILE)
 aug_kernel(const long long* __restrict__ real_w, const long long* __restrict__ bxy,
-           const uint8_t* __restrict__ cvalid, const long long* __restrict__ grid,
+           const uint8_t* __restrict__ cvalid, const int* __restrict__ grid,
            int* __restrict__ aug16, long long* __restrict__ counts_b, int* __restrict__ overflow,
            unsigned long long* __restrict__ state, int nb, int g, int ccap, int cap_a, int level,
            int tiles_per_scan) {
@@ -445,8 +595,8 @@ aug_kernel(const long long* __restrict__ real_w, const long long* __restrict__ b
       if (val_s[c] && any != 0u && gxn >= 0 && gxn < g) {
         const long long flat = (bb * g + gxn) * g + gy;
         if (flat >= 0 && flat < cells) {
-          const long long cn = grid[flat];
-          if (cn >= 0 && cn < slots) cid[d] = (int)cn;
+          const int cn = grid[flat];
+          if (cn >= 0 && cn < slots) cid[d] = cn;
         }
       }
     }
@@ -524,15 +674,16 @@ aug_kernel(const long long* __restrict__ real_w, const long long* __restrict__ b
   if (warp == 0) {  // decoupled look-back over the scan's earlier tiles, 32 at a time
     unsigned long long* st = state + (size_t)b * tiles_per_scan;
     long long before = 0;
-    if (lane == 0) st_status(st + k, (k == 0 ? KX_PREFIX : KX_AGG) | (unsigned long long)tile_sum);
+    if (lane == 0)
+      st_status(st + k, (k == 0 ? SCAN_PREFIX : SCAN_AGG) | (unsigned long long)tile_sum);
     for (int p = k - 1; p >= 0;) {
       const int q = p - lane;
-      const unsigned long long w = q >= 0 ? ld_status(st + q) : KX_PREFIX;
-      const unsigned pm = __ballot_sync(0xffffffffu, (w & KX_PREFIX) != 0);
+      const unsigned long long w = q >= 0 ? ld_status(st + q) : SCAN_PREFIX;
+      const unsigned pm = __ballot_sync(0xffffffffu, (w & SCAN_PREFIX) != 0);
       const unsigned zm = __ballot_sync(0xffffffffu, w == 0);
       const int first_p = pm ? __ffs(pm) - 1 : 32, first_z = zm ? __ffs(zm) - 1 : 32;
       const int upto = min(first_p + 1, first_z);  // lanes summed this round
-      long long add = lane < upto ? (long long)(w & KX_VALUE) : 0;
+      long long add = lane < upto ? (long long)(w & SCAN_SUM) : 0;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) add += __shfl_xor_sync(0xffffffffu, add, o);
       before += add;
@@ -540,7 +691,7 @@ aug_kernel(const long long* __restrict__ real_w, const long long* __restrict__ b
       p -= upto;
     }
     if (lane == 0) {
-      if (k > 0) st_status(st + k, KX_PREFIX | (unsigned long long)(before + tile_sum));
+      if (k > 0) st_status(st + k, SCAN_PREFIX | (unsigned long long)(before + tile_sum));
       s_before = before;
       if (k == tiles_per_scan - 1) {
         const long long cnt = before + tile_sum;
@@ -581,31 +732,36 @@ aug_kernel(const long long* __restrict__ real_w, const long long* __restrict__ b
   }
 }
 
-// KY (1): one thread per source row.
+
+// KY (1): one thread per source row: its candidates' packed words and
+// the real flag into the scratch rows, and the level's row maps.
 __global__ void scatter_rows_kernel(const long long* __restrict__ pos3,
                                     const int4* __restrict__ coords,
                                     const uint8_t* __restrict__ valid,
-                                    long long* __restrict__ packed_a, uint8_t* __restrict__ real_a,
+                                    unsigned* __restrict__ packed_a, uint8_t* __restrict__ flag_a,
                                     int* __restrict__ pos, int* __restrict__ off,
-                                    int* __restrict__ map8, int n, long long n_a, int grid_half,
+                                    int* __restrict__ map8, int n, int n_a, int grid_half,
                                     int level, bool rep) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int g = (2 * grid_half) >> level;
   const int4 cr = coords[i];
   const Cell c = cell_of(cr, true, grid_half, level);
-  const long long gxc = clampi(c.gx, 0, g - 1), gyc = clampi(c.gy, 0, g - 1);
-  const long long packed0 = ((gxc * g + gyc) << 9) | clampi(c.bz, 0, ZMAX - 1);
+  // gxgy << 9 | bz, mod 2^32 (lidog_tpu's uint32 wrap)
+  const unsigned packed0 = (((unsigned)clampi(c.gx, 0, g - 1) * (unsigned)g +
+                             (unsigned)clampi(c.gy, 0, g - 1)) << 9) |
+                           (unsigned)clampi(c.bz, 0, ZMAX - 1);
+  int p[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {  // candidates z-1, z, z+1
-    const long long p = pos3[(long long)d * n + i];
-    if (p >= 0 && p < n_a) packed_a[p] = (packed0 + d - 1) & 0xFFFFFFFFLL;
+    const long long q = pos3[(long long)d * n + i];
+    p[d] = q >= 0 && q < n_a ? (int)q : -1;
+    if (p[d] >= 0) packed_a[p[d]] = packed0 + d - 1;
   }
-  const long long p1 = pos3[(long long)n + i];
   const bool vi = valid[i];
-  if (vi && p1 >= 0 && p1 < n_a) real_a[p1] = 1;
+  if (vi && p[1] >= 0) flag_a[p[1]] = 1;
   if (level == 0) {
-    const int pin = vi ? (int)p1 : -1;
+    const int pin = vi ? (int)pos3[n + i] : -1;
     pos[i] = pin;
     if (rep && pin >= 0 && pin < n_a) atomicMin(map8 + pin, i);
     return;
@@ -614,36 +770,9 @@ __global__ void scatter_rows_kernel(const long long* __restrict__ pos3,
   const int lowmask = (1 << level) - 1;
   const int offv = ((cr.y & lowmask) >> (level - 1)) * 4 + ((cr.z & lowmask) >> (level - 1)) * 2 +
                    ((cr.w & lowmask) >> (level - 1));
-  pos[i] = (int)p1;
+  pos[i] = (int)pos3[n + i];
   off[i] = offv;
-  if (p1 >= 0 && p1 < n_a) map8[(long long)clampi(offv, 0, 7) * n_a + p1] = i;
-}
-
-__device__ __forceinline__ long long floor_div(long long a, long long b) {
-  const long long q = a / b;
-  return (q * b != a && ((a < 0) != (b < 0))) ? q - 1 : q;
-}
-
-// The decoded row j of KY (2): coords and valid.
-__device__ __forceinline__ bool decode_row(long long j, const long long* packed_a,
-                                           const long long* counts_b, int cap_a, int g,
-                                           int grid_half, int level, int4* out) {
-  const long long b = j / cap_a;
-  const long long cnt = counts_b[b];
-  const bool v = (j - b * cap_a) < (cnt < cap_a ? cnt : (long long)cap_a);
-  if (!v) {
-    *out = make_int4(0, 0, 0, 0);
-    return false;
-  }
-  const long long p = packed_a[j];
-  const long long gxgy = p >> 9;
-  const long long q = floor_div(gxgy, g);
-  const long long gh = grid_half >> level;
-  const long long ax = (long long)((unsigned long long)(q - gh) << level);
-  const long long ay = (long long)((unsigned long long)(gxgy - q * g - gh) << level);
-  const long long az = (long long)((unsigned long long)((p & 511) - ZC) << level);
-  *out = make_int4((int)b, (int)ax, (int)ay, (int)az);
-  return true;
+  if (p[1] >= 0) map8[(size_t)clampi(offv, 0, 7) * n_a + p[1]] = i;
 }
 
 // row j+1 is (same b, x, y, z + stride) and both rows are valid.
@@ -652,33 +781,68 @@ __device__ __forceinline__ bool z_adjacent(int4 a, bool va, int4 b, bool vb, int
          b.w == (int)((unsigned)a.w + (unsigned)stride);
 }
 
-// KY (2): one thread per aug row.
-__global__ void decode_kernel(const long long* __restrict__ packed_a,
-                              const long long* __restrict__ counts_b, int4* __restrict__ coords_a,
-                              uint8_t* __restrict__ real_a, uint8_t* __restrict__ valid_a,
-                              uint8_t* __restrict__ zup, uint8_t* __restrict__ zdn,
-                              int* __restrict__ rep, long long n_a, int cap_a, int grid_half,
-                              int level) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n_a) return;
-  const int g = (2 * grid_half) >> level;
-  int4 c, cp, cn;
-  const bool v = decode_row(j, packed_a, counts_b, cap_a, g, grid_half, level, &c);
-  coords_a[j] = c;
-  valid_a[j] = v;
-  real_a[j] = real_a[j] && v;
-  bool up = false, dn = false;
-  if (j + 1 < n_a) {
-    const bool vn = decode_row(j + 1, packed_a, counts_b, cap_a, g, grid_half, level, &cn);
-    up = z_adjacent(c, v, cn, vn, 1 << level);
+// KY (2): one block per tile of KY_TILE aug rows of one scan: each row
+// decoded once into shared memory (one row each side within the scan),
+// the flags from there.  The scratch is left zero for a later launch: a
+// block clears the real flags of its rows, and the launch clears `stale`,
+// the other of the two packed-row tables, which the previous launch
+// filled (each launch reads one table and clears the other, so that no
+// block clears a row that another block still reads).
+__global__ void __launch_bounds__(KY_TILE)
+decode_kernel(const unsigned* __restrict__ packed_a, unsigned* __restrict__ stale, int stale_n,
+              uint8_t* __restrict__ flag_a, const long long* __restrict__ counts_b,
+              int4* __restrict__ coords_a, uint8_t* __restrict__ real_a,
+              uint8_t* __restrict__ valid_a, uint8_t* __restrict__ zup, uint8_t* __restrict__ zdn,
+              int* __restrict__ rep, int cap_a, int tiles_per_scan, int g, int gshift,
+              int grid_half, int level) {
+  __shared__ int4 c_s[KY_TILE + 2];  // row i is the scan's row k*KY_TILE - 1 + i
+  __shared__ uint8_t v_s[KY_TILE + 2];
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / tiles_per_scan, k = blockIdx.x - b * tiles_per_scan;
+  const int loc0 = k * KY_TILE, nr = min(KY_TILE, cap_a - loc0);
+  const int j0 = b * cap_a + loc0;
+  const long long cnt = counts_b[b];
+  const int lim = (int)(cnt < cap_a ? cnt : (long long)cap_a);
+  const unsigned gh = grid_half >> level;
+  // rows tid and (threads 0, 1) KY_TILE + tid: every load issued first
+  const uint8_t f = tid < nr ? flag_a[j0 + tid] : 0;
+  unsigned p[2];
+  bool v[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = tid + h * KY_TILE, loc = loc0 - 1 + i;
+    v[h] = i < nr + 2 && loc >= 0 && loc < lim;
+    p[h] = v[h] ? packed_a[j0 - 1 + i] : 0u;
   }
-  if (j > 0) {
-    const bool vp = decode_row(j - 1, packed_a, counts_b, cap_a, g, grid_half, level, &cp);
-    dn = z_adjacent(cp, vp, c, v, 1 << level);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = tid + h * KY_TILE;
+    if (i >= nr + 2) continue;
+    int4 c = make_int4(0, 0, 0, 0);
+    if (v[h]) {
+      const unsigned gxgy = p[h] >> 9;
+      const unsigned q = gshift >= 0 ? gxgy >> gshift : gxgy / (unsigned)g;
+      const unsigned rem = gxgy - q * (unsigned)g;
+      c = make_int4(b, (int)((q - gh) << level), (int)((rem - gh) << level),
+                    (int)(((p[h] & 511u) - (unsigned)ZC) << level));
+    }
+    c_s[i] = c;
+    v_s[i] = v[h];
   }
-  zup[j] = up;
-  zdn[j] = dn;
-  if (rep != nullptr && rep[j] == REP_NONE) rep[j] = -1;
+  for (int j = blockIdx.x * KY_TILE + tid; j < stale_n; j += gridDim.x * KY_TILE) stale[j] = 0u;
+  __syncthreads();
+  if (tid < nr) {
+    const int j = j0 + tid, i = tid + 1;
+    const bool vi = v_s[i];
+    const int stride = 1 << level;
+    coords_a[j] = c_s[i];
+    valid_a[j] = vi;
+    if (f) flag_a[j] = 0;
+    real_a[j] = f && vi;
+    zup[j] = z_adjacent(c_s[i], vi, c_s[i + 1], v_s[i + 1], stride);
+    zdn[j] = z_adjacent(c_s[i - 1], v_s[i - 1], c_s[i], vi, stride);
+    if (rep != nullptr && rep[j] == REP_NONE) rep[j] = -1;
+  }
 }
 
 cudaStream_t as_stream(void* stream) { return reinterpret_cast<cudaStream_t>(stream); }
@@ -692,42 +856,50 @@ bool level_ok(int nb, int grid_half, int level) {
   return nb >= 1 && g >= 1 && (long long)nb * g * g < 0x7FFFFFFFLL;
 }
 
+int log2_exact(int v) {  // log2(v) for a power of two, else -1
+  return v > 0 && (v & (v - 1)) == 0 ? __builtin_ctz((unsigned)v) : -1;
+}
+
 }  // namespace
 
 // Each function returns a cudaError_t (0 = launched).
 
-// KV: grid int64 [nb*g*g], vox_cid int64 [n], col_bxy int64 [nb*ccap] and
-// col_valid bool [nb*ccap] (both zeroed by the caller); scratch: has int8
-// [nb*g*g] (zeroed), row_tab int64 [2, nb*g], nreal int64 [nb] (zeroed);
-// overflow int32 [6].  cap_real >= 0: unique level-0 input.
+// KV: grid int32 [nb*g*g], vox_cid int64 [n], col_bxy int64 [nb*ccap] and
+// col_valid bool [nb*ccap] (both zeroed by the caller); scratch: bits
+// uint32 [nb*g*W], W = ceil(g / 32), zero on entry and left zero; counts
+// int64 [1 + nb], the row pass's tile counter (its value before this
+// launch: base) and the real-row counts (zero on entry and left zero);
+// status int64 [nb * tiles_per_scan], tiles_per_scan = ceil(g /
+// rows_per_tile), the look-back words of this launch, tagged with epoch
+// (1 .. 2^30 - 1, not the last launch's); overflow int32 [6].  cap_real >=
+// 0: unique level-0 input.
 extern "C" int column_grid(const void* coords, const void* valid, void* grid, void* vox_cid,
-                           void* col_bxy, void* col_valid, void* has, void* row_tab, void* nreal,
+                           void* col_bxy, void* col_valid, void* bits, void* counts, void* status,
                            void* overflow, int n, int nb, int grid_half, int level, int ccap, int r,
-                           int cap_real, void* stream) {
-  if (n < 0 || !level_ok(nb, grid_half, level) || ccap < 1 || r < 0 || !aligned16(coords))
+                           int cap_real, int rows_per_tile, int base, int epoch, void* stream) {
+  if (n < 0 || !level_ok(nb, grid_half, level) || ccap < 1 || r < 0 || r > 31 ||
+      !aligned16(coords) || !aligned16(grid) || epoch < 1 || (unsigned)epoch > SCAN_EPOCHS)
     return (int)cudaErrorInvalidValue;
   const int g = (2 * grid_half) >> level;
-  if (g > 32768 || 2 * r + 1 > g) return (int)cudaErrorInvalidValue;
+  const int W = (g + 31) / 32;
+  if (g > 32768 || 2 * r + 1 > g || rows_per_tile < 1 || rows_per_tile * W > KV_TILE_WORDS)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = as_stream(stream);
-  const int rows = nb * g;
-  long long* row_count = static_cast<long long*>(row_tab);
-  long long* row_off = row_count + rows;
+  const int tiles_per_scan = (g + rows_per_tile - 1) / rows_per_tile;
   int* ov = static_cast<int*>(overflow);
+  unsigned long long* counts64 = static_cast<unsigned long long*>(counts);
   if (n > 0)
-    has_kernel<<<blocks_of(n), THREADS, 0, st>>>(
+    bit_stamp_kernel<<<blocks_of(n), THREADS, 0, st>>>(
         static_cast<const int4*>(coords), static_cast<const uint8_t*>(valid),
-        static_cast<int8_t*>(has), static_cast<unsigned long long*>(nreal), n, nb, grid_half,
-        level, cap_real >= 0);
-  dilate_kernel<<<rows, THREADS, g, st>>>(static_cast<int8_t*>(has), row_count, g, r);
-  row_scan_kernel<<<nb, SCAN_THREADS, 0, st>>>(row_count, row_off,
-                                               static_cast<const unsigned long long*>(nreal), ov,
-                                               g, ccap, level, cap_real);
-  grid_kernel<<<rows, THREADS, 0, st>>>(static_cast<const int8_t*>(has), row_off,
-                                        static_cast<long long*>(grid), g, ccap);
+        static_cast<unsigned*>(bits), counts64 + 1, n, nb, grid_half, level, W, cap_real >= 0);
+  grid_rows_kernel<<<nb * tiles_per_scan, KV_THREADS, 0, st>>>(
+      static_cast<unsigned*>(bits), static_cast<int*>(grid), counts64,
+      static_cast<unsigned long long*>(status), ov, nb, g, log2_exact(g), W, log2_exact(W),
+      rows_per_tile, tiles_per_scan, ccap, r, level, cap_real, (unsigned)base, (unsigned)epoch);
   if (n > 0)
     stamp_kernel<<<blocks_of(n), THREADS, 0, st>>>(
         static_cast<const int4*>(coords), static_cast<const uint8_t*>(valid),
-        static_cast<const long long*>(grid), static_cast<long long*>(vox_cid),
+        static_cast<const int*>(grid), static_cast<long long*>(vox_cid),
         static_cast<long long*>(col_bxy), static_cast<uint8_t*>(col_valid), ov, n, nb, grid_half,
         level, ccap, r);
   return (int)cudaGetLastError();
@@ -736,7 +908,7 @@ extern "C" int column_grid(const void* coords, const void* valid, void* grid, vo
 // KW: real_w int64 [nb*ccap, 14] (zeroed by the caller at level 0).  Level
 // 0 reads coords, valid, vox_cid (n rows; unique or sortless, nreal int64
 // [nb] zeroed); levels 1-4 read col_bxy, col_valid and the finer level's
-// fine_grid int64 [nb*(2g)^2] and fine_real int64 [fine_slots, 14].
+// fine_grid int32 [nb*(2g)^2] and fine_real int64 [fine_slots, 14].
 extern "C" int real_words(const void* coords, const void* valid, const void* vox_cid,
                           const void* col_bxy, const void* col_valid, const void* fine_grid,
                           const void* fine_real, void* real_w, void* nreal, void* overflow, int n,
@@ -759,13 +931,14 @@ extern "C" int real_words(const void* coords, const void* valid, const void* vox
   } else {
     coarsen_kernel<<<blocks_of(slots), THREADS, 0, st>>>(
         static_cast<const long long*>(col_bxy), static_cast<const uint8_t*>(col_valid),
-        static_cast<const long long*>(fine_grid), static_cast<const long long*>(fine_real),
+        static_cast<const int*>(fine_grid), static_cast<const long long*>(fine_real),
         static_cast<long long*>(real_w), slots, fine_slots, nb, grid_half, level);
   }
   return (int)cudaGetLastError();
 }
 
-// KX: aug16 int32 [nb*ccap, 16] (16-byte aligned), counts_b int64 [nb];
+// KX: grid int32 [nb*g*g]; aug16 int32 [nb*ccap, 16] (16-byte aligned),
+// counts_b int64 [nb];
 // state: int64 [nb * ceil(ccap / KX_TILE) + 1], zero on entry and left
 // zero (the look-back words and the two tile counters).
 extern "C" int assemble_aug(const void* real_w, const void* col_bxy, const void* col_valid,
@@ -778,37 +951,43 @@ extern "C" int assemble_aug(const void* real_w, const void* col_bxy, const void*
   const int tiles_per_scan = (ccap + KX_TILE - 1) / KX_TILE;
   aug_kernel<<<nb * tiles_per_scan, KX_TILE, 0, as_stream(stream)>>>(
       static_cast<const long long*>(real_w), static_cast<const long long*>(col_bxy),
-      static_cast<const uint8_t*>(col_valid), static_cast<const long long*>(grid),
+      static_cast<const uint8_t*>(col_valid), static_cast<const int*>(grid),
       static_cast<int*>(aug16), static_cast<long long*>(counts_b), static_cast<int*>(overflow),
       static_cast<unsigned long long*>(state), nb, g, ccap, cap_a, level, tiles_per_scan);
   return (int)cudaGetLastError();
 }
 
-// KY: coords_a int32 [nb*cap_a, 4]; real_a (zeroed by the caller),
-// valid_a, zup, zdn bool [nb*cap_a]; scratch packed_a int64 [nb*cap_a]
-// (zeroed); pos int32 [n] (level 0: pos, else parent); level > 0: off
-// int32 [n] and map8 = down8 int32 [8, nb*cap_a] (filled with -1); level 0
-// with rep: map8 = rep int32 [nb*cap_a] (filled with 0x7FFFFFFF).
+// KY: coords_a int32 [nb*cap_a, 4]; real_a, valid_a, zup, zdn bool
+// [nb*cap_a]; scratch: packed_a uint32 [nb*cap_a] and flag_a bool
+// [nb*cap_a], zero on entry, flag_a left zero; stale uint32 [stale_n], the
+// packed rows of an earlier launch, cleared here; pos int32 [n] (level 0:
+// pos, else parent); level > 0: off int32 [n] and map8 = down8 int32 [8,
+// nb*cap_a] (filled with -1); level 0 with rep: map8 = rep int32
+// [nb*cap_a] (filled with 0x7FFFFFFF).
 extern "C" int emit_rows(const void* pos3, const void* coords, const void* valid,
                          const void* counts_b, void* coords_a, void* real_a, void* valid_a,
-                         void* zup, void* zdn, void* packed_a, void* pos, void* off, void* map8,
-                         int n, int nb, int cap_a, int grid_half, int level, int rep,
-                         void* stream) {
-  if (n < 0 || !level_ok(nb, grid_half, level) || cap_a < 1 || (rep && level != 0) ||
-      !aligned16(coords) || !aligned16(coords_a))
+                         void* zup, void* zdn, void* packed_a, void* stale, void* flag_a, void* pos,
+                         void* off, void* map8, int n, int nb, int cap_a, int grid_half, int level,
+                         int rep, int stale_n, void* stream) {
+  if (n < 0 || stale_n < 0 || !level_ok(nb, grid_half, level) || cap_a < 1 ||
+      (rep && level != 0) || (long long)nb * cap_a >= 0x7FFFFFFFLL || !aligned16(coords) ||
+      !aligned16(coords_a))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = as_stream(stream);
-  const long long n_a = (long long)nb * cap_a;
+  const int n_a = nb * cap_a, g = (2 * grid_half) >> level;
+  const int tiles_per_scan = (cap_a + KY_TILE - 1) / KY_TILE;
   if (n > 0)
     scatter_rows_kernel<<<blocks_of(n), THREADS, 0, st>>>(
         static_cast<const long long*>(pos3), static_cast<const int4*>(coords),
-        static_cast<const uint8_t*>(valid), static_cast<long long*>(packed_a),
-        static_cast<uint8_t*>(real_a), static_cast<int*>(pos), static_cast<int*>(off),
+        static_cast<const uint8_t*>(valid), static_cast<unsigned*>(packed_a),
+        static_cast<uint8_t*>(flag_a), static_cast<int*>(pos), static_cast<int*>(off),
         static_cast<int*>(map8), n, n_a, grid_half, level, rep != 0);
-  decode_kernel<<<blocks_of(n_a), THREADS, 0, st>>>(
-      static_cast<const long long*>(packed_a), static_cast<const long long*>(counts_b),
-      static_cast<int4*>(coords_a), static_cast<uint8_t*>(real_a),
-      static_cast<uint8_t*>(valid_a), static_cast<uint8_t*>(zup), static_cast<uint8_t*>(zdn),
-      rep ? static_cast<int*>(map8) : nullptr, n_a, cap_a, grid_half, level);
+  decode_kernel<<<nb * tiles_per_scan, KY_TILE, 0, st>>>(
+      static_cast<const unsigned*>(packed_a), static_cast<unsigned*>(stale), stale_n,
+      static_cast<uint8_t*>(flag_a), static_cast<const long long*>(counts_b),
+      static_cast<int4*>(coords_a), static_cast<uint8_t*>(real_a), static_cast<uint8_t*>(valid_a),
+      static_cast<uint8_t*>(zup), static_cast<uint8_t*>(zdn),
+      rep ? static_cast<int*>(map8) : nullptr, cap_a, tiles_per_scan, g, log2_exact(g),
+      grid_half, level);
   return (int)cudaGetLastError();
 }

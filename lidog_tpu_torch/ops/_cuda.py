@@ -47,10 +47,10 @@ _ARGTYPES = {
     "conv9_packed": [_P] * 5 + [_I] * 8 + [_P],
     "pos3_lookup": [_P] * 5 + [_I] * 6 + [_P],
     "build_packed": [_P] * 5 + [_I] * 6 + [_P],
-    "column_grid": [_P] * 10 + [_I] * 7 + [_P],
+    "column_grid": [_P] * 10 + [_I] * 10 + [_P],
     "real_words": [_P] * 10 + [_I] * 8 + [_P],
     "assemble_aug": [_P] * 8 + [_I] * 5 + [_P],
-    "emit_rows": [_P] * 13 + [_I] * 6 + [_P],
+    "emit_rows": [_P] * 15 + [_I] * 7 + [_P],
     "sparse_conv_fwd": [_P] * 6 + [_I] * 6 + [_P],
     "sparse_conv_wgrad": [_P] * 6 + [_I] * 9 + [_P],
     "voxelize": [_P] * 13 + [_I] * 3 + [_L, _I, _P],

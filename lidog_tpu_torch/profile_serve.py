@@ -69,8 +69,8 @@ _GROUPS = (("zconv3_fwd_kernel", "zconv3_fwd"),
            ("sweep_kernel<1", "conv9_packed"),
            ("pos3_kernel", "pos3_lookup"),
            ("build_packed_kernel", "build_packed"),
-           ("has_kernel", "column_grid"), ("dilate_kernel", "column_grid"),
-           ("row_scan_kernel", "column_grid"), ("grid_kernel", "column_grid"),
+           ("bit_stamp_kernel", "column_grid"),
+           ("grid_rows_kernel", "column_grid"),
            ("stamp_kernel", "column_grid"), ("real_bits_kernel", "real_words"),
            ("real_over_kernel", "real_words"),
            ("coarsen_kernel", "real_words"), ("aug_kernel", "assemble_aug"),

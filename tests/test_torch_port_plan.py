@@ -238,10 +238,11 @@ def test_plan_tables_bitwise_equal(case, request):
         # lidog_tpu's tables: int32 (real16 has 2 spare words)
         real16 = np.zeros((real_w.shape[0], 16), np.int32)
         real16[:, :14] = real_w.numpy().astype(np.uint32).view(np.int32)
+        assert grid_d.dtype == torch.int32  # lidog_tpu's cid_grid dtype
         jargs = (jnp.asarray(real16),
                  jnp.asarray(col_bxy.numpy().astype(np.int32)),
                  jnp.asarray(col_valid.numpy()),
-                 jnp.asarray(grid_d.numpy().astype(np.int32)))
+                 jnp.asarray(grid_d.numpy()))
         overflow = torch.zeros_like(kwargs["overflow"])
         aug16, counts_b = tz.assemble_aug_plain(*args, level=lvl,
                                                 overflow=overflow)
@@ -269,6 +270,224 @@ def test_plan_tables_bitwise_equal(case, request):
     assert widths == {120, 152, 48}
     # the starved caps drop aug rows; the roomy ones hold every row
     assert (aug_over > 0) == (case == "zseg_starved")
+
+
+def _zseg_case(case):
+    """(coords, mask, B, caps_real, caps_aug, grid_half, builder options)
+    of the zseg cases: tests/test_zseg.py's input (zseg), with caps_col_dil
+    below its dilated columns at every level (zseg_starved: columns and
+    their voxels dropped at L0), or tests/test_sortless.py's clouds as raw
+    cells (sortless)."""
+    if case.startswith("zseg"):
+        from tests.test_zseg import B, CAPS_A, CAPS_R, _build_inputs
+
+        coords, mask, _ = _build_inputs(np.random.RandomState(7))
+        options = {}
+        if case == "zseg_starved":
+            options = dict(caps_col_dil=(300, 300, 150, 60, 30))
+        return coords, mask, B, CAPS_R, CAPS_A, 64, options
+    from tests.test_sortless import B, CAPS_A, CAPS_R, GRID_HALF
+
+    coords, mask, _, _ = _sortless_inputs()
+    return (coords, mask, B, CAPS_R, CAPS_A, GRID_HALF,
+            dict(assume_unique=False))
+
+
+@pytest.mark.parametrize("case", ["zseg", "zseg_starved", "sortless"])
+def test_column_grid_bitwise_equal(case, request):
+    """The port's plain KV (column_grid_plain) against lidog_tpu's column
+    grid, bitwise, at every level of the builder's plan: on the has grid
+    of the level's source rows (lidog_tpu's _cell_of and key), lidog_tpu's
+    _dilate_y + _grid_from_has (jitted on the CPU) give the int32 grid_d
+    and the column-overflow term that column_grid_plain gives (its
+    overflow[1 + level] less the voxels whose column was dropped), and at
+    level 0 of unique input the real rows past caps_real[0].  Inputs as
+    _zseg_case; zseg_starved drops columns and voxels at L0."""
+    from tests.conftest import run_isolated
+
+    if run_isolated(request):
+        return
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from lidog_tpu.core import zseg as jz
+    from lidog_tpu.core.bitgrid import _cell_of
+    from lidog_tpu_torch.core import zseg as tz
+
+    coords, mask, B, caps_r, caps_a, gh, options = _zseg_case(case)
+    builder = tz.ZSegPlanBuilder(caps_r, caps_a, num_batches=B,
+                                 grid_half=gh, **options)
+    dilate = jax.jit(jz._dilate_y, static_argnums=(1, 2))
+    grid_of = jax.jit(jz._grid_from_has, static_argnums=(1, 2, 3))
+    drops = []
+    for lvl, name, args, kwargs in builder.table_inputs(
+            torch.from_numpy(coords), torch.from_numpy(mask)):
+        if name != "column_grid":
+            continue
+        src, valid, nb, _, _, ccap, r = args
+        g = (2 * gh) >> lvl
+        overflow = torch.zeros_like(kwargs["overflow"])
+        grid_d, vox_cid, _, _ = tz.column_grid_plain(
+            *args, overflow=overflow, cap_real=kwargs["cap_real"])
+        # lidog_tpu's has grid of the same rows (its __call__:863-884)
+        b_, gx, gy, _, inb = _cell_of(jnp.asarray(src.numpy()), gh, lvl)
+        ok = jnp.asarray(valid.numpy()) & inb
+        key = (jnp.where(ok, b_, 0) * g + jnp.clip(gx, 0, g - 1)) * g \
+            + jnp.clip(gy, 0, g - 1)
+        cells = nb * g * g
+        has2 = jnp.zeros((cells + 1,), jnp.int8).at[
+            jnp.where(ok, key, cells)].set(1, mode="drop")[:cells]
+        has2 = has2.reshape(nb, g * g).astype(jnp.int32)
+        jgrid, _, jover = grid_of(dilate(has2, g, r), nb, g, ccap)
+        assert grid_d.dtype == torch.int32
+        np.testing.assert_array_equal(grid_d.numpy(), np.asarray(jgrid),
+                                      err_msg=f"grid_d L{lvl}")
+        drop = int((torch.from_numpy(np.asarray(ok)) & (vox_cid < 0)).sum())
+        assert int(overflow[1 + lvl]) - drop == int(jover), (lvl, overflow)
+        drops.append(drop)
+        real_over = 0
+        if kwargs["cap_real"] >= 0:
+            nreal = jnp.zeros((nb + 1,), jnp.int32).at[
+                jnp.where(ok, b_, nb)].add(1, mode="drop")[:nb]
+            real_over = int(jnp.sum(jnp.maximum(nreal - kwargs["cap_real"],
+                                                0)))
+        assert int(overflow[0]) == real_over, (lvl, overflow)
+    assert len(drops) == 5
+    assert (drops[0] > 0) == (case == "zseg_starved"), drops
+
+
+def _kv_row_pass(has, ccap, r, tile_words, blocks, rng):
+    """A numpy transliteration of KV's row pass (csrc/zseg_tables.cu
+    grid_rows_kernel) on a has grid bool [B, g, g]: bit words of each
+    (b, gx) row padded to W words, per tile of whole rows the word
+    dilation with carries from the row's neighbour words, popcounts,
+    KV_WORDS-word thread sums and their block scan, the decoupled
+    look-back over the scan's tiles (each tile publishes its sum at once
+    and its inclusive prefix at a random later point, so that a look-back
+    also sums tiles that only published their own sum), and the grid's
+    4-cell stores.  Returns (grid int32 [B*g*g], column overflow)."""
+    from lidog_tpu_torch.core.zseg import column_grid_tiles
+
+    nb, g, _ = has.shape
+    w, rows_per_tile, tiles = column_grid_tiles(g, nb, tile_words, blocks)
+    bits = np.zeros((nb, g, w * 32), bool)
+    bits[:, :, :g] = has
+    words = np.packbits(bits.reshape(nb, g, w, 32), axis=-1,
+                        bitorder="little").view("<u4")[..., 0]
+    tail = np.uint32((1 << (g % 32)) - 1 if g % 32 else 0xFFFFFFFF)
+
+    def popc(x):
+        return np.unpackbits(x.astype("<u4").view(np.uint8).reshape(
+            x.shape + (4,)), axis=-1).sum(-1).astype(np.int64)
+
+    agg, prefix = 1 << 62, 2 << 62
+    grid = np.full((nb, g, g), -1, np.int64)
+    col_over = 0
+    for b in range(nb):
+        st = [0] * tiles
+        pending = []
+        for k in range(tiles):
+            row0 = k * rows_per_tile
+            x = words[b, row0:row0 + rows_per_tile]  # the tile's rows
+            px = np.zeros_like(x)
+            px[:, 1:] = x[:, :-1]
+            nx = np.zeros_like(x)
+            nx[:, :-1] = x[:, 1:]
+            d = x.copy()
+            for s in range(1, r + 1):
+                d |= ((x >> np.uint32(s)) | (nx << np.uint32(32 - s))
+                      | (x << np.uint32(s)) | (px >> np.uint32(32 - s)))
+            d[:, -1] &= tail
+            flat = d.reshape(-1)
+            cnt = popc(flat)
+            # 4 words a thread, the block scan of the thread sums
+            per = np.zeros(-(-flat.size // 4) * 4, np.int64)
+            per[:flat.size] = cnt
+            thread = per.reshape(-1, 4)
+            excl = np.cumsum(thread.sum(1)) - thread.sum(1)
+            pre = (excl[:, None] + np.cumsum(thread, 1) - thread).reshape(-1)
+            pre = pre[:flat.size]
+            tile_sum = int(cnt.sum())
+            st[k] = (prefix if k == 0 else agg) | tile_sum
+            before, p = 0, k - 1
+            while p >= 0:  # 32 lanes a round
+                ws = [st[p - lane] if p - lane >= 0 else prefix
+                      for lane in range(32)]
+                first_p = next((i for i, v in enumerate(ws) if v & prefix),
+                               32)
+                first_z = next((i for i, v in enumerate(ws) if v == 0), 32)
+                upto = min(first_p + 1, first_z)
+                before += sum(v & (agg - 1) for v in ws[:upto])
+                if first_p < first_z:
+                    break
+                p -= upto
+            if k:
+                pending.append((k, before + tile_sum))
+            for i in sorted(rng.choice(len(pending), rng.randint(
+                    len(pending) + 1), replace=False), reverse=True):
+                kk, v = pending.pop(i)
+                st[kk] = prefix | v
+            if k == tiles - 1:
+                col_over += max(before + tile_sum - ccap, 0)
+            # the stores: cell (row, col) of word row * W + col // 32
+            nrows = d.shape[0]
+            row, col = np.divmod(np.arange(nrows * g), g)
+            e = row * w + col // 32
+            bit = (col % 32).astype(np.uint32)
+            we = flat[e]
+            if g % 4 == 0:  # 4 cells a store, from the first one's rank
+                first = bit & np.uint32(~3 & 31)
+                lower = we & ((np.uint32(1) << first) - np.uint32(1))
+                c = before + pre[e] + popc(lower)
+                on = ((we >> bit) & 1).astype(np.int64)
+                within = on.reshape(-1, 4)
+                c = c + (np.cumsum(within, 1) - within).reshape(-1)
+            else:
+                lower = we & ((np.uint32(1) << bit) - np.uint32(1))
+                c = before + pre[e] + popc(lower)
+                on = ((we >> bit) & 1).astype(np.int64)
+            out = np.where((on == 1) & (c < ccap), c + b * ccap, -1)
+            grid[b, row0:row0 + nrows] = out.reshape(nrows, g)
+    return grid.reshape(-1).astype(np.int32), col_over
+
+
+@pytest.mark.parametrize("g,r,tile_words,blocks", [
+    (2048, 2, 1024, 264), (40, 1, 2, 264), (30, 2, 4, 1), (4, 1, 1024, 264),
+    (200, 1, 1024, 4)])
+def test_column_grid_row_pass_model(g, r, tile_words, blocks):
+    """KV's row pass, transliterated to numpy (_kv_row_pass), against
+    lidog_tpu's _dilate_y + _grid_from_has on the same has grid (2 scans):
+    the training plan's level-0 width with the kernel's own blocking (15
+    rows a tile, 137 tiles a scan, the last one short), and other tiles
+    over widths that are not powers of two (g 200: 7 words a row), not
+    multiples of 4 or below one word, with one row a tile or a short last
+    tile (40 tiles a scan at g 40, so that the look-back crosses 32-tile
+    rounds; every look-back also sums tiles that only published their own
+    sum); columns past ccap are dropped in each case."""
+    import jax
+    import jax.numpy as jnp
+
+    from lidog_tpu.core import zseg as jz
+
+    rng = np.random.RandomState(g + r)
+    nb = 2
+    has = np.zeros((nb, g, g), bool)
+    for b in range(nb):  # clusters of occupied cells and a few lone ones
+        n = max(g * g // 200, 3)
+        gx, gy = rng.randint(0, g, n), rng.randint(0, g, n)
+        for dx in range(3):
+            has[b, np.minimum(gx + dx, g - 1), gy] = True
+        has[b, rng.randint(0, g, n), rng.randint(0, g, n)] = True
+    has[0, :, g - 1] = True  # the rows' last cells (the tail word)
+    dil = np.asarray(jax.jit(jz._dilate_y, static_argnums=(1, 2))(
+        jnp.asarray(has.reshape(nb, g * g).astype(np.int32)), g, r))
+    ccap = int(dil.sum(1).max() * 3 // 4)
+    jgrid, _, jover = jax.jit(jz._grid_from_has, static_argnums=(1, 2, 3))(
+        jnp.asarray(dil), nb, g, ccap)
+    grid, over = _kv_row_pass(has, ccap, r, tile_words, blocks, rng)
+    np.testing.assert_array_equal(grid, np.asarray(jgrid))
+    assert over == int(jover) > 0
 
 
 @pytest.mark.parametrize("case", ["roomy", "starved"])

@@ -141,7 +141,11 @@ no result line):
      lidog_tpu's probe shapes: every correct= / ok= check true, each of
      LE-LH (csrc/window_gather.cu, csrc/window_copy.cu) and LA launched;
      then LE, LF and LG torch.equal to their plain versions at every probe
-     shape (and in bf16 at P1's and f32 at t1's), LH bitwise equal at P5's.
+     shape (and in bf16 at P1's and f32 at t1's), LE and LF also at the
+     CPU test's edge shapes (WINDOW_EDGES), LH bitwise equal at P5's; LE
+     and LF beside index_select / gather in CUDA events and in device ms,
+     warm and with the L2 cache flushed; and a port kernel (LF) launched
+     inside `with torch.cuda.stream(s)` runs on s.
 
 Every request and voxelized training batch runs LC once and every request
 LD once.  Every request and step builds one plan: KV, KW, KX, KY, KT and KU 5
@@ -273,6 +277,18 @@ PER_GENERIC_STEP = {"sparse_conv_fwd": 108, "sparse_conv_wgrad": 54,
 # launches (their counts follow the probes' timing loops)
 PROBE_KERNELS = ("window_row_gather", "window_lane_gather", "window_copy",
                  "lane_gather_sum", "sparse_conv_fwd")
+# LE's (row: W, C) and LF's (lane: C, W) edge shapes, which the CPU test
+# (tests/test_torch_port_ops.py test_window_gather_split) runs too: name:
+# (kind, rows, columns, T, dtype, lowest and highest index drawn)
+WINDOW_EDGES = {
+    "LE_16B_rows_f32": ("row", 64, 4, 37, "f32", -3, 67),
+    "LE_16B_rows_bf16": ("row", 8, 8, 1, "bf16", 8, 9),
+    "LE_wide_rows": ("row", 50, 640, 45, "f32", -1, 51),
+    "LE_bf16_T33": ("row", 300, 96, 33, "bf16", -1, 301),
+    "LF_bf16_odd_T": ("lane", 5, 40, 37, "bf16", -2, 42),
+    "LF_f32_C13": ("lane", 13, 7, 33, "f32", -1, 8),
+    "LF_bf16_T2": ("lane", 1, 9, 2, "bf16", -1, 10),
+    "LF_bf16_T1": ("lane", 3, 16, 1, "bf16", 16, 17)}
 PER_VARIANT_STEP = {"source": {**PER_STEP, **VOXELIZED},
                     "robustnet": {**PER_ROBUST_STEP, **VOXELIZED},
                     "ibn": {**PER_IBN_STEP, **VOXELIZED},
@@ -2891,15 +2907,22 @@ def probe_kernel_checks(dev, gen):
     P1's window (2048 x 96, 512 rows; f32 and bf16) and P4's sublane
     cases (W 256, 1024, 4096 at 128 columns, T = W); LF at P1's
     transposed window (f32 and bf16) and P4's lane cases (W 256, 2048);
-    LG at t1's shape (65,536 x 96, tiles of 512 at min(512 t, N - 2048);
-    bf16 and f32); LH at P5's (96 x 8192, 64 chunks).  Library calls:
-    index_select (LE, LG with the prebuilt row index), gather (LF).
-    Bounds: the bytes the function must move on this run's data: the
-    distinct window rows (LE, LG) or elements (LF, LH) that the index
-    names, read once, the index once and the output once."""
+    LE and LF at the edge shapes of the CPU test (WINDOW_EDGES: indices
+    of -1 and >= W, T no multiple of 32, 16-byte and wide LE rows, LF
+    channels no multiple of its block, bf16 at an odd T); LG at t1's
+    shape (65,536 x 96, tiles of 512 at min(512 t, N - 2048); bf16 and
+    f32); LH at P5's (96 x 8192, 64 chunks).  Library calls:
+    index_select (LE, LG with the prebuilt row index), gather (LF); at
+    LE's and LF's probe shapes also the device ms of kernel and library
+    call (torch.profiler), warm and with the L2 cache flushed before each
+    call.  Bounds: the bytes the function must move on this run's data:
+    the distinct window rows (LE, LG) or elements (LF, LH) that the index
+    names inside the window, read once, the index once and the output
+    once."""
     import torch
 
     from lidog_tpu_torch.ops import gather as g
+    from lidog_tpu_torch.probes.common import flushed_device_ms, timed
 
     ck = Checker(gen, dev)
     src = "lidog_tpu_torch/csrc/window_gather.cu"
@@ -2908,44 +2931,71 @@ def probe_kernel_checks(dev, gen):
     def rand(shape, dt):
         return torch.randn(*shape, generator=gen).to(dev, dt)
 
-    def index(high, n):
-        return torch.randint(0, high, (n,), generator=gen,
+    def index(low, high, n):
+        return torch.randint(low, high, (n,), generator=gen,
                              dtype=torch.int32).to(dev)
 
     def distinct(t):
         return int(torch.unique(t).numel())
 
+    def hits(idx, w):
+        return distinct(idx[(idx >= 0) & (idx < w)])
+
+    def gather_row(name, replaces, kfn, pfn, lfn, dt, nbyte, shape):
+        ck.record(name, src, replaces, kfn, pfn, dt, nbyte, 0, shape,
+                  mma=False, exact=True, lfn=lfn)
+        if lfn is None:
+            return
+        row = ck.rows[-1]
+        for key, fn in (("", kfn), ("library_", lfn)):
+            # None where the profiler lost the kernels (NaN from the timers)
+            for k, v in ((f"{key}device_ms", timed(fn, dev, 50)[1]),
+                         (f"{key}flushed_device_ms",
+                          flushed_device_ms(fn, dev, 50))):
+                row[k] = None if math.isnan(v) else v
+        print(f"[kernel] {name} {row['shape']}: device {row['device_ms']}"
+              f" ms (L2 flushed {row['flushed_device_ms']}), library "
+              f"{row['library_device_ms']} (L2 flushed "
+              f"{row['library_flushed_device_ms']})", flush=True)
+
     p1 = ("benchmarks/micro/micro_gather.py:83,110 q2_pallas_vmem_gather:71 "
           "(P1 a, b); micro_bisect.py:73 gather_case:54 (P4 sublane)")
-    for w, t, c, dt, case in ((2048, 512, 96, f32, "P1"),
-                              (2048, 512, 96, bf, "P1"),
-                              (256, 256, 128, f32, "t2"),
-                              (1024, 1024, 128, f32, "t3a"),
-                              (4096, 4096, 128, f32, "t3b")):
-        win, idx = rand((w, c), dt), index(w, t)
+    dts = {"f32": f32, "bf16": bf}
+    edges = [(k, a, b, t, dts[d], lo, hi, f"edge {name}")
+             for name, (k, a, b, t, d, lo, hi) in WINDOW_EDGES.items()]
+    for _, w, c, t, dt, lo, hi, case in [
+            ("row", 2048, 96, 512, f32, 0, 2048, "P1"),
+            ("row", 2048, 96, 512, bf, 0, 2048, "P1"),
+            ("row", 256, 128, 256, f32, 0, 256, "t2"),
+            ("row", 1024, 128, 1024, f32, 0, 1024, "t3a"),
+            ("row", 4096, 128, 4096, f32, 0, 4096, "t3b")] + [
+                e for e in edges if e[0] == "row"]:
+        win, idx = rand((w, c), dt), index(lo, hi, t)
         i64 = idx.long()
-        ck.record("window_row_gather", src, p1,
-                  lambda: g.window_row_gather(win, idx),
-                  lambda: g.window_row_gather_plain(win, idx), dt,
-                  (distinct(idx) + t) * c * win.element_size()
-                  + nbytes(idx), 0,
-                  f"{case} win [{w}, {c}] {t} rows", mma=False, exact=True,
-                  lfn=lambda: torch.index_select(win, 0, i64))
+        gather_row("window_row_gather", p1,
+                   lambda: g.window_row_gather(win, idx),
+                   lambda: g.window_row_gather_plain(win, idx),
+                   None if lo < 0 or hi > w else
+                   (lambda: torch.index_select(win, 0, i64)), dt,
+                   (hits(idx, w) + t) * c * win.element_size()
+                   + nbytes(idx), f"{case} win [{w}, {c}] {t} rows")
     p1c = ("benchmarks/micro/micro_gather.py:135 q2_pallas_vmem_gather:71 "
            "(P1 c); micro_bisect.py:87 gather_case:54 (P4 lane)")
-    for c, w, t, dt, case in ((96, 2048, 512, f32, "P1"),
-                              (96, 2048, 512, bf, "P1"),
-                              (128, 256, 256, f32, "t4"),
-                              (128, 2048, 2048, f32, "t4b")):
-        win, idx = rand((c, w), dt), index(w, t)
+    for _, c, w, t, dt, lo, hi, case in [
+            ("lane", 96, 2048, 512, f32, 0, 2048, "P1"),
+            ("lane", 96, 2048, 512, bf, 0, 2048, "P1"),
+            ("lane", 128, 256, 256, f32, 0, 256, "t4"),
+            ("lane", 128, 2048, 2048, f32, 0, 2048, "t4b")] + [
+                e for e in edges if e[0] == "lane"]:
+        win, idx = rand((c, w), dt), index(lo, hi, t)
         i64 = idx.long()[None].expand(c, -1)
-        ck.record("window_lane_gather", src, p1c,
-                  lambda: g.window_lane_gather(win, idx),
-                  lambda: g.window_lane_gather_plain(win, idx), dt,
-                  c * (distinct(idx) + t) * win.element_size()
-                  + nbytes(idx), 0,
-                  f"{case} win [{c}, {w}] {t} lanes", mma=False, exact=True,
-                  lfn=lambda: torch.gather(win, 1, i64))
+        gather_row("window_lane_gather", p1c,
+                   lambda: g.window_lane_gather(win, idx),
+                   lambda: g.window_lane_gather_plain(win, idx),
+                   None if lo < 0 or hi > w else
+                   (lambda: torch.gather(win, 1, i64)), dt,
+                   c * (hits(idx, w) + t) * win.element_size()
+                   + nbytes(idx), f"{case} win [{c}, {w}] {t} lanes")
     n, c, tile, wn = 65_536, 96, 512, 2048
     ws = torch.clamp(torch.arange(n // tile, dtype=torch.int32) * tile,
                      max=n - wn).to(dev)
@@ -2977,6 +3027,38 @@ def probe_kernel_checks(dev, gen):
               f"P5 win [{c}, {128 * reps}] {reps} chunks", mma=False,
               exact=True)
     return ck.rows
+
+
+def stream_check(dev):
+    """Phase 23: a port kernel launched inside `with torch.cuda.stream(s)`
+    runs on s.  LF runs once on the default stream (a cached stream would
+    keep that one), then on s behind ~0.1 s of spinning and a rewrite of
+    its window: on s it reads the rewritten window, on any other stream
+    the old one.  Raises unless s was still busy when the host had
+    enqueued all of it and LF's output is the rewritten window's."""
+    import torch
+
+    from lidog_tpu_torch.ops import gather as g
+
+    win = torch.zeros(96, 2048, device=dev)
+    idx = torch.arange(0, 2048, 4, dtype=torch.int32, device=dev)
+    g.window_lane_gather(win, idx)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(200_000_000)
+        win.fill_(1.0)
+        out = g.window_lane_gather(win, idx)
+    pending = not s.query()
+    torch.cuda.synchronize()
+    ones = int((out == 1).sum())
+    print(f"[stream] LF inside torch.cuda.stream(s): s busy after the "
+          f"launch {pending}, {ones} of {out.numel()} outputs read the "
+          "window rewritten on s", flush=True)
+    if not pending or ones != out.numel():
+        raise AssertionError("a port kernel launched inside "
+                             "torch.cuda.stream(s) did not run on s")
+    return {"pending_after_launch": pending, "outputs_from_s": ones}
 
 
 def main():
@@ -3118,6 +3200,7 @@ def main():
           f"launches {pstats['launches']}", flush=True)
     torch.cuda.empty_cache()
     rows += probe_kernel_checks(dev, torch.Generator().manual_seed(SEED + 14))
+    pstats["stream_check"] = stream_check(dev)
 
     by_path = {"serve": stats["launches"], "train": tstats["launches"],
                "lidog": lstats["launches"], "robustnet": rstats["launches"],
@@ -3164,12 +3247,15 @@ def main():
             "bound_by", "library_ms")
     extra = ("shape", "max_rel_err", "tol_rel")
     entries = {}
-    level = ("level", "level_launches")
+    # LE's and LF's device ms beside their library call's (phase 23)
+    level = ("level", "level_launches", "device_ms", "flushed_device_ms",
+             "library_device_ms", "library_flushed_device_ms")
     for r in rows:  # one entry per kernel; further shapes nest under it
         if r["name"] in entries:
             entries[r["name"]]["more_shapes"].append(
                 {k: r[k] for k in ("shape", "max_abs_err", "max_rel_err",
-                                   "ms", "plain_ms", "bound_ms", "bound_by")
+                                   "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")
                  + level if k in r})
         else:
             entries[r["name"]] = {**{k: r[k] for k in keys + extra + level

@@ -153,14 +153,27 @@ def library(source: str) -> ctypes.CDLL:
     return lib
 
 
-def call(name: str, *args) -> None:
-    """Launch C function `name` on the current stream; raise on a CUDA
-    error."""
+_fns = {}  # C function name -> its ctypes function, bound once
+_device = _raw_stream = None  # torch's current device and its raw stream
+
+
+def _bind(name: str):
+    """The ctypes function of C function `name` (its library built and
+    loaded first if needed), kept for every later call."""
+    global _device, _raw_stream
     import torch
 
-    stream = torch.cuda.current_stream().cuda_stream
-    lib = library(_SOURCE_OF.get(name, name))
-    err = getattr(lib, name)(*args, stream)
+    _device = torch._C._cuda_getDevice
+    _raw_stream = torch._C._cuda_getCurrentRawStream
+    fn = _fns[name] = getattr(library(_SOURCE_OF.get(name, name)), name)
+    return fn
+
+
+def call(name: str, *args) -> None:
+    """Launch C function `name` on the current device's current stream
+    (read at every call); raise on a CUDA error."""
+    fn = _fns.get(name) or _bind(name)
+    err = fn(*args, _raw_stream(_device()))
     if err == 1:  # cudaErrorInvalidValue
         raise RuntimeError(f"{name}: CUDA error 1 (invalid value): the entry "
                            "point refused these shapes or sizes (its limits "

@@ -28,12 +28,15 @@ def masked(out, mask):
 def on_card(name, *tensors):
     """Raise unless every tensor lies on the first one's CUDA device,
     contiguous and 16-byte aligned."""
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {dev}")
+    first = tensors[0]
+    if not first.is_cuda:
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
+                         f"{first.device}")
+    dev = first.get_device()
     for t in tensors:
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous on {dev}")
+        if t.get_device() != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous on "
+                             f"{first.device}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: inputs must be 16-byte aligned")
 

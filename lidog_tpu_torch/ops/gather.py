@@ -16,8 +16,11 @@ q2_pallas_vmem_gather), P4 (benchmarks/micro/micro_bisect.py:23 t1_dma,
 index outside the window (LH: outside its 128-lane chunk) and a copied row
 outside feats read as zero.  LE, LF and LG take float32 and bfloat16
 (they copy bits); LH takes float32, as P5 does.  Every kernel is bitwise
-equal to its plain version.  The size limits (a block's shared memory,
-the grid) are the C entry points', which refuse other sizes with
+equal to its plain version.  LE and LF gather straight from the window
+in device memory (`row_gather_split` and `lane_gather_split` state their
+blocking); LH stages a channel row in shared memory.  The size limits
+(LE's 16-byte rows, LF's channel blocks, LH's and LG's shared memory)
+are the C entry points', which refuse other sizes with
 cudaErrorInvalidValue.
 """
 
@@ -31,6 +34,11 @@ from lidog_tpu_torch.ops._wrap import DTYPES, on_card
 LAUNCHES = {"window_row_gather": 0, "window_lane_gather": 0,
             "window_copy": 0, "lane_gather_sum": 0}
 LANES = 128
+# csrc/window_gather.cu's blocking of LE and LF (kThreads, kRowVecs,
+# kLaneChannels there)
+GATHER_THREADS = 128
+ROW_VECTORS = 2
+LANE_CHANNELS = 4
 
 
 # ---------------------------------------------------------------------------
@@ -87,49 +95,65 @@ def lane_gather_sum_plain(win, idx):
 # ---------------------------------------------------------------------------
 
 
-def _check(name, tensors, checks):
-    on_card(name, *tensors)
-    for ok, msg in checks:
-        if not ok:
-            raise ValueError(f"{name}: {msg}")
+def row_gather_split(t, row_bytes):
+    """LE's blocking of t rows of row_bytes (a multiple of 16): (g,
+    blocks).  g threads a row, the fewest powers of two up to 32 that
+    hold ROW_VECTORS of the row's 16-byte vectors each: thread j of row
+    t's group is thread t g + j of the grid and owns vectors j, j + g, ...;
+    blocks of GATHER_THREADS threads."""
+    v_row = row_bytes // 16
+    g = 1
+    while g < 32 and g * ROW_VECTORS < v_row:
+        g *= 2
+    return g, -(-t * g // GATHER_THREADS)
+
+
+def lane_gather_split(c, t):
+    """LF's grid for out [c, t]: (t blocks of GATHER_THREADS threads,
+    channel blocks of LANE_CHANNELS), thread i of block (x, y) taking t =
+    x GATHER_THREADS + i and channels y LANE_CHANNELS + k."""
+    return -(-t // GATHER_THREADS), -(-c // LANE_CHANNELS)
+
+
+def _window_args(name, win, idx, win_name="win", idx_name="idx"):
+    """Raise unless win is float32 or bfloat16 and idx int32 [T], both on
+    one card, contiguous and 16-byte aligned."""
+    on_card(name, win, idx)
+    if win.dtype not in DTYPES:
+        raise ValueError(f"{name}: {win_name} must be float32 or bfloat16")
+    if idx.dtype != torch.int32 or idx.dim() != 1:
+        raise ValueError(f"{name}: {idx_name} must be int32 [T]")
 
 
 def window_row_gather(win, idx):
     """LE (csrc/window_gather.cu) for CUDA tensors, the plain version for
     CPU tensors.  win [W, C] float32 or bfloat16, idx [T] int32."""
-    if win.device.type == "cpu":
+    if win.is_cpu:
         return window_row_gather_plain(win, idx)
-    name = "window_row_gather"
-    _check(name, (win, idx), [
-        (win.dtype in DTYPES, "win must be float32 or bfloat16"),
-        (idx.dtype == torch.int32 and idx.dim() == 1, "idx must be int32 [T]"),
-    ])
+    _window_args("window_row_gather", win, idx)
     w, c = win.shape
-    out = torch.empty(idx.shape[0], c, dtype=win.dtype, device=win.device)
-    if idx.numel() and c:
-        _cuda.call(name, win.data_ptr(), idx.data_ptr(), out.data_ptr(), w,
-                   idx.shape[0], c * win.element_size())
-        LAUNCHES[name] += 1
+    t = idx.shape[0]
+    out = torch.empty(t, c, dtype=win.dtype, device=win.device)
+    if t and c:
+        _cuda.call("window_row_gather", win.data_ptr(), idx.data_ptr(),
+                   out.data_ptr(), w, t, c * win.element_size())
+        LAUNCHES["window_row_gather"] += 1
     return out
 
 
 def window_lane_gather(win, idx):
     """LF (csrc/window_gather.cu) for CUDA tensors, the plain version for
     CPU tensors.  win [C, W] float32 or bfloat16, idx [T] int32."""
-    if win.device.type == "cpu":
+    if win.is_cpu:
         return window_lane_gather_plain(win, idx)
-    name = "window_lane_gather"
-    _check(name, (win, idx), [
-        (win.dtype in DTYPES, "win must be float32 or bfloat16"),
-        (idx.dtype == torch.int32 and idx.dim() == 1, "idx must be int32 [T]"),
-    ])
+    _window_args("window_lane_gather", win, idx)
     c, w = win.shape
     t = idx.shape[0]
     out = torch.empty(c, t, dtype=win.dtype, device=win.device)
     if t and c:
-        _cuda.call(name, win.data_ptr(), idx.data_ptr(), out.data_ptr(), c,
-                   w, t, win.element_size())
-        LAUNCHES[name] += 1
+        _cuda.call("window_lane_gather", win.data_ptr(), idx.data_ptr(),
+                   out.data_ptr(), c, w, t, win.element_size())
+        LAUNCHES["window_lane_gather"] += 1
     return out
 
 
@@ -137,20 +161,17 @@ def window_copy(feats, ws, tile):
     """LG (csrc/window_copy.cu) for CUDA tensors, the plain version for
     CPU tensors.  feats [N, C] float32 or bfloat16, ws [T] int32 ->
     [T * tile, C]."""
-    if feats.device.type == "cpu":
+    if feats.is_cpu:
         return window_copy_plain(feats, ws, tile)
-    name = "window_copy"
-    _check(name, (feats, ws), [
-        (feats.dtype in DTYPES, "feats must be float32 or bfloat16"),
-        (ws.dtype == torch.int32 and ws.dim() == 1, "ws must be int32 [T]"),
-    ])
+    _window_args("window_copy", feats, ws, "feats", "ws")
     n, c = feats.shape
     out = torch.empty(ws.shape[0] * tile, c, dtype=feats.dtype,
                       device=feats.device)
     if ws.numel():
-        _cuda.call(name, feats.data_ptr(), ws.data_ptr(), out.data_ptr(), n,
-                   ws.shape[0], tile, c * feats.element_size())
-        LAUNCHES[name] += 1
+        _cuda.call("window_copy", feats.data_ptr(), ws.data_ptr(),
+                   out.data_ptr(), n, ws.shape[0], tile,
+                   c * feats.element_size())
+        LAUNCHES["window_copy"] += 1
     return out
 
 
@@ -158,17 +179,18 @@ def lane_gather_sum(win, idx):
     """LH (csrc/window_gather.cu) for CUDA tensors, the plain version for
     CPU tensors.  win [C, 128 R] float32, idx [C, 128 R] int32 -> [C, 128]
     float32."""
-    if win.device.type == "cpu":
+    if win.is_cpu:
         return lane_gather_sum_plain(win, idx)
     name = "lane_gather_sum"
     c, width = win.shape
-    _check(name, (win, idx), [
-        (win.dtype == torch.float32, "win must be float32"),
-        (idx.dtype == torch.int32 and tuple(idx.shape) == (c, width),
-         f"idx must be int32 [{c}, {width}]"),
-        (width % LANES == 0, f"a row of {width} lanes is no multiple of "
-         f"{LANES}"),
-    ])
+    on_card(name, win, idx)
+    if win.dtype != torch.float32:
+        raise ValueError(f"{name}: win must be float32")
+    if idx.dtype != torch.int32 or idx.shape != win.shape:
+        raise ValueError(f"{name}: idx must be int32 [{c}, {width}]")
+    if width % LANES:
+        raise ValueError(f"{name}: a row of {width} lanes is no multiple of "
+                         f"{LANES}")
     out = torch.empty(c, LANES, dtype=torch.float32, device=win.device)
     if c:
         _cuda.call(name, win.data_ptr(), idx.data_ptr(), out.data_ptr(), c,

@@ -30,8 +30,8 @@ def timed(fn, dev: torch.device, iters: int):
     host's launch overhead bounds it for short kernels), on the CPU the
     host clock.  device ms: on a card the device time of the kernels fn()
     launches (torch.profiler over another iters calls), the rates' basis;
-    where the profiler returns no device event twice, ms again, with the
-    reason printed; on the CPU ms again."""
+    NaN, with the reason printed, where the profiler loses the calls'
+    kernels twice (`_events`); on the CPU ms again."""
     fn()
     if dev.type != "cuda":
         t0 = time.perf_counter()
@@ -52,9 +52,9 @@ def timed(fn, dev: torch.device, iters: int):
         dms = _device_ms(fn, iters)
         if dms > 0:
             return ms, dms
-    print("device time not measured: the profiler returned no device "
-          "event; CUDA events' ms stands in", flush=True)
-    return ms, ms
+    print("device time not measured: the profiler lost the calls' device "
+          "events", flush=True)
+    return ms, float("nan")
 
 
 def flushed_device_ms(fn, dev: torch.device, iters: int) -> float:
@@ -81,7 +81,10 @@ def flushed_device_ms(fn, dev: torch.device, iters: int) -> float:
 
 
 def _events(fn, iters=1):
-    """kernel_events of iters calls of fn() under torch.profiler."""
+    """{kernel name: device us} of iters calls of fn() under
+    torch.profiler; empty where the profiler lost some of the calls'
+    kernels (one seen fewer than iters times, where each call launches
+    each of its kernels at least once)."""
     from lidog_tpu_torch.profile_serve import kernel_events
 
     torch.cuda.synchronize()
@@ -91,7 +94,10 @@ def _events(fn, iters=1):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return {name: us for name, us, _ in kernel_events(prof)}
+    events = kernel_events(prof)
+    if any(count < iters for _, _, count in events):
+        return {}
+    return {name: us for name, us, _ in events}
 
 
 def _device_ms(fn, iters):

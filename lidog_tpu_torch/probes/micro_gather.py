@@ -5,9 +5,10 @@ Q1: device-memory row-gather cost by row width (64 to 640 bytes), random
     Pallas, so plain torch indexing is its counterpart here.
 Q2: the window gathers of P1 (`q2_pallas_vmem_gather:71`) on LE (axis 0;
     the TPU's index in SMEM or in VMEM is one kernel here) and LF (axis 1,
-    the transposed window), each beside one PyTorch call on the window in
-    device memory (index_select, gather): does staging the window on chip
-    beat a gather through L2?
+    the transposed window), each beside the PyTorch call for the same
+    gather (index_select, gather): the port's window gathers against
+    PyTorch's, both reading the window from device memory (L2-resident
+    after the first call).
 Q3: P2's 27-tap windowed conv (`q3_windowed_vs_xla:155`) on LA
     (ops/sparse_conv.py sparse_conv_fwd) against the per-offset gather +
     matmul reference (sparse_conv_plain).
@@ -99,7 +100,8 @@ def q2_window_gather(dev, W=2048, T=512, C=96, iters=50):
     for k, fn in calls.items():
         ms[k + "_ms"], ms[k + "_device_ms"] = timed(fn, dev, iters)
         ms[k + "_flushed_device_ms"] = flushed_device_ms(fn, dev, iters)
-    print(f"Q2 [{W}, {C}] f32 window, {T} rows, us (device us): LE "
+    print(f"Q2 the port's window gathers against PyTorch's: [{W}, {C}] f32 "
+          f"window, {T} rows, us (device us): LE "
           f"{ms['le_ms']*1e3:.1f} ({ms['le_device_ms']*1e3:.2f}) vs "
           f"index_select {ms['index_select_ms']*1e3:.1f} "
           f"({ms['index_select_device_ms']*1e3:.2f}); LF {ms['lf_ms']*1e3:.1f}"

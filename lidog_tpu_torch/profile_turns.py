@@ -1,7 +1,7 @@
 """Compare this checkout with another on one card, in turns.
 
     python -m lidog_tpu_torch.profile_turns --other DIR [--rounds 2]
-        {train,serve,kernels,stages} [-- extra arguments]
+        {train,serve,kernels,stages,gathers,p50} [-- extra arguments]
     python -m lidog_tpu_torch.profile_turns --other DIR kernels -- plan
 
 Runs the same measurement in a fresh process from this checkout's root
@@ -38,7 +38,20 @@ prints the device ms of the training step's stages (chip_smoke's
 `train_stage_split`: voxelize, plan, forward, backward, optimizer) after
 two warm-up steps, and of a serving request's (`stage_split`: voxelize,
 plan, forward, labels; median of 5 after 2 warm-up requests), as one JSON
-line.  Needs a CUDA card; prints the card's name and power limit first.
+line.  `gathers` times the probes' window gathers LE and LF at every
+probe shape of chip_smoke's phase 23 beside the PyTorch call for the same
+gather (index_select, gather): CUDA events over 10 calls back to back
+(chip_smoke's `cuda_ms`) and over 50 (`probes.common.timed`), device ms
+(torch.profiler) and device ms with the L2 cache flushed before each call;
+then the host us of one call and of each piece of a port kernel's call
+path (`on_card`, the output's allocation, the stream, the library
+lookup, the ctypes call, `_cuda.call`, the wrapper with the call stubbed
+out), by time.perf_counter_ns over 10,000 calls in batches of 500 (the
+device synchronised between batches, outside the clock), as one JSON
+line.  `p50` runs chip_smoke's
+phase 4 (5 timed requests) and phase 6 (5 timed training steps) and
+prints their p50s and each request's and step's ms as one JSON line.
+Needs a CUDA card; prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -402,6 +415,126 @@ print("[stages] " + json.dumps({"train": train, "serve": serve}), flush=True)
 """
 
 
+# run inside each checkout: LE and LF beside their library calls, and the
+# host time of a port kernel's call path, piece by piece
+_GATHERS = r"""
+import json, sys, time
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from lidog_tpu_torch.ops import _cuda, gather as g
+from lidog_tpu_torch.ops._wrap import on_card
+from lidog_tpu_torch.probes.common import flushed_device_ms, timed
+
+_cuda.build(("window_gather",))
+dev = torch.device("cuda")
+gen = torch.Generator().manual_seed(cs.SEED + 14)
+f32, bf = torch.float32, torch.bfloat16
+out = {}
+# (kernel, case, rows, columns of the window, T, dtype): LE's window
+# [W, C], LF's [C, W]
+SHAPES = (("LE", "P1", 2048, 96, 512, f32), ("LE", "P1", 2048, 96, 512, bf),
+          ("LE", "t2", 256, 128, 256, f32), ("LE", "t3a", 1024, 128, 1024, f32),
+          ("LE", "t3b", 4096, 128, 4096, f32), ("LF", "P1", 96, 2048, 512, f32),
+          ("LF", "P1", 96, 2048, 512, bf), ("LF", "t4", 128, 256, 256, f32),
+          ("LF", "t4b", 128, 2048, 2048, f32))
+for kind, case, a, b, t, dt in SHAPES:
+    win = torch.randn(a, b, generator=gen).to(dev, dt)
+    idx = torch.randint(0, a if kind == "LE" else b, (t,), generator=gen,
+                        dtype=torch.int32).to(dev)
+    if kind == "LE":
+        i64 = idx.long()
+        calls = {"kernel": lambda: g.window_row_gather(win, idx),
+                 "index_select": lambda: torch.index_select(win, 0, i64)}
+    else:
+        i64 = idx.long()[None].expand(a, -1)
+        calls = {"kernel": lambda: g.window_lane_gather(win, idx),
+                 "gather": lambda: torch.gather(win, 1, i64)}
+    got = [fn() for fn in calls.values()]
+    if not torch.equal(*got):
+        raise SystemExit(f"{kind} {case}: the kernel differs from the library")
+    for part, fn in calls.items():
+        key = f"{kind} {case} {str(dt)[6:]} {part}"
+        out[f"{key} events10 ms"] = cs.cuda_ms(fn)
+        out[f"{key} events50 ms"], out[f"{key} device ms"] = timed(fn, dev, 50)
+        out[f"{key} flushed device ms"] = flushed_device_ms(fn, dev, 50)
+
+
+def host_us(fn, n=10_000, batch=500):
+    fn()
+    torch.cuda.synchronize()
+    total = 0
+    for _ in range(n // batch):
+        t0 = time.perf_counter_ns()
+        for _ in range(batch):
+            fn()
+        total += time.perf_counter_ns() - t0
+        torch.cuda.synchronize()
+    return total / n / 1e3
+
+
+# LF at P1 f32 (win [96, 2048], 512 lanes) and LE at P1 f32, piece by piece
+c, w, t = 96, 2048, 512
+win = torch.randn(c, w, generator=gen).to(dev)
+rwin = win.T.contiguous()
+idx = torch.randint(0, w, (t,), generator=gen, dtype=torch.int32).to(dev)
+i64 = idx.long()
+i64x = i64[None].expand(c, -1)
+name = "window_lane_gather"
+res = torch.empty(c, t, device=dev)
+args = (win.data_ptr(), idx.data_ptr(), res.data_ptr(), c, w, t, 4)
+fn = getattr(_cuda.library("window_gather"), name)
+stream = torch.cuda.current_stream().cuda_stream
+pieces = {
+    "LF wrapper (P1 f32)": lambda: g.window_lane_gather(win, idx),
+    "LE wrapper (P1 f32)": lambda: g.window_row_gather(rwin, idx),
+    "torch.gather (LF's library call)": lambda: torch.gather(win, 1, i64x),
+    "torch.index_select (LE's library call)":
+        lambda: torch.index_select(rwin, 0, i64),
+    "on_card": lambda: on_card(name, win, idx),
+    "torch.empty(c, t, dtype, device=win.device)":
+        lambda: torch.empty(c, t, dtype=win.dtype, device=win.device),
+    "torch.cuda.current_stream().cuda_stream":
+        lambda: torch.cuda.current_stream().cuda_stream,
+    "raw stream (_cuda_getCurrentRawStream(_cuda_getDevice()))":
+        lambda: torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice()),
+    "library + getattr": lambda: getattr(_cuda.library("window_gather"), name),
+    "ctypes call (bound, stream given)": lambda: fn(*args, stream),
+    "_cuda.call": lambda: _cuda.call(name, *args),
+}
+for k, f in pieces.items():
+    out[f"host us: {k}"] = host_us(f)
+# the wrapper with its C call stubbed out: its Python side alone
+launch = _cuda.call
+_cuda.call = lambda *a: None
+out["host us: LF wrapper, _cuda.call stubbed"] = host_us(
+    lambda: g.window_lane_gather(win, idx))
+_cuda.call = launch
+print("[gathers] " + json.dumps(out), flush=True)
+"""
+
+_P50 = r"""
+import json, sys
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from lidog_tpu_torch.models.minkunet import MinkUNet34
+from lidog_tpu_torch.ops import _cuda
+
+_cuda.build()
+dev = torch.device("cuda")
+model = MinkUNet34(out_channels=cs.NUM_CLASSES, compute_dtype=torch.bfloat16,
+                   generator=torch.Generator().manual_seed(cs.SEED))
+s = cs.serve(model, cs.scan(cs.POINTS, cs.SEED), dev)
+del model
+torch.cuda.empty_cache()
+t = cs.train(dev, "source")
+print("[p50] " + json.dumps({
+    "request p50 ms": s["p50_ms"], "request ms": s["request_ms"],
+    "step p50 ms": t["p50_ms"], "step ms": t["step_ms"]}), flush=True)
+"""
+
+
 def _run(tag, root, cmd):
     r = subprocess.run(cmd, cwd=root, capture_output=True, text=True)
     for line in (r.stdout + r.stderr).splitlines():
@@ -415,7 +548,8 @@ def main(argv=None):
     ap.add_argument("--other", required=True,
                     help="root of the checkout to compare with")
     ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("what", choices=("train", "serve", "kernels", "stages"))
+    ap.add_argument("what", choices=("train", "serve", "kernels", "stages",
+                                     "gathers", "p50"))
     ap.add_argument("extra", nargs="*")
     args = ap.parse_args(argv)
     import torch
@@ -433,8 +567,9 @@ def main(argv=None):
 
         cmd = [sys.executable, "-c", _KERNELS, json.dumps(BN_FORMS),
                json.dumps(STRIDED_FORMS), json.dumps(PLAN_FORMS), *args.extra]
-    elif args.what == "stages":
-        cmd = [sys.executable, "-c", _STAGES]
+    elif args.what in ("stages", "gathers", "p50"):
+        cmd = [sys.executable, "-c", {"stages": _STAGES, "gathers": _GATHERS,
+                                      "p50": _P50}[args.what]]
     else:
         cmd = [sys.executable, "-m", f"lidog_tpu_torch.profile_{args.what}",
                *args.extra]

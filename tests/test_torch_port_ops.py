@@ -2423,6 +2423,160 @@ def test_probe_kernels_match_pallas(case):
     assert gather.LAUNCHES == before  # the CPU path launches nothing
 
 
+def _smoke_module():
+    """chip_smoke.py (at the repo's root) as a module: its constants."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        os.pardir, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# LE's (row) and LF's (lane) shapes: (kind, window rows or channels W / C,
+# width, T, dtype, lowest and highest index drawn): the probes' shapes,
+# then chip_smoke's edge shapes (WINDOW_EDGES: indices of -1 and >= W, T
+# no multiple of 32, LE rows of 16 bytes and rows that take a thread two
+# loop steps, LF channels no multiple of its channel block, bf16 at an
+# odd T), which phase 23 holds on the card
+WINDOW_GATHER_CASES = {
+    "LE_P1_f32": ("row", 2048, 96, 512, "f32", 0, 2048),
+    "LE_P1_bf16": ("row", 2048, 96, 512, "bf16", 0, 2048),
+    "LE_t2": ("row", 256, 128, 256, "f32", 0, 256),
+    "LE_t3a": ("row", 1024, 128, 1024, "f32", 0, 1024),
+    "LE_t3b": ("row", 4096, 128, 4096, "f32", 0, 4096),
+    "LF_P1_f32": ("lane", 96, 2048, 512, "f32", 0, 2048),
+    "LF_P1_bf16": ("lane", 96, 2048, 512, "bf16", 0, 2048),
+    "LF_t4": ("lane", 128, 256, 256, "f32", 0, 256),
+    "LF_t4b": ("lane", 128, 2048, 2048, "f32", 0, 2048),
+    **_smoke_module().WINDOW_EDGES,
+}
+
+
+def _le_blocked(vec, idx, row_bytes):
+    """LE's kernel (csrc/window_gather.cu window_rows_kernel) run thread by
+    thread, vectorised over the grid, in numpy: vec [W, v_row, 4] uint32
+    (a window row's 16-byte vectors) -> [T, v_row, 4], each vector written
+    exactly once."""
+    from lidog_tpu_torch.ops import gather
+
+    w, v_row, _ = vec.shape
+    t_count = len(idx)
+    g, blocks = gather.row_gather_split(t_count, row_bytes)
+    assert g & (g - 1) == 0 and g <= 32 and g * gather.ROW_VECTORS >= min(
+        v_row, 32 * gather.ROW_VECTORS)
+    gid = np.arange(blocks * gather.GATHER_THREADS)
+    t, j = gid // g, gid % g
+    # the thread whose index the group's shuffle reads: lane & ~(g - 1) of
+    # the same warp, the group's first thread
+    reader = gid - gid % 32 + (gid % 32 & ~(g - 1))
+    assert (reader // g == t).all() and (reader % g == 0).all()
+    live = t < t_count
+    s = np.where(live, idx[np.minimum(t, t_count - 1)], 0)
+    hit = (s >= 0) & (s < w)
+    out = np.full((t_count, v_row, 4), 0xDEADBEEF, np.uint32)
+    writes = np.zeros((t_count, v_row), np.int64)
+    for v0 in range(0, v_row, gather.ROW_VECTORS * g):  # a thread's steps
+        for k in range(gather.ROW_VECTORS):
+            v = j + v0 + k * g
+            put = live & (v < v_row)
+            val = np.where((hit & put)[:, None],
+                           vec[np.clip(s, 0, w - 1), np.minimum(v, v_row - 1)],
+                           0)
+            out[t[put], v[put]] = val[put]
+            np.add.at(writes, (t[put], v[put]), 1)
+    assert (writes == 1).all()
+    return out
+
+
+def _lf_blocked(win, idx):
+    """LF's kernel (window_lanes_kernel) run thread by thread in numpy:
+    win [C, W] uint32 or uint16 bits -> out [C, T] of the same bits, each
+    element written exactly once."""
+    from lidog_tpu_torch.ops import gather
+
+    c_count, w = win.shape
+    t_count = len(idx)
+    gx, gy = gather.lane_gather_split(c_count, t_count)
+    bx, by, i = (a.reshape(-1) for a in np.meshgrid(
+        np.arange(gx), np.arange(gy), np.arange(gather.GATHER_THREADS),
+        indexing="ij"))
+    t = bx * gather.GATHER_THREADS + i
+    live = t < t_count
+    s = idx[np.minimum(t, t_count - 1)]
+    out = np.full((c_count, t_count), 0xDEAD, win.dtype)
+    writes = np.zeros((c_count, t_count), np.int64)
+    for k in range(gather.LANE_CHANNELS):
+        c = by * gather.LANE_CHANNELS + k
+        put = live & (c < c_count)
+        hit = put & (s >= 0) & (s < w)
+        val = np.where(hit, win[np.minimum(c, c_count - 1),
+                                np.clip(s, 0, w - 1)], 0)
+        out[c[put], t[put]] = val[put]
+        np.add.at(writes, (c[put], t[put]), 1)
+    assert (writes == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("case", list(WINDOW_GATHER_CASES))
+def test_window_gather_split(case):
+    """LE's and LF's plain versions (ops/gather.py) against numpy indexing
+    with a zero for an index outside [0, W), and the kernels' thread ->
+    (t, 16-byte vector) and (t, channel) mappings
+    (row_gather_split, lane_gather_split, transliterated from
+    csrc/window_gather.cu) against the plain versions: bitwise equal, at
+    the probes' shapes and at edge shapes.  The blocking constants equal
+    the source's."""
+    import re
+
+    import torch
+
+    from lidog_tpu_torch.ops import _cuda, gather
+
+    src = (_cuda.CSRC / "window_gather.cu").read_text()
+    for const, value in (("kThreads", gather.GATHER_THREADS),
+                         ("kRowVecs", gather.ROW_VECTORS),
+                         ("kLaneChannels", gather.LANE_CHANNELS)):
+        assert int(re.search(rf"constexpr int {const} = (\d+);",
+                             src).group(1)) == value, const
+    kind, rows, width, t_count, dt, lo, hi = WINDOW_GATHER_CASES[case]
+    rng = np.random.default_rng(list(WINDOW_GATHER_CASES).index(case))
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    win = torch.from_numpy(rng.standard_normal((rows, width),
+                                               np.float32)).to(tdt)
+    idx_np = rng.integers(lo, hi, t_count, dtype=np.int32)
+    idx_np[: min(2, t_count)] = (lo, hi - 1)[: min(2, t_count)]
+    idx = torch.from_numpy(idx_np)
+    ibits = torch.int32 if dt == "f32" else torch.int16
+    ubits = np.uint32 if dt == "f32" else np.uint16
+    bits = win.view(ibits).numpy().view(ubits)
+    w = rows if kind == "row" else width
+    hit = (idx_np >= 0) & (idx_np < w)
+    safe = np.clip(idx_np, 0, w - 1)
+    before = dict(gather.LAUNCHES)
+    if kind == "row":
+        plain = gather.window_row_gather_plain(win, idx)
+        want = np.where(hit[:, None], bits[safe], 0).astype(ubits)
+        row_bytes = width * win.element_size()
+        vec = bits.view(np.uint32).reshape(rows, row_bytes // 16, 4)
+        got = _le_blocked(vec, idx_np, row_bytes).view(ubits).reshape(
+            t_count, width)
+        assert torch.equal(gather.window_row_gather(win, idx), plain)
+    else:
+        plain = gather.window_lane_gather_plain(win, idx)
+        want = np.where(hit[None], bits[:, safe], 0).astype(ubits)
+        got = _lf_blocked(bits, idx_np)
+        assert torch.equal(gather.window_lane_gather(win, idx), plain)
+    assert gather.LAUNCHES == before
+    plain_bits = plain.view(ibits).numpy().view(ubits)
+    assert plain.dtype == tdt
+    np.testing.assert_array_equal(plain_bits, want)
+    np.testing.assert_array_equal(got, plain_bits)
+    assert (~hit).any() == (lo < 0 or hi > w), case
+
+
 @pytest.mark.parametrize("probe", ["gather", "bisect", "lanegather"])
 def test_probe_entry_points_cpu(probe, capsys, monkeypatch):
     """The probe mains with device="cpu" at small shapes print ok=True /

@@ -542,18 +542,17 @@ STRIDED_FORMS = (("down", 0, 32, 32), ("down", 1, 32, 32),
                  ("up", 3, 256, 256), ("up", 2, 256, 128),
                  ("up", 1, 128, 96), ("up", 0, 96, 96))
 # the plan kernels that `profile_turns kernels` times in turns with another
-# checkout, as (plan, level, wrapper in core/zseg.py): KV, KW, KX, KY and
-# KU at every level of the serving and training plans, KR at both plans'
-# L0, KS at their L1-L4, KT at the training plan's L0 and KQ at the
-# general stem's L0
+# checkout, as (plan, level, wrapper in core/zseg.py): KV, KW, KX, KY, KT
+# and KU at every level of the serving and training plans, KR at both
+# plans' L0, KS at their L1-L4 and KQ at the general stem's L0
 PLAN_FORMS = tuple((p, lvl, k) for p in ("serve", "train")
                    for k in ("column_grid", "real_words", "assemble_aug",
-                             "emit_rows", "_build_packed")
+                             "emit_rows", "_build_packed", "pos3_lookup")
                    for lvl in range(5)) + tuple(
     (p, lvl, "conv9_packed") for p in ("serve", "train")
     for lvl in range(1, 5)) + (
     ("serve", 0, "stem_conv9_packed"), ("train", 0, "stem_conv9_packed"),
-    ("train", 0, "pos3_lookup"), ("cin4", 0, "stem_feat125_packed"))
+    ("cin4", 0, "stem_feat125_packed"))
 STRIDED_SRC = {"zconv_down_fwd": "lidog_tpu_torch/csrc/zconv_down_fwd.cu",
                "zconv_up_fwd": "lidog_tpu_torch/csrc/zconv_up_fwd.cu",
                "zconv_down_wgrad": "lidog_tpu_torch/csrc/zconv_wgrad.cu",
@@ -1114,13 +1113,13 @@ def sweep_nbytes(name, args, kwargs):
         aug16, coords, valid = args[:3]
         cid = kwargs["cid"]
         rows = int(torch.unique(cid[valid & (cid >= 0)]).numel())
-        return nbytes(coords, valid, cid) + rows * slab + 3 * cid.numel() * 8
+        return nbytes(coords, valid, cid) + rows * slab + 3 * cid.numel() * 4
     if name == "_build_packed":
         from lidog_tpu_torch.core.zseg import packed_width
 
         real_w, aug16, col_bxy, col_valid = args[:4]
         r, aug_r, slots = args[7], kwargs["aug_r"], real_w.shape[0]
-        return ((nbytes(real_w) if r >= 0 else 0) + slots * slab
+        return ((slots * ZWORDS * 4 if r >= 0 else 0) + slots * slab
                 + nbytes(col_bxy, col_valid)
                 + slots * packed_width(r, aug_r) * 4)
     coords, valid = args[2], args[3]
@@ -1191,9 +1190,8 @@ def plan_kernel_checks(dev):
             ck.record(key, src, replaces,
                       lambda f=wrapper, a=args, k=kwargs: f(*a, **k),
                       lambda f=plain, a=args, k=kwargs: f(*a, **k),
-                      {"stem_conv9_packed": torch.bfloat16,
-                       "conv9_packed": torch.int32,
-                       "build_packed": torch.int32}.get(key, torch.int64),
+                      torch.bfloat16 if key == "stem_conv9_packed"
+                      else torch.int32,
                       sweep_nbytes(name, args, kwargs), 0,
                       shape, mma=False, exact=True)
             ck.rows[-1]["level"] = lvl
@@ -1227,7 +1225,7 @@ def table_nbytes(name, args, kwargs):
     table, the rows they hit), each output written once."""
     from lidog_tpu_torch.core.bitgrid import ZWORDS
 
-    words = ZWORDS * 8  # a row of real words, int64
+    words = ZWORDS * 4  # a row's real words, int32 (not its 2 pad words)
     if name == "column_grid":  # the int32 grid, int64 vox_cid, col tables
         coords, valid, nb, gh, lvl, ccap = args[:6]
         g = (2 * gh) >> lvl
@@ -1252,14 +1250,15 @@ def table_nbytes(name, args, kwargs):
         return (nbytes(cb, cv) + cells * kwargs["fine_grid"].element_size()
                 + rows * words + out)
     if name == "assemble_aug":
-        real_w, cb, cv, grid, nb, g, ccap = args[:7]
+        cb, cv, grid, nb, g, ccap = args[1:7]
         b, gx, gy = cb >> 24, (cb >> 12) & 4095, cb & 4095
         cells = 0
         for dx in (-1, 1):
             ok = cv & (gx + dx >= 0) & (gx + dx < g)
             cells += grid_hits(grid, b, (gx + dx).clamp(0, g - 1), gy, ok,
                                g)[0]
-        return (nbytes(real_w, cb, cv) + cells * grid.element_size()
+        return (nb * ccap * words + nbytes(cb, cv)
+                + cells * grid.element_size()
                 + nb * ccap * (ZWORDS + 2) * 4 + nb * 8)
     pos3, coords, valid, counts_b, nb, cap_a, gh, lvl = args
     n, n_a = coords.shape[0], nb * cap_a
@@ -1354,7 +1353,8 @@ def table_kernel_checks(dev):
             ck.record(name, src, TABLE_KERNELS[name],
                       table_call(wrapper, args, kwargs),
                       table_call(plain, args, kwargs),
-                      torch.int32 if name == "assemble_aug" else torch.int64,
+                      torch.int32 if name in ("assemble_aug", "real_words")
+                      else torch.int64,
                       table_nbytes(name, args, kwargs), 0,
                       f"{label} L{lvl} {table_shape(name, args)}",
                       mma=False, exact=True)

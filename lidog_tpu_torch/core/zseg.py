@@ -29,12 +29,14 @@ lax.map segmenting and LIDOG_TPU_SEG_LOOKUP.  Here a grid lookup is one
 int32 gather, and the sweeps run over all segments at once; a row's
 segment is its index // segment capacity, so no map reaches another scan.
 
-Bit words are int64 holding uint32 values (core/bitgrid.py) in the
-real words; the column grid, the aug words (`aug16`) and the packed
-y-neighbourhood table are int32, as lidog_tpu's, their words the uint32
-bits read as int32 and the packed rows padded to a multiple of 8 words
-(16-byte aligned rows).  Internal index arithmetic is int64; outputs are
-cast to the JAX dtypes.
+The column grid, the real words (`real16`: 14 words and 2 zero pad
+words a slot), the aug words (`aug16`), the packed y-neighbourhood table
+and the own-column positions (`pos3`) are int32, as lidog_tpu's, their
+words the uint32 bits read as int32, every table row a multiple of 16
+bytes (the packed rows padded to a multiple of 8 words).  The plain
+versions widen a fetched row to int64 words holding uint32 values
+(core/bitgrid.py); internal index arithmetic is int64; outputs are cast
+to the JAX dtypes.
 """
 
 from __future__ import annotations
@@ -156,6 +158,16 @@ def _u32(t):
     return t.long() & U32
 
 
+REAL_W = 16  # words of a real-word row: ZWORDS and 2 zero pad words
+
+
+def _real16(words):
+    """int64 [slots, ZWORDS] uint32 values -> the int32 real-word table
+    [slots, REAL_W] (lidog_tpu's real16: the pad words 0)."""
+    pad = words.new_zeros(words.shape[0], REAL_W - ZWORDS)
+    return _wrap32(torch.cat([words, pad], dim=1))
+
+
 def _pack_bxy(b, gx, gy):
     return (b.long() << 24) | (gx.long() << 12) | gy.long()
 
@@ -262,15 +274,17 @@ def real_words_plain(level: int, num_batches: int, ccap: int, grid_half: int,
                      unique: bool = True, cap_real: int = 0, col_bxy=None,
                      col_valid=None, fine_grid=None, fine_real=None):
     """The real z-bit words of each column slot (plain version of KW,
-    lidog_tpu/core/zseg.py:916-979, _zpair_words:234): int64 [B*ccap,
-    ZWORDS] holding uint32 values.
+    lidog_tpu/core/zseg.py:916-979, _zpair_words:234): int32 [B*ccap,
+    REAL_W], lidog_tpu's real16 (the uint32 bits of ZWORDS words read as
+    int32, then 2 zero pad words).
 
     Level 0 stamps the source rows (coords, valid, their vox_cid): unique
     input scatter-adds the bits; sortless input (unique=False) sets them
     idempotently and adds the deduped voxels past cap_real per scan to
     overflow[0].  Levels 1-4 OR the 4 child columns of each slot (col_bxy,
     col_valid) in the finer level's tables (fine_grid, fine_real) and
-    coarsen the words one z level."""
+    coarsen the words one z level; fine_real is the finer level's int32
+    table."""
     B, dev = num_batches, (coords if level == 0 else col_bxy).device
     sink = B * ccap
     if level == 0:
@@ -285,7 +299,7 @@ def real_words_plain(level: int, num_batches: int, ccap: int, grid_half: int,
             real_w = torch.zeros(sink + 1, ZWORDS, dtype=torch.long,
                                  device=dev)
             real_w.index_put_((cslot, word), bit, accumulate=True)
-            return real_w[:sink] & U32
+            return _real16(real_w[:sink] & U32)
         # sortless input: an idempotent per-z byte stamp, then 32 bytes
         # -> one word, one bit position at a time (no int64 copy of the
         # whole stamp)
@@ -300,7 +314,7 @@ def real_words_plain(level: int, num_batches: int, ccap: int, grid_half: int,
         nreal_b = popcount32(real_w).sum(-1).reshape(B, ccap).sum(1)
         overflow[0] += torch.clamp(nreal_b - cap_real, min=0).sum().to(
             torch.int32)
-        return real_w
+        return _real16(real_w)
     # coarse real words from the fine table: 4 child column fetches +
     # pairwise z OR
     f_g = (2 * grid_half) >> (level - 1)
@@ -313,8 +327,8 @@ def real_words_plain(level: int, num_batches: int, ccap: int, grid_half: int,
             okf = col_valid & (gxf < f_g) & (gyf < f_g)
             cidf = _grid_lookup(fine_grid, bC, gxf.clamp(0, f_g - 1),
                                 gyf.clamp(0, f_g - 1), okf, f_g)
-            acc = acc | _rows_or_miss(fine_real, cidf)
-    return _zpair_words(acc)
+            acc = acc | _u32(_rows_or_miss(fine_real, cidf)[:, :ZWORDS])
+    return _real16(_zpair_words(acc))
 
 
 def assemble_aug_plain(real_w, col_bxy, col_valid, grid_d, num_batches: int,
@@ -323,12 +337,13 @@ def assemble_aug_plain(real_w, col_bxy, col_valid, grid_d, num_batches: int,
     """Ghost/aug words per dilated slot: 2 x-neighbour fetches + y shifts
     (plain version of KX, lidog_tpu/core/zseg.py:335).
 
+    real_w is the int32 real-word table [B*ccap, REAL_W] (KW's).
     ghost = zdil(own) & ~own & OR(3x3 neighbourhood real words).  Returns
     (aug16 int32 [B*ccap, ZWORDS+2] = words + GLOBAL start + count, aug
     rows per scan int64 [B]); adds the rows past cap_a to
     overflow[1 + level]."""
     b, gx, gy = _unpack_bxy(col_bxy)
-    own = real_w
+    own = _u32(real_w[:, :ZWORDS])
     adj = _y_adjacency(col_bxy, col_valid)
     yor3 = own | _shift_up(own, adj) | _shift_dn(own, adj)
     nb_or = yor3
@@ -354,8 +369,9 @@ def _build_packed_plain(real_w, aug16, col_bxy, col_valid,
                         num_batches: int, ccap: int, cap_a: int, r: int,
                         aug_r: int = 1, level: int = 0):
     """Per-slot y-neighbourhood row, built by validated slot shifts (plain
-    version of KU, lidog_tpu/core/zseg.py:378): int32 [B*ccap,
-    packed_width(r, aug_r)] of [real words of gy-r..gy+r | (aug words +
+    version of KU, lidog_tpu/core/zseg.py:378) from the int32 real-word
+    table (KW's) and aug16 (KX's): int32 [B*ccap, packed_width(r, aug_r)]
+    of [real words of gy-r..gy+r | (aug words +
     LOCAL start) of gy-aug_r..gy+aug_r | zeros to a multiple of 8 words].
     r < 0 leaves out the real slabs (the conv9 sweep of levels > 0); the
     feature-stem sweep (stem_feat125_packed) passes aug_r = r.
@@ -363,6 +379,7 @@ def _build_packed_plain(real_w, aug16, col_bxy, col_valid,
     exactly dy consecutive slots away.  `level` (the plan level) only
     names the kernel wrapper's per-level count."""
     b = torch.arange(num_batches * ccap, device=real_w.device) // ccap
+    real = _u32(real_w[:, :ZWORDS])
     m_aug = aug16[:, :ZWORDS + 1].long()
     m_aug[:, ZWORDS] += torch.where(col_valid, -b * cap_a, 0)
     adj = _y_adjacency(col_bxy, col_valid)
@@ -374,7 +391,7 @@ def _build_packed_plain(real_w, aug16, col_bxy, col_valid,
         return out
 
     assert aug_r <= max(r, 1), "aug shifts must stay within the dilation"
-    slabs = [at_dy(real_w, dy) for dy in range(-r, r + 1)]
+    slabs = [at_dy(real, dy) for dy in range(-r, r + 1)]
     slabs += [at_dy(m_aug, dy) for dy in range(-aug_r, aug_r + 1)]
     width = packed_width(r, aug_r)
     pad = width - sum(t.shape[1] for t in slabs)
@@ -408,9 +425,7 @@ def _build_packed(real_w, aug16, col_bxy, col_valid, num_batches: int,
         (r >= -1 and 0 <= aug_r <= max(r, 1) and max(r, aug_r) <= _KU_MAX_R,
          f"needs r >= -1 and 0 <= aug_r <= max(r, 1) <= {_KU_MAX_R}, got "
          f"{r}, {aug_r}"),
-        (real_w.dtype == torch.int64
-         and tuple(real_w.shape) == (slots, ZWORDS),
-         f"real_w must be int64 [{slots}, {ZWORDS}]"),
+        _real_ok(real_w, slots),
         (aug16.dtype == torch.int32
          and tuple(aug16.shape) == (slots, ZWORDS + 2),
          f"aug16 must be int32 [{slots}, {ZWORDS + 2}]"),
@@ -430,6 +445,15 @@ def _build_packed(real_w, aug16, col_bxy, col_valid, num_batches: int,
         LAUNCHES[name] += 1
         LEVEL_LAUNCHES[name][level] += 1
     return out
+
+
+def _real_ok(real_w, slots=None, name="real_w"):
+    """(ok, message) of a kernel's check of an int32 real-word table
+    [slots, REAL_W] (any number of slots where slots is None)."""
+    ok = (real_w.dtype == torch.int32 and real_w.dim() == 2
+          and real_w.shape[1] == REAL_W
+          and (slots is None or real_w.shape[0] == slots))
+    return ok, f"{name} must be int32 [{slots or 'slots'}, {REAL_W}]"
 
 
 def _bit_at(words, bz):
@@ -690,7 +714,7 @@ def pos3_plain(aug16, coords, valid, g: int, cap_a: int, grid_half: int,
                level: int, cid):
     """Own-column (z-s, z, z+s) aug positions per query row, given each
     row's column id (plain version of KT, lidog_tpu/core/zseg.py:682).
-    Returns [3, n] int64 (-1 miss)."""
+    Returns [3, n] int32 (-1 miss), as lidog_tpu's."""
     gh = grid_half
     bq = coords[:, 0].long()
     gx0 = (coords[:, 1] >> level) + (gh >> level)
@@ -715,7 +739,7 @@ def pos3_plain(aug16, coords, valid, g: int, cap_a: int, grid_half: int,
         idx = startv + rank
         okr = okz & (idx >= 0) & ((idx - seg_base) < cap_a)
         outs.append(torch.where(okr, idx, -1))
-    return torch.stack(outs, dim=0)
+    return torch.stack(outs, dim=0).to(torch.int32)
 
 
 def pos3_lookup(aug16, coords, valid, g: int, cap_a: int, grid_half: int,
@@ -735,7 +759,7 @@ def pos3_lookup(aug16, coords, valid, g: int, cap_a: int, grid_half: int,
         (cid.dtype == torch.int64 and tuple(cid.shape) == (n,),
          "cid must be int64 [N]"),
     ))
-    out = torch.empty(3, n, dtype=torch.int64, device=dev)
+    out = torch.empty(3, n, dtype=torch.int32, device=dev)
     if n:
         _cuda.call(name, aug16.data_ptr(), coords.data_ptr(),
                    valid.data_ptr(), cid.data_ptr(), out.data_ptr(), n,
@@ -941,13 +965,11 @@ def real_words(level: int, num_batches: int, ccap: int, grid_half: int, *,
             (fine_grid.dtype == torch.int32
              and tuple(fine_grid.shape) == (num_batches * f_g * f_g,),
              "fine_grid must be int32 [B*g_fine^2]"),
-            (fine_real.dtype == torch.int64 and fine_real.dim() == 2
-             and fine_real.shape[1] == ZWORDS,
-             f"fine_real must be int64 [slots, {ZWORDS}]"),
+            _real_ok(fine_real, name="fine_real"),
         ))
-    real_w = (torch.zeros if level == 0 else torch.empty)(
-        slots, ZWORDS, dtype=torch.int64, device=dev)
-    nreal = (torch.zeros(num_batches, dtype=torch.int64, device=dev)
+    # level 0: zeroed by the kernel's first step, as is nreal
+    real_w = torch.empty(slots, REAL_W, dtype=torch.int32, device=dev)
+    nreal = (torch.empty(num_batches, dtype=torch.int64, device=dev)
              if level == 0 and not unique else None)  # scratch
     ptr = [t.data_ptr() if t is not None else None
            for t in (coords, valid, vox_cid, col_bxy, col_valid, fine_grid,
@@ -973,9 +995,7 @@ def assemble_aug(real_w, col_bxy, col_valid, grid_d, num_batches: int,
     _require_overflow(name, overflow, dev)
     _require_slots(name, col_bxy, col_valid, slots)
     _require(name, (
-        (real_w.dtype == torch.int64
-         and tuple(real_w.shape) == (slots, ZWORDS),
-         f"real_w must be int64 [{slots}, {ZWORDS}]"),
+        _real_ok(real_w, slots),
         (grid_d.dtype == torch.int32
          and tuple(grid_d.shape) == (num_batches * g * g,),
          "grid_d must be int32 [B*g*g]"),
@@ -1005,8 +1025,8 @@ def emit_rows(pos3, coords, valid, counts_b, num_batches: int, cap_a: int,
     n = _require_rows(name, coords, valid)
     _require_level(name, num_batches, (2 * grid_half) >> level, level, cap_a)
     _require(name, (
-        (pos3.dtype == torch.int64 and tuple(pos3.shape) == (3, n),
-         "pos3 must be int64 [3, N]"),
+        (pos3.dtype == torch.int32 and tuple(pos3.shape) == (3, n),
+         "pos3 must be int32 [3, N]"),
         (counts_b.dtype == torch.int64
          and tuple(counts_b.shape) == (num_batches,),
          "counts_b must be int64 [B]"),
@@ -1077,7 +1097,7 @@ def emit_rows_plain(pos3, coords, valid, counts_b, num_batches: int,
     1049-1100, 735-770): each candidate scattered as one packed
     gxgy << 9 | bz and decoded per row.
 
-    pos3 int64 [3, N] (KT's), coords/valid the source rows, counts_b int64
+    pos3 int32 [3, N] (KT's), coords/valid the source rows, counts_b int64
     [B] the aug rows per scan.  Returns (coords int32 [B*cap_a, 4], real,
     valid, zup, zdn bool [B*cap_a]) and, at level 0, pos int32 [N] (+ rep
     int32 [B*cap_a], the smallest input row of each row, with rep=True),

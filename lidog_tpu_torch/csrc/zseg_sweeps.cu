@@ -10,9 +10,10 @@
 //
 // Each output is bitwise equal to the plain version in core/zseg.py: the
 // integer steps are the plain version's one for one (z-bit words are
-// uint32 values: int64 in the real words, int32 in the aug words (aug16
-// [slots, 16]: words, GLOBAL start, count) and in the packed table, as in
-// lidog_tpu; ranks are __popc counts).
+// uint32 values in int32 tables, as in lidog_tpu: the real words (real16
+// [slots, 16]: 14 words, 2 zero pad words), the aug words (aug16 [slots,
+// 16]: words, GLOBAL start, count) and the packed table; ranks are __popc
+// counts).
 //
 //   KU: per slot s: the words of the rows dy slots away (dy = -r..r real
 //       slabs of ZWORDS words, then dy = -aug_r..aug_r aug slabs of ZWORDS
@@ -32,13 +33,14 @@
 //       gx and gy range checked), the ranks at z-s, z, z+s from one rank
 //       and two bit reads (rank(z+s) = rank(z) + bit(z), rank(z-s) =
 //       rank(z) - bit(z-s)); -1 where the bit is clear, z is outside the
-//       column or the row falls past the segment's cap_a rows.
+//       column or the row falls past the segment's cap_a rows -> pos3 int32
+//       [3, n], as lidog_tpu's.
 //
-// Bound on an H100: bytes.  KU reads the real words (int64: 88 MB at the
-// training plan's level 0) and aug16 (50 MB) and writes its table (377 MB
+// Bound on an H100: bytes.  KU reads the real words and aug16 (int32, 50
+// MB each at the training plan's level 0) and writes its table (377 MB
 // there: 786,432 slots x 120 int32); KR writes 134 x 2-4 bytes per row; KS
-// and KT read a grid cell and a table row per (row, dx) and write 9 int32
-// or 3 int64 per row.
+// and KT read a grid cell or a column id and a table row per (row, dx)
+// and write 9 or 3 int32 per row.
 //
 // Design: KU a block per KU_TILE consecutive slots: the tile's source rows
 // and a halo of R = max(r, aug_r) slots each side are staged once in
@@ -49,17 +51,18 @@
 // stores are one contiguous span).  KR/KS one thread per (row, dx): one
 // grid read, one table row read with __popc ranks; KR stages its occupancy
 // bits for 64 rows in shared memory and stores them as one contiguous
-// span.  KT one thread per row.
+// span.  KT one thread per source row (each load and store of a warp
+// contiguous but the aug16 row's): the row's coords, valid flag and
+// column id, then its aug16 row as 4 16-byte loads, its bits read in one
+// unrolled pass with constant indices (the row stays in registers).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "zseg_rows.cuh"
+
 namespace {
 
-constexpr int ZWORDS = 14;
-constexpr int ZC = ZWORDS * 16;
-constexpr int ZMAX = ZWORDS * 32;
 constexpr int SLAB = ZWORDS + 1;  // aug slab: words + start
-constexpr int AUG16 = ZWORDS + 2;  // aug16 row: words + start + count
 constexpr int ROWS = 64;           // KR/KS rows per block
 constexpr int STEM_R = 2;
 constexpr int STEM_K = (2 * STEM_R + 1) * (2 * STEM_R + 1) * (2 * STEM_R + 1);
@@ -68,6 +71,7 @@ constexpr int MAX_R = 4;             // KU's largest shift (core/zseg.py _KU_MAX
 constexpr int KU_TILE = 128;         // KU's slots per block
 constexpr int KU_THREADS = 256;
 constexpr int STAGE = 2 * ZWORDS + 1;  // a staged slot: real words | aug words + start
+constexpr int KT_THREADS = 256;
 
 // start + rank of bit bz in an aug slab (words, start), or -1 where the
 // row missed, bz is outside [0, ZMAX), the bit is clear or the position
@@ -158,43 +162,51 @@ sweep_kernel(const int* __restrict__ grid, const int* __restrict__ packed,
   }
 }
 
-// KT: one thread per source row.
-__global__ void pos3_kernel(const int* __restrict__ aug16, long long slots,
-                            const int4* __restrict__ coords, const uint8_t* __restrict__ valid,
-                            const long long* __restrict__ cid, long long* __restrict__ out, int n,
-                            int g, int cap_a, int grid_half, int level) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+// KT: one source row a thread; its coords, valid flag and column id are
+// loaded before its aug16 row (4 16-byte loads).
+__global__ void __launch_bounds__(KT_THREADS)
+pos3_kernel(const int4* __restrict__ aug16, int slots, const int4* __restrict__ coords,
+            const uint8_t* __restrict__ valid, const long long* __restrict__ cid,
+            int* __restrict__ out, int n, int g, int cap_a, int grid_half, int level) {
+  const int i = blockIdx.x * KT_THREADS + threadIdx.x;
   if (i >= n) return;
-  const int4 c = coords[i];
   const int gh = grid_half >> level;
-  const int gx0 = (c.y >> level) + gh;
-  const int gy0 = (c.z >> level) + gh;
+  const int4 c = coords[i];
+  const bool valid_i = valid[i];
+  const long long v = cid[i];
+  const int gx0 = (c.y >> level) + gh, gy0 = (c.z >> level) + gh;
+  const bool ok = valid_i && gx0 >= 0 && gx0 < g && gy0 >= 0 && gy0 < g;
+  // a hit (cid >= 0) past the table reads a zero row (the plain version's
+  // miss row); cd: its slot, -1 for no row, -2 for a zero row
+  const int cd = !ok || v < 0 ? -1 : v < slots ? (int)v : -2;
+  int4 w[4];  // the aug16 row: words 0-13, start, count
+#pragma unroll
+  for (int k = 0; k < 4; ++k) w[k] = cd >= 0 ? aug16[cd * 4 + k] : make_int4(0, 0, 0, 0);
+  const unsigned wd[ZWORDS] = {
+      (unsigned)w[0].x, (unsigned)w[0].y, (unsigned)w[0].z, (unsigned)w[0].w,
+      (unsigned)w[1].x, (unsigned)w[1].y, (unsigned)w[1].z, (unsigned)w[1].w,
+      (unsigned)w[2].x, (unsigned)w[2].y, (unsigned)w[2].z, (unsigned)w[2].w,
+      (unsigned)w[3].x, (unsigned)w[3].y};
+  const long long start = w[3].z;  // 0 on a miss
+  const bool hit = cd != -1;
   const int bz0 = (c.w >> level) + ZC;
-  const bool ok = valid[i] && gx0 >= 0 && gx0 < g && gy0 >= 0 && gy0 < g;
-  const long long cd = ok ? cid[i] : -1;
-  const bool hit = cd >= 0;
-  unsigned w[ZWORDS];
-  long long start = 0;  // a miss reads a zero row
-  const bool in_table = hit && cd < slots;
-#pragma unroll
-  for (int q = 0; q < ZWORDS; ++q) w[q] = in_table ? (unsigned)aug16[cd * AUG16 + q] : 0u;
-  if (in_table) start = (long long)aug16[cd * AUG16 + ZWORDS];
-  auto bit_at = [&](int bz) {
-    const int z = min(max(bz, 0), ZMAX - 1);
-    unsigned v = 0;
-#pragma unroll
-    for (int q = 0; q < ZWORDS; ++q) v = (q == (z >> 5)) ? w[q] : v;
-    return (int)((v >> (z & 31)) & 1u);
-  };
-  const int bzc = min(max(bz0, 0), ZMAX - 1);
+  // the words holding bits bz0 and bz0 -+ 1 (each z clamped into the
+  // column) and the rank of bz0, in one pass over the words with only
+  // constant indices (no local-memory copy of the row)
+  const int z0 = min(max(bz0, 0), ZMAX - 1), zm = min(max(bz0 - 1, 0), ZMAX - 1),
+            zp = min(max(bz0 + 1, 0), ZMAX - 1);
+  unsigned v0 = 0, vm = 0, vp = 0;
   int rank0 = 0;
 #pragma unroll
   for (int q = 0; q < ZWORDS; ++q) {
-    const unsigned below = q < (bzc >> 5) ? w[q]
-                           : q == (bzc >> 5) ? (w[q] & ((1u << (bzc & 31)) - 1u)) : 0u;
-    rank0 += __popc(below);
+    const unsigned x = wd[q];
+    v0 = q == (z0 >> 5) ? x : v0;
+    vm = q == (zm >> 5) ? x : vm;
+    vp = q == (zp >> 5) ? x : vp;
+    rank0 += __popc(q < (z0 >> 5) ? x : q == (z0 >> 5) ? (x & ((1u << (z0 & 31)) - 1u)) : 0u);
   }
-  const int ex0 = bit_at(bz0), bm1 = bit_at(bz0 - 1), bp1 = bit_at(bz0 + 1);
+  const int ex0 = (v0 >> (z0 & 31)) & 1u, bm1 = (vm >> (zm & 31)) & 1u,
+            bp1 = (vp >> (zp & 31)) & 1u;
   const long long seg_base = (long long)c.x * cap_a;
   const int rank[3] = {rank0 - bm1, rank0, rank0 + ex0};
   const int ex[3] = {bm1, ex0, bp1};
@@ -204,7 +216,7 @@ __global__ void pos3_kernel(const int* __restrict__ aug16, long long slots,
     const long long idx = start + rank[d];
     const bool okr = hit && bzd >= 0 && bzd < ZMAX && ex[d] == 1 && idx >= 0 &&
                      (idx - seg_base) < cap_a;
-    out[(size_t)d * n + i] = okr ? idx : -1;
+    out[(size_t)d * n + i] = okr ? (int)idx : -1;
   }
 }
 
@@ -212,7 +224,7 @@ __global__ void pos3_kernel(const int* __restrict__ aug16, long long slots,
 // rows [KU_TILE + 2R][STAGE] (words as uint32), each staged slot's
 // adjacency to the next, and each tile slot's dy mask (bit dy + R).
 __global__ void __launch_bounds__(KU_THREADS)
-build_packed_kernel(const long long* __restrict__ real_w, const int* __restrict__ aug16,
+build_packed_kernel(const int* __restrict__ real_w, const int* __restrict__ aug16,
                     const long long* __restrict__ bxy, const uint8_t* __restrict__ cvalid,
                     int* __restrict__ out, int slots, int ccap, int cap_a, int r, int aug_r,
                     int width) {
@@ -225,13 +237,12 @@ build_packed_kernel(const long long* __restrict__ real_w, const int* __restrict_
   const int s0 = blockIdx.x * KU_TILE;
   const int u0 = s0 - R;  // the slot of staged row 0
   const int nrows = min(KU_TILE, slots - s0);
-  // stage the real words (the low 32 bits of each int64), a contiguous span
+  // stage the real words (16-byte quarters of real16 rows, a contiguous
+  // span; the pad words are not staged)
   if (r >= 0) {
-    const long long e0 = (long long)u0 * ZWORDS, end = (long long)slots * ZWORDS;
-    for (int k = tid; k < span * ZWORDS; k += KU_THREADS) {
-      const int i = k / ZWORDS, q = k - i * ZWORDS;
-      const long long e = e0 + k;
-      sm[i * STAGE + q] = (e >= 0 && e < end) ? (unsigned)real_w[e] : 0u;
+    for (int k = tid; k < span * 4; k += KU_THREADS) {
+      const int i = k >> 2;
+      stage_real16(sm + i * STAGE, reinterpret_cast<const int4*>(real_w), u0 + i, slots, k & 3);
     }
   }
   // the aug words and the start (16-byte loads of aug16 rows), the start
@@ -356,23 +367,25 @@ extern "C" int conv9_packed(const void* grid, const void* packed, const void* co
   return (int)cudaGetLastError();
 }
 
-// KT: out int64 [3, n] from aug16 int32 [slots, 16] and each row's column
-// id.
+// KT: out int32 [3, n] from aug16 int32 [slots, 16] (16-byte aligned) and
+// each row's column id (int64).
 extern "C" int pos3_lookup(const void* aug16, const void* coords, const void* valid,
                            const void* cid, void* out, int n, int slots, int g, int cap_a,
                            int grid_half, int level, void* stream) {
-  if (n < 0 || slots < 0 || g < 1 || cap_a < 1 || level < 0 || !aligned16(coords))
+  if (n < 0 || slots < 0 || (long long)slots * AUG16 >= 0x7FFFFFFFLL || g < 1 || cap_a < 1 ||
+      level < 0 || !aligned16(coords) || !aligned16(aug16) || (long long)n * 3 >= 0x7FFFFFFFLL)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  pos3_kernel<<<(n + 255) / 256, 256, 0, as_stream(stream)>>>(
-      static_cast<const int*>(aug16), slots, static_cast<const int4*>(coords),
+  pos3_kernel<<<(n + KT_THREADS - 1) / KT_THREADS, KT_THREADS, 0, as_stream(stream)>>>(
+      static_cast<const int4*>(aug16), slots, static_cast<const int4*>(coords),
       static_cast<const uint8_t*>(valid), static_cast<const long long*>(cid),
-      static_cast<long long*>(out), n, g, cap_a, grid_half, level);
+      static_cast<int*>(out), n, g, cap_a, grid_half, level);
   return (int)cudaGetLastError();
 }
 
-// KU: out int32 [slots, width] from real_w int64 [slots, 14], aug16 int32
-// [slots, 16] (16-byte aligned), col_bxy int64 and col_valid bool [slots];
+// KU: out int32 [slots, width] from real_w int32 [slots, 16] and aug16
+// int32 [slots, 16] (both 16-byte aligned), col_bxy int64 and col_valid
+// bool [slots];
 // width = max(2r+1, 0)*14 + (2*aug_r+1)*15 rounded up to a multiple of 8.
 extern "C" int build_packed(const void* real_w, const void* aug16, const void* col_bxy,
                             const void* col_valid, void* out, int slots, int ccap, int cap_a,
@@ -380,14 +393,15 @@ extern "C" int build_packed(const void* real_w, const void* aug16, const void* c
   const int w = (r >= 0 ? (2 * r + 1) * ZWORDS : 0) + (2 * aug_r + 1) * SLAB;
   if (slots < 0 || ccap < 1 || cap_a < 1 || r < -1 || aug_r < 0 || aug_r > max(r, 1) ||
       max(r, aug_r) > MAX_R || width != (w + 7) / 8 * 8 || !aligned16(aug16) ||
-      !aligned16(out) || (long long)slots * width >= 0x7FFFFFFFLL)
+      !aligned16(real_w) || !aligned16(out) || (long long)slots * width >= 0x7FFFFFFFLL ||
+      (long long)slots * REAL_W >= 0x7FFFFFFFLL)
     return (int)cudaErrorInvalidValue;
   if (slots == 0) return 0;
   const int R = max(r, aug_r);
   const int span = KU_TILE + 2 * R;
   const size_t smem = (size_t)span * STAGE * 4 + KU_TILE * 4 + span;
   build_packed_kernel<<<(slots + KU_TILE - 1) / KU_TILE, KU_THREADS, smem, as_stream(stream)>>>(
-      static_cast<const long long*>(real_w), static_cast<const int*>(aug16),
+      static_cast<const int*>(real_w), static_cast<const int*>(aug16),
       static_cast<const long long*>(col_bxy), static_cast<const uint8_t*>(col_valid),
       static_cast<int*>(out), slots, ccap, cap_a, r, aug_r, width);
   return (int)cudaGetLastError();

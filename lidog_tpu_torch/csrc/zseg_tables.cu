@@ -12,9 +12,10 @@
 // Each output is bitwise equal to its plain version in core/zseg.py
 // (column_grid_plain, real_words_plain, assemble_aug_plain,
 // emit_rows_plain): the integer steps are the plain version's one for one.
-// z-bit words are uint32 values, held in int64 real-word tables and in the
-// int32 aug16 rows (words, GLOBAL start, count: lidog_tpu's dtype); the
-// column grid is int32, as lidog_tpu's; counts and scans are integer sums,
+// z-bit words are uint32 values, held in the int32 real-word rows (real16:
+// 14 words, 2 zero pad words) and aug16 rows (words, GLOBAL start, count),
+// 64 bytes a slot, as lidog_tpu's; the column grid is int32, as
+// lidog_tpu's; counts and scans are integer sums,
 // exact in any order; overflow terms are added with int32 atomics, which
 // wrap as the plain version's int64 sum cast to int32 does.
 //
@@ -44,12 +45,22 @@
 //       write of the slot stamps would differ where the plain version
 //       leaves a dilated slot unstamped (its voxel's own column past
 //       ccap), so they stay here.
-//   KW: level 0, unique input: atomicAdd of the bit on the word's low 32
-//       bits (the plain scatter-add mod 2^32); sortless input: atomicOr,
-//       counting the bits that were new per scan, then one block adds the
-//       deduped voxels past cap_real to overflow[0].  Levels 1-4: one
-//       thread per slot ORs its 4 child columns' words in the finer level's
-//       tables and coarsens them (_zpair_words).
+//   KW: level 0: the table zeroed with 16-byte stores (and the sortless
+//       scan counts), then one thread per source row: unique input
+//       atomicAdd of the bit on its word (the plain scatter-add mod 2^32);
+//       sortless input atomicOr, counting the bits that were new per scan,
+//       then one block adds the deduped voxels past cap_real to
+//       overflow[0].  Levels 1-4: a group of 4 lanes per slot, lane q
+//       owning the 16-byte quarter q (words 4q .. 4q+3) of the row: lane q
+//       looks up child column q (cx = q >> 1, cy = q & 1) in the finer
+//       level's grid and shuffles its id to the group, every lane reads
+//       its quarter of the 4 child rows (4 independent 16-byte loads; a
+//       warp's loads cover whole 64-byte rows) and ORs them, compresses
+//       each word's pairs (_zpair_words' bit step) to 16 bits, packs its 4
+//       halves into 2 words, and takes from lanes 2q-2, 2q-1 and 2q of
+//       the group the 5 packed words whose 16-bit shifted pairs are its
+//       output words (word k = comp[2k-7] | comp[2k-6] << 16, the ZC
+//       recentring); a warp's 16-byte stores cover 8 whole rows.
 //   KX: one launch; a block per tile of KX_TILE slots of one scan, taken
 //       in order from a tile counter: the tile's real words and those of
 //       one slot each side are staged in shared memory (coalesced), where
@@ -87,17 +98,17 @@
 // passes with look-back; no library scan.
 //
 // Bound on an H100: bytes.  KV writes the int32 grid (B*g*g*4: 67 MB at
-// the training plan's level 0), the others their tables and rows (KX
-// reads the int64 real words, 88 MB there, and writes aug16, 50 MB).
+// the training plan's level 0), the others their tables and rows (KW
+// writes the int32 real words, 50 MB there with the pad words, which KX
+// reads back; KX writes aug16, 50 MB).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "zseg_rows.cuh"
+
 namespace {
 
-constexpr int ZWORDS = 14;
-constexpr int ZC = ZWORDS * 16;
-constexpr int ZMAX = ZWORDS * 32;
-constexpr int AUG16 = ZWORDS + 2;  // aug16 row: words + start + count
+constexpr int KW_LANES = 4;        // KW coarsening: lanes a slot, a 16-byte quarter each
 constexpr int NUM_LEVELS = 5;
 constexpr int THREADS = 256;      // per-thread launches
 constexpr int KX_TILE = 256;      // KX's slots per tile = threads per block
@@ -438,28 +449,36 @@ __global__ void stamp_kernel(const int4* __restrict__ coords, const uint8_t* __r
   if ((threadIdx.x & 31) == 0 && drops) atomicAdd(overflow + 1 + level, __popc(drops));
 }
 
+// KW, level 0: the table (int4 [slots * 4]) and the sortless scan
+// counts zeroed before the bits are stamped.
+__global__ void real_zero_kernel(int4* __restrict__ real4, int n4,
+                                 unsigned long long* __restrict__ nreal, int nb) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n4) real4[i] = make_int4(0, 0, 0, 0);
+  if (nreal != nullptr && i < nb) nreal[i] = 0ULL;  // nb <= slots < n4
+}
+
 // KW, level 0: the source rows' bits.
 __global__ void real_bits_kernel(const int4* __restrict__ coords, const uint8_t* __restrict__ valid,
                                  const long long* __restrict__ vox_cid,
-                                 long long* __restrict__ real_w,
+                                 unsigned* __restrict__ real_w,
                                  unsigned long long* __restrict__ nreal, int n, int grid_half,
-                                 int ccap, long long slots, bool unique) {
+                                 int ccap, int slots, bool unique) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   bool fresh = false;
-  long long b = 0;
+  int b = 0;
   if (i < n) {
     const long long cid = vox_cid[i];
     const Cell c = cell_of(coords[i], valid[i], grid_half, 0);
     if (c.ok && cid >= 0 && cid < slots) {
       const int word = clampi(c.bz >> 5, 0, ZWORDS - 1);
       const unsigned bit = 1u << (c.bz & 31);
-      // the word's low 32 bits (little endian); the high ones stay 0
-      unsigned* w = reinterpret_cast<unsigned*>(real_w + cid * ZWORDS + word);
+      unsigned* w = real_w + (int)cid * REAL_W + word;
       if (unique) {
         atomicAdd(w, bit);
       } else {
         fresh = !(atomicOr(w, bit) & bit);
-        b = cid / ccap;
+        b = (int)cid / ccap;
       }
     }
   }
@@ -485,54 +504,70 @@ __device__ __forceinline__ unsigned compress_even(unsigned x) {
   return x;
 }
 
-// KW, levels 1-4: one thread per slot: 4 child fetches, then _zpair_words.
+// KW, levels 1-4: KW_LANES lanes per slot (see the top): 4 child fetches,
+// then _zpair_words.  Sizes below 2^31 (the wrapper's checks): 32-bit
+// indices.
 __global__ void coarsen_kernel(const long long* __restrict__ col_bxy,
                                const uint8_t* __restrict__ col_valid,
                                const int* __restrict__ fine_grid,
-                               const long long* __restrict__ fine_real,
-                               long long* __restrict__ real_w, long long slots,
-                               long long fine_slots, int nb, int grid_half, int level) {
-  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= slots) return;
+                               const int4* __restrict__ fine_real,
+                               int4* __restrict__ real_w, int slots, int fine_slots, int nb,
+                               int grid_half, int level) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int s = t / KW_LANES, q = threadIdx.x % KW_LANES;
+  const bool in = s < slots;  // every lane takes part in the shuffles
   const int f_g = (2 * grid_half) >> (level - 1);
-  const long long fine_cells = (long long)nb * f_g * f_g;
-  const long long p = col_bxy[s];
-  const long long bC = p >> 24, gxC = (p >> 12) & 4095, gyC = p & 4095;
-  const bool v = col_valid[s];
-  unsigned acc[ZWORDS];
-#pragma unroll
-  for (int q = 0; q < ZWORDS; ++q) acc[q] = 0u;
-#pragma unroll
-  for (int cx = 0; cx < 2; ++cx) {
-#pragma unroll
-    for (int cy = 0; cy < 2; ++cy) {
-      const long long gxf = 2 * gxC + cx, gyf = 2 * gyC + cy;
-      if (!(v && gxf < f_g && gyf < f_g)) continue;
-      const long long flat = (bC * f_g + gxf) * f_g + gyf;
-      if (flat < 0 || flat >= fine_cells) continue;
-      const long long cidf = fine_grid[flat];  // int32 grid
-      if (cidf < 0 || cidf >= fine_slots) continue;  // a miss: a zero row
-#pragma unroll
-      for (int q = 0; q < ZWORDS; ++q) acc[q] |= (unsigned)fine_real[cidf * ZWORDS + q];
+  // lane q's child column (cx, cy) = (q >> 1, q & 1) through the fine grid
+  int cidf = -1;
+  if (in && col_valid[s]) {
+    const long long p = col_bxy[s];
+    const int bC = (int)(p >> 24), gxf = 2 * (int)((p >> 12) & 4095) + (q >> 1),
+              gyf = 2 * (int)(p & 4095) + (q & 1);
+    if (gxf < f_g && gyf < f_g && bC >= 0 && bC < nb) {
+      const int c = fine_grid[(bC * f_g + gxf) * f_g + gyf];
+      if (c >= 0 && c < fine_slots) cidf = c;  // else a miss: a zero row
     }
   }
-  unsigned comp[ZWORDS];
+  // the group's 4 child ids, then this lane's quarter of each child row
+  int4 v[KW_LANES];
 #pragma unroll
-  for (int q = 0; q < ZWORDS; ++q) comp[q] = compress_even(acc[q] | (acc[q] >> 1));
-#pragma unroll
-  for (int k = 0; k < ZWORDS; ++k) {  // word k = comp[2k-7] | comp[2k-6] << 16
-    const int lo = 2 * k - ZWORDS / 2, hi = lo + 1;
-    const unsigned wl = (lo >= 0 && lo < ZWORDS) ? comp[lo] : 0u;
-    const unsigned wh = (hi >= 0 && hi < ZWORDS) ? comp[hi] : 0u;
-    real_w[s * ZWORDS + k] = (long long)(wl | (wh << 16));
+  for (int j = 0; j < KW_LANES; ++j) {
+    const int c = __shfl_sync(0xffffffffu, cidf, j, KW_LANES);
+    v[j] = c >= 0 ? fine_real[c * (REAL_W / 4) + q] : make_int4(0, 0, 0, 0);
   }
+  unsigned a[4];
+  a[0] = (unsigned)(v[0].x | v[1].x | v[2].x | v[3].x);
+  a[1] = (unsigned)(v[0].y | v[1].y | v[2].y | v[3].y);
+  a[2] = (unsigned)(v[0].z | v[1].z | v[2].z | v[3].z);
+  a[3] = (unsigned)(v[0].w | v[1].w | v[2].w | v[3].w);
+  if (q == KW_LANES - 1) a[2] = a[3] = 0u;  // words 14, 15: no z bits
+  // comp of words 4q .. 4q+3, two 16-bit halves a packed word
+  unsigned c[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] = compress_even(a[e] | (a[e] >> 1));
+  const unsigned p0 = c[0] | (c[1] << 16), p1 = c[2] | (c[3] << 16);
+  // out word 4q+e = comp[8q+2e-7] | comp[8q+2e-6] << 16: comps 8q-8 .. 8q
+  // are packed words p0, p1 of lanes 2q-2 and 2q-1 and p0 of lane 2q (0
+  // outside the group: comps below 0 or above 13)
+  unsigned w[5];
+#pragma unroll
+  for (int j = 0; j < 5; ++j) {
+    const int src = 2 * q - 2 + (j >> 1);
+    const unsigned x = __shfl_sync(0xffffffffu, (j & 1) ? p1 : p0, src & (KW_LANES - 1),
+                                   KW_LANES);
+    w[j] = src >= 0 && src < KW_LANES ? x : 0u;
+  }
+  if (in)
+    real_w[s * (REAL_W / 4) + q] =
+        make_int4((int)__funnelshift_r(w[0], w[1], 16), (int)__funnelshift_r(w[1], w[2], 16),
+                  (int)__funnelshift_r(w[2], w[3], 16), (int)__funnelshift_r(w[3], w[4], 16));
 }
 
 // KX: one block per tile (see the top).  state: [nb * tiles_per_scan]
 // status words, then the tile and finish counters (two uint32); all 0 on
 // entry and on exit.
 __global__ void __launch_bounds__(KX_TILE)
-aug_kernel(const long long* __restrict__ real_w, const long long* __restrict__ bxy,
+aug_kernel(const int* __restrict__ real_w, const long long* __restrict__ bxy,
            const uint8_t* __restrict__ cvalid, const int* __restrict__ grid,
            int* __restrict__ aug16, long long* __restrict__ counts_b, int* __restrict__ overflow,
            unsigned long long* __restrict__ state, int nb, int g, int ccap, int cap_a, int level,
@@ -565,12 +600,11 @@ aug_kernel(const long long* __restrict__ real_w, const long long* __restrict__ b
     bxy_s[i] = in ? bxy[u] : 0;
     val_s[i] = in ? cvalid[u] : 0;
   }
-  {
-    const long long e0 = (long long)(s0 - 1) * ZWORDS, end = (long long)slots * ZWORDS;
-    for (int e = tid; e < (n_in + 2) * ZWORDS; e += KX_TILE) {
-      const int i = e / ZWORDS, q = e - i * ZWORDS;
-      own_s[i * KX_ROW + q] = (e0 + e >= 0 && e0 + e < end) ? (unsigned)real_w[e0 + e] : 0u;
-    }
+  // 16-byte quarters of the staged rows (the pad words are not staged)
+  for (int e = tid; e < (n_in + 2) * 4; e += KX_TILE) {
+    const int i = e >> 2;
+    stage_real16(own_s + i * KX_ROW, reinterpret_cast<const int4*>(real_w), s0 - 1 + i, slots,
+                 e & 3);
   }
   __syncthreads();
   // per slot: its own yor3 and its x-neighbours' slots
@@ -628,7 +662,7 @@ aug_kernel(const long long* __restrict__ real_w, const long long* __restrict__ b
         const int p = p0 + 16 * j;
         const int cn = p < npairs ? pcid_s[p] : -1;
         const bool here = cn >= 0, up = here && cn + 1 < slots, dn = here && cn >= 1;
-        const long long* row = real_w + (long long)(here ? cn : 0) * ZWORDS + hl;
+        const int* row = real_w + (here ? cn : 0) * REAL_W + hl;
         pc[j] = here ? bxy[cn] : 0;
         pu[j] = up ? bxy[cn + 1] : 0;
         pd[j] = dn ? bxy[cn - 1] : 0;
@@ -636,8 +670,8 @@ aug_kernel(const long long* __restrict__ real_w, const long long* __restrict__ b
         vu[j] = up ? cvalid[cn + 1] : 0;
         vd[j] = dn ? cvalid[cn - 1] : 0;
         w0[j] = here && word ? (unsigned)row[0] : 0u;
-        wu[j] = up && word ? (unsigned)row[ZWORDS] : 0u;
-        wd[j] = dn && word ? (unsigned)row[-ZWORDS] : 0u;
+        wu[j] = up && word ? (unsigned)row[REAL_W] : 0u;
+        wd[j] = dn && word ? (unsigned)row[-REAL_W] : 0u;
       }
 #pragma unroll
       for (int j = 0; j < KX_PAIRS; ++j) {
@@ -735,7 +769,7 @@ aug_kernel(const long long* __restrict__ real_w, const long long* __restrict__ b
 
 // KY (1): one thread per source row: its candidates' packed words and
 // the real flag into the scratch rows, and the level's row maps.
-__global__ void scatter_rows_kernel(const long long* __restrict__ pos3,
+__global__ void scatter_rows_kernel(const int* __restrict__ pos3,
                                     const int4* __restrict__ coords,
                                     const uint8_t* __restrict__ valid,
                                     unsigned* __restrict__ packed_a, uint8_t* __restrict__ flag_a,
@@ -754,14 +788,14 @@ __global__ void scatter_rows_kernel(const long long* __restrict__ pos3,
   int p[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {  // candidates z-1, z, z+1
-    const long long q = pos3[(long long)d * n + i];
-    p[d] = q >= 0 && q < n_a ? (int)q : -1;
+    const int q = pos3[(size_t)d * n + i];
+    p[d] = q >= 0 && q < n_a ? q : -1;
     if (p[d] >= 0) packed_a[p[d]] = packed0 + d - 1;
   }
   const bool vi = valid[i];
   if (vi && p[1] >= 0) flag_a[p[1]] = 1;
   if (level == 0) {
-    const int pin = vi ? (int)pos3[n + i] : -1;
+    const int pin = vi ? pos3[n + i] : -1;
     pos[i] = pin;
     if (rep && pin >= 0 && pin < n_a) atomicMin(map8 + pin, i);
     return;
@@ -770,7 +804,7 @@ __global__ void scatter_rows_kernel(const long long* __restrict__ pos3,
   const int lowmask = (1 << level) - 1;
   const int offv = ((cr.y & lowmask) >> (level - 1)) * 4 + ((cr.z & lowmask) >> (level - 1)) * 2 +
                    ((cr.w & lowmask) >> (level - 1));
-  pos[i] = (int)pos3[n + i];
+  pos[i] = pos3[n + i];
   off[i] = offv;
   if (p[1] >= 0) map8[(size_t)clampi(offv, 0, 7) * n_a + p[1]] = i;
 }
@@ -905,39 +939,49 @@ extern "C" int column_grid(const void* coords, const void* valid, void* grid, vo
   return (int)cudaGetLastError();
 }
 
-// KW: real_w int64 [nb*ccap, 14] (zeroed by the caller at level 0).  Level
-// 0 reads coords, valid, vox_cid (n rows; unique or sortless, nreal int64
-// [nb] zeroed); levels 1-4 read col_bxy, col_valid and the finer level's
-// fine_grid int32 [nb*(2g)^2] and fine_real int64 [fine_slots, 14].
+// KW: real_w int32 [nb*ccap, 16] (16-byte aligned; level 0 zeroed here
+// first).  Level 0 reads coords, valid, vox_cid (n rows; unique or
+// sortless, nreal int64 [nb] scratch, zeroed here too); levels 1-4 read
+// col_bxy, col_valid and the finer level's fine_grid int32 [nb*(2g)^2] and
+// fine_real int32 [fine_slots, 16] (16-byte aligned).
 extern "C" int real_words(const void* coords, const void* valid, const void* vox_cid,
                           const void* col_bxy, const void* col_valid, const void* fine_grid,
                           const void* fine_real, void* real_w, void* nreal, void* overflow, int n,
                           int fine_slots, int nb, int ccap, int grid_half, int level, int unique,
                           int cap_real, void* stream) {
-  if (n < 0 || fine_slots < 0 || !level_ok(nb, grid_half, level) || ccap < 1)
+  if (n < 0 || fine_slots < 0 || !level_ok(nb, grid_half, level) || ccap < 1 ||
+      (long long)nb * ccap * REAL_W >= 0x7FFFFFFFLL || !aligned16(real_w))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = as_stream(stream);
-  const long long slots = (long long)nb * ccap;
+  const int slots = nb * ccap;
   if (level == 0) {
-    if (!aligned16(coords)) return (int)cudaErrorInvalidValue;
+    if (!aligned16(coords) || (!unique && nreal == nullptr)) return (int)cudaErrorInvalidValue;
+    const int n4 = slots * (REAL_W / 4);
+    real_zero_kernel<<<blocks_of(n4), THREADS, 0, st>>>(
+        static_cast<int4*>(real_w), n4,
+        unique ? nullptr : static_cast<unsigned long long*>(nreal), nb);
     if (n > 0)
       real_bits_kernel<<<blocks_of(n), THREADS, 0, st>>>(
           static_cast<const int4*>(coords), static_cast<const uint8_t*>(valid),
-          static_cast<const long long*>(vox_cid), static_cast<long long*>(real_w),
+          static_cast<const long long*>(vox_cid), static_cast<unsigned*>(real_w),
           static_cast<unsigned long long*>(nreal), n, grid_half, ccap, slots, unique != 0);
     if (!unique)
       real_over_kernel<<<1, 32, 0, st>>>(static_cast<const unsigned long long*>(nreal),
                                          static_cast<int*>(overflow), nb, cap_real);
   } else {
-    coarsen_kernel<<<blocks_of(slots), THREADS, 0, st>>>(
+    if (!level_ok(nb, grid_half, level - 1) || (long long)fine_slots * REAL_W >= 0x7FFFFFFFLL ||
+        !aligned16(fine_real))
+      return (int)cudaErrorInvalidValue;
+    coarsen_kernel<<<blocks_of((long long)slots * KW_LANES), THREADS, 0, st>>>(
         static_cast<const long long*>(col_bxy), static_cast<const uint8_t*>(col_valid),
-        static_cast<const int*>(fine_grid), static_cast<const long long*>(fine_real),
-        static_cast<long long*>(real_w), slots, fine_slots, nb, grid_half, level);
+        static_cast<const int*>(fine_grid), static_cast<const int4*>(fine_real),
+        static_cast<int4*>(real_w), slots, fine_slots, nb, grid_half, level);
   }
   return (int)cudaGetLastError();
 }
 
-// KX: grid int32 [nb*g*g]; aug16 int32 [nb*ccap, 16] (16-byte aligned),
+// KX: real_w int32 [nb*ccap, 16] (KW's, 16-byte aligned); grid int32
+// [nb*g*g]; aug16 int32 [nb*ccap, 16] (16-byte aligned),
 // counts_b int64 [nb];
 // state: int64 [nb * ceil(ccap / KX_TILE) + 1], zero on entry and left
 // zero (the look-back words and the two tile counters).
@@ -946,18 +990,19 @@ extern "C" int assemble_aug(const void* real_w, const void* col_bxy, const void*
                             void* overflow, int nb, int g, int ccap, int cap_a, int level,
                             void* stream) {
   if (nb < 1 || g < 1 || ccap < 1 || cap_a < 1 || level < 0 || level >= NUM_LEVELS ||
-      (long long)nb * ccap * AUG16 >= 0x7FFFFFFFLL || !aligned16(aug16))
+      (long long)nb * ccap * AUG16 >= 0x7FFFFFFFLL || !aligned16(aug16) || !aligned16(real_w))
     return (int)cudaErrorInvalidValue;
   const int tiles_per_scan = (ccap + KX_TILE - 1) / KX_TILE;
   aug_kernel<<<nb * tiles_per_scan, KX_TILE, 0, as_stream(stream)>>>(
-      static_cast<const long long*>(real_w), static_cast<const long long*>(col_bxy),
+      static_cast<const int*>(real_w), static_cast<const long long*>(col_bxy),
       static_cast<const uint8_t*>(col_valid), static_cast<const int*>(grid),
       static_cast<int*>(aug16), static_cast<long long*>(counts_b), static_cast<int*>(overflow),
       static_cast<unsigned long long*>(state), nb, g, ccap, cap_a, level, tiles_per_scan);
   return (int)cudaGetLastError();
 }
 
-// KY: coords_a int32 [nb*cap_a, 4]; real_a, valid_a, zup, zdn bool
+// KY: from pos3 int32 [3, n] (KT's) and counts_b int64 [nb]: coords_a
+// int32 [nb*cap_a, 4]; real_a, valid_a, zup, zdn bool
 // [nb*cap_a]; scratch: packed_a uint32 [nb*cap_a] and flag_a bool
 // [nb*cap_a], zero on entry, flag_a left zero; stale uint32 [stale_n], the
 // packed rows of an earlier launch, cleared here; pos int32 [n] (level 0:
@@ -978,7 +1023,7 @@ extern "C" int emit_rows(const void* pos3, const void* coords, const void* valid
   const int tiles_per_scan = (cap_a + KY_TILE - 1) / KY_TILE;
   if (n > 0)
     scatter_rows_kernel<<<blocks_of(n), THREADS, 0, st>>>(
-        static_cast<const long long*>(pos3), static_cast<const int4*>(coords),
+        static_cast<const int*>(pos3), static_cast<const int4*>(coords),
         static_cast<const uint8_t*>(valid), static_cast<unsigned*>(packed_a),
         static_cast<uint8_t*>(flag_a), static_cast<int*>(pos), static_cast<int*>(off),
         static_cast<int*>(map8), n, n_a, grid_half, level, rep != 0);

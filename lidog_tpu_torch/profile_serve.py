@@ -71,7 +71,8 @@ _GROUPS = (("zconv3_fwd_kernel", "zconv3_fwd"),
            ("build_packed_kernel", "build_packed"),
            ("bit_stamp_kernel", "column_grid"),
            ("grid_rows_kernel", "column_grid"),
-           ("stamp_kernel", "column_grid"), ("real_bits_kernel", "real_words"),
+           ("stamp_kernel", "column_grid"), ("real_zero_kernel", "real_words"),
+           ("real_bits_kernel", "real_words"),
            ("real_over_kernel", "real_words"),
            ("coarsen_kernel", "real_words"), ("aug_kernel", "assemble_aug"),
            ("scatter_rows_kernel", "emit_rows"),

@@ -25,11 +25,11 @@ and L0 96 in f32) on the training plan and KD on the serving plan, also
 as device ms (torch.profiler) with their sums over a step's and a
 request's 62 norms and the device split of KG's and KH's kernels at L0
 96, the voxelizer (LC) at its serving and training shapes, and the plan
-kernels of chip_smoke's PLAN_FORMS (KU and the column tables KV-KY at
-every level of the serving and training plans, KR, KS, KQ and KT at some)
-on the builder's own inputs, also as device ms (KV and KY split into each
-kernel and fill), with a step's and a request's device sums of KU and of
-each of KV-KY beside their byte bounds (each checkout's own tables),
+kernels of chip_smoke's PLAN_FORMS (KT, KU and the column tables KV-KY at
+every level of the serving and training plans, KR, KS and KQ at some) on
+the builder's own inputs, also as device ms (KV, KW and KY split into each
+kernel and fill), with a step's and a request's device sums of KT, KU and
+of each of KV-KY beside their byte bounds (each checkout's own tables),
 with CUDA events (ms per call, mean of 10 after a warm-up, as chip_smoke's
 `cuda_ms`), on the seeded inputs of chip_smoke and with each checkout's
 own kernels, and prints one JSON line (`kernels -- plan`: the plan
@@ -98,9 +98,9 @@ def device_ms(fn, calls=5, split=False):
 tpts, tlabels = cs.train_data()
 b = cs.train_batch(tpts, tlabels, dev)
 # the plan kernels (chip_smoke's PLAN_FORMS, passed in as JSON) on the
-# inputs the builder gives them: events and device ms, the byte bound (KV
-# and KY also the device ms of each kernel and fill of a call), and the
-# KU, KV, KW, KX and KY sums over a step's and a request's 5 levels
+# inputs the builder gives them: events and device ms, the byte bound (KV,
+# KW and KY also the device ms of each kernel and fill of a call), and the
+# KT, KU, KV, KW, KX and KY sums over a step's and a request's 5 levels
 from lidog_tpu_torch.caps import make_zcaps
 from lidog_tpu_torch.core import zseg as Z
 
@@ -133,13 +133,13 @@ for pname, (builder, coords, mask) in builders.items():
         nbyte = (cs.table_nbytes if table else cs.sweep_nbytes)(
             name, args, kwargs)
         out[f"{key} bound"] = nbyte / cs.HBM_BYTES_PER_S * 1e3
-        if name in ("column_grid", "emit_rows"):  # each kernel and fill
+        if name in ("column_grid", "real_words", "emit_rows"):  # by kernel
             out[f"{key} split"] = device_ms(lambda: fn(*args, **kwargs),
                                             split=True)
         tag = {"train": "a step", "serve": "a request"}.get(pname)
         group = {"_build_packed": "KU", "column_grid": "KV",
                  "real_words": "KW", "assemble_aug": "KX",
-                 "emit_rows": "KY"}.get(name)
+                 "emit_rows": "KY", "pos3_lookup": "KT"}.get(name)
         if tag and group:
             for part in ("device", "bound"):
                 k = f"{group} {tag} (5 levels), {part}"

@@ -190,8 +190,10 @@ def test_plan_tables_bitwise_equal(case, request):
     (assemble_aug_plain) and KU (_build_packed_plain) against
     lidog_tpu's _assemble_aug and _build_packed, jitted on the CPU, on the
     same tables (the port's plain builder's column tables of each level,
-    as numpy): aug16 (int32 words, global start, count), counts_b, the aug
-    rows' overflow term, and the packed rows with their padding.  Widths:
+    as numpy; its real words, int32 [slots, 16] with zero pad words as
+    lidog_tpu's real16, go in unchanged): aug16 (int32 words, global
+    start, count), counts_b, the aug rows' overflow term, and the packed
+    rows with their padding.  Widths:
     r 2 / aug_r 1 (115 -> 120 words) and r 2 / aug_r 2 (the general stem,
     145 -> 152) at level 0, r -1 / aug_r 1 (45 -> 48) at levels 1-4.
     Inputs: tests/test_zseg.py's (unique; and its starved caps, as
@@ -235,11 +237,12 @@ def test_plan_tables_bitwise_equal(case, request):
         if name != "assemble_aug":
             continue
         real_w, col_bxy, col_valid, grid_d, nb, g, ccap, cap_a = args
-        # lidog_tpu's tables: int32 (real16 has 2 spare words)
-        real16 = np.zeros((real_w.shape[0], 16), np.int32)
-        real16[:, :14] = real_w.numpy().astype(np.uint32).view(np.int32)
-        assert grid_d.dtype == torch.int32  # lidog_tpu's cid_grid dtype
-        jargs = (jnp.asarray(real16),
+        # lidog_tpu's real16 and cid_grid dtypes and layout
+        assert real_w.dtype == torch.int32
+        assert tuple(real_w.shape) == (nb * ccap, 16)
+        assert not real_w[:, 14:].any() and real_w[:, :14].any()
+        assert grid_d.dtype == torch.int32
+        jargs = (jnp.asarray(real_w.numpy()),
                  jnp.asarray(col_bxy.numpy().astype(np.int32)),
                  jnp.asarray(col_valid.numpy()),
                  jnp.asarray(grid_d.numpy()))
@@ -488,6 +491,185 @@ def test_column_grid_row_pass_model(g, r, tile_words, blocks):
     grid, over = _kv_row_pass(has, ccap, r, tile_words, blocks, rng)
     np.testing.assert_array_equal(grid, np.asarray(jgrid))
     assert over == int(jover) > 0
+
+
+def _pos3_case(case):
+    """(coords, mask, B, caps_real, caps_aug, grid_half, builder options)
+    of the pos3 cases: _zseg_case's zseg and sortless; zseg_starved with
+    tests/test_zseg.py's caps_real and caps_aug cut as
+    test_plan_tables_bitwise_equal's (aug rows past cap_a) and its
+    y-dilated column caps as _zseg_case's (rows whose column was
+    dropped)."""
+    coords, mask, B, caps_r, caps_a, gh, options = _zseg_case(case)
+    if case == "zseg_starved":
+        caps_r = tuple(c // 2 for c in caps_r)
+        caps_a = tuple(c // 3 for c in caps_a)
+    return coords, mask, B, caps_r, caps_a, gh, options
+
+
+@pytest.mark.parametrize("case", ["zseg", "zseg_starved", "sortless"])
+def test_pos3_bitwise_equal(case, request):
+    """The port's plain KT (pos3_plain) against lidog_tpu's pos3_lookup,
+    jitted on the CPU, at every level of the builder's plan: the same aug16,
+    source rows and column ids (the builder's vox_cid), and the level's
+    grid; both int32 [3, N] and equal.  The starved case loses rows both
+    to dropped columns and to the aug rows' cap."""
+    from tests.conftest import run_isolated
+
+    if run_isolated(request):
+        return
+    import jax.numpy as jnp
+    import torch
+
+    from lidog_tpu.core import zseg as jz
+    from lidog_tpu_torch.core import zseg as tz
+
+    coords, mask, B, caps_r, caps_a, gh, options = _pos3_case(case)
+    builder = tz.ZSegPlanBuilder(caps_r, caps_a, num_batches=B,
+                                 grid_half=gh, **options)
+    calls = {}
+    for lvl, name, args, kwargs in builder.sweep_inputs(
+            torch.from_numpy(coords), torch.from_numpy(mask)):
+        calls.setdefault(lvl, {})[name] = (args, kwargs)
+    misses = 0
+    for lvl in range(5):
+        args, kwargs = calls[lvl]["pos3_lookup"]
+        aug16, src, valid, g, cap_a, _, level = args
+        ccap = calls[lvl]["_build_packed"][0][5]
+        grid_d = calls[lvl]["conv9_packed" if lvl else
+                            "stem_conv9_packed"][0][0]
+        pos3 = tz.pos3_plain(*args, **kwargs)
+        cid = kwargs["cid"].numpy()
+        assert cid.min() >= -1 and cid.max() < 2**31
+        want = np.asarray(jz.pos3_lookup(
+            jnp.asarray(grid_d.numpy()), jnp.asarray(aug16.numpy()),
+            jnp.asarray(src.numpy()), jnp.asarray(valid.numpy()), g=g,
+            ccap=ccap, cap_a=cap_a, nb=B, grid_half=gh, level=level,
+            cid=jnp.asarray(cid.astype(np.int32))))
+        assert pos3.dtype == torch.int32 and want.dtype == np.int32
+        np.testing.assert_array_equal(pos3.numpy(), want,
+                                      err_msg=f"pos3 L{lvl}")
+        assert (want[1][valid.numpy()] >= 0).any()
+        misses += int((want[1][valid.numpy()] < 0).sum())
+    assert (misses > 0) == (case == "zseg_starved"), misses
+
+
+def _kw_coarsen_model(col_bxy, col_valid, fine_grid, fine_real, nb: int,
+                      grid_half: int, level: int, threads: int = 256):
+    """A numpy transliteration of KW's coarsening at levels 1-4
+    (csrc/zseg_tables.cu coarsen_kernel), lane by lane: 4 lanes a slot
+    (thread t: slot t // 4, quarter q = t % 4), lane q's grid lookup of
+    child column q shuffled to its group, every lane's 16-byte quarter of
+    the 4 child rows ORed, the pair compression, the packed halves p0 and
+    p1, the 5 width-4 shuffles from lanes 2q-2, 2q-1 and 2q, and the
+    16-bit funnel shifts into the lane's 4 output words.  Returns the
+    int32 table [slots, 16]."""
+    u32 = np.uint64(0xFFFFFFFF)
+    slots, fs = col_bxy.shape[0], fine_real.shape[0]
+    n = -(-slots * 4 // threads) * threads  # the launch's lanes
+    t = np.arange(n)
+    s, q = t // 4, t % 4
+    inn = s < slots
+    sc = np.minimum(s, slots - 1)
+    f_g = (2 * grid_half) >> (level - 1)
+    p = col_bxy[sc]
+    b = p >> 24
+    gxf = 2 * ((p >> 12) & 4095) + (q >> 1)
+    gyf = 2 * (p & 4095) + (q & 1)
+    ok = (inn & col_valid[sc] & (gxf < f_g) & (gyf < f_g) & (b >= 0)
+          & (b < nb))
+    c = fine_grid[np.where(ok, (b * f_g + gxf) * f_g + gyf, 0)]
+    cidf = np.where(ok & (c >= 0) & (c < fs), c, -1)
+
+    def shfl(v, src):  # __shfl_sync(.., v, src, 4): src in [0, 4)
+        return v[t - t % 4 + src]
+
+    quarters = fine_real.astype(np.int64).astype(np.uint64).reshape(
+        fs, 4, 4) & u32
+    acc = np.zeros((n, 4), np.uint64)
+    for j in range(4):
+        cj = shfl(cidf, j)
+        acc |= np.where(cj[:, None] >= 0, quarters[np.maximum(cj, 0), q], 0)
+    acc[q == 3, 2:] = 0  # words 14, 15
+
+    def compress(x):
+        x = x & np.uint64(0x55555555)
+        for sh, m in ((1, 0x33333333), (2, 0x0F0F0F0F), (4, 0x00FF00FF),
+                      (8, 0x0000FFFF)):
+            x = (x | (x >> np.uint64(sh))) & np.uint64(m)
+        return x
+
+    comp = compress(acc | (acc >> np.uint64(1)))
+    sixteen = np.uint64(16)
+    p0 = comp[:, 0] | (comp[:, 1] << sixteen)
+    p1 = comp[:, 2] | (comp[:, 3] << sixteen)
+    w = []
+    for j in range(5):
+        src = 2 * q - 2 + (j >> 1)
+        x = shfl(p1 if j & 1 else p0, src & 3)
+        w.append(np.where((src >= 0) & (src < 4), x, np.uint64(0)))
+    out = np.zeros((slots, 16), np.uint64)
+    for e in range(4):
+        word = ((w[e] >> sixteen) | (w[e + 1] << sixteen)) & u32
+        out[s[inn], 4 * q[inn] + e] = word[inn]
+    return out.astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("case", ["zseg", "sortless", "edges",
+                                  "edges_col_starved"])
+def test_real_words_coarsen_model(case):
+    """KW's coarsening (levels 1-4), transliterated to numpy
+    (_kw_coarsen_model), against real_words_plain on the builder's own
+    inputs at every level: _zseg_case's zseg and sortless inputs, and the
+    edge voxels (data/synthetic.py plan_edge_voxels) with roomy and with
+    starved y-dilated column caps (child columns missing from the finer
+    grid).  The output is int32 [slots, 16] with zero pad words, the row
+    layout that csrc/zseg_rows.cuh states for both CUDA sources."""
+    import re
+
+    import torch
+
+    from lidog_tpu_torch.core import zseg as tz
+    from lidog_tpu_torch.data import synthetic
+    from lidog_tpu_torch.ops import _cuda
+
+    rows = (_cuda.CSRC / "zseg_rows.cuh").read_text()
+    for name in ("ZWORDS", "REAL_W"):
+        m = re.search(rf"constexpr int {name} = (\d+);", rows)
+        assert m and int(m.group(1)) == getattr(tz, name), name
+    for src in ("zseg_tables", "zseg_sweeps"):
+        text = (_cuda.CSRC / f"{src}.cu").read_text()
+        assert '#include "zseg_rows.cuh"' in text, src
+        assert not re.search(r"constexpr int (ZWORDS|REAL_W) ", text), src
+
+    if case.startswith("edges"):
+        B, gh = 2, synthetic.EDGE_GRID_HALF
+        coords, mask = synthetic.plan_edge_voxels(B)
+        caps_r, caps_a = synthetic.EDGE_CAPS
+        options = ({} if case == "edges" else
+                   dict(caps_col_dil=synthetic.EDGE_COL_DIL_STARVED))
+    else:
+        coords, mask, B, caps_r, caps_a, gh, options = _zseg_case(case)
+    builder = tz.ZSegPlanBuilder(caps_r, caps_a, num_batches=B,
+                                 grid_half=gh, **options)
+    levels = 0
+    for lvl, name, args, kwargs in builder.table_inputs(
+            torch.from_numpy(coords), torch.from_numpy(mask)):
+        if name != "real_words" or lvl == 0:
+            continue
+        level, nb, ccap, _ = args
+        want = tz.real_words_plain(*args, **kwargs)
+        assert want.dtype == torch.int32
+        assert tuple(want.shape) == (nb * ccap, 16)
+        assert not want[:, 14:].any() and want.any()
+        got = _kw_coarsen_model(
+            kwargs["col_bxy"].numpy(), kwargs["col_valid"].numpy(),
+            kwargs["fine_grid"].numpy().astype(np.int64),
+            kwargs["fine_real"].numpy(), nb, gh, level)
+        np.testing.assert_array_equal(got, want.numpy(),
+                                      err_msg=f"real words L{level}")
+        levels += 1
+    assert levels == 4
 
 
 @pytest.mark.parametrize("case", ["roomy", "starved"])

@@ -65,8 +65,11 @@ no result line):
      floor and the spread of two CPU convolution libraries;
  11. the instance-norm kernels KK/KL and the whitening-loss kernels KM/KN
      against their plain versions at the training plan's levels and the
-     RobustNet taps' widths (L0 x 32, L1 x 32, L2 x 64, L3 x 128; IRW at
-     L0 with rows scaled so that its hinge is live), bf16 and f32;
+     RobustNet taps' widths (IN_FORMS: L0 x 32, L1 x 32, L2 x 64, L3 x
+     128; IRW at L0 with rows scaled so that its hinge is live), bf16 and
+     f32; KK and KL also on a mask of no row and of one row, on shuffled
+     batch ids, on L0 three times over (12 scans) and at width 37, each
+     twice bitwise equal;
  12. full-width RobustNet training (the training cell's batch and caps):
      MinkUNet34Robust bf16, SoftDICE + 0.5 IW over its 5 instance-normed
      taps with the gate on from the first step, Adam (lr 1e-3); 1 warm-up
@@ -252,6 +255,11 @@ PER_ROBUST_STEP = {**PER_STEP, "bn_act": 60, "bn_train_fwd": 60,
 # IBN (models/minkunet_ibn.py): MinkUNet34's convs and BNs, and one
 # instance norm beside the first BN of each IBNBlock of stages 1-3
 PER_IBN_STEP = {**PER_STEP, "instance_norm_fwd": 9, "instance_norm_bwd": 9}
+# the (level, width, per RobustNet step, per IBN step) forms of those
+# instance norms on the training plan: in0 (L0); in1 and stage 1's blocks
+# (L1); stage 2's (L2); stage 3's (L3)
+IN_FORMS = ((0, 32, 1, 0), (1, 32, 3, 2), (2, 64, 3, 3), (3, 128, 4, 4))
+IN_SRC = "lidog_tpu_torch/csrc/instance_norm.cu"
 # the general stem (in_channels 4): MinkUNet34's kernels, the stem as KO
 # (its dW as KP; the input features take no grad, so no KO as dx), and KQ
 # once per plan in KR's place
@@ -920,48 +928,67 @@ def record_bn(ck, real, c, has_res, relu, dt, tag):
     return b_kg + b_kh
 
 
+def record_in(ck, real, bidx, c, dt, x, tag):
+    """KK (instance_norm_fwd: y, mean, var_raw, rstd, count) and KL
+    (instance_norm_bwd: dx) against their plain versions on x [n, c] with
+    mask `real` and batch ids `bidx`, and each kernel twice on the same
+    inputs bitwise equal."""
+    import torch
+
+    from lidog_tpu_torch.ops import norm
+
+    n = x.shape[0]
+    nreal = int(real.sum())
+    esz = x.element_size()
+    io = nbytes(real) + 4 * n  # the mask and the batch ids
+    shape = f"{tag} {n} rows ({nreal} real) x {c}"
+    ck.record("instance_norm_fwd", IN_SRC,
+              "lidog_tpu/ops/norm.py:79 (MaskedInstanceNorm)",
+              lambda: norm.instance_norm_fwd(x, real, bidx),
+              lambda: norm.instance_norm_fwd_plain(x, real, bidx),
+              dt, 2 * n * c * esz + io, 8 * nreal * c, shape, mma=False)
+    _, mean, var_raw, rstd, count = norm.instance_norm_fwd_plain(x, real,
+                                                                 bidx)
+    dy = ck.feats(n, c, real, dt)
+    args = (dy, x, real, bidx, mean, var_raw, rstd, count)
+    ck.record("instance_norm_bwd", IN_SRC,
+              "autodiff of lidog_tpu/ops/norm.py:79-104",
+              lambda: norm.instance_norm_bwd(*args),
+              lambda: norm.instance_norm_bwd_plain(*args),
+              dt, 3 * n * c * esz + io, 10 * nreal * c, shape, mma=False)
+    for fn in (lambda: norm.instance_norm_fwd(x, real, bidx),
+               lambda: (norm.instance_norm_bwd(*args),)):
+        first, second = fn(), fn()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"instance norm {shape} {dt}: two calls on "
+                                 "the same input differ")
+
+
 def variant_kernel_checks(plan, gen):
     """Phase 11: KK/KL (instance norm) and KM/KN (IW, and IRW at L0) at
     the training plan's levels, at the widths of the RobustNet taps that
-    live there: in0 (L0 x 32), in1 and block1 (L1 x 32), block2 (L2 x
-    64), block3 (L3 x 128); the IBN norms take the same widths."""
+    live there (IN_FORMS): in0 (L0 x 32), in1 and block1 (L1 x 32), block2
+    (L2 x 64), block3 (L3 x 128); the IBN norms take the same widths.  KK
+    and KL also on a mask of no row and of one row, on the batch ids
+    shuffled over the rows (every block of the sums meets every scan), on
+    L0 three times over and at width 37 (one channel a thread), each
+    twice bitwise equal."""
     import torch
 
     from lidog_tpu_torch.losses import losses
-    from lidog_tpu_torch.ops import norm
 
     dev = plan.levels[0].coords.device
     ck = Checker(gen, dev)
-    in_src = "lidog_tpu_torch/ops/bn_act_triton.py"
     wh_src = "lidog_tpu_torch/losses/whiten_triton.py"
-    for lvl, c in ((0, 32), (1, 32), (2, 64), (3, 128)):
+    for lvl, c, _, _ in IN_FORMS:
         L = plan.level(lvl)
         n, bidx = L.coords.shape[0], L.coords[:, 0]
         real = int(L.real.sum())
         shape = f"L{lvl} {n} rows ({real} real) x {c}"
         for dt in (torch.bfloat16, torch.float32):
-            esz = torch.finfo(dt).bits // 8
-            # conv outputs: shifted and scaled per channel, masked
-            x = (ck.feats(n, c, L.real, torch.float32) * 3.0 + 1.5).to(dt)
-            x = (x * L.real[:, None].to(dt)).contiguous()
-            io = nbytes(L.real) + 4 * n  # the mask and coords[:, 0]
-            ck.record("instance_norm_fwd", in_src,
-                      "lidog_tpu/ops/norm.py:79 (MaskedInstanceNorm)",
-                      lambda: norm.instance_norm_fwd(x, L.real, bidx)[:3],
-                      lambda: norm.instance_norm_fwd_plain(
-                          x, L.real, bidx)[:3],
-                      dt, 2 * n * c * esz + io, 8 * real * c, shape,
-                      mma=False)
-            _, mean, var_raw, rstd, count = norm.instance_norm_fwd_plain(
-                x, L.real, bidx)
-            dy = ck.feats(n, c, L.real, dt)
-            args = (dy, x, L.real, bidx, mean, var_raw, rstd, count)
-            ck.record("instance_norm_bwd", in_src,
-                      "autodiff of lidog_tpu/ops/norm.py:79-104",
-                      lambda: norm.instance_norm_bwd(*args),
-                      lambda: norm.instance_norm_bwd_plain(*args),
-                      dt, 3 * n * c * esz + io, 10 * real * c, shape,
-                      mma=False)
+            x = in_feats(ck, L.real, c, dt)
+            esz = x.element_size()
+            record_in(ck, L.real, bidx, c, dt, x, f"L{lvl}")
             irws = (False, True) if lvl == 0 else (False,)
             for irw in irws:
                 xw = x
@@ -987,7 +1014,38 @@ def variant_kernel_checks(plan, gen):
                           lambda: losses.whitening_bwd_plain(*wargs),
                           dt, 2 * n * c * esz + nbytes(L.real) + 4 * n,
                           6 * real * c, tag, mma=False)
+    # KK and KL's edges: at L0 x 32 bf16 a mask of no row, of one row, and
+    # the batch ids shuffled; L0 three times over (4 scans a copy, a
+    # block's run past the segment bytes its shared memory keeps); width 37
+    # at L1 in bf16 and f32
+    bf = torch.bfloat16
+    L = plan.level(0)
+    n, bidx = L.coords.shape[0], L.coords[:, 0]
+    one = torch.zeros(n, dtype=torch.bool, device=dev)
+    one[int(L.real.nonzero()[n // 1000, 0])] = True
+    shuffled = bidx[torch.randperm(n, generator=gen).to(dev)].contiguous()
+    for real, ids, tag in ((torch.zeros_like(one), bidx, "L0 no row"),
+                           (one, bidx, "L0 one row"),
+                           (L.real, shuffled, "L0 shuffled ids")):
+        record_in(ck, real, ids, 32, bf, in_feats(ck, L.real, 32, bf), tag)
+    real3 = L.real.repeat(3)
+    ids3 = torch.cat([bidx + 4 * i for i in range(3)])
+    record_in(ck, real3, ids3, 32, bf, in_feats(ck, real3, 32, bf),
+              "L0 x 3 (12 scans)")
+    L = plan.level(1)
+    for dt in (bf, torch.float32):
+        record_in(ck, L.real, L.coords[:, 0], 37, dt,
+                  in_feats(ck, L.real, 37, dt), "L1 odd width")
     return ck.rows
+
+
+def in_feats(ck, real, c, dt):
+    """Conv outputs for the instance norm: seeded rows shifted and scaled
+    per channel, masked."""
+    import torch
+
+    x = (ck.feats(real.shape[0], c, real, torch.float32) * 3.0 + 1.5).to(dt)
+    return (x * real[:, None].to(dt)).contiguous()
 
 
 def sweep_lookups(args, kwargs, dxs):
@@ -3087,7 +3145,7 @@ def main():
     dev = torch.device("cuda")
 
     build_s = _cuda.build()
-    import triton  # noqa: F401  (KK-KN's compiler)
+    import triton  # noqa: F401  (KM/KN's compiler)
 
     print(f"[build] nvcc x{len(_cuda.SOURCES)} in parallel: {build_s:.1f} s",
           flush=True)

@@ -5,9 +5,10 @@ Mirrors the JAX package's layout (core/, ops/, models/, losses/, metrics/,
 train/, serve.py) and its parameter layout, so a flax variable tree or a
 lidog_tpu TrainState loads unchanged (utils/from_jax.py).  The sparse
 convs (forward, input and weight gradients), the masked BatchNorm
-(eval, train, backward) and the pooled BEV scatter-max (forward and
-backward) are hand-written Hopper kernels (csrc/, ops/bn_act_triton.py);
-everything else is plain PyTorch.  Imports nothing of JAX or of
+(eval, train, backward), the masked instance norm and the pooled BEV
+scatter-max (forward and backward) are hand-written Hopper kernels
+(csrc/; the whitening loss's in losses/whiten_triton.py); everything else
+is plain PyTorch.  Imports nothing of JAX or of
 lidog_tpu.
 
 On the card: `serve.Predictor(model)`, and `train.train_step.TrainState

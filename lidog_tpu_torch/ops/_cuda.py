@@ -22,7 +22,7 @@ SOURCES = ("zconv3_fwd", "zconv_down_fwd", "zconv_up_fwd", "zconv3_bwd_dx",
            "zconv3_wgrad", "zconv_wgrad", "bev_scatter_max", "zconv_full",
            "stem_feat125", "zseg_sweeps", "zseg_tables", "sparse_conv",
            "voxelize", "label_gather", "window_gather", "window_copy",
-           "masked_bn")
+           "masked_bn", "instance_norm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -63,6 +63,8 @@ _ARGTYPES = {
     "bn_train_stats": [_P] * 13 + [_I] * 8 + [_F, _F, _I, _P],
     "bn_bwd_reduce": [_P] * 17 + [_I] * 9 + [_F, _I, _P],
     "bn_bwd_apply": [_P] * 8 + [_I] * 9 + [_P],
+    "instance_norm_fwd": [_P] * 13 + [_I] * 16 + [_F, _I, _P],
+    "instance_norm_bwd": [_P] * 15 + [_I] * 16 + [_F, _I, _P],
 }
 # the source (library) of each C function that is not named after its own
 _SOURCE_OF = {"zconv_down_wgrad": "zconv_wgrad",
@@ -80,7 +82,9 @@ _SOURCE_OF = {"zconv_down_wgrad": "zconv_wgrad",
               "window_lane_gather": "window_gather",
               "lane_gather_sum": "window_gather",
               "bn_act": "masked_bn", "bn_train_stats": "masked_bn",
-              "bn_bwd_reduce": "masked_bn", "bn_bwd_apply": "masked_bn"}
+              "bn_bwd_reduce": "masked_bn", "bn_bwd_apply": "masked_bn",
+              "instance_norm_fwd": "instance_norm",
+              "instance_norm_bwd": "instance_norm"}
 
 _libs = {}
 

@@ -25,11 +25,12 @@ parameters and no running statistics, so eval mode is the same pass:
 
 Its gradient is JAX's autodiff of the same expression.
 
-Five hand-written kernels: in CUDA C++ (csrc/masked_bn.cu) KD `bn_act`
+Five hand-written kernels in CUDA C++: in csrc/masked_bn.cu KD `bn_act`
 (the fused normalising pass), KG `bn_train_fwd` (moments and running
 update in one launch, then KD) and KH `bn_train_bwd` (two launches); in
-Triton (ops/bn_act_triton.py) KK `instance_norm_fwd` and KL
-`instance_norm_bwd`.  Each `*_plain` function is the plain PyTorch
+csrc/instance_norm.cu KK `instance_norm_fwd` and KL `instance_norm_bwd`
+(two launches each).  All five walk rows by `bn_split` and share
+csrc/masked_rows.cuh.  Each `*_plain` function is the plain PyTorch
 version its wrapper takes for a tensor on the CPU.
 """
 
@@ -60,11 +61,11 @@ BN_APPLY_BLOCKS = 16 * 132
 BN_APPLY_STEPS = 4
 # KM's column reductions (losses/losses.py): about eight programs per SM
 _REDUCE_PROGRAMS = 8 * 132
-# KK/KL segmented reductions: two programs per SM, so that the [P, S, C]
-# partials stay small against the rows they sum
-_SEGMENT_PROGRAMS = 2 * 132
 # the static bound on the scans of a batch (lidog_tpu/ops/norm.py:90)
 NUM_BATCHES = 16
+# KK and KL (csrc/instance_norm.cu): segments a launch takes at most (one
+# bit each in a block's word; the source's MAX_SEGMENTS)
+IN_MAX_SEGMENTS = 32
 
 
 def bn_act_plain(x, mean, inv, bias, mask, res=None, relu=False):
@@ -175,8 +176,8 @@ def check_rows(name, x, mask, res, vecs):
 
 def reduce_split(n, block_r, programs=_REDUCE_PROGRAMS):
     """Rows per program (a power of two, a multiple of block_r) and the
-    program count of a column reduction over about `programs` slabs (KK,
-    KL, KM)."""
+    program count of a column reduction over about `programs` slabs
+    (KM)."""
     import triton
 
     rows = max(block_r, triton.next_power_of_2(
@@ -242,6 +243,17 @@ def _per_channel(c):
     """Offsets of per-channel vectors in a workspace: c rounded up to 4
     floats, so that each vector and what follows starts 16-byte aligned."""
     return -(-c // 4) * 4
+
+
+def _layout(*sizes):
+    """The float offsets of consecutive regions of `sizes` floats in one
+    f32 workspace, each starting 16-byte aligned, and the workspace's
+    size."""
+    offs, at = [], 0
+    for n in sizes:
+        offs.append(at)
+        at += _per_channel(n)
+    return offs, at
 
 
 def _bn_train_stats(x, mask, scale, run_mean, run_var, momentum, eps):
@@ -476,6 +488,41 @@ def _check_segments(name, x, mask, batch_idx, dy=None):
                          f"{x.device}")
 
 
+InPlan = namedtuple("InPlan", "sums apply args fwd bwd")
+_IN_PLANS = {}
+
+
+def _in_plan(n, c, element_size, aligned, ns):
+    """KK's and KL's launch plan for [n, c] rows and ns segments, kept per
+    shape (a call's host time is most of its time at the small levels):
+    the splits of the two launches (the sums take bn_split's reduction,
+    the streaming pass its streaming split), their arguments as the C
+    entry points take them, and the (float offsets, size) of KK's
+    workspace (mean, var_raw and rstd [3, S, c], count [S]; psum, psq
+    [blocks, S, c], the row counts [blocks, S], the bit words [blocks])
+    and of KL's (ps1, ps2, the bit words; a, b [S, c])."""
+    key = (n, c, element_size, aligned, ns, BN_REDUCE_BLOCKS,
+           BN_APPLY_BLOCKS)
+    plan = _IN_PLANS.get(key)
+    if plan is None:
+        sums = bn_split(n, c, element_size, aligned, reduce=True)
+        apply = bn_split(n, c, element_size, aligned)
+        sc, part = ns * c, sums.blocks * ns * c
+        if len(_IN_PLANS) >= 64:
+            _IN_PLANS.clear()
+        plan = _IN_PLANS[key] = InPlan(
+            sums, apply, (*_split_args(sums), *_split_args(apply)),
+            _layout(3 * sc, ns, part, part, sums.blocks * ns, sums.blocks),
+            _layout(part, part, sums.blocks, sc, sc))
+    return plan
+
+
+def _in_segments(name, ns):
+    if not 1 <= ns <= IN_MAX_SEGMENTS:
+        raise ValueError(f"{name}: the kernel takes 1 to {IN_MAX_SEGMENTS} "
+                         f"segments (num_batches + 1), got {ns}")
+
+
 def instance_norm_fwd(x, mask, batch_idx, num_batches=NUM_BATCHES,
                       eps=1e-5):
     """KK: the segmented masked instance norm (the plain version for a
@@ -485,50 +532,38 @@ def instance_norm_fwd(x, mask, batch_idx, num_batches=NUM_BATCHES,
     Replaces lidog_tpu/ops/norm.py:79-104 (MaskedInstanceNorm: three
     segment_sums, then the gathered normalising pass).  Bound on an H100:
     bytes (x read twice, y written once; the [S, C] statistics stay in
-    cache), no tensor-core work.  Design: (1) one program per contiguous
-    slab of rows finds the segments of its real rows (rows of a scan sit
-    together in a plan level, so usually one or two), and for each sums
-    f, f * f and the count into f32 partials [P, S, C], so the result does
-    not depend on which program runs first (no float atomics); (2) one
-    program per (segment, channel block) sums the partials in order and
-    applies JAX's clamps; (3) one elementwise pass gathers each row's
-    segment statistics and normalises.
+    cache), no tensor-core work.  Design (csrc/instance_norm.cu, one C
+    call, two launches, no fill): (1) each block of bn_split's reduction
+    finds the segments of its run's real rows (one or two in a plan
+    level, where a scan's rows are contiguous), sums f, f * f and the
+    count of each into f32 partials and writes a bit word of the segments
+    it wrote; the block that draws the last ticket sums each segment's
+    partials in a fixed order, applies JAX's clamps and writes the
+    statistics, so the result does not depend on which block finishes
+    first; (2) a streaming pass normalises each row with its segment's
+    statistics, kept in registers.
     """
     if x.device.type == "cpu":
         return instance_norm_fwd_plain(x, mask, batch_idx, num_batches, eps)
     _check_segments("instance_norm_fwd", x, mask, batch_idx)
-    import triton
-
-    from lidog_tpu_torch.ops.bn_act_triton import (
-        in_apply_kernel, in_finalize_kernel, in_stats_kernel)
-
-    n, c = x.shape
     ns = num_batches + 1
-    block_c = triton.next_power_of_2(c)
-    block_r = max(1, 4096 // block_c)
-    rows, progs = reduce_split(n, block_r, _SEGMENT_PROGRAMS)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    psum, psq = torch.zeros(progs, ns, c, **f32), torch.zeros(progs, ns, c,
-                                                              **f32)
-    pcnt = torch.zeros(progs, ns, **f32)
-    mask_u8 = mask.view(torch.uint8)
-    bstride = batch_idx.stride(0)
-    in_stats_kernel[(progs,)](x, mask_u8, batch_idx, bstride, psum, psq,
-                              pcnt, n, c, S=ns, ROWS=rows, BLOCK_R=block_r,
-                              BLOCK_C=block_c, num_warps=4)
-    mean, var_raw, rstd = (torch.empty(ns, c, **f32) for _ in range(3))
-    count = torch.empty(ns, **f32)
-    fin_c = min(block_c, 128)
-    in_finalize_kernel[(ns, triton.cdiv(c, fin_c))](
-        psum, psq, pcnt, progs, mean, var_raw, rstd, count, c, float(eps),
-        S=ns, BLOCK_P=4096 // fin_c, BLOCK_C=fin_c, num_warps=4)
+    _in_segments("instance_norm_fwd", ns)
+    n, c = x.shape
+    plan = _in_plan(n, c, x.element_size(), _aligned(x), ns)
+    offs, size = plan.fwd
+    ws = torch.empty(size, dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
-    if n:
-        in_apply_kernel[(triton.cdiv(n, block_r),)](
-            x, mask_u8, batch_idx, bstride, mean, rstd, y, n, c, S=ns,
-            BLOCK_R=block_r, BLOCK_C=block_c, num_warps=4)
+    base, sc = ws.data_ptr(), ns * c
+    _cuda.call("instance_norm_fwd", x.data_ptr(), mask.data_ptr(),
+               batch_idx.data_ptr(), y.data_ptr(),
+               *(base + 4 * o for o in offs[2:]), base, base + 4 * sc,
+               base + 8 * sc, base + 4 * offs[1],
+               _ticket(x.device).data_ptr(), n, c, batch_idx.stride(0), ns,
+               *plan.args, float(eps), DTYPES[x.dtype])
     LAUNCHES["instance_norm_fwd"] += 1
-    return y, mean, var_raw, rstd, count
+    mean, var_raw, rstd = (ws.as_strided((ns, c), (c, 1), i * sc)
+                           for i in range(3))
+    return y, mean, var_raw, rstd, ws.as_strided((ns,), (1,), offs[1])
 
 
 def instance_norm_bwd(dy, x, mask, batch_idx, mean, var_raw, rstd, count,
@@ -537,46 +572,40 @@ def instance_norm_bwd(dy, x, mask, batch_idx, mean, var_raw, rstd, count,
     tensor).  Returns dx.
 
     Replaces JAX's autodiff of lidog_tpu/ops/norm.py:79-104.  Bound on an
-    H100: bytes (dy and x read twice, dx written once).  Design: (1) per
-    program and segment of its slab, f32 partials of sum(g) and sum(g *
-    (f - mean)) over the real rows; (2) per (segment, channel block), the
-    partials summed in order into the two coefficients of the moment
-    term; (3) one elementwise pass writes dx = m * (g * rstd + a + b * f),
-    zero on masked rows.
+    H100: bytes (dy and x read twice, dx written once).  Design
+    (csrc/instance_norm.cu, one C call, two launches, no fill): (1) as
+    KK's sums, per segment of a block's real rows f32 partials of sum(g)
+    and sum(g * (f - mean)); the last block sums them in a fixed order
+    into the two coefficients of the moment term (JAX's 1/2 at var_raw ==
+    0);
+    (2) a streaming pass writes dx = m * (g * rstd + a + b * f), rounded
+    once.
     """
     if dy.device.type == "cpu":
         return instance_norm_bwd_plain(dy, x, mask, batch_idx, mean, var_raw,
                                        rstd, count, eps)
     _check_segments("instance_norm_bwd", x, mask, batch_idx, dy)
-    import triton
-
-    from lidog_tpu_torch.ops.bn_act_triton import (
-        in_bwd_apply_kernel, in_bwd_finalize_kernel, in_bwd_reduce_kernel)
-
     n, c = x.shape
     ns = mean.shape[0]
-    block_c = triton.next_power_of_2(c)
-    block_r = max(1, 4096 // block_c)
-    rows, progs = reduce_split(n, block_r, _SEGMENT_PROGRAMS)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    ps1, ps2 = torch.zeros(progs, ns, c, **f32), torch.zeros(progs, ns, c,
-                                                             **f32)
-    mask_u8 = mask.view(torch.uint8)
-    bstride = batch_idx.stride(0)
-    in_bwd_reduce_kernel[(progs,)](dy, x, mask_u8, batch_idx, bstride, mean,
-                                   ps1, ps2, n, c, S=ns, ROWS=rows,
-                                   BLOCK_R=block_r, BLOCK_C=block_c,
-                                   num_warps=4)
-    a, b = torch.empty(ns, c, **f32), torch.empty(ns, c, **f32)
-    fin_c = min(block_c, 128)
-    in_bwd_finalize_kernel[(ns, triton.cdiv(c, fin_c))](
-        ps1, ps2, progs, mean, var_raw, rstd, count, a, b, c, float(eps),
-        S=ns, BLOCK_P=4096 // fin_c, BLOCK_C=fin_c, num_warps=4)
+    _in_segments("instance_norm_bwd", ns)
+    for v in (mean, var_raw, rstd, count):
+        if v.dtype != torch.float32 or v.device != x.device \
+                or not v.is_contiguous() \
+                or tuple(v.shape) != ((ns,) if v is count else (ns, c)):
+            raise ValueError(f"instance_norm_bwd: the statistics must be "
+                             f"contiguous float32 [{ns}, {c}] (count [{ns}]) "
+                             f"on {x.device}")
+    plan = _in_plan(n, c, x.element_size(), _aligned(dy, x, mean, rstd), ns)
+    offs, size = plan.bwd
+    ws = torch.empty(size, dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    if n:
-        in_bwd_apply_kernel[(triton.cdiv(n, block_r),)](
-            dy, x, mask_u8, batch_idx, bstride, rstd, a, b, dx, n, c, S=ns,
-            BLOCK_R=block_r, BLOCK_C=block_c, num_warps=4)
+    base = ws.data_ptr()
+    _cuda.call("instance_norm_bwd", dy.data_ptr(), x.data_ptr(),
+               mask.data_ptr(), batch_idx.data_ptr(), mean.data_ptr(),
+               var_raw.data_ptr(), rstd.data_ptr(), count.data_ptr(),
+               dx.data_ptr(), *(base + 4 * o for o in offs),
+               _ticket(x.device).data_ptr(), n, c, batch_idx.stride(0), ns,
+               *plan.args, float(eps), DTYPES[x.dtype])
     LAUNCHES["instance_norm_bwd"] += 1
     return dx
 

@@ -56,7 +56,6 @@ _GROUPS = (("zconv3_fwd_kernel", "zconv3_fwd"),
            ("scatter_max_bf16", "bev_scatter_max"),
            ("scatter_max_f32", "bev_scatter_max"),
            ("in_stats_kernel", "instance_norm_fwd"),
-           ("in_finalize_kernel", "instance_norm_fwd"),
            ("in_apply_kernel", "instance_norm_fwd"),
            ("in_bwd_", "instance_norm_bwd"),
            ("whiten_rows_kernel", "whitening_fwd"),

@@ -3,6 +3,8 @@
     python -m lidog_tpu_torch.profile_turns --other DIR [--rounds 2]
         {train,serve,kernels,stages,gathers,p50} [-- extra arguments]
     python -m lidog_tpu_torch.profile_turns --other DIR kernels -- plan
+    python -m lidog_tpu_torch.profile_turns --other DIR kernels -- in
+    python -m lidog_tpu_torch.profile_turns --other DIR p50 -- robustnet ibn
 
 Runs the same measurement in a fresh process from this checkout's root
 and from DIR (another checkout of the repo, e.g. its parent commit
@@ -33,7 +35,11 @@ of each of KV-KY beside their byte bounds (each checkout's own tables),
 with CUDA events (ms per call, mean of 10 after a warm-up, as chip_smoke's
 `cuda_ms`), on the seeded inputs of chip_smoke and with each checkout's
 own kernels, and prints one JSON line (`kernels -- plan`: the plan
-kernels alone); `stages`
+kernels alone; `kernels -- in`: the instance norm's KK and KL alone at
+chip_smoke's IN_FORMS, bf16 and L0 f32, events and device ms, the device
+split by kernel and fill at L0, the byte bounds, the sums over a
+RobustNet step's 11 calls and an IBN step's 9, and the host us of one
+call on 1,024 rows); `stages`
 prints the device ms of the training step's stages (chip_smoke's
 `train_stage_split`: voxelize, plan, forward, backward, optimizer) after
 two warm-up steps, and of a serving request's (`stage_split`: voxelize,
@@ -50,7 +56,9 @@ out), by time.perf_counter_ns over 10,000 calls in batches of 500 (the
 device synchronised between batches, outside the clock), as one JSON
 line.  `p50` runs chip_smoke's
 phase 4 (5 timed requests) and phase 6 (5 timed training steps) and
-prints their p50s and each request's and step's ms as one JSON line.
+prints their p50s and each request's and step's ms as one JSON line
+(`p50 -- VARIANT ...`: the 5 timed steps of each of chip_smoke's train
+variants named, e.g. robustnet, ibn, instead).
 Needs a CUDA card; prints the card's name and power limit first.
 """
 
@@ -62,9 +70,31 @@ import os
 import subprocess
 import sys
 
+# the host us of one call: 10,000 calls by time.perf_counter_ns in batches
+# of 500, the device synchronised between batches (outside the clock)
+_HOST_US = r"""
+import time
+import torch
+
+
+def host_us(fn, n=10_000, batch=500):
+    fn()
+    torch.cuda.synchronize()
+    total = 0
+    for _ in range(n // batch):
+        t0 = time.perf_counter_ns()
+        for _ in range(batch):
+            fn()
+        total += time.perf_counter_ns() - t0
+        torch.cuda.synchronize()
+    return total / n / 1e3
+
+
+"""
+
 # run inside each checkout: its own chip_smoke helpers and kernels
-_KERNELS = r"""
-import inspect, json, sys
+_KERNELS = _HOST_US + r"""
+import inspect, json, sys, time
 import numpy as np
 import torch
 sys.path.insert(0, ".")
@@ -97,6 +127,61 @@ def device_ms(fn, calls=5, split=False):
 
 tpts, tlabels = cs.train_data()
 b = cs.train_batch(tpts, tlabels, dev)
+if sys.argv[5:] == ["in"]:
+    # KK and KL alone at the instance-norm forms of RobustNet's and IBN's
+    # steps (chip_smoke's IN_FORMS, passed in as JSON) on the training
+    # plan, bf16 and L0 x 32 f32: events and device ms, the byte bound
+    # (chip_smoke phase 11's), the device split by kernel and fill at L0,
+    # the sums over a RobustNet step's 11 and an IBN step's 9 calls; then
+    # the host us of one call on a small input (1,024 rows of 4 scans x
+    # 32 bf16, device time below the host's)
+    plan = cs.train_plan_builder()(b["coords"], b["mask"])
+    ck = cs.Checker(torch.Generator().manual_seed(cs.SEED + 10), dev)
+    sums = {}
+    for lvl, c, robust, ibn in json.loads(sys.argv[4]):
+        L = plan.level(lvl)
+        n, bidx = L.coords.shape[0], L.coords[:, 0]
+        io = L.real.numel() + 4 * n
+        for dt in (torch.bfloat16, torch.float32)[:2 if lvl == 0 else 1]:
+            esz = torch.finfo(dt).bits // 8
+            x = (ck.feats(n, c, L.real, torch.float32) * 3.0 + 1.5).to(dt)
+            x = (x * L.real[:, None].to(dt)).contiguous()
+            st = norm.instance_norm_fwd_plain(x, L.real, bidx)[1:]
+            dy = ck.feats(n, c, L.real, dt)
+            calls = {"instance_norm_fwd": (
+                lambda: norm.instance_norm_fwd(x, L.real, bidx),
+                2 * n * c * esz + io),
+                "instance_norm_bwd": (
+                lambda: norm.instance_norm_bwd(dy, x, L.real, bidx, *st),
+                3 * n * c * esz + io)}
+            for name, (fn, nbyte) in calls.items():
+                key = f"{name} L{lvl} {n} rows x {c} {str(dt)[6:]}"
+                out[key] = cs.cuda_ms(fn)
+                out[f"{key} device"] = device_ms(fn)
+                out[f"{key} bound"] = nbyte / cs.HBM_BYTES_PER_S * 1e3
+                if lvl == 0:
+                    out[f"{key} split"] = device_ms(fn, split=True)
+                if dt != torch.bfloat16:
+                    continue
+                for step, count in (("RobustNet", robust), ("IBN", ibn)):
+                    for part in ("device", "bound"):
+                        k = f"{name} a {step} step, {part}"
+                        sums[k] = sums.get(k, 0.0) + count * out[
+                            f"{key} {part}"]
+    out.update(sums)
+    n = 1024
+    small = {"x": ck.feats(n, 32, torch.ones(n, dtype=torch.bool,
+                                             device=dev), torch.bfloat16),
+             "m": torch.arange(n, device=dev) % 4 != 3,
+             "b": torch.arange(n, device=dev, dtype=torch.int32) * 4 // n}
+    st = norm.instance_norm_fwd_plain(small["x"], small["m"], small["b"])[1:]
+    out["host us: instance_norm_fwd, 1,024 rows x 32 bf16"] = host_us(
+        lambda: norm.instance_norm_fwd(small["x"], small["m"], small["b"]))
+    out["host us: instance_norm_bwd, 1,024 rows x 32 bf16"] = host_us(
+        lambda: norm.instance_norm_bwd(small["x"], small["x"], small["m"],
+                                       small["b"], *st))
+    print("[kernels] " + json.dumps(out), flush=True)
+    sys.exit(0)
 # the plan kernels (chip_smoke's PLAN_FORMS, passed in as JSON) on the
 # inputs the builder gives them: events and device ms, the byte bound (KV,
 # KW and KY also the device ms of each kernel and fill of a call), and the
@@ -146,7 +231,7 @@ for pname, (builder, coords, mask) in builders.items():
                 plan_sums[k] = plan_sums.get(k, 0.0) + out[f"{key} {part}"]
     del calls
 out.update(plan_sums)
-if sys.argv[4:] == ["plan"]:  # the plan kernels alone
+if sys.argv[5:] == ["plan"]:  # the plan kernels alone
     print("[kernels] " + json.dumps(out), flush=True)
     sys.exit(0)
 del vox, builders
@@ -417,7 +502,7 @@ print("[stages] " + json.dumps({"train": train, "serve": serve}), flush=True)
 
 # run inside each checkout: LE and LF beside their library calls, and the
 # host time of a port kernel's call path, piece by piece
-_GATHERS = r"""
+_GATHERS = _HOST_US + r"""
 import json, sys, time
 import torch
 sys.path.insert(0, ".")
@@ -458,19 +543,6 @@ for kind, case, a, b, t, dt in SHAPES:
         out[f"{key} events10 ms"] = cs.cuda_ms(fn)
         out[f"{key} events50 ms"], out[f"{key} device ms"] = timed(fn, dev, 50)
         out[f"{key} flushed device ms"] = flushed_device_ms(fn, dev, 50)
-
-
-def host_us(fn, n=10_000, batch=500):
-    fn()
-    torch.cuda.synchronize()
-    total = 0
-    for _ in range(n // batch):
-        t0 = time.perf_counter_ns()
-        for _ in range(batch):
-            fn()
-        total += time.perf_counter_ns() - t0
-        torch.cuda.synchronize()
-    return total / n / 1e3
 
 
 # LF at P1 f32 (win [96, 2048], 512 lanes) and LE at P1 f32, piece by piece
@@ -523,15 +595,21 @@ from lidog_tpu_torch.ops import _cuda
 
 _cuda.build()
 dev = torch.device("cuda")
-model = MinkUNet34(out_channels=cs.NUM_CLASSES, compute_dtype=torch.bfloat16,
-                   generator=torch.Generator().manual_seed(cs.SEED))
-s = cs.serve(model, cs.scan(cs.POINTS, cs.SEED), dev)
-del model
-torch.cuda.empty_cache()
-t = cs.train(dev, "source")
-print("[p50] " + json.dumps({
-    "request p50 ms": s["p50_ms"], "request ms": s["request_ms"],
-    "step p50 ms": t["p50_ms"], "step ms": t["step_ms"]}), flush=True)
+out = {}
+if not sys.argv[1:]:  # a request, then the plain step
+    model = MinkUNet34(out_channels=cs.NUM_CLASSES,
+                       compute_dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(cs.SEED))
+    s = cs.serve(model, cs.scan(cs.POINTS, cs.SEED), dev)
+    out = {"request p50 ms": s["p50_ms"], "request ms": s["request_ms"]}
+    del model
+    torch.cuda.empty_cache()
+for variant in sys.argv[1:] or ["source"]:  # chip_smoke's train variants
+    t = cs.train(dev, variant)
+    tag = "" if variant == "source" else f"{variant} "
+    out[f"{tag}step p50 ms"], out[f"{tag}step ms"] = t["p50_ms"], t["step_ms"]
+    torch.cuda.empty_cache()
+print("[p50] " + json.dumps(out), flush=True)
 """
 
 
@@ -563,13 +641,14 @@ def main(argv=None):
     other = os.path.abspath(args.other)
     if args.what == "kernels":
         sys.path.insert(0, here)
-        from chip_smoke import BN_FORMS, PLAN_FORMS, STRIDED_FORMS
+        from chip_smoke import BN_FORMS, IN_FORMS, PLAN_FORMS, STRIDED_FORMS
 
         cmd = [sys.executable, "-c", _KERNELS, json.dumps(BN_FORMS),
-               json.dumps(STRIDED_FORMS), json.dumps(PLAN_FORMS), *args.extra]
+               json.dumps(STRIDED_FORMS), json.dumps(PLAN_FORMS),
+               json.dumps(IN_FORMS), *args.extra]
     elif args.what in ("stages", "gathers", "p50"):
         cmd = [sys.executable, "-c", {"stages": _STAGES, "gathers": _GATHERS,
-                                      "p50": _P50}[args.what]]
+                                      "p50": _P50}[args.what], *args.extra]
     else:
         cmd = [sys.executable, "-m", f"lidog_tpu_torch.profile_{args.what}",
                *args.extra]

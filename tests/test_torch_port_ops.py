@@ -691,12 +691,13 @@ def test_bn_split(n):
     threads (BN_REDUCE_THREADS in a reduction, BN_APPLY_THREADS in a
     streaming pass), at most BN_REDUCE_BLOCKS or BN_APPLY_BLOCKS blocks,
     a streaming pass's blocks at least BN_APPLY_STEPS steps long.  The
-    thread caps are the ones csrc/masked_bn.cu checks."""
+    thread caps are the ones csrc/masked_rows.cuh states (masked_bn.cu
+    and instance_norm.cu check the split with them)."""
     import re
 
     from lidog_tpu_torch.ops import _cuda, norm
 
-    src = (_cuda.CSRC / "masked_bn.cu").read_text()
+    src = (_cuda.CSRC / "masked_rows.cuh").read_text()
     for name, cap in (("MAX_THREADS", norm.BN_REDUCE_THREADS),
                       ("MAX_APPLY_THREADS", norm.BN_APPLY_THREADS)):
         assert re.search(rf"constexpr int {name} = (\d+);",
@@ -737,6 +738,245 @@ def test_bn_split(n):
                  + np.arange(sp.lanes)[None, None, :]).ravel()
             assert np.array_equal(np.sort(r[r < n]), np.arange(n))
             assert (sp.vec, sp.gpb, sp.lanes, sp.threads) == (8, 12, 32, 384)
+
+
+def _in_blocked_sums(vals, seg, segs, sp, order, units):
+    """The f32 per-segment column sums of KK's and KL's reductions
+    (csrc/instance_norm.cu) over vals [n, k], row r in segment seg[r] (-1:
+    in none), as blocked by the split sp: each block, in the finish order
+    `order`, finds the segments of its run of lanes * steps rows and, for
+    each in increasing order, sums its rows of that segment per lane
+    (lane j takes rows j, j + lanes, ... in order) and over its lanes by
+    the pairwise tree into its partial row [b, s], then writes its bit
+    word and draws a ticket; the block that draws the last ticket sums,
+    per segment, the partial rows of the blocks whose bit is set: G lanes
+    a segment and channel group (as finish_lanes chooses G for `units`
+    channel groups a segment), lane q taking the blocks q, q + G, ... in
+    order, then the G sums added pairwise (lane q takes lane q + h, h = 1,
+    2, ..., G / 2).  Returns the sums [segs, k], the row counts [segs],
+    the most segments one block met and how many blocks ran that
+    finish."""
+    rows = sp.lanes * sp.steps
+    k = vals.shape[1]
+    parts = np.full((sp.blocks, segs, k), np.nan, np.float32)  # no fill
+    counts = np.zeros((sp.blocks, segs), np.int64)
+    bits = np.full(sp.blocks, -1, np.int64)
+
+    def lanes_tree(v):
+        acc = np.zeros((sp.lanes, k), np.float32)
+        for i in range(0, len(v), sp.lanes):
+            step = v[i:i + sp.lanes]
+            acc[:len(step)] += step
+        h = sp.lanes // 2
+        while h:
+            acc[:h] += acc[h:2 * h]
+            h //= 2
+        return acc[0]
+
+    ticket, finishes, most, out, cnt = 0, 0, 0, None, None
+    for b in order:
+        run = slice(b * rows, (b + 1) * rows)
+        met = sorted(set(seg[run][seg[run] >= 0].tolist()))
+        most = max(most, len(met))
+        for s_ in met:
+            on = seg[run] == s_
+            parts[b, s_] = lanes_tree(np.where(on[:, None], vals[run],
+                                               np.float32(0)))
+            counts[b, s_] = on.sum()
+        bits[b] = sum(1 << s_ for s_ in met)
+        ticket += 1
+        if ticket == sp.blocks:  # the last ticket: every bit word written
+            assert (bits >= 0).all()
+            out = np.zeros((segs, k), np.float32)
+            cnt = np.zeros(segs, np.int64)
+            nset = bin(int(np.bitwise_or.reduce(bits))).count("1")
+            g = 1  # csrc/instance_norm.cu finish_lanes
+            while g < 32 and nset * units * g * 2 <= sp.threads // 32 * 32:
+                g *= 2
+            for s_ in range(segs):
+                have = (bits >> s_) & 1 == 1
+                lanes = np.zeros((g, k), np.float32)
+                for b2 in np.flatnonzero(have):  # the others wrote none
+                    lanes[b2 % g] += parts[b2, s_]
+                h = 1
+                while h < g:
+                    lanes[::2 * h] += lanes[h::2 * h]
+                    h *= 2
+                out[s_] = lanes[0]
+                cnt[s_] = counts[have, s_].sum()
+            finishes += 1
+    return out, cnt, most, finishes
+
+
+def _in_model(x, m, bidx, dy, segs, eps, sp, order):
+    """KK and KL (instance_norm_fwd, instance_norm_bwd) in numpy f32 over
+    the blocked sums: (y, mean, var_raw, rstd, count), then dx, with
+    JAX's clamps and its 1/2 at var_raw == 0; the streaming passes take a
+    masked row to the padding segment.  Also the most segments a block of
+    the sums met."""
+    f32 = np.float32
+    c = x.shape[1]
+    mf = m[:, None].astype(f32)
+    real_seg = np.where(m & (bidx >= 0) & (bidx < segs), bidx, -1)
+    seg = np.where(m, np.clip(bidx, 0, segs - 1), segs - 1)
+    units = c // (4 if sp.vec > 1 else 1)  # the finish's channel groups
+    sums, cnt, most, finishes = _in_blocked_sums(
+        np.concatenate([x, x * x], 1), real_seg, segs, sp, order, units)
+    assert finishes == 1
+    count = np.maximum(cnt, 1).astype(f32)[:, None]
+    mean = sums[:, :c] / count
+    var_raw = sums[:, c:] / count - mean * mean
+    rstd = f32(1) / np.sqrt(np.maximum(var_raw, f32(0)) + f32(eps))
+    f = x * mf
+    y = (f - mean[seg]) * rstd[seg] * mf
+    g = dy * mf
+    sums, _, _, finishes = _in_blocked_sums(
+        np.concatenate([dy, dy * (x - mean[seg])], 1), real_seg, segs, sp,
+        order, units)
+    assert finishes == 1
+    s1, s2 = sums[:, :c], sums[:, c:]
+    ve = np.maximum(var_raw, f32(0)) + f32(eps)
+    tie = np.where(var_raw > 0, f32(1), np.where(var_raw == 0, f32(0.5),
+                                                 f32(0)))
+    dvar = s2 * (f32(-0.5) * rstd / ve) * tie
+    dmean = -(s1 * rstd) - f32(2) * mean * dvar
+    a, b = dmean / count, f32(2) * dvar / count
+    dx = (g * rstd[seg] + a[seg] + b[seg] * f) * mf
+    return (y, mean, var_raw, rstd, count[:, 0], dx), most
+
+
+# (n, c, scans, blocks target or None for BN_REDUCE_BLOCKS) of each case
+IN_MODEL_CASES = {"contiguous": (3001, 24, 4, 7), "shuffled": (1000, 24, 16, None),
+                  "three_segments": (300, 24, 8, None),
+                  "empty_mask": (300, 24, 4, None), "one_row": (300, 24, 4, None),
+                  "odd_c": (1000, 37, 4, None)}
+
+
+@pytest.mark.parametrize("case", list(IN_MODEL_CASES))
+def test_in_blocked_model(case, monkeypatch):
+    """A numpy f32 model of KK's and KL's segmented reductions
+    (csrc/instance_norm.cu) as blocked by bn_split, in both the f32 and
+    the bf16 split of the rows: bitwise the same under several orders in
+    which the blocks finish, and within 1e-5 of max |plain| of
+    instance_norm_fwd_plain / instance_norm_bwd_plain (f32 sums in another
+    order).  Cases: the scans' rows contiguous as in a plan level (7
+    blocks, several steps each, one or two segments a block), batch ids
+    shuffled over the rows, a block's run over 3 or more scans, a mask
+    with no row (every count clamped at 1), a scan of one row (its
+    var_raw exactly 0: JAX's 1/2 at the tie), and width 37 (the scalar
+    path); masked rows carry random batch ids."""
+    import torch
+
+    from lidog_tpu_torch.ops import norm
+
+    n, c, scans, blocks = IN_MODEL_CASES[case]
+    rng = np.random.default_rng(17 + list(IN_MODEL_CASES).index(case))
+    bidx = np.sort(rng.integers(0, scans, n)).astype(np.int32)
+    if case == "shuffled":
+        rng.shuffle(bidx)
+    m = rng.random(n) > 0.3
+    bidx[~m] = rng.integers(0, norm.NUM_BATCHES + 1, (~m).sum())
+    if case == "empty_mask":
+        m[:] = False
+    elif case == "one_row":
+        m[bidx == 2] = False
+        bidx[n // 2], m[n // 2] = 2, True
+    x = (rng.standard_normal((n, c)) * 2 + 0.7).astype(np.float32)
+    x[:, 3] *= 40.0  # a wide channel
+    dy = rng.standard_normal((n, c)).astype(np.float32)
+    segs = norm.NUM_BATCHES + 1
+    t = torch.from_numpy
+    y, mean, var_raw, rstd, count = norm.instance_norm_fwd_plain(
+        t(x), t(m), t(bidx))
+    dx = norm.instance_norm_bwd_plain(t(dy), t(x), t(m), t(bidx), mean,
+                                      var_raw, rstd, count)
+    want = [v.numpy() for v in (y, mean, var_raw, rstd, count, dx)]
+    if case == "one_row":
+        assert want[2][2].max() == 0 and (want[0][n // 2] == 0).all()
+    if case == "empty_mask":
+        assert (want[4] == 1).all()
+    if blocks:
+        monkeypatch.setattr(norm, "BN_REDUCE_BLOCKS", blocks)
+    for esz in (4, 2):
+        sp = norm._in_plan(n, c, esz, True, segs).sums
+        if case == "contiguous":
+            assert sp.steps > 1 and sp.blocks > 1
+        orders = [np.arange(sp.blocks), np.arange(sp.blocks)[::-1],
+                  *(rng.permutation(sp.blocks) for _ in range(3))]
+        runs = [_in_model(x, m, bidx, dy, segs, 1e-5, sp, o)
+                for o in orders]
+        most = runs[0][1]
+        assert most == {"contiguous": 2, "shuffled": scans,
+                        "empty_mask": 0}.get(case, most), (esz, most)
+        if case == "three_segments":
+            assert most >= 3, most
+        for got, _ in runs[1:]:
+            assert all(np.array_equal(a, b) for a, b in zip(got, runs[0][0]))
+        got = runs[0][0]
+        if case == "one_row":
+            assert got[2][2].max() == 0 and (got[0][n // 2] == 0).all()
+        for name, w, g in zip(("y", "mean", "var_raw", "rstd", "count", "dx"),
+                              want, got):
+            assert g.dtype == np.float32, name
+            assert _rel(w, g) <= 1e-5, (case, esz, name, _rel(w, g))
+
+
+@pytest.mark.parametrize("n", [0, 1, 37, 300, 102_400, 491_520])
+def test_in_split(n):
+    """KK's and KL's launch plan (ops/norm.py _in_plan) against the C
+    constants: the sums take bn_split's reduction, the streaming pass its
+    streaming split, with csrc/masked_rows.cuh's thread caps and at most
+    csrc/instance_norm.cu's MAX_SUM_BLOCKS blocks of sums, and the C
+    arguments are the two splits in order; the segments a launch takes
+    (num_batches + 1) at most csrc/instance_norm.cu's MAX_SEGMENTS, one
+    bit each in a 32-bit word, and the wrapper refuses more; each region
+    of KK's and KL's workspaces starts 16-byte aligned, after the one
+    before it, inside the workspace; the plan kept per shape is the one
+    made anew."""
+    import re
+
+    from lidog_tpu_torch.ops import _cuda, norm
+
+    head = (_cuda.CSRC / "masked_rows.cuh").read_text()
+    src = (_cuda.CSRC / "instance_norm.cu").read_text()
+    for text, name, value in ((head, "MAX_THREADS", norm.BN_REDUCE_THREADS),
+                              (head, "MAX_APPLY_THREADS", norm.BN_APPLY_THREADS),
+                              (src, "MAX_SEGMENTS", norm.IN_MAX_SEGMENTS)):
+        assert re.search(rf"constexpr int {name} = (\d+);",
+                         text).group(1) == str(value), name
+    max_blocks = int(re.search(r"constexpr int MAX_SUM_BLOCKS = (\d+);",
+                               src).group(1))
+    assert norm.IN_MAX_SEGMENTS <= 32
+    ns = norm.NUM_BATCHES + 1
+    assert ns <= norm.IN_MAX_SEGMENTS
+    for c in (24, 32, 37, 64, 128):
+        for esz in (4, 2):
+            for aligned in (True, False):
+                plan = norm._in_plan(n, c, esz, aligned, ns)
+                sums, apply = plan.sums, plan.apply
+                assert sums == norm.bn_split(n, c, esz, aligned, reduce=True)
+                assert apply == norm.bn_split(n, c, esz, aligned)
+                assert sums.threads <= norm.BN_REDUCE_THREADS
+                assert apply.threads <= norm.BN_APPLY_THREADS
+                assert sums.blocks <= max_blocks
+                assert sums.vec == apply.vec
+                assert plan.args == (*norm._split_args(sums),
+                                     *norm._split_args(apply))
+                norm._IN_PLANS.clear()
+                assert norm._in_plan(n, c, esz, aligned, ns) == plan
+                sc, part = ns * c, sums.blocks * ns * c
+                for sizes, (offs, size) in (
+                        ((3 * sc, ns, part, part, sums.blocks * ns,
+                          sums.blocks), plan.fwd),
+                        ((part, part, sums.blocks, sc, sc), plan.bwd)):
+                    ends = [o + k for o, k in zip(offs, sizes)]
+                    assert len(offs) == len(sizes)
+                    assert all(o % 4 == 0 for o in offs)
+                    assert offs[0] == 0 and ends[-1] <= size
+                    assert all(e <= o for e, o in zip(ends, offs[1:]))
+    with pytest.raises(ValueError, match="segments"):
+        norm._in_segments("instance_norm_fwd", norm.IN_MAX_SEGMENTS + 1)
+    norm._in_segments("instance_norm_fwd", norm.NUM_BATCHES + 1)
 
 
 def _ulp(a, dtype):
@@ -2193,9 +2433,10 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
 
 def test_port_imports_no_jax():
     """Importing every lidog_tpu_torch module (and chip_smoke.py) leaves
-    jax, flax and lidog_tpu out of sys.modules.  bn_act_triton and
-    whiten_triton are the modules that need the triton package; each is
-    imported only by its launching functions.  Each kernel's ctypes
+    jax, flax and lidog_tpu out of sys.modules.  whiten_triton is the
+    module that needs the triton package; it is imported only by its
+    launching functions (the instance norm is CUDA C++ since
+    csrc/instance_norm.cu, and ops/bn_act_triton.py is gone).  Each kernel's ctypes
     signature matches its C function's parameters.  The general stem's and
     the sortless path's modules (core/zseg.py with KQ-KY, ops/sparse_conv.py
     with KO/KP, caps.py, train/device_pipeline.py, serve.py) are among
@@ -2206,9 +2447,9 @@ import lidog_tpu_torch
 names = ["chip_smoke"]
 for m in pkgutil.walk_packages(lidog_tpu_torch.__path__, "lidog_tpu_torch."):
     names.append(m.name)
-triton_modules = {"lidog_tpu_torch.ops.bn_act_triton",
-                  "lidog_tpu_torch.losses.whiten_triton"}
+triton_modules = {"lidog_tpu_torch.losses.whiten_triton"}
 assert triton_modules <= set(names)
+assert "lidog_tpu_torch.ops.bn_act_triton" not in names
 for n in names:
     if n not in triton_modules:
         importlib.import_module(n)
@@ -2230,8 +2471,11 @@ for src in ("sparse_conv", "voxelize", "label_gather"):
 from lidog_tpu_torch.ops import gather
 for src in ("window_gather", "window_copy"):
     assert src in _cuda.SOURCES and (_cuda.CSRC / (src + ".cu")).exists()
+# the masked norms: KD, KG, KH and the instance norm's KK, KL
+for src in ("masked_bn", "instance_norm"):
+    assert src in _cuda.SOURCES and (_cuda.CSRC / (src + ".cu")).exists()
 for fn in (*sparse_conv.LAUNCHES, *voxelize.LAUNCHES, *labels.LAUNCHES,
-           *gather.LAUNCHES):
+           *gather.LAUNCHES, "instance_norm_fwd", "instance_norm_bwd"):
     assert _cuda._SOURCE_OF.get(fn, fn) in _cuda.SOURCES, fn
     assert fn in _cuda._ARGTYPES, fn
 # each ctypes signature matches its C function's: a pointer (void*) or an

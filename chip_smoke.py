@@ -85,7 +85,9 @@ no result line):
  15. the general stem's kernels at the training plan's level 0 built with
      stem_feature_map=True (491,520 rows, K = 125): KQ (the stem125 and
      conv9 maps) equal to its plain version; KO (4 -> 32), KO as dx (32 ->
-     4) and KP (dW) in bf16 and f32 within the bounds of phase 3;
+     4) and KP (dW) in bf16 and f32 within the bounds of phase 3, KP
+     twice bitwise equal; KO and KP at the edge widths STEM_EDGE_WIDTHS
+     (1 -> 32, 4 -> 33, 64 -> 64) in bf16 on the same map (untimed);
  16. full-width training of MinkUNet34 with 4 input channels (each
      voxel's representative point's x, y, z and a seeded remission) on
      the general stem, as phase 6 (counters per step: KO 1, KP 1, KQ 1,
@@ -121,8 +123,8 @@ no result line):
      gather-GEMM, csrc/sparse_conv.cu; forward and dIn) and LB (dW) at the
      generic training plan's conv3 L0 32->32 and 128->96, conv3 L3
      512->256, down L0->L1 32->32 and up L1->L0 96->96, the stem (K 125,
-     1 -> 32: KO / KP) in bf16 and f32 within phase 3's bounds (LB called
-     twice and held bitwise equal), and LA at
+     1 -> 32: KO / KP) in bf16 and f32 within phase 3's bounds (LB and KP
+     called twice and held bitwise equal), and LA at
      P2's shape (27 taps, 393,216 rows, 96 -> 96, bf16); the voxelizer LC
      (csrc/voxelize.cu) torch.equal to its plain version on phase 4's
      scan, on the training batch and at a capacity below its voxel count
@@ -1141,7 +1143,52 @@ def stem_kernel_checks(dev, gen):
                                                      reverse=True),
                   dt, nbytes(x, dout, nbr, l0.real) + k * cin * cout * esz,
                   2 * cin * cout * hits_dw, shape)
+        twice_equal("zconv_full_wgrad",
+                    lambda: sc.zconv_full_wgrad(x, dout, nbr, l0.real),
+                    "dW " + shape)
+    stem_edge_checks(ck, nbr, l0.real)
     return ck.rows
+
+
+# KO and KP widths beside the stem's (Cin, Cout): Q slices of one channel
+# with W's AB = 1 path, two column sets (c, c + 32), and W too wide to
+# stage (read from L2) with passes of 16 channels
+STEM_EDGE_WIDTHS = ((1, 32), (4, 33), (64, 64))
+
+
+def stem_edge_checks(ck, nbr, real):
+    """KO (forward) and KP at STEM_EDGE_WIDTHS on the level-0 stem map,
+    bf16, each within phase 3's bf16 bound (1e-2) of its plain version,
+    KP twice bitwise equal; no timing."""
+    import torch
+
+    from lidog_tpu_torch.ops import sparse_conv as sc
+
+    n, dt = nbr.shape[1], torch.bfloat16
+    ones = torch.ones(n, dtype=torch.bool, device=real.device)
+    tol = Checker.TOL_DEFAULT["bfloat16"]
+    for cin, cout in STEM_EDGE_WIDTHS:
+        x = ck.feats(n, cin, real, dt)
+        w = ck.weights(dt, nbr.shape[0], cin, cout)
+        dout = ck.feats(n, cout, ones, dt)
+        shape = f"L0 {n} rows K {nbr.shape[0]} {cin}->{cout} {dt}"
+
+        def kp():
+            return sc.zconv_full_wgrad(x, dout, nbr, real)
+
+        for name, kfn, pfn in (
+                ("zconv_full_fwd", lambda: sc.zconv_full_fwd(x, nbr, w, real),
+                 lambda: sc.sparse_conv_plain(x, nbr, w, real)),
+                ("zconv_full_wgrad", kp,
+                 lambda: sc.sparse_conv_wgrad_plain(x, dout, nbr, real,
+                                                    reverse=True))):
+            err = rel_err(kfn(), pfn())
+            print(f"[kernel] {name} edge {shape}: err {err:.3e} (bound "
+                  f"{tol})", flush=True)
+            if not err <= tol:
+                raise AssertionError(f"{name} edge {shape}: err {err} > "
+                                     f"{tol}")
+        twice_equal("zconv_full_wgrad", kp, "edge dW " + shape)
 
 
 # the plan's sweep kernels (csrc/zseg_sweeps.cu) by their wrapper in
@@ -2569,8 +2616,8 @@ def generic_kernel_checks(dev, gen):
                                                          reverse=rev), dt,
                       nbytes(x, dout, tmap, m_out) + w.numel() * 4,
                       2 * t_hits * cin * cout, "dW " + shape)
-            if not stem:
-                twice_equal("sparse_conv_wgrad", kfn, "dW " + shape)
+            twice_equal("zconv_full_wgrad" if stem else "sparse_conv_wgrad",
+                        kfn, "dW " + shape)
     # P2's shape: 27 taps over 393,216 output rows, 96 -> 96, bf16
     dt = torch.bfloat16
     m0 = plan.level(0).mask

@@ -23,7 +23,12 @@ CPU tensor and launches its kernel, or raises, for a CUDA tensor):
                         grouped kernel: 9 or 8 offsets a block)
 
   KO zconv_full_fwd    the same function for any K, widths up to 64
-  KP zconv_full_wgrad  its dW over a symmetric map (csrc/zconv_full.cu)
+  KP zconv_full_wgrad  its dW over a symmetric map (csrc/zconv_full.cu;
+                       `full_fwd_route` states which of KO's three forms
+                       takes a call, `full_tiles` the lane tiling of the
+                       hit lists, `full_wgrad_split` KP's chunks,
+                       `full_offset_order` the order its blocks are
+                       issued in)
 
 LA and LB take K = 27 or 8 at widths that are multiples of 32; the
 wrappers send every other conv to KO / KP.  On the main path that is the
@@ -40,6 +45,8 @@ from __future__ import annotations
 
 import torch
 
+from typing import NamedTuple
+
 from lidog_tpu_torch.ops import _cuda
 from lidog_tpu_torch.ops._wrap import (DTYPES, check, flag, gather_rows,
                                        int_map, masked, ptr, wgrad_split)
@@ -50,6 +57,23 @@ LAUNCHES = {"sparse_conv_fwd": 0, "sparse_conv_wgrad": 0,
 KERNEL_OFFSETS = (27, 8)
 # the widths KO and KP take
 FULL_MAX_WIDTH = 64
+# csrc/zconv_full.cu's blocking: KO's output rows a warp tile (lane =
+# row) and offsets whose map entries it loads at once; KP's warps a block
+# and 32-row steps a warp loads at once
+FULL_FWD_ROWS, FULL_FWD_GROUP = 32, 16
+# KO's tensor-core form (bf16): warps a block, offsets a map group
+FULL_MMA_WARPS, FULL_MMA_GROUP = 4, 16
+# KO's f32 row form: warps a block, offsets a map group (a warp's stash of
+# group x 33 entries sits beside W)
+FULL_ROWS_WARPS, FULL_ROWS_GROUP = 16, 16
+FULL_ROWS_STASH = FULL_ROWS_WARPS * FULL_ROWS_GROUP * 33 * 4
+# the dynamic shared memory a block may use (an H100's 227 KB)
+FULL_SMEM = 227 * 1024
+FULL_WGRAD_WARPS, FULL_WGRAD_STEPS = 16, 8
+# KP's rows a chunk: 16 warps x 512 rows (at the training plan's level 0:
+# 60 chunks, a 3.8 MB f32 partial for 4 -> 32)
+FULL_WGRAD_ROWS = 8192
+FULL_WGRAD_MAX_CHUNKS = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -109,6 +133,83 @@ def _check_full(name, x, w):
         raise ValueError(f"{name}: x and w must be contiguous")
 
 
+class FullTiles(NamedTuple):
+    """The lane tiling of KO and KP (csrc/zconv_full.cu `tiles_of`): lane
+    = (q, c), c < ct output columns (a power of two, at most 32; nc = 2
+    column sets above 32 columns: c and c + 32), q < 32 // ct slices of
+    a_slice input channels each, taken ab (1, 4 or 16) at a time in
+    `passes` passes."""
+    ct: int
+    nc: int
+    a_slice: int
+    ab: int
+    passes: int
+
+    @property
+    def q(self):
+        return 32 // self.ct
+
+
+def full_tiles(cin, cout):
+    """KO's and KP's lane tiling at Cin -> Cout (see FullTiles)."""
+    ct = 1
+    while ct < cout and ct < 32:
+        ct *= 2
+    a_slice = -(-cin // (32 // ct))
+    ab = 1 if a_slice == 1 else 4 if a_slice <= 4 else 16
+    return FullTiles(ct, -(-cout // ct), a_slice, ab, -(-a_slice // ab))
+
+
+def full_fwd_route(cin, cout, k, dtype):
+    """The form of KO that takes a call (csrc/zconv_full.cu
+    zconv_full_fwd): "mma", the tensor cores (bf16 at Cin in (1, 2, 4, 8,
+    16) and Cout in [17, 64], where W's fragments, one 8-byte word a lane,
+    n8 tile and k-step of 16 / Cin offsets with Cout padded to 32 or 64,
+    and the warps' map stashes fit in a block's shared memory); "rows", a
+    lane an output row (f32 at Cin in (1, 2, 4) and Cout <= 32, W in
+    shared memory); else "cores", the hit lists of full_tiles."""
+    if dtype == torch.bfloat16 and cin in (1, 2, 4, 8, 16) and 17 <= cout <= 64:
+        nt = 8 if cout > 32 else 4
+        steps = -(-k // FULL_MMA_GROUP) * (FULL_MMA_GROUP * cin // 16)
+        pitch = 36 if cin == 1 else 40
+        if steps * nt * 32 * 8 + FULL_MMA_WARPS * FULL_MMA_GROUP * pitch * 4 \
+                <= FULL_SMEM:
+            return "mma"
+    if dtype == torch.float32 and cin in (1, 2, 4) and cout <= 32 \
+            and k * cin * 32 * 4 + FULL_ROWS_STASH <= FULL_SMEM:
+        return "rows"
+    return "cores"
+
+
+class FullWgradSplit(NamedTuple):
+    """KP's blocks: `chunks` chunks of `rows_per_chunk` rows for each of
+    the K offsets, each chunk's rows cut into FULL_WGRAD_WARPS runs of
+    `rows_per_warp` (a multiple of 32; the last runs may be short or
+    empty); one f32 partial [Cin, Cout] a (chunk, offset)."""
+    chunks: int
+    rows_per_chunk: int
+    rows_per_warp: int
+
+
+def full_wgrad_split(rows):
+    """KP's chunks at `rows` rows: chunks of FULL_WGRAD_ROWS, at most
+    FULL_WGRAD_MAX_CHUNKS (then longer chunks).  The wrapper passes chunks
+    and rows_per_chunk to the C side, which cuts rows_per_warp from them
+    the same way."""
+    chunks = min(max(1, -(-rows // FULL_WGRAD_ROWS)), FULL_WGRAD_MAX_CHUNKS)
+    rpc = max(1, -(-rows // chunks))
+    rpw = -(-rpc // (32 * FULL_WGRAD_WARPS)) * 32
+    return FullWgradSplit(chunks, rpc, rpw)
+
+
+def full_offset_order(k):
+    """The offsets in the order KP's blocks are issued: the centre (k //
+    2), then one below, one above, two below, ...: on the stem's map
+    ((dx, dy, dz) order, dz fastest) the dense offsets come first."""
+    return [k // 2 - (r + 1) // 2 if r % 2 else k // 2 + r // 2
+            for r in range(k)]
+
+
 def zconv_full_fwd(x, nbr, w, out_mask=None, src_mask=None):
     """KO (csrc/zconv_full.cu): sparse_conv_fwd's function for any K at
     widths up to 64."""
@@ -133,18 +234,6 @@ def zconv_full_fwd(x, nbr, w, out_mask=None, src_mask=None):
     return out
 
 
-# pass 1 of KP: chunks of 4,096 rows per offset block.  The centre offset
-# (and dz = +-1) hits nearly every row, so the blocks of the dense offsets
-# set the kernel's time: short chunks spread them over many blocks (at the
-# training plan's level 0: 120 chunks, a 7.7 MB f32 partial for 4 -> 32)
-_FULL_ROWS_PER_CHUNK = 4096
-
-
-def _full_chunks(rows):
-    chunks = min(max(1, -(-rows // _FULL_ROWS_PER_CHUNK)), 1024)
-    return chunks, -(-rows // chunks)
-
-
 def zconv_full_wgrad(x, dout, nbr, dout_mask=None):
     """KP (csrc/zconv_full.cu): sparse_conv_wgrad's function over a
     symmetric map (reverse=True), for any K at widths up to 64.  x [Na,
@@ -164,12 +253,12 @@ def zconv_full_wgrad(x, dout, nbr, dout_mask=None):
     dw = torch.empty(k, cin, cout, dtype=x.dtype, device=x.device)
     if na == 0:
         return dw.zero_()
-    chunks, rpc = _full_chunks(na)
-    partial = torch.empty(chunks, k, cin, cout, dtype=torch.float32,
+    sp = full_wgrad_split(na)
+    partial = torch.empty(sp.chunks, k, cin, cout, dtype=torch.float32,
                           device=x.device)
     _cuda.call(name, x.data_ptr(), dout.data_ptr(), nbr.data_ptr(),
                ptr(dout_mask), partial.data_ptr(), dw.data_ptr(), na, k,
-               cin, cout, chunks, rpc, DTYPES[x.dtype])
+               cin, cout, sp.chunks, sp.rows_per_chunk, DTYPES[x.dtype])
     LAUNCHES[name] += 1
     return dw
 

@@ -61,7 +61,7 @@ _GROUPS = (("zconv3_fwd_kernel", "zconv3_fwd"),
            ("whiten_rows_kernel", "whitening_fwd"),
            ("whiten_finalize_kernel", "whitening_fwd"),
            ("whiten_bwd_kernel", "whitening_bwd"),
-           ("full_fwd_kernel", "zconv_full_fwd"),
+           ("full_fwd_", "zconv_full_fwd"),  # KO: hit lists, rows, mma
            ("full_wgrad", "zconv_full_wgrad"),
            ("stem_feat125_kernel", "stem_feat125"),
            ("sweep_kernel<2", "stem_conv9_packed"),

@@ -4,6 +4,7 @@
         {train,serve,kernels,stages,gathers,p50} [-- extra arguments]
     python -m lidog_tpu_torch.profile_turns --other DIR kernels -- plan
     python -m lidog_tpu_torch.profile_turns --other DIR kernels -- in
+    python -m lidog_tpu_torch.profile_turns --other DIR kernels -- stem
     python -m lidog_tpu_torch.profile_turns --other DIR p50 -- robustnet ibn
 
 Runs the same measurement in a fresh process from this checkout's root
@@ -39,7 +40,12 @@ kernels alone; `kernels -- in`: the instance norm's KK and KL alone at
 chip_smoke's IN_FORMS, bf16 and L0 f32, events and device ms, the device
 split by kernel and fill at L0, the byte bounds, the sums over a
 RobustNet step's 11 calls and an IBN step's 9, and the host us of one
-call on 1,024 rows); `stages`
+call on 1,024 rows; `kernels -- stem`: the stem's KO, KO as dx (32 -> 4)
+and KP alone at chip_smoke phase 15's shapes (the general stem's level
+0, 4 -> 32) and KO, KP at phase 20's generic stem (1 -> 32), bf16 and
+f32, events and device ms, the device split by kernel, the byte bounds,
+the KO + KP device sums a step, and the host us of one call on 1,024
+rows); `stages`
 prints the device ms of the training step's stages (chip_smoke's
 `train_stage_split`: voxelize, plan, forward, backward, optimizer) after
 two warm-up steps, and of a serving request's (`stage_split`: voxelize,
@@ -127,6 +133,66 @@ def device_ms(fn, calls=5, split=False):
 
 tpts, tlabels = cs.train_data()
 b = cs.train_batch(tpts, tlabels, dev)
+if sys.argv[5:] == ["stem"]:
+    # KO (forward and as dx, 32 -> 4) and KP alone at chip_smoke phase
+    # 15's shapes (the general stem's training plan, level 0, 4 -> 32) and
+    # KO, KP at phase 20's generic stem (1 -> 32), bf16 and f32: events
+    # and device ms, the device split by kernel, the byte bounds (phase
+    # 15's and 20's), the KO + KP device sums a step; then the host us of
+    # one call on the first 1,024 rows of the level-0 map
+    from lidog_tpu_torch.ops import sparse_conv as sc
+
+    ck = cs.Checker(torch.Generator().manual_seed(cs.SEED + 11), dev)
+    plan = cs.train_plan_builder(cs.IN_CHANNELS)(b["coords"], b["mask"])
+    l0 = plan.level(0)
+    _, gplan = cs.generic_batch_plan(dev)
+    gm = gplan.level(0).mask
+    forms = (("L0", plan.kmaps["stem125"], l0.real, cs.IN_CHANNELS, True),
+             ("generic", gplan.kmaps["stem"], gm, 1, False))
+    sums = {}
+    for tag, nbr, mask, cin, dx in forms:
+        n = nbr.shape[1]
+        ones = torch.ones(n, dtype=torch.bool, device=dev)
+        for dt in (torch.bfloat16, torch.float32):
+            esz = torch.finfo(dt).bits // 8
+            x = ck.feats(n, cin, mask, dt)
+            w = ck.weights(dt, nbr.shape[0], cin, 32)
+            dout = ck.feats(n, 32, ones, dt)
+            wt = w.flip(0).transpose(1, 2).contiguous()
+            calls = {"KO": (lambda: sc.zconv_full_fwd(x, nbr, w, mask),
+                            cs.nbytes(nbr, x, w, mask) + n * 32 * esz),
+                     "KP": (lambda: sc.zconv_full_wgrad(x, dout, nbr, mask),
+                            cs.nbytes(x, dout, nbr, mask)
+                            + w.numel() * (esz if dx else 4))}
+            if dx:
+                calls["KO dx"] = (
+                    lambda: sc.zconv_full_fwd(dout, nbr, wt, None,
+                                              src_mask=mask),
+                    cs.nbytes(nbr, dout, wt, mask) + n * cin * esz)
+            for name, (fn, nbyte) in calls.items():
+                width = "32->4" if name == "KO dx" else f"{cin}->32"
+                key = f"{name} {tag} {n} rows {width} {str(dt)[6:]}"
+                out[key] = cs.cuda_ms(fn)
+                out[f"{key} device"] = device_ms(fn)
+                out[f"{key} bound"] = nbyte / cs.HBM_BYTES_PER_S * 1e3
+                out[f"{key} split"] = device_ms(fn, split=True)
+                if name != "KO dx":
+                    k = f"KO + KP {tag} {str(dt)[6:]}, device"
+                    sums[k] = sums.get(k, 0.0) + out[f"{key} device"]
+            del x, w, dout, wt, calls
+    out.update(sums)
+    n = 1024
+    nbr = plan.kmaps["stem125"][:, :n].contiguous()
+    m = l0.real[:n].contiguous()
+    x = ck.feats(n, cs.IN_CHANNELS, m, torch.bfloat16)
+    w = ck.weights(torch.bfloat16, nbr.shape[0], cs.IN_CHANNELS, 32)
+    dout = ck.feats(n, 32, m, torch.bfloat16)
+    out["host us: KO, 1,024 rows 4->32 bf16"] = host_us(
+        lambda: sc.zconv_full_fwd(x, nbr, w, m))
+    out["host us: KP, 1,024 rows 4->32 bf16"] = host_us(
+        lambda: sc.zconv_full_wgrad(x, dout, nbr, m))
+    print("[kernels] " + json.dumps(out), flush=True)
+    sys.exit(0)
 if sys.argv[5:] == ["in"]:
     # KK and KL alone at the instance-norm forms of RobustNet's and IBN's
     # steps (chip_smoke's IN_FORMS, passed in as JSON) on the training

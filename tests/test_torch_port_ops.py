@@ -42,6 +42,7 @@ Tolerances (relative to max |JAX output|, per compared tensor):
     b2^t)), and the schedules are taken in f64 here, f32 there).
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -2194,6 +2195,345 @@ def test_wgrad_split(rows):
         wgrad_split("onehot", 10, 27, 32, 32)
     with pytest.raises(ValueError, match="K 27 or 8"):
         wgrad_split("group", 10, 125, 32, 32)
+
+
+@functools.lru_cache(maxsize=1)
+def _small_stem_map():
+    """The port's stem125 map and level-0 real mask of
+    test_zconv_full_matches_jax's input (2 scans, 2,048 rows; bitwise
+    equal to lidog_tpu's, test_plan_bitwise_equal[stem125])."""
+    import torch
+
+    from lidog_tpu_torch.core.zseg import ZSegPlanBuilder
+    from tests.test_zseg import B as ZB
+    from tests.test_zseg import CAPS_A as ZCAPS_A
+    from tests.test_zseg import CAPS_R as ZCAPS_R
+    from tests.test_zseg import _build_inputs
+
+    coords, mask, _ = _build_inputs(np.random.RandomState(11))
+    plan = ZSegPlanBuilder(ZCAPS_R, ZCAPS_A, num_batches=ZB, grid_half=64,
+                           stem_feature_map=True)(
+        torch.from_numpy(coords), torch.from_numpy(mask))
+    return (plan.kmaps["stem125"].numpy(), plan.level(0).real.numpy(), ZB)
+
+
+def _ko_model(x, nbr, w, out_mask, src_mask, n_in):
+    """KO (csrc/zconv_full.cu full_fwd_kernel) in numpy f32, in its order:
+    each lane (q, c) keeps an f32 sum a tile row (its slot); per group of
+    FULL_FWD_GROUP offsets and per pass of ab channels, the row's hits
+    (offsets in order) sum their products over the slice's channels in
+    order from 0 in registers, added into the slot; at the tile's end the q
+    slots of each column meet by the pairwise tree (q, q + h), h = 1, 2,
+    ....  An entry < 0, >= n_in or onto a source row that src_mask drops
+    adds nothing.  The warps' tiles of FULL_FWD_ROWS rows only cut the
+    rows, each of which sums alone."""
+    from lidog_tpu_torch.ops.sparse_conv import FULL_FWD_GROUP, full_tiles
+
+    k, n = nbr.shape
+    cin, cout = w.shape[1:]
+    t = full_tiles(cin, cout)
+    f32 = np.float32
+    xf, wf = x.astype(f32), w.astype(f32)
+    hit = (nbr >= 0) & (nbr < n_in)
+    src = np.where(hit, nbr, 0)
+    if src_mask is not None:
+        hit &= src_mask[src]
+    width = t.ct * t.nc  # a lane's columns c + 32 m, as one axis
+    cols = np.arange(width)
+    slots = np.zeros((n, t.q, width), f32)
+    for og in range(0, k, FULL_FWD_GROUP):
+        for p in range(t.passes):
+            part = np.zeros((n, t.q, width), f32)  # the row's sum in registers
+            for o in range(og, min(og + FULL_FWD_GROUP, k)):
+                xo = np.where(hit[o][:, None], xf[src[o]], f32(0))
+                for j in range(t.ab):
+                    i = p * t.ab + j
+                    a = np.arange(t.q) * t.a_slice + i
+                    ok = (i < t.a_slice) & (a < cin)
+                    if not ok.any():
+                        continue
+                    ac = np.where(ok, a, 0)
+                    xv = np.where(ok[None], xo[:, ac], f32(0))
+                    wv = np.where(ok[:, None] & (cols < cout)[None],
+                                  wf[o][ac][:, np.minimum(cols, cout - 1)],
+                                  f32(0))
+                    part += xv[:, :, None] * wv[None]  # a miss adds zeros
+            slots += part
+    h = 1
+    while h < t.q:
+        slots[:, ::2 * h] = slots[:, ::2 * h] + slots[:, h::2 * h]
+        h *= 2
+    out = slots[:, 0, :cout]
+    if out_mask is not None:
+        out = np.where(out_mask[:, None], out, f32(0))
+    return out
+
+
+def _ko_rows_model(x, nbr, w, out_mask, src_mask, n_in):
+    """KO's f32 row form (csrc/zconv_full.cu full_fwd_rows_kernel) in numpy
+    f32: each output row's 32 sums run over every offset in order, each
+    offset's channels in order (a miss adds zeros)."""
+    k, n = nbr.shape
+    cin, cout = w.shape[1:]
+    f32 = np.float32
+    hit = (nbr >= 0) & (nbr < n_in)
+    src = np.where(hit, nbr, 0)
+    if src_mask is not None:
+        hit &= src_mask[src]
+    acc = np.zeros((n, cout), f32)
+    for o in range(k):
+        xo = np.where(hit[o][:, None], x[src[o]].astype(f32), f32(0))
+        for a in range(cin):
+            acc = acc + xo[:, a:a + 1] * w[o, a].astype(f32)[None]
+    if out_mask is not None:
+        acc = np.where(out_mask[:, None], acc, f32(0))
+    return acc
+
+
+def _ko_mma_model(x, nbr, w, out_mask, src_mask, n_in):
+    """KO's tensor-core form (csrc/zconv_full.cu full_fwd_mma_kernel, bf16
+    at Cin in (1, 2, 4, 8, 16)) in numpy f32: each output row's sum runs
+    over the k-steps of 16 / Cin offsets in order, a k-step's 16 products
+    summed first (by the tensor core; here in numpy's order) and then
+    added; a miss (an entry < 0, >= n_in or onto a source row that
+    src_mask drops) reads zeros."""
+    from lidog_tpu_torch.ops.sparse_conv import FULL_MMA_GROUP
+
+    k, n = nbr.shape
+    cin, cout = w.shape[1:]
+    f32 = np.float32
+    hit = (nbr >= 0) & (nbr < n_in)
+    src = np.where(hit, nbr, 0)
+    if src_mask is not None:
+        hit &= src_mask[src]
+    opk = 16 // cin
+    steps = -(-k // FULL_MMA_GROUP) * (FULL_MMA_GROUP // opk)
+    acc = np.zeros((n, cout), f32)
+    for p in range(steps):
+        part = np.zeros((n, cout), f32)
+        for o in range(p * opk, min((p + 1) * opk, k)):
+            xo = np.where(hit[o][:, None], x[src[o]].astype(f32), f32(0))
+            part += xo @ w[o].astype(f32)
+        acc = acc + part
+    if out_mask is not None:
+        acc = np.where(out_mask[:, None], acc, f32(0))
+    return acc
+
+
+def _kp_model(x, dout, nbr, dout_mask, sp):
+    """KP (csrc/zconv_full.cu full_wgrad_kernel, then the sum kernel) in
+    numpy f32 over the split sp: for each offset o (read through map row
+    K-1-o) and chunk, each of the FULL_WGRAD_WARPS warps sums its run's
+    hits in row order; the block adds its warps' tiles in warp order into
+    the partial [chunk, o], written once; dW sums the partials over the
+    chunks in order."""
+    from lidog_tpu_torch.ops.sparse_conv import FULL_WGRAD_WARPS
+
+    f32 = np.float32
+    k, na = nbr.shape
+    cin, cout = x.shape[1], dout.shape[1]
+    xf = x.astype(f32)
+    hit = (nbr >= 0) & (nbr < na)
+    src = np.where(hit, nbr, 0)
+    partial = np.full((sp.chunks, k, cin, cout), np.nan, f32)
+    for o in range(k):
+        keep = hit[k - 1 - o].copy()
+        s = src[k - 1 - o]
+        if dout_mask is not None:
+            keep &= dout_mask[s]
+        g = dout[s].astype(f32)
+        for ch in range(sp.chunks):
+            block = np.zeros((cin, cout), f32)
+            for wp in range(FULL_WGRAD_WARPS):
+                lo = ch * sp.rows_per_chunk + wp * sp.rows_per_warp
+                hi = min(na, (ch + 1) * sp.rows_per_chunk,
+                         lo + sp.rows_per_warp)
+                r = np.arange(lo, max(lo, hi))
+                r = r[keep[r]]
+                tile = np.zeros((cin, cout), f32)
+                if len(r):  # in row order
+                    tile = np.add.accumulate(
+                        xf[r][:, :, None] * g[r][:, None, :], axis=0,
+                        dtype=f32)[-1]
+                block = block + tile
+            partial[ch, o] = block
+    dw = np.zeros((k, cin, cout), f32)
+    for ch in range(sp.chunks):
+        dw = dw + partial[ch]
+    return dw
+
+
+# (Cin, Cout) of each case: the general stem (4 -> 32, dx 32 -> 4), the
+# generic stem (1 -> 32), a ragged slice over two column sets (33 -> 40:
+# passes of 16 channels, c and c + 32) and 4 slices of 16 (64 -> 8)
+FULL_MODEL_CASES = {"cin4": (4, 32), "cin1": (1, 32), "cin33": (33, 40),
+                    "cin64": (64, 8)}
+
+
+@pytest.mark.parametrize("case", list(FULL_MODEL_CASES))
+def test_zconv_full_blocked_model(case, monkeypatch):
+    """numpy f32 models of KO's and KP's blocking and fixed summation
+    orders (_ko_model, _kp_model over ops/sparse_conv.py full_tiles and
+    full_wgrad_split, the functions the wrapper and the C side share) on
+    the small stem125 map of test_zconv_full_matches_jax: held against the
+    plain versions (sparse_conv_plain, sparse_conv_wgrad_plain) on the
+    map with entries >= n_in added and a random source / dout mask
+    (forward, KO as dx with W[::-1]^T, dW; KP at its own split and, in
+    f32, at chunks of 640 rows: 4 chunks, 16 warp runs of 32 rows, the
+    last short or empty), and against lidog_tpu's _zfull_bwd on the map
+    as it is (dx and dW at chunks of 640 rows, the cotangent through the
+    level's real mask).
+    Tolerances (relative to max |reference|): 1e-5 in f32 (summation order
+    only), 1e-2 in bf16 (inputs in bf16, f32 sums rounded once on both
+    sides)."""
+    import jax.numpy as jnp
+    import torch
+
+    from lidog_tpu.ops import zconv as jz
+    from lidog_tpu_torch.ops import sparse_conv as sc
+
+    cin, cout = FULL_MODEL_CASES[case]
+    nbr, real, nb = _small_stem_map()
+    k, n = nbr.shape
+    rng = np.random.default_rng(23 + list(FULL_MODEL_CASES).index(case))
+    x = (rng.standard_normal((n, cin)) * real[:, None]).astype(np.float32)
+    w = (rng.standard_normal((k, cin, cout)) * 0.2).astype(np.float32)
+    dout = rng.standard_normal((n, cout)).astype(np.float32)
+    wt = np.ascontiguousarray(w[::-1].transpose(0, 2, 1))
+    # the map with entries >= n_in (misses) and random masks
+    odd = nbr.copy()
+    far = (odd >= 0) & (rng.random(odd.shape) < 0.05)
+    odd[far] = n + rng.integers(0, 50, int(far.sum()))
+    assert (odd >= n).sum() > 50 and (odd < 0).sum() > 50
+    smask = rng.random(n) > 0.25
+    t = torch.from_numpy
+    splits = [sc.full_wgrad_split(n)]
+    monkeypatch.setattr(sc, "FULL_WGRAD_ROWS", 640)
+    splits.append(sc.full_wgrad_split(n))
+    assert [s.chunks for s in splits] == [1, 4]
+    assert splits[1].rows_per_warp == 32
+    for dt in ("float32", "bfloat16"):
+        tdt = getattr(torch, dt)
+        tol = 1e-5 if dt == "float32" else 1e-2
+
+        def rnd(a):  # the values the card sees, as f32 numpy
+            return t(a).to(tdt).float().numpy()
+
+        xs, ws_, wts, ds = rnd(x), rnd(w), rnd(wt), rnd(dout)
+        want = {"fwd": sc.sparse_conv_plain(t(xs).to(tdt), t(odd), t(ws_).to(tdt),
+                                            t(real), t(smask)),
+                "dx": sc.sparse_conv_plain(t(ds).to(tdt), t(odd), t(wts).to(tdt),
+                                           None, t(smask)),
+                "dW": sc.sparse_conv_wgrad_plain(t(xs).to(tdt), t(ds).to(tdt),
+                                                 t(odd), t(smask),
+                                                 reverse=True)}
+        models = {"mma": _ko_mma_model, "rows": _ko_rows_model,
+                  "cores": _ko_model}
+        route = sc.full_fwd_route(cin, cout, k, tdt)
+        assert route == ("cores" if case in ("cin33", "cin64") else
+                         "mma" if dt == "bfloat16" else "rows"), route
+        dx_route = sc.full_fwd_route(cout, cin, k, tdt)  # KO as dx
+        assert dx_route == ("mma" if case == "cin64" and dt == "bfloat16"
+                            else "cores"), dx_route
+        got = {"fwd": models[route](xs, odd, ws_, real, smask, n),
+               "dx": models[dx_route](ds, odd, wts, None, smask, n)}
+        for name in ("fwd", "dx"):
+            g = t(got[name]).to(tdt).float().numpy()
+            assert _rel(want[name].float().numpy(), g) <= tol, (dt, name)
+        for sp in splits if dt == "float32" else splits[:1]:
+            g = t(_kp_model(xs, ds, odd, smask, sp)).to(tdt).float().numpy()
+            assert _rel(want["dW"].float().numpy(), g) <= tol, (dt, sp)
+    # lidog_tpu's backward on the map as it is (f32)
+    dm = dout * real[:, None]
+    dx_j, _, dw_j = jz._zfull_bwd(jnp.float32, 3, nb,
+                                  (jnp.asarray(x), jnp.asarray(nbr),
+                                   jnp.asarray(w)), jnp.asarray(dm))
+    assert _rel(np.asarray(dx_j), _ko_model(dout, nbr, wt, None, real,
+                                            n)) <= 1e-5
+    assert _rel(np.asarray(dw_j), _kp_model(x, dout, nbr, real,
+                                            splits[1])) <= 1e-5
+
+
+@pytest.mark.parametrize("rows", [0, 1, 37, 2_048, 491_520, 524_288,
+                                  10_000_000])
+def test_zconv_full_split(rows):
+    """KO's and KP's blocking (ops/sparse_conv.py) against
+    csrc/zconv_full.cu's constants: full_tiles at every width pair in [1,
+    64]^2 gives lanes (q, c) that cover each output column once (c + 32 m
+    < ct * nc, a power-of-two ct <= 32, nc = 2 only above 32 columns) and
+    each input channel once (q slices of a_slice, ab in (1, 4, 16) a pass,
+    passes covering the slice); full_wgrad_split cuts the rows into chunks
+    that cover them once (at most FULL_WGRAD_MAX_CHUNKS, the last
+    non-empty) and each chunk into FULL_WGRAD_WARPS runs of a multiple of
+    32 rows that cover it; full_offset_order issues every offset once,
+    the centre first."""
+    import re
+
+    from lidog_tpu_torch.ops import _cuda
+    from lidog_tpu_torch.ops import sparse_conv as sc
+
+    src = (_cuda.CSRC / "zconv_full.cu").read_text()
+    for name, value in (("KO_ROWS", sc.FULL_FWD_ROWS),
+                        ("KO_GROUP", sc.FULL_FWD_GROUP),
+                        ("KM_WARPS", sc.FULL_MMA_WARPS),
+                        ("KM_GROUP", sc.FULL_MMA_GROUP),
+                        ("KR_WARPS", sc.FULL_ROWS_WARPS),
+                        ("KR_GROUP", sc.FULL_ROWS_GROUP),
+
+                        ("KP_WARPS", sc.FULL_WGRAD_WARPS),
+                        ("KP_STEPS", sc.FULL_WGRAD_STEPS),
+                        ("MAXW", sc.FULL_MAX_WIDTH)):
+        assert re.search(rf"constexpr int {name} = (\d+);",
+                         src).group(1) == str(value), name
+    assert re.search(r"constexpr int SMEM_LIMIT = (\d+) \* 1024;",
+                     src).group(1) == str(sc.FULL_SMEM // 1024)
+    assert sc.FULL_FWD_ROWS == 32  # lane = row: (offset << 5) | row
+    if rows == 0:
+        for cin in range(1, 65):
+            for cout in range(1, 65):
+                t = sc.full_tiles(cin, cout)
+                assert t.ct & (t.ct - 1) == 0 and t.ct <= 32
+                assert t.ct * t.nc >= cout and t.nc == (2 if cout > 32 else 1)
+                assert cout > t.ct // 2 or t.ct == 1
+                assert t.a_slice == -(-cin // t.q)  # q slices cover Cin
+                assert t.ab in (1, 4, 16) and t.ab * t.passes >= t.a_slice
+                assert t.ab * (t.passes - 1) < t.a_slice
+        import torch
+
+        bf, f32 = torch.bfloat16, torch.float32
+        route = sc.full_fwd_route
+        assert route(4, 32, 125, bf) == route(1, 32, 125, bf) == "mma"
+        assert route(4, 32, 125, f32) == route(1, 32, 125, f32) == "rows"
+        assert route(16, 64, 125, bf) == "cores"  # W's fragments: 256 KB
+        assert route(32, 4, 125, bf) == route(32, 4, 125, f32) == "cores"
+        assert route(3, 32, 125, bf) == route(4, 33, 125, f32) == "cores"
+        assert route(4, 33, 125, bf) == "mma"
+        assert sc.full_tiles(4, 32) == (32, 1, 4, 4, 1)
+        assert sc.full_tiles(1, 32) == (32, 1, 1, 1, 1)
+        assert sc.full_tiles(32, 4) == (4, 1, 4, 4, 1)
+        for k in (1, 2, 8, 27, 125):
+            order = sc.full_offset_order(k)
+            assert sorted(order) == list(range(k)) and order[0] == k // 2
+        assert sc.full_offset_order(125)[:3] == [62, 61, 63]
+    sp = sc.full_wgrad_split(rows)
+    assert 1 <= sp.chunks <= sc.FULL_WGRAD_MAX_CHUNKS
+    assert sp.chunks * sp.rows_per_chunk >= rows
+    assert (sp.chunks - 1) * sp.rows_per_chunk < max(rows, 1)
+    # the C side: ((ceil(rpc / warps) + 31) & ~31)
+    assert sp.rows_per_warp == (-(-sp.rows_per_chunk // sc.FULL_WGRAD_WARPS)
+                                + 31) // 32 * 32
+    assert sc.FULL_WGRAD_WARPS * sp.rows_per_warp >= sp.rows_per_chunk
+    if rows <= sc.FULL_WGRAD_ROWS * sc.FULL_WGRAD_MAX_CHUNKS:
+        assert sp.rows_per_chunk <= sc.FULL_WGRAD_ROWS
+    # every row once: chunk c, warp v, row j of its run
+    if rows and rows <= 600_000:
+        r = (np.arange(sp.chunks)[:, None] * sp.rows_per_chunk
+             + np.arange(sc.FULL_WGRAD_WARPS)[None, :] * sp.rows_per_warp)
+        runs = [np.arange(lo, min(lo + sp.rows_per_warp,
+                                  (c + 1) * sp.rows_per_chunk, rows))
+                for c, row in enumerate(r) for lo in row]
+        allr = np.concatenate(runs)
+        assert np.array_equal(np.sort(allr), np.arange(rows))
 
 
 def test_kernel_wrappers_take_plain_versions_on_cpu():

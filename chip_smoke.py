@@ -49,8 +49,12 @@ no result line):
      stated bounds;
   8. the BEV kernels KI and KJ against their plain versions at the
      training plan's level 0 (491,520 rows x 96, ReLU-like features), bf16
-     and f32: KI equal, KJ within 1 ulp of the dtype per element; KI also
-     beside one scatter_reduce_ call (library_ms);
+     and f32: KI equal, KJ within 1 ulp of the dtype per element, each
+     twice bitwise equal; KI also beside one scatter_reduce_ call
+     (library_ms), its device ms split into the fill and the scatter;
+     then, untimed on the same rows, in bf16 pool strides 1, 2 and 5, C =
+     98 (the 4-byte form), 128 and 256, and a mask of no row and of one
+     row, and in f32 C = 98 (the 4-byte form);
   9. full-width LiDOG training (bench_lidog.py's shapes): MinkUNet34BEV
      bf16, 4 scans x 100,000 points through the host BEV preprocessing
      (head 167, level block8), SoftDICE + DICE, Adam (lr 1e-3), warm-up
@@ -2223,9 +2227,34 @@ def in_turns(pair, i):
     return pair if i % 2 == 0 else pair[::-1]
 
 
+# untimed edges of KI and KJ on phase 8's rows: (tag, pool stride,
+# channels, rows: all real ones, none or one, dtype)
+BEV_EDGES = (("stride 1", 1, 96, "all", "bfloat16"),
+             ("stride 2", 2, 96, "all", "bfloat16"),
+             ("stride 5", 5, 96, "all", "bfloat16"),
+             ("C 98", 3, 98, "all", "bfloat16"),
+             ("C 128", 3, 128, "all", "bfloat16"),
+             ("C 256", 3, 256, "all", "bfloat16"),
+             ("no row", 3, 96, "none", "bfloat16"),
+             ("one row", 3, 96, "one", "bfloat16"),
+             ("C 98 f32", 3, 98, "all", "float32"))
+
+
+def bev_split_ms(fn, calls=5):
+    """(fill, scatter, all) device ms a call of fn() under torch.profiler:
+    KI's zero fill apart from the rest."""
+    _, _, events = profile_device(lambda: [fn() for _ in range(calls)])
+    fill = sum(us for k, us, _ in events if "Memset" in k) / 1e3 / calls
+    total = sum(us for _, us, _ in events) / 1e3 / calls
+    return fill, total - fill, total
+
+
 def bev_kernel_checks(plan, gen):
     """Phase 8: KI and KJ at the training plan's level 0 (the block8 tap's
-    rows), with ReLU-like features (half of them 0: ties at 0)."""
+    rows), with ReLU-like features (half of them 0: ties at 0): KI equal to
+    its plain version, KJ within 1 ulp, each twice bitwise equal, and
+    their device ms (KI's fill and scatter apart); then BEV_EDGES,
+    untimed."""
     import torch
 
     from lidog_tpu_torch.ops import bev
@@ -2243,6 +2272,7 @@ def bev_kernel_checks(plan, gen):
     touched = int(torch.unique(cells[live]).numel())
     n_live = int(live.sum())
     src = "lidog_tpu_torch/csrc/bev_scatter_max.cu"
+    shape = f"L0 {n} rows {c} -> {TRAIN_BATCH}x{hw}^2"
     for dt in (torch.bfloat16, torch.float32):
         esz = torch.finfo(dt).bits // 8
         feats = torch.relu(ck.feats(n, c, l0.real, dt)).contiguous()
@@ -2260,30 +2290,88 @@ def bev_kernel_checks(plan, gen):
                                 include_self=True)
             return out[:-1].view(TRAIN_BATCH, hw, hw, c)
 
+        def ki():
+            return bev.bev_scatter_max(feats, l0.coords, l0.real, *geom)
+
         ck.record("bev_scatter_max", src,
                   "lidog_tpu/ops/bev.py:93 (_pooled_scatter_max; "
-                  "bev_scatter_pooled:31)",
-                  lambda: bev.bev_scatter_max(feats, l0.coords, l0.real,
-                                              *geom),
+                  "bev_scatter_pooled:31)", ki,
                   lambda: bev.bev_scatter_max_plain(feats, l0.coords,
                                                     l0.real, *geom),
                   dt, nbytes(feats, l0.coords, l0.real) + grid_bytes,
-                  n_live * c, f"L0 {n} rows {c} -> {TRAIN_BATCH}x{hw}^2",
-                  mma=False, ulps=0, lfn=library)
+                  n_live * c, shape, mma=False, ulps=0, lfn=library)
+        fill, scatter, total = bev_split_ms(ki)
+        ck.rows[-1].update(device_ms=total, fill_device_ms=fill,
+                           scatter_device_ms=scatter)
+        print(f"[bev] KI {str(dt)[6:]} device {total:.4f} ms: fill "
+              f"{fill:.4f}, scatter {scatter:.4f}", flush=True)
+        twice_equal("bev_scatter_max", ki, f"{shape} {str(dt)[6:]}")
         out = bev.bev_scatter_max_plain(feats, l0.coords, l0.real, *geom)
         dout = torch.randn(out.shape, generator=gen).to(dev, dt)
+
+        def kj():
+            return bev.bev_scatter_max_bwd(feats, l0.coords, l0.real, out,
+                                           dout, *geom)
+
         ck.record("bev_scatter_max_bwd", src,
-                  "lidog_tpu/ops/bev.py:115 (_psm_bwd)",
-                  lambda: bev.bev_scatter_max_bwd(feats, l0.coords, l0.real,
-                                                  out, dout, *geom),
+                  "lidog_tpu/ops/bev.py:115 (_psm_bwd)", kj,
                   lambda: bev.bev_scatter_max_bwd_plain(
                       feats, l0.coords, l0.real, out, dout, *geom),
                   dt, 2 * nbytes(feats) + nbytes(l0.coords, l0.real)
                   + 2 * touched * c * esz, 2 * n_live * c,
                   f"L0 {n} rows {c} <- {TRAIN_BATCH}x{hw}^2 ({touched} "
                   "cells touched)", mma=False, ulps=1)
+        ck.rows[-1]["device_ms"] = bev_split_ms(kj)[2]
+        twice_equal("bev_scatter_max_bwd", kj, f"{shape} {str(dt)[6:]}")
         del out, dout, lib_src
+    bev_edge_checks(l0, gen)
     return ck.rows
+
+
+def bev_edge_checks(l0, gen):
+    """BEV_EDGES on phase 8's rows: KI's bits equal to the plain version's,
+    KJ within 1 ulp of it, each twice bitwise equal."""
+    import torch
+
+    from lidog_tpu_torch.ops import bev
+
+    grid = int(round(2 * BOUND_2D / VOXEL))
+    n = l0.coords.shape[0]
+    for tag, stride, c, rows, dtype in BEV_EDGES:
+        dt = getattr(torch, dtype)
+        hw = bev.pooled_size(grid, 5, stride, 1)
+        geom = (TRAIN_BATCH, grid, hw, 5, stride, 1)
+        mask = {"all": l0.real, "none": torch.zeros_like(l0.real),
+                "one": torch.zeros_like(l0.real).index_fill_(
+                    0, torch.nonzero(l0.real)[:1].flatten(), True)}[rows]
+        x = torch.randn(n, c, generator=gen).to(l0.real.device, dt)
+        feats = torch.relu(x * mask[:, None].to(x.dtype)).contiguous()
+        what = f"{tag}: L0 {n} rows ({int(mask.sum())} live) {c} -> " \
+               f"{TRAIN_BATCH}x{hw}^2 {dtype}"
+
+        def ki():
+            return bev.bev_scatter_max(feats, l0.coords, mask, *geom)
+
+        out = bev.bev_scatter_max_plain(feats, l0.coords, mask, *geom)
+        got = ki()
+        bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+        if not torch.equal(got.view(bits), out.view(bits)):
+            raise AssertionError(f"bev_scatter_max {what}: "
+                                 f"{int((got != out).sum())} elements differ")
+        twice_equal("bev_scatter_max", ki, what)
+        dout = torch.randn(out.shape, generator=gen).to(out.device, out.dtype)
+
+        def kj():
+            return bev.bev_scatter_max_bwd(feats, l0.coords, mask, out, dout,
+                                           *geom)
+
+        err = ulp_err(kj(), bev.bev_scatter_max_bwd_plain(
+            feats, l0.coords, mask, out, dout, *geom))
+        if not err <= 1:
+            raise AssertionError(f"bev_scatter_max_bwd {what}: {err} ulp")
+        twice_equal("bev_scatter_max_bwd", kj, what)
+        print(f"[bev-edge] {what}: KI equal, KJ {err:.3f} ulp", flush=True)
+        del out, dout, got, feats
 
 
 def lidog_batch(dev):
@@ -3354,7 +3442,8 @@ def main():
     entries = {}
     # LE's and LF's device ms beside their library call's (phase 23)
     level = ("level", "level_launches", "device_ms", "flushed_device_ms",
-             "library_device_ms", "library_flushed_device_ms")
+             "library_device_ms", "library_flushed_device_ms",
+             "fill_device_ms", "scatter_device_ms")
     for r in rows:  # one entry per kernel; further shapes nest under it
         if r["name"] in entries:
             entries[r["name"]]["more_shapes"].append(

@@ -53,8 +53,8 @@ _GROUPS = (("zconv3_fwd_kernel", "zconv3_fwd"),
            ("bn_moments_kernel", "bn_train_fwd"),
            ("bn_bwd_", "bn_train_bwd"),
            ("scatter_max_bwd", "bev_scatter_max_bwd"),
-           ("scatter_max_bf16", "bev_scatter_max"),
-           ("scatter_max_f32", "bev_scatter_max"),
+           ("scatter_max_held", "bev_scatter_max"),
+           ("scatter_max_direct", "bev_scatter_max"),
            ("in_stats_kernel", "instance_norm_fwd"),
            ("in_apply_kernel", "instance_norm_fwd"),
            ("in_bwd_", "instance_norm_bwd"),

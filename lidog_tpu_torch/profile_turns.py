@@ -5,6 +5,7 @@
     python -m lidog_tpu_torch.profile_turns --other DIR kernels -- plan
     python -m lidog_tpu_torch.profile_turns --other DIR kernels -- in
     python -m lidog_tpu_torch.profile_turns --other DIR kernels -- stem
+    python -m lidog_tpu_torch.profile_turns --other DIR kernels -- bev
     python -m lidog_tpu_torch.profile_turns --other DIR p50 -- robustnet ibn
 
 Runs the same measurement in a fresh process from this checkout's root
@@ -45,7 +46,10 @@ and KP alone at chip_smoke phase 15's shapes (the general stem's level
 0, 4 -> 32) and KO, KP at phase 20's generic stem (1 -> 32), bf16 and
 f32, events and device ms, the device split by kernel, the byte bounds,
 the KO + KP device sums a step, and the host us of one call on 1,024
-rows); `stages`
+rows; `kernels -- bev`: LiDOG's KI and KJ alone at chip_smoke phase 8's
+shapes (the training plan's level 0 x 96 -> 4 x 666^2), bf16 and f32,
+events and device ms, the device split by kernel and fill, the byte
+bounds, and the host us of one call on 1,024 rows); `stages`
 prints the device ms of the training step's stages (chip_smoke's
 `train_stage_split`: voxelize, plan, forward, backward, optimizer) after
 two warm-up steps, and of a serving request's (`stage_split`: voxelize,
@@ -133,6 +137,56 @@ def device_ms(fn, calls=5, split=False):
 
 tpts, tlabels = cs.train_data()
 b = cs.train_batch(tpts, tlabels, dev)
+if sys.argv[5:] == ["bev"]:
+    # KI and KJ alone at chip_smoke phase 8's shapes (the training plan's
+    # level 0, 96 channels, 4 x 666^2 pooled cells), bf16 and f32: events
+    # and device ms, the device split by kernel and fill, the byte bounds
+    # (phase 8's); then the host us of one call on a small input (1,024
+    # rows x 96 bf16 into a 4 x 26^2 grid)
+    from lidog_tpu_torch.ops import bev
+
+    plan = cs.train_plan_builder()(b["coords"], b["mask"])
+    l0 = plan.level(0)
+    gen = torch.Generator().manual_seed(cs.SEED + 9)
+    ck = cs.Checker(gen, dev)
+    n, c = l0.coords.shape[0], 96
+    grid = int(round(2 * cs.BOUND_2D / cs.VOXEL))
+    hw = bev.pooled_size(grid, 5, 3, 1)
+    geom = (cs.TRAIN_BATCH, grid, hw, 5, 3, 1)
+    cells, live = bev.candidates(l0.coords, l0.real, *geom)
+    touched = int(torch.unique(cells[live]).numel())
+    del cells, live
+    for dt in (torch.bfloat16, torch.float32):
+        esz = torch.finfo(dt).bits // 8
+        feats = torch.relu(ck.feats(n, c, l0.real, dt)).contiguous()
+        out_p = bev.bev_scatter_max_plain(feats, l0.coords, l0.real, *geom)
+        dout = torch.randn(out_p.shape, generator=gen).to(dev, dt)
+        io = cs.nbytes(feats, l0.coords, l0.real)
+        calls = {"KI": (lambda: bev.bev_scatter_max(feats, l0.coords,
+                                                    l0.real, *geom),
+                        io + out_p.numel() * esz),
+                 "KJ": (lambda: bev.bev_scatter_max_bwd(
+                     feats, l0.coords, l0.real, out_p, dout, *geom),
+                     io + cs.nbytes(feats) + 2 * touched * c * esz)}
+        for name, (fn, nbyte) in calls.items():
+            key = f"{name} L0 {n} rows {c} {str(dt)[6:]}"
+            out[key] = cs.cuda_ms(fn)
+            out[f"{key} device"] = device_ms(fn)
+            out[f"{key} bound"] = nbyte / cs.HBM_BYTES_PER_S * 1e3
+            out[f"{key} split"] = device_ms(fn, split=True)
+        del feats, out_p, dout, calls
+    m = 1024
+    small = (torch.relu(ck.feats(m, c, l0.real[:m], torch.bfloat16))
+             .contiguous(), l0.coords[:m].contiguous(),
+             l0.real[:m].contiguous())
+    sgeom = (cs.TRAIN_BATCH, 80, bev.pooled_size(80, 5, 3, 1), 5, 3, 1)
+    sout = bev.bev_scatter_max_plain(*small, *sgeom)
+    out["host us: KI, 1,024 rows x 96 bf16"] = host_us(
+        lambda: bev.bev_scatter_max(*small, *sgeom))
+    out["host us: KJ, 1,024 rows x 96 bf16"] = host_us(
+        lambda: bev.bev_scatter_max_bwd(*small, sout, sout, *sgeom))
+    print("[kernels] " + json.dumps(out), flush=True)
+    sys.exit(0)
 if sys.argv[5:] == ["stem"]:
     # KO (forward and as dx, 32 -> 4) and KP alone at chip_smoke phase
     # 15's shapes (the general stem's training plan, level 0, 4 -> 32) and

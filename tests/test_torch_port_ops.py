@@ -1052,6 +1052,291 @@ def test_bev_scatter_pooled_match_jax(dtype, request):
     assert tb.LAUNCHES == launches  # the CPU path launches no kernel
 
 
+def _bev_geo(coords, mask, geom):
+    """csrc/bev_scatter_max.cu row_geo over all rows: (b, or -1 for a row
+    that is not live; the first iy and ix; the cells per axis ny, nx),
+    int64 tensors."""
+    import torch
+
+    nb, grid, out_hw, window, stride, pad = geom
+    c = coords.long()
+    half = grid // 2
+    b, px, py = c[:, 0], c[:, 1] + half, grid - 1 - (c[:, 2] + half)
+    back = window - 1 - pad
+
+    def floor(a):
+        return torch.div(a, stride, rounding_mode="floor")
+
+    ylo, yhi = (-floor(back - py)).clamp(min=0), floor(py + pad).clamp(
+        max=out_hw - 1)
+    xlo, xhi = (-floor(back - px)).clamp(min=0), floor(px + pad).clamp(
+        max=out_hw - 1)
+    live = (mask & (b >= 0) & (b < nb) & (px >= 0) & (px < grid) & (py >= 0)
+            & (py < grid) & (ylo <= yhi) & (xlo <= xhi))
+    return (torch.where(live, b, -1), ylo, xlo, yhi - ylo + 1,
+            xhi - xlo + 1)
+
+
+def _bev_csrc_constants():
+    """csrc/bev_scatter_max.cu's RUN_ROWS_BF16, RUN_ROWS_F32 and MAX_CANDS,
+    which the models below follow: the rows a KI task walks in bf16 and
+    f32, and the most cells per axis KI holds in registers (above it, or
+    on a grid of 2^31 cells or more, each live (row, candidate) reduces
+    directly)."""
+    import re
+
+    from lidog_tpu_torch.ops import _cuda
+
+    src = (_cuda.CSRC / "bev_scatter_max.cu").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                src).group(1))
+            for name in ("RUN_ROWS_BF16", "RUN_ROWS_F32", "MAX_CANDS")}
+
+
+def _bev_held(nb, out_hw, window, stride, consts):
+    """Whether KI holds cells (csrc launch_fwd)."""
+    return (-(-window // stride) <= consts["MAX_CANDS"]
+            and nb * out_hw * out_hw < 2**31 - 1)
+
+
+def _bev_model_fwd(bits, coords, mask, geom, esz, wide):
+    """KI (csrc scatter_max_held_kernel, scatter_max_direct_kernel)
+    transliterated in torch over the element bits [n, c] (int64, the
+    unsigned bits of bf16 or f32): tasks of one chunk (16 bytes when
+    `wide`, else 4) of a run of RUN_ROWS_BF16 or RUN_ROWS_F32 rows (csrc
+    make_split); values not > 0 (bits outside 1 .. +inf) become +0;
+    a task holds the running max of each cell its live row reaches in slot
+    (iy % cands, ix % cands) and flushes a held cell (a max into the grid,
+    none for a chunk of +0) when the next live row of the run does not
+    reach it, and every held cell at the run's end; where _bev_held is
+    false each live (row, candidate) flushes directly.
+    Returns the grid's bits, the cells flushed and the reductions issued
+    (one a flushed cell and nonzero chunk).  A slot that holds no cell
+    merges nothing that is ever flushed, so the model skips it."""
+    import torch
+
+    consts = _bev_csrc_constants()
+    nb, grid, out_hw, window, stride, pad = geom
+    n, c = bits.shape
+    r = consts["RUN_ROWS_BF16" if esz == 2 else "RUN_ROWS_F32"]
+    e = (16 if wide else 4) // esz  # elements a chunk
+    chunks = c // e
+    assert chunks * e == c
+    runs = -(-n // r)
+    pad_rows = runs * r - n
+    geo = [torch.cat([g, g.new_full((pad_rows,), -1 if i == 0 else 0)])
+           .view(runs, r) for i, g in enumerate(_bev_geo(coords, mask, geom))]
+    b, ylo, xlo, ny, nx = geo
+    top = 0x7F80 if esz == 2 else 0x7F800000
+    v = torch.where((bits >= 1) & (bits <= top), bits, 0)
+    v = torch.cat([v, v.new_zeros(pad_rows, c)]).view(runs, r, chunks, e)
+    v[b < 0] = 0  # a row that is not live loads nothing
+    out = torch.zeros(nb * out_hw * out_hw, c, dtype=torch.int64)
+    stats = {"cells": 0, "reductions": 0}
+
+    def flush(cells, vals):
+        stats["cells"] += cells.numel()
+        stats["reductions"] += int(vals.ne(0).any(-1).sum())
+        out.scatter_reduce_(0, cells[:, None].expand(-1, c),
+                            vals.reshape(-1, c), "amax")
+
+    cands = -(-window // stride)
+    if not _bev_held(nb, out_hw, window, stride, consts):  # directly
+        for i in range(r):
+            for dy in range(cands):
+                for dx in range(cands):
+                    on = (b[:, i] >= 0) & (dy < ny[:, i]) & (dx < nx[:, i])
+                    flush(((b * out_hw + ylo + dy) * out_hw + xlo
+                           + dx)[on, i], v[on, i])
+        return out, stats["cells"], stats["reductions"]
+    k2 = cands * cands
+    held = torch.full((runs, k2), -1, dtype=torch.int64)
+    hv = torch.zeros(runs, k2, chunks, e, dtype=torch.int64)
+    for i in range(r):
+        row = b[:, i] >= 0
+        base = (b[:, i] * out_hw + ylo[:, i]) * out_hw + xlo[:, i]
+        for sy in range(cands):
+            dy = (sy - ylo[:, i] % cands) % cands
+            for sx in range(cands):
+                dx = (sx - xlo[:, i] % cands) % cands
+                k = sy * cands + sx
+                cell = torch.where(row & (dy < ny[:, i]) & (dx < nx[:, i]),
+                                   base + dy * out_hw + dx, -1)
+                same = cell == held[:, k]
+                m = row & same & (cell >= 0)
+                hv[m, k] = torch.maximum(hv[m, k], v[m, i])
+                f = row & ~same & (held[:, k] >= 0)
+                flush(held[f, k], hv[f, k])
+                s = row & ~same
+                held[s, k] = cell[s]
+                hv[s, k] = v[s, i]
+    f = held >= 0
+    flush(held[f], hv[f])
+    return out, stats["cells"], stats["reductions"]
+
+
+def _bev_model_bwd(feats, coords, mask, out, dout, geom):
+    """KJ (csrc scatter_max_bwd_kernel) in torch f32: each element of a
+    live row adds, at each of its cells in candidate order (dy, then dx),
+    the cell's cotangent where it equals the cell's value; a row that is
+    not live gets 0.  The chunking splits only the elements."""
+    import torch
+
+    nb, grid, out_hw, window, stride, pad = geom
+    c = feats.shape[1]
+    b, ylo, xlo, ny, nx = _bev_geo(coords, mask, geom)
+    f, out_f = feats.float(), out.float().reshape(-1, c)
+    dout_f = dout.float().reshape(-1, c)
+    acc = torch.zeros(f.shape)
+    cands = -(-window // stride)
+    for dy in range(cands):
+        for dx in range(cands):
+            on = (b >= 0) & (dy < ny) & (dx < nx)
+            cell = torch.where(on, (b * out_hw + ylo + dy) * out_hw + xlo + dx,
+                               0)
+            won = on[:, None] & (f == out_f[cell])
+            acc = torch.where(won, acc + dout_f[cell], acc)
+    return acc
+
+
+def _bev_model_inputs(rng, grid, c, run_rows):
+    """Two scans' rows in canonical order (lex-sorted by b, x, y, z), with
+    the rows of one column adjacent and a blob of neighbouring columns,
+    the first scan's row count not a multiple of run_rows (a run crosses
+    the boundary), rows of scan 2 (b >= nb), rows off the grid, masked
+    rows, exact ties (a column's rows, and a row of the next column, given
+    the same features), -0.0, NaN, negatives and all-zero rows."""
+    rows = []
+    for b, cols in ((0, 37), (1, 30), (2, 3)):
+        xy = rng.choice(13 * 13, cols, replace=False)
+        for x, y in zip(xy // 13 - 6, xy % 13 - 6):
+            for z in sorted(rng.choice(6, rng.integers(1, 4), replace=False)):
+                rows.append((b, x, y, z))
+    for _ in range(6):  # off the grid
+        rows.append((int(rng.integers(0, 2)), grid // 2 + int(
+            rng.integers(0, 3)), int(rng.integers(-3, 3)), 0))
+    if sum(r[0] == 0 for r in rows) % run_rows == 0:
+        rows.append((0, 7, 0, 0))
+    coords = np.array(sorted(rows), np.int32)
+    n = len(coords)
+    feats = rng.standard_normal((n, c)).astype(np.float32)
+    feats[rng.random(n) < 0.25] = 0.0  # ReLU-like all-zero rows
+    same_px = np.flatnonzero((coords[1:, :3] == coords[:-1, :3]).all(1))
+    feats[same_px[::2] + 1] = feats[same_px[::2]]  # exact ties, one column
+    next_col = np.flatnonzero((coords[1:, :2] == coords[:-1, :2]).all(1)
+                              & (coords[1:, 2] == coords[:-1, 2] + 1))
+    feats[next_col[::3] + 1] = feats[next_col[::3]]  # ties, the next y
+    feats[rng.random((n, c)) < 0.05] = -0.0
+    feats[rng.random((n, c)) < 0.03] = np.nan
+    mask = rng.random(n) > 0.15
+    return coords, feats, mask
+
+
+# pool stride (window 5, pad 1: 4, 25, 1 and 9 candidates), channels, and
+# the dtype held against lidog_tpu
+BEV_MODEL_CASES = {"stride3_c16": (3, 16, "float32"),
+                   "stride1_c4": (1, 4, "bfloat16"),
+                   "stride5_c2": (5, 2, "float32"),
+                   "stride3_c10": (3, 10, "bfloat16"),
+                   "stride2_c8": (2, 8, "float32")}
+
+
+@pytest.mark.parametrize("case", list(BEV_MODEL_CASES))
+def test_bev_blocked_model(case):
+    """Torch models of KI's and KJ's work split (csrc/bev_scatter_max.cu,
+    with the source's run lengths and holding limit) at pool strides 3, 1,
+    5 and 2 on a 40^2 grid of 2 scans, bf16 and f32, in 16-byte chunks
+    where a row is a multiple of 16 bytes and in 4-byte chunks always (C =
+    2, 4, 10: a bf16 row of 4 or 20 bytes takes the 4-byte form): the
+    forward's bits equal bev_scatter_max_plain's and the backward's
+    bev_scatter_max_bwd_plain's, and the forward's cell flushes fall below
+    the live (row, candidate) pairs where cells are held.  Against
+    lidog_tpu's bev_scatter_pooled forward and VJP in the case's dtype,
+    with test_bev_scatter_pooled_match_jax's tolerances (forward equal, f32
+    grad within 1e-6 of max |JAX grad|, bf16 within 1 ulp), on the same
+    rows with each NaN replaced by -1.0; and the forward on the rows with
+    their NaNs, at the cells no NaN reaches (ROADMAP queue 3 item 6: where
+    a live NaN lands, lidog_tpu's cell is NaN and the port's the max of
+    the cell's other values, a known difference).  One XLA compile a case
+    (forward and VJP in one function, backend optimisation level 0)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from lidog_tpu.ops.bev import bev_scatter_pooled as jax_bev
+    from lidog_tpu_torch.ops import bev
+
+    consts = _bev_csrc_constants()
+    stride, c, jax_dtype = BEV_MODEL_CASES[case]
+    rng = np.random.default_rng(23 + list(BEV_MODEL_CASES).index(case))
+    grid = 40
+    coords, feats, mask = _bev_model_inputs(rng, grid, c,
+                                            consts["RUN_ROWS_BF16"])
+    hw = bev.pooled_size(grid, 5, stride, 1)
+    geom = (2, grid, hw, 5, stride, 1)
+    ct, mt = torch.from_numpy(coords), torch.from_numpy(mask)
+    # a run crosses from scan 0 into scan 1
+    assert (coords[:, 0] == 0).sum() % consts["RUN_ROWS_BF16"]
+    pairs = int(bev.candidates(ct, mt, *geom)[1].sum())
+    dout = rng.standard_normal((2, hw, hw, c)).astype(np.float32)
+    for dtype, esz in (("float32", 4), ("bfloat16", 2)):
+        tdt, itype = getattr(torch, dtype), (torch.int16 if esz == 2
+                                             else torch.int32)
+        ft = torch.from_numpy(feats).to(tdt)
+        dt_ = torch.from_numpy(dout).to(tdt)
+        ibits = ft.view(itype).long() & (0xFFFF if esz == 2 else 0xFFFFFFFF)
+        out_p = bev.bev_scatter_max_plain(ft, ct, mt, *geom)
+        g_p = bev.bev_scatter_max_bwd_plain(ft, ct, mt, out_p, dt_, *geom)
+        for wide in (False, True)[:1 + ((c * esz) % 16 == 0)]:
+            bits, cells, reds = _bev_model_fwd(ibits, ct, mt, geom, esz, wide)
+            assert torch.equal(bits.to(itype).view(out_p.shape),
+                               out_p.view(itype)), (dtype, wide)
+            if _bev_held(2, hw, 5, stride, consts):
+                assert cells < pairs, (cells, pairs)
+            else:
+                assert cells == pairs, (cells, pairs)
+            chunks = c * esz // (16 if wide else 4)
+            assert 0 < reds <= cells * chunks, (reds, cells, chunks)
+        g_m = _bev_model_bwd(ft, ct, mt, out_p, dt_, geom).to(tdt)
+        assert torch.equal(g_m, g_p), dtype
+        assert (g_p.float() != 0).sum() > 20 and (out_p > 0).sum() > 20
+        if dtype != jax_dtype:
+            continue
+        fj = torch.from_numpy(np.where(np.isnan(feats), np.float32(-1.0),
+                                       feats)).to(tdt)
+        out_pj = bev.bev_scatter_max_plain(fj, ct, mt, *geom)
+        g_pj = bev.bev_scatter_max_bwd_plain(fj, ct, mt, out_pj, dt_, *geom)
+        jdt = jnp.dtype(dtype)
+
+        def fwd_vjp(f, d):
+            out, vjp = jax.vjp(lambda f: jax_bev(
+                jnp.asarray(coords), f, jnp.asarray(mask), num_batches=2,
+                voxel_size=1.0, bound=grid / 2, pool_stride=stride), f)
+            return out, vjp(d)[0]
+
+        f_j, d_j = jnp.asarray(fj.float().numpy(), jdt), jnp.asarray(dout,
+                                                                      jdt)
+        run = jax.jit(fwd_vjp).lower(f_j, d_j).compile(
+            compiler_options={"xla_backend_optimization_level": 0})
+        out_j, g_j = (np.asarray(a.astype(jnp.float32))
+                      for a in run(f_j, d_j))
+        np.testing.assert_array_equal(out_j, out_pj.float().numpy(),
+                                      err_msg=dtype)
+        g_t = g_pj.float().numpy()
+        if dtype == "float32":
+            assert _rel(g_j, g_t) <= 1e-6, dtype
+        else:
+            assert (np.abs(g_j - g_t) <= _ulp(g_j, dtype)).all(), dtype
+        # the rows with their NaNs: equal wherever no NaN lands in
+        # lidog_tpu's forward (the NaN cells: ROADMAP queue 3 item 6)
+        nan_j = np.asarray(run(jnp.asarray(feats, jdt), d_j)[0].astype(
+            jnp.float32))
+        lands = np.isnan(nan_j)
+        assert lands.any() and (~lands).sum() > 20
+        np.testing.assert_array_equal(nan_j[~lands],
+                                      out_p.float().numpy()[~lands])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_instance_norm_match_jax(dtype, request):
     """MaskedInstanceNorm forward and its grad through JAX's autodiff, on
